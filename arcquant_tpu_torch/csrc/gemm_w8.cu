@@ -8,7 +8,11 @@
 // W is int8 [Kq, N] mag2 codes (2 x e2m1) with one ue4m3 scale byte per
 // 16 k-rows and column ([Kq/16, N]); dec(W) = code * ue4m3(scale) / 2,
 // which is exact in bf16. xa is bf16 [M, Kq]. Products run on the tensor
-// cores (WMMA bf16 x bf16 -> f32); the epilogue applies the per-row
+// cores (WMMA bf16 x bf16 -> f32). Each k-tile's MMAs start from zero and
+// the tile's partial sum is added to the f32 total on the CUDA cores: the
+// tensor cores align and truncate the sums they carry, which over a long
+// chain of k-steps on bf16 activations (the A16 prefill sites) loses
+// several times the error of an f32 sum. The epilogue applies the per-row
 // activation scale, the per-channel (or scalar) weight scale and the
 // bias in f32 in the JAX kernel's order (uncontracted: __fmul_rn and
 // __fadd_rn, so no FMA changes the rounding), then casts to bf16 or f32.
@@ -136,6 +140,11 @@ gemm_w8_kernel(const bf16* __restrict__ xa, const int8_t* __restrict__ codes,
     store_tile();
     __syncthreads();
     if (kt + 1 < kt1) load_tile(kt + 1);
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> part[FM][FN];
+#pragma unroll
+    for (int i = 0; i < FM; ++i)
+#pragma unroll
+      for (int j = 0; j < FN; ++j) wmma::fill_fragment(part[i][j], 0.0f);
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 16) {
       wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af[FM];
@@ -149,8 +158,16 @@ gemm_w8_kernel(const bf16* __restrict__ xa, const int8_t* __restrict__ codes,
 #pragma unroll
       for (int i = 0; i < FM; ++i)
 #pragma unroll
-        for (int j = 0; j < FN; ++j) wmma::mma_sync(acc[i][j], af[i], bfr[j], acc[i][j]);
+        for (int j = 0; j < FN; ++j) wmma::mma_sync(part[i][j], af[i], bfr[j], part[i][j]);
     }
+    // promote: accumulator fragments of one shape share their layout
+#pragma unroll
+    for (int i = 0; i < FM; ++i)
+#pragma unroll
+      for (int j = 0; j < FN; ++j)
+#pragma unroll
+        for (int e = 0; e < part[i][j].num_elements; ++e)
+          acc[i][j].x[e] = __fadd_rn(acc[i][j].x[e], part[i][j].x[e]);
     __syncthreads();
   }
 

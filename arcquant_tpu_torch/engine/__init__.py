@@ -1,3 +1,6 @@
-"""Single-device serving engine over the paged int4 KV cache."""
+"""Single-device serving engine over the paged int4 KV cache, sampling,
+and a continuous-batching scheduler (the HTTP front is ``.server``)."""
 
 from .engine import EngineConfig, InferenceEngine
+from .sampling import SamplingParams, sample
+from .scheduler import ContinuousBatcher, PageAllocator, Request

@@ -6,6 +6,12 @@
     attention over the bf16 chunk, quantize + o GEMM, rmsnorm +
     quantize + gateup GEMM, silu*mul + re-quantize + down GEMM; then the
     final norm and the W4A16 packed LM head on each row's last token.
+  - chunked prefill (``prefill_chunk``) and suffix prefill (per-row
+    ``starts``, prefix sharing): each chunk appends its K/V into the pool
+    and attends straight over the int4 pool with the paged flash-prefill
+    kernel, so long prompts use bounded activation memory.
+  - hybrid prefill (``prefill_act_bits=16``): the prefill forwards run
+    W4A16 (exact bf16 activations, unit scale), decode stays W4A4.
   - decode: the same sites at M = batch, with paged int4 flash-decode
     over the pool instead of flash attention.
 
@@ -34,19 +40,27 @@ from ..kernels import quantize as qk
 from ..models import llama, quantized
 from ..quant import numerics as N
 from ..quant import packing
+from . import sampling as smp
 
 
 @dataclass(frozen=True)
 class EngineConfig:
-    """Static page layout: slot i owns pages [1 + i*pps, 1 + (i+1)*pps);
-    page 0 is the sink. The JAX engine's other layouts and prefill modes
-    raise NotImplementedError here."""
     max_batch: int = 8
     max_seq_len: int = 2048
     page_size: int = KV_PAGE_SIZE
     num_pages: int = 0          # 0 = max_batch * pages_per_seq + 1
+    # dynamic_pages=True: the page table starts empty (all-sink) and a
+    # host-side PageAllocator (engine/scheduler.py) maps pages on demand,
+    # so the pool may be smaller than max_batch * max_seq (requests queue
+    # when it is full). False: static layout, slot i owns pages
+    # [1 + i*pps, 1 + (i+1)*pps).
     dynamic_pages: bool = False
+    # > 0: prompts longer than this prefill in chunks of this many tokens,
+    # each attending straight over the int4 pool. 0 = one shot only.
     prefill_chunk: int = 0
+    # Refcounted prefix sharing (needs dynamic_pages): a request whose
+    # prompt shares a page-aligned prefix with a cached one reuses those
+    # pages and prefills only its suffix.
     prefix_sharing: bool = False
 
     @property
@@ -54,28 +68,33 @@ class EngineConfig:
         return -(-self.max_seq_len // self.page_size)
 
     def __post_init__(self):
-        if self.dynamic_pages or self.prefix_sharing:
-            raise NotImplementedError(
-                "dynamic_pages / prefix_sharing are not ported (ROADMAP "
-                "queue 1 item 8, serving logic)")
-        if self.prefill_chunk:
-            raise NotImplementedError(
-                "prefill_chunk > 0 needs the paged flash-prefill kernel "
-                "#11, not ported (ROADMAP queue 1 item 6, queue 2 item 1)")
-        need = self.max_batch * self.pages_per_seq + 1
+        if self.prefix_sharing and not self.dynamic_pages:
+            raise ValueError("prefix_sharing requires dynamic_pages "
+                             "(the PageAllocator owns refcounts)")
+        if self.dynamic_pages:
+            need = self.pages_per_seq + 1
+        else:
+            need = self.max_batch * self.pages_per_seq + 1
         if self.num_pages and self.num_pages < need:
-            raise ValueError(f"num_pages={self.num_pages} < {need} required "
-                             "by the static page layout")
+            raise ValueError(
+                f"num_pages={self.num_pages} < {need} required ("
+                + ("one sequence + sink" if self.dynamic_pages else
+                   "max_batch*pages_per_seq+1 for the static page layout")
+                + ")")
 
     def total_pages(self) -> int:
         return self.num_pages or self.max_batch * self.pages_per_seq + 1
 
 
 def _norm_quantize(x2, norm_w, eps, site, qcfg):
-    """rmsnorm + activation quantize of one site: (xa, gx)."""
-    return qk.rmsnorm_quantize_x(x2, norm_w, eps, site.reorder_index,
-                                 site.select_num,
-                                 per_row=qcfg.act_scale == "row")
+    """rmsnorm + activation quantize of one site: (xa, gx). W4A4 runs the
+    actq kernel's rmsnorm route; W4A16 applies rms_norm, then pads."""
+    if qcfg.act_bits == 4:
+        return qk.rmsnorm_quantize_x(x2, norm_w, eps, site.reorder_index,
+                                     site.select_num,
+                                     per_row=qcfg.act_scale == "row")
+    return quantized._act_quantize(llama.rms_norm(x2, norm_w, eps), site,
+                                   qcfg)
 
 
 def _attn_common(cfg, p, x2, layer_calib, qcfg, b, t, norm_w):
@@ -103,8 +122,13 @@ def _mlp(cfg, p, x, layer_calib, qcfg, norm_w):
                             layer_calib["mlp_in"], qcfg)
     gu = quantized._q_linear(p["gateup"], xa, gx, x.dtype)
     c = layer_calib["down_in"]
-    ia, gi = qk.silu_mul_quantize_gu(gu, c.reorder_index, c.select_num,
-                                     per_row=qcfg.act_scale == "row")
+    if qcfg.act_bits == 4:
+        ia, gi = qk.silu_mul_quantize_gu(gu, c.reorder_index, c.select_num,
+                                         per_row=qcfg.act_scale == "row")
+    else:   # silu * up in f32, rounded to the activation dtype
+        f = gu.shape[1] // 2
+        ia, gi = quantized._act_quantize(qk._silu_mul(gu[:, :f], gu[:, f:]),
+                                         c, qcfg)
     return quantized._q_linear(p["down"], ia, gi, x.dtype).reshape(b, t, d)
 
 
@@ -146,11 +170,22 @@ def _to_device(tree, device):
     return tree
 
 
+def resolve_device(device) -> torch.device:
+    """The engine's device. A CUDA device without a CUDA build or card
+    raises: an entry point runs on the CPU only when asked to."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device} requested but torch sees no CUDA device; "
+            "pass device='cpu' to run on the CPU")
+    return device
+
+
 class InferenceEngine:
     """Quantized decoder engine over a paged int4 KV cache.
 
     Usage:
-      eng = InferenceEngine(cfg, params, calib, qcfg, ecfg, device="cuda")
+      eng = InferenceEngine(cfg, params, calib, qcfg, ecfg)   # on "cuda"
       state = eng.new_state()
       logits, state = eng.prefill(state, tokens, lens)
       logits, state = eng.decode_step(state, tokens, active)
@@ -160,14 +195,18 @@ class InferenceEngine:
     ``quantize_layer_params_fused`` (quantize_params=False)."""
 
     def __init__(self, cfg: ModelConfig, params, calib, qcfg: QuantConfig,
-                 ecfg: EngineConfig, device="cpu",
+                 ecfg: EngineConfig, device="cuda",
                  quantize_params: bool = True):
         if cfg.num_experts:
             raise NotImplementedError(
                 "MoE models are not ported (ROADMAP queue 1 item 10)")
         quantized.check_qcfg(qcfg)
         self.cfg, self.qcfg, self.ecfg = cfg, qcfg, ecfg
-        self.device = torch.device(device)
+        # hybrid serving mode: the prefill forwards quantize with this,
+        # decode with qcfg
+        self.qcfg_prefill = (qcfg.replace(act_bits=qcfg.prefill_act_bits)
+                             if qcfg.prefill_act_bits else qcfg)
+        self.device = resolve_device(device)
         self.calib = _to_device(calib, self.device)
         params = _to_device(params, self.device)
         self.qparams = {k: v for k, v in params.items() if k != "layers"}
@@ -182,11 +221,11 @@ class InferenceEngine:
 
     @classmethod
     def dummy(cls, cfg: ModelConfig, calib, qcfg: QuantConfig,
-              ecfg: EngineConfig, seed: int = 0, device="cpu",
+              ecfg: EngineConfig, seed: int = 0, device="cuda",
               dtype=torch.bfloat16) -> "InferenceEngine":
         """Random ("dummy") weights from `seed`, packed layer by layer so
         the full bf16 model never exists at once."""
-        device = torch.device(device)
+        device = resolve_device(device)
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
         quantized.check_qcfg(qcfg)
@@ -218,22 +257,29 @@ class InferenceEngine:
     # -- state ------------------------------------------------------------
 
     def new_state(self):
-        """(cache, page_table, seq_lens) on the engine's device, with the
-        static page layout."""
+        """(cache, page_table, seq_lens) on the engine's device. Static
+        layout: slot i gets pages [1 + i*pps, 1 + (i+1)*pps); page 0 is
+        the sink. Dynamic mode: the table starts all-sink and the
+        scheduler's PageAllocator fills rows in (in place)."""
         e = self.ecfg
         cache = paged.init_cache(self.cfg, e.total_pages(), e.page_size,
                                  self.device)
         pps = e.pages_per_seq
-        pt = (1 + torch.arange(e.max_batch)[:, None] * pps
-              + torch.arange(pps)[None, :]).to(torch.int32).to(self.device)
+        if e.dynamic_pages:
+            pt = torch.zeros((e.max_batch, pps), dtype=torch.int32,
+                             device=self.device)
+        else:
+            pt = (1 + torch.arange(e.max_batch)[:, None] * pps
+                  + torch.arange(pps)[None, :]).to(torch.int32).to(
+                      self.device)
         seq_lens = torch.zeros((e.max_batch,), dtype=torch.int32,
                                device=self.device)
         return cache, pt, seq_lens
 
     # -- forward pieces ----------------------------------------------------
 
-    def _layers(self, x, cos, sin, cache, pt, append_pos, attend):
-        cfg, qcfg = self.cfg, self.qcfg
+    def _layers(self, x, cos, sin, cache, pt, append_pos, attend, qcfg):
+        cfg = self.cfg
         b, t, _ = x.shape
         for li, p in enumerate(self.qparams["layers"]):
             lc = self.calib[li]
@@ -246,18 +292,10 @@ class InferenceEngine:
             x = x + _mlp(cfg, p, x, lc, qcfg, norm_w=p["mlp_norm"])
         return llama.rms_norm(x, self.qparams["final_norm"], cfg.rms_eps)
 
-    @torch.no_grad()
-    def prefill(self, state, tokens, lens):
-        """Prefill the batch in one shot. tokens [B, T] right-padded;
-        lens [B] (0 = inactive slot). Returns (last-token logits [B, V]
-        f32, state)."""
-        cache, pt, seq_lens = state
-        tokens = torch.as_tensor(tokens, device=self.device).long()
-        lens = torch.as_tensor(lens, device=self.device).to(torch.int32)
+    def _prefill_forward(self, cache, pt, tokens, lens):
+        """One-shot prefill of tokens [B, T] (right-padded), flash
+        attention over the chunk. Returns last-token logits [B, V]."""
         b, t = tokens.shape
-        if t > self.ecfg.max_seq_len:
-            raise ValueError(f"prefill length {t} exceeds KV capacity "
-                             f"max_seq_len={self.ecfg.max_seq_len}")
         positions = torch.arange(t, device=self.device)[None].expand(b, t)
         cos, sin = llama.rope_cos_sin(self.cfg, positions, self.inv_freq)
         append_pos = torch.where(positions < lens[:, None], positions,
@@ -265,12 +303,101 @@ class InferenceEngine:
         x = self.qparams["embed"][tokens]
         x = self._layers(
             x, cos, sin, cache, pt, append_pos,
-            lambda li, q, k, v: attention.flash_attention(q, k, v))
+            lambda li, q, k, v: attention.flash_attention(q, k, v),
+            self.qcfg_prefill)
         last = (lens.long() - 1).clamp(min=0)
-        logits = self._head_logits(x[torch.arange(b, device=self.device),
-                                     last])
+        return self._head_logits(x[torch.arange(b, device=self.device),
+                                   last])
+
+    def _prefill_chunk_forward(self, cache, pt, tokens, lens, start):
+        """One prefill chunk with per-row origin `start` ([B] i32): appends
+        the chunk's K/V into the pool and attends straight over the int4
+        pool (prefix + this chunk) with the paged flash-prefill kernel.
+        All K/V, this chunk's included, round-trip through the int4 pool,
+        exactly what decode later reads. Returns the logits of each row's
+        last valid token in this chunk (clamped into the chunk; the caller
+        keeps only rows whose last token is here)."""
+        b, t = tokens.shape
+        positions = start.long()[:, None] + torch.arange(
+            t, device=self.device)[None]
+        cos, sin = llama.rope_cos_sin(self.cfg, positions, self.inv_freq)
+        append_pos = torch.where(positions < lens[:, None], positions,
+                                 torch.full_like(positions, -1))
+        # tokens in cache per row after this chunk
+        kv_lens = torch.minimum(lens, start + t)
+        x = self.qparams["embed"][tokens]
+        x = self._layers(
+            x, cos, sin, cache, pt, append_pos,
+            lambda li, q, k, v: pdk.paged_prefill(q, cache, li, pt, start,
+                                                  kv_lens),
+            self.qcfg_prefill)
+        local_last = (lens.long() - 1 - start.long()).clamp(0, t - 1)
+        return self._head_logits(x[torch.arange(b, device=self.device),
+                                   local_last])
+
+    # -- public steps ------------------------------------------------------
+
+    @torch.no_grad()
+    def prefill(self, state, tokens, lens, starts=None):
+        """Prefill the batch. tokens [B, T] right-padded; lens [B] (0 =
+        inactive slot). Returns (last-token logits [B, V] f32, state).
+
+        Prompts longer than EngineConfig.prefill_chunk (when set) stream
+        through _prefill_chunk_forward chunk by chunk. starts (optional
+        [B] i32): per-row absolute origin of tokens[:, 0], for prefix
+        sharing: only each row's suffix is prefilled; the shared prefix
+        pages must already be mapped and lens stay absolute."""
+        tokens = torch.as_tensor(tokens, device=self.device).long()
+        lens = torch.as_tensor(lens, device=self.device).to(torch.int32)
+        if tokens.shape[1] > self.ecfg.max_seq_len:
+            raise ValueError(f"prefill length {tokens.shape[1]} exceeds KV "
+                             f"capacity max_seq_len={self.ecfg.max_seq_len}")
+        cache, pt, seq_lens = state
+        if starts is not None:
+            starts = torch.as_tensor(starts, device=self.device).to(
+                torch.int32)
+            logits = self._prefill_suffix(cache, pt, tokens, lens, starts)
+        elif self.ecfg.prefill_chunk and (
+                tokens.shape[1] > self.ecfg.prefill_chunk):
+            logits = self._prefill_chunked(cache, pt, tokens, lens,
+                                           self.ecfg.prefill_chunk)
+        else:
+            logits = self._prefill_forward(cache, pt, tokens, lens)
+        # joining slots (lens > 0) restart their sequence; others keep
+        # their running length
         seq_lens.copy_(torch.where(lens > 0, lens, seq_lens))
         return logits, (cache, pt, seq_lens)
+
+    def _prefill_chunked(self, cache, pt, tokens, lens, c: int):
+        """Host loop over chunks of c tokens from position 0."""
+        b, t = tokens.shape
+        zeros = torch.zeros((b,), dtype=torch.int32, device=self.device)
+        return self._chunks(cache, pt, tokens, lens, zeros, c)
+
+    def _prefill_suffix(self, cache, pt, tokens, lens, starts):
+        """Per-row-origin (ragged) prefill: row b's tokens[b, i] sits at
+        absolute position starts[b] + i. Chunks are origin-relative. A
+        suffix shorter than the chunk runs as one chunk of its own length
+        (the JAX engine pads it to the chunk; rows are independent, so
+        only the padding's work differs)."""
+        c = min(self.ecfg.prefill_chunk or tokens.shape[1], tokens.shape[1])
+        return self._chunks(cache, pt, tokens, lens, starts, c)
+
+    def _chunks(self, cache, pt, tokens, lens, starts, c: int):
+        b, t = tokens.shape
+        t_pad = -(-t // c) * c
+        if t_pad != t:
+            tokens = torch.nn.functional.pad(tokens, (0, t_pad - t))
+        logits = None
+        for off in range(0, t_pad, c):
+            origin = starts + off
+            lg = self._prefill_chunk_forward(cache, pt, tokens[:, off:off + c],
+                                             lens, origin)
+            # keep each row's logits from the chunk holding its last token
+            here = (lens - 1 >= origin) & (lens - 1 < origin + c)
+            logits = lg if logits is None else torch.where(here[:, None],
+                                                           lg, logits)
+        return logits
 
     @torch.no_grad()
     def decode_step(self, state, tokens, active):
@@ -279,7 +406,6 @@ class InferenceEngine:
         cache, pt, seq_lens = state
         tokens = torch.as_tensor(tokens, device=self.device).long()
         active = torch.as_tensor(active, device=self.device).bool()
-        b = tokens.shape[0]
         positions = seq_lens.long()[:, None]                   # [B, 1]
         cos, sin = llama.rope_cos_sin(self.cfg, positions, self.inv_freq)
         append_pos = torch.where(active[:, None], positions,
@@ -289,25 +415,40 @@ class InferenceEngine:
         x = self._layers(
             x, cos, sin, cache, pt, append_pos,
             lambda li, q, k, v: pdk.paged_decode(
-                q[:, 0], cache, li, pt, new_lens)[:, None])
+                q[:, 0], cache, li, pt, new_lens)[:, None],
+            self.qcfg)
         logits = self._head_logits(x[:, 0])
         seq_lens.copy_(new_lens)
         return logits, (cache, pt, seq_lens)
 
+    def _generator(self, seed: int) -> torch.Generator:
+        g = torch.Generator(device=self.device)
+        g.manual_seed(seed)
+        return g
+
+    @staticmethod
+    def _sample(logits, sampling, gen) -> torch.Tensor:
+        """argmax, or a draw from `gen` under `sampling`: [B] i32."""
+        if sampling is None or sampling.is_greedy:
+            return logits.argmax(-1).to(torch.int32)
+        return smp.sample_p(logits, gen, sampling)
+
     def decode_scan(self, state, first_tokens, active, num_steps: int,
-                    eos_id: Optional[int] = None, sampling=None):
-        """num_steps greedy decode steps (a Python loop over
-        decode_step). Slots that emit eos_id go inactive. Returns (tokens
-        [B, num_steps] i32, the token of each step, repeating the last
-        one after a slot retires; state)."""
-        _check_greedy(sampling)
+                    eos_id: Optional[int] = None, sampling=None,
+                    seed: int = 0):
+        """num_steps decode steps (a Python loop over decode_step), greedy
+        or sampled under `sampling` (an engine.sampling.SamplingParams)
+        with a generator seeded by `seed`. Slots that emit eos_id go
+        inactive. Returns (tokens [B, num_steps] i32, the token of each
+        step, repeating the last one after a slot retires; state)."""
         toks = torch.as_tensor(first_tokens, device=self.device).to(
             torch.int32)
         act = torch.as_tensor(active, device=self.device).bool()
+        gen = self._generator(seed)
         out = []
         for _ in range(num_steps):
             logits, state = self.decode_step(state, toks, act)
-            nxt = torch.where(act, logits.argmax(-1).to(torch.int32), toks)
+            nxt = torch.where(act, self._sample(logits, sampling, gen), toks)
             if eos_id is not None:
                 act = act & (nxt != eos_id)
             toks = nxt
@@ -336,21 +477,54 @@ class InferenceEngine:
         lens[:b] = lens_b
         return toks, lens, b
 
+    def _alloc_prompt_pages(self, state, lens, b: int,
+                            max_new_tokens: int):
+        """Dynamic-page mode: map each row's worst-case page span up front
+        (prompt + generation), rows in order on consecutive pages after
+        the sink. No-op under the static layout."""
+        e = self.ecfg
+        if not e.dynamic_pages:
+            return state
+        cache, pt, sl = state
+        pt_np = np.zeros((e.max_batch, e.pages_per_seq), np.int32)
+        nxt = 1
+        for i in range(b):
+            total = int(lens[i]) + max_new_tokens
+            need = -(-total // e.page_size)
+            if need > e.pages_per_seq:
+                raise ValueError(
+                    f"prompt {i}: {int(lens[i])} + {max_new_tokens} new "
+                    f"tokens exceed pages_per_seq={e.pages_per_seq} * "
+                    f"page_size={e.page_size}")
+            if nxt + need > e.total_pages():
+                raise ValueError(
+                    f"page pool exhausted at row {i}: {e.total_pages() - 1}"
+                    " usable pages; raise num_pages or use "
+                    "ContinuousBatcher")
+            pt_np[i, :need] = np.arange(nxt, nxt + need)
+            nxt += need
+        pt.copy_(torch.from_numpy(pt_np))
+        return cache, pt, sl
+
     def generate(self, prompts, max_new_tokens: int,
                  eos_id: Optional[int] = None,
-                 sampling=None) -> List[List[int]]:
-        """Greedy decode of a batch of prompts (list of 1D int sequences
-        or a [B, T] array). Returns the generated token lists."""
-        _check_greedy(sampling)
+                 sampling=None, seed: int = 0) -> List[List[int]]:
+        """Decode a batch of prompts (list of 1D int sequences or a
+        [B, T] array). Greedy by default; `sampling` (a SamplingParams)
+        samples on the device from a generator seeded by `seed`. Returns
+        the generated token lists."""
         toks, lens, b = self._pad_prompts(prompts)
         e = self.ecfg
         if int(lens.max()) + max_new_tokens > e.max_seq_len:
             raise ValueError(f"prompt + {max_new_tokens} new tokens exceed "
                              f"max_seq_len={e.max_seq_len}")
-        logits, state = self.prefill(self.new_state(), toks, lens)
+        state = self._alloc_prompt_pages(self.new_state(), lens, b,
+                                         max_new_tokens)
+        logits, state = self.prefill(state, toks, lens)
         out = [[] for _ in range(b)]
         done = lens == 0
-        cur = logits.argmax(-1).to(torch.int32)
+        gen = self._generator(seed)
+        cur = self._sample(logits, sampling, gen)
         for _ in range(max_new_tokens):
             cur_np = cur.cpu().numpy()
             for i in range(b):
@@ -364,12 +538,5 @@ class InferenceEngine:
                 break
             active = torch.as_tensor(~done & (np.arange(e.max_batch) < b))
             logits, state = self.decode_step(state, cur, active)
-            cur = logits.argmax(-1).to(torch.int32)
+            cur = self._sample(logits, sampling, gen)
         return out
-
-
-def _check_greedy(sampling) -> None:
-    if sampling is not None and not getattr(sampling, "is_greedy", False):
-        raise NotImplementedError(
-            "stochastic sampling is not ported (ROADMAP queue 1 item 8, "
-            "engine/sampling.py)")

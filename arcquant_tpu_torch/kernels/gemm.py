@@ -103,8 +103,12 @@ def gemm_dequant(xa: torch.Tensor, pw: PackedWeightI8, gx,
             "only the w8 weight format is ported (ROADMAP queue 1 item "
             "11, w4 end to end)")
     m, n = xa.shape[0], pw.n
-    gs = torch.as_tensor(gx, dtype=torch.float32, device=xa.device)
-    gs = gs.reshape(-1, 1).expand(m, 1)
+    if isinstance(gx, (int, float)):     # a fill, no host-to-device copy
+        gs = torch.full((m, 1), float(gx), dtype=torch.float32,
+                        device=xa.device)
+    else:
+        gs = torch.as_tensor(gx, dtype=torch.float32, device=xa.device)
+        gs = gs.reshape(-1, 1).expand(m, 1)
     gw = pw.global_scale.float().reshape(1, -1).expand(1, n)
     impl = gemm_w8_plain if xa.device.type == "cpu" else _gemm_w8_cuda
     return impl(xa, pw.codes, pw.scales, gs, gw, pw.bias, out_dtype)

@@ -1,9 +1,11 @@
-"""Paged int4 flash-decode (counterpart of
-``arcquant_tpu/kernels/paged_decode.py``, decode entries only).
+"""Paged int4 flash-decode and flash-prefill (counterpart of
+``arcquant_tpu/kernels/paged_decode.py``).
 
-For CUDA tensors the entries launch ``csrc/paged_decode.cu`` (replacing
-the TPU kernel ``_decode_kernel``); for CPU tensors they run
-``paged_decode_state_plain``.
+For CUDA tensors the decode entries launch ``csrc/paged_decode.cu``
+(replacing the TPU kernel ``_decode_kernel``) and ``paged_prefill``
+launches ``csrc/paged_prefill.cu`` (replacing ``_prefill_kernel``); for
+CPU tensors they run ``paged_decode_state_plain`` and
+``paged_prefill_plain``.
 """
 
 from __future__ import annotations
@@ -21,6 +23,11 @@ PAGED_DECODE = _build.Kernel("paged_decode", "arc_paged_decode", [
     _build.P, _build.P, _build.P, _build.P, _build.P, _build.P,
     _build.P, _build.P, _build.I32, _build.I32, _build.I32, _build.I32,
     _build.I32, _build.I32, _build.F32])
+
+PAGED_PREFILL = _build.Kernel("paged_prefill", "arc_paged_prefill", [
+    _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P,
+    _build.I32, _build.I32, _build.I32, _build.I32, _build.I32, _build.I32,
+    _build.I32, _build.F32])
 
 
 def paged_decode_state_plain(q: torch.Tensor, codes: torch.Tensor,
@@ -101,3 +108,86 @@ def paged_decode(q: torch.Tensor, cache: PagedKVCache, layer: int,
                  seq_lens: torch.Tensor) -> torch.Tensor:
     """paged_decode_state without the softmax state: out [B, Hq, Dh]."""
     return paged_decode_state(q, cache, layer, page_table, seq_lens)[0]
+
+
+def paged_prefill_plain(q: torch.Tensor, codes: torch.Tensor,
+                        params: torch.Tensor, page_table: torch.Tensor,
+                        q_starts: torch.Tensor,
+                        seq_lens: torch.Tensor) -> torch.Tensor:
+    """Plain version over one layer's pool: gathers every page of the page
+    table, dequantizes in score space like the kernel and masks key kpos
+    for the query at qpos unless kpos <= qpos and kpos < seq_len; f32
+    softmax and PV. Rows are token-major per kv head (r = i * g + j), as
+    in the kernels. Returns [B, Tq, Hq, Dh] in q.dtype; a row with
+    seq_len 0 gives exact zeros."""
+    b, tq, hq, dh = q.shape
+    _, _, hkv, page, _ = codes.shape
+    g = hq // hkv
+    pps = page_table.shape[1]
+    pt = page_table.long()
+    c = codes[pt]                                  # [B, pps, 2, H, pg, D/2]
+    vals = torch.cat([c & 0xF, c >> 4], dim=-1).float()
+    vals = vals.permute(0, 2, 3, 1, 4, 5).reshape(b, 2, hkv, pps * page, dh)
+    prm = params[pt].permute(0, 2, 1, 3, 4).reshape(b, hkv, pps * page, 4)
+    qf = (q.float().reshape(b, tq, hkv, g, dh).permute(0, 2, 1, 3, 4)
+          .reshape(b, hkv, tq * g, dh) * (1.0 / math.sqrt(dh)))
+    qsum = qf.sum(dim=-1, keepdim=True)            # [B, H, R, 1]
+    sk, mk, vs, vm = (prm[..., i][:, :, None] for i in range(4))
+    s = torch.einsum("bhrd,bhtd->bhrt", qf, vals[:, 0]) * sk + qsum * mk
+    qpos = (q_starts.long()[:, None]
+            + torch.arange(tq, device=q.device)[None]).repeat_interleave(
+                g, dim=1)                          # [B, R]
+    kpos = torch.arange(pps * page, device=q.device)
+    mask = ((kpos[None, None] <= qpos[:, :, None])
+            & (kpos[None, None] < seq_lens.long()[:, None, None]))[:, None]
+    s = torch.where(mask, s, torch.full_like(s, _NEG_INF))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(mask, torch.exp(s - m), torch.zeros_like(s))
+    l = p.sum(dim=-1, keepdim=True)
+    pv = (torch.einsum("bhrt,bhtd->bhrd", p * vs, vals[:, 1])
+          + (p * vm).sum(dim=-1, keepdim=True))
+    out = pv / torch.clamp(l, min=1e-30)
+    return (out.reshape(b, hkv, tq, g, dh).permute(0, 2, 1, 3, 4)
+            .reshape(b, tq, hq, dh).to(q.dtype))
+
+
+def _paged_prefill_cuda(q, codes, params, page_table, q_starts, seq_lens):
+    """Launch csrc/paged_prefill.cu over one layer's pool."""
+    _build.require_cuda("paged_prefill", q, codes, params, page_table,
+                        q_starts, seq_lens)
+    b, tq, hq, dh = q.shape
+    _, _, hkv, page, _ = codes.shape
+    g = hq // hkv
+    if (q.dtype != torch.bfloat16 or hq % hkv or g > 64 or dh not in (64, 128)
+            or not codes.is_contiguous() or not params.is_contiguous()):
+        raise ValueError(f"paged_prefill: unsupported q {tuple(q.shape)} "
+                         f"{q.dtype} over pool {tuple(codes.shape)}")
+    q = q.contiguous()
+    pt = page_table.to(torch.int32).contiguous()
+    st = q_starts.to(torch.int32).contiguous()
+    sl = seq_lens.to(torch.int32).contiguous()
+    out = torch.empty_like(q)
+    PAGED_PREFILL(_build.ptr(q), _build.ptr(codes), _build.ptr(params),
+                  _build.ptr(pt), _build.ptr(st), _build.ptr(sl),
+                  _build.ptr(out), b, tq, hkv, g, dh, page, pt.shape[1],
+                  1.0 / math.sqrt(dh))
+    return out
+
+
+def paged_prefill(q: torch.Tensor, cache: PagedKVCache, layer: int,
+                  page_table: torch.Tensor, q_starts: torch.Tensor,
+                  seq_lens: torch.Tensor) -> torch.Tensor:
+    """Causal attention of a prefill chunk straight over the int4 pool;
+    the chunk's own K/V must already be appended.
+
+    q: [B, Tq, Hq, Dh] post-RoPE queries (rows right-padded); page_table
+    [B, pps] i32; q_starts [B] i32, the absolute position of q[:, 0] per
+    row; seq_lens [B] i32, tokens in cache including this chunk's.
+    Returns [B, Tq, Hq, Dh] in q.dtype. Queries at positions >= seq_len
+    are padding, which the caller discards: the plain version gives them
+    the JAX kernel's keys < seq_len, the CUDA kernel the same within a
+    query tile that starts before seq_len and zeros past it."""
+    impl = (paged_prefill_plain if q.device.type == "cpu"
+            else _paged_prefill_cuda)
+    return impl(q, cache.codes[layer], cache.params[layer], page_table,
+                q_starts, seq_lens)

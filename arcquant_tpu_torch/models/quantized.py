@@ -40,8 +40,9 @@ def identity_calib(cfg: ModelConfig, select_frac: float = 0.0,
 
 def check_qcfg(qcfg: QuantConfig) -> None:
     """Raise NotImplementedError for quantization settings outside the
-    ported serving path (NVFP4 W4A4, w8 packed weights, per-row
-    activation scales)."""
+    ported serving path (NVFP4 W4A4 or W4A16 activations, hybrid
+    prefill_act_bits in {0, 4, 16}, w8 packed weights, per-row activation
+    scales)."""
     if qcfg.quant_type != "NVFP4" or not qcfg.use_kernels:
         raise NotImplementedError(
             f"quant_type={qcfg.quant_type!r} use_kernels="
@@ -50,10 +51,11 @@ def check_qcfg(qcfg: QuantConfig) -> None:
     if qcfg.weight_fmt != "w8":
         raise NotImplementedError(
             "weight_fmt='w4' is not ported (ROADMAP queue 1 item 11)")
-    if qcfg.act_bits != 4 or qcfg.prefill_act_bits:
+    if qcfg.act_bits not in (4, 16) or qcfg.prefill_act_bits not in (0, 4,
+                                                                     16):
         raise NotImplementedError(
-            "act_bits=16 / prefill_act_bits linears are not ported "
-            "(ROADMAP queue 1 item 6)")
+            f"act_bits={qcfg.act_bits} prefill_act_bits="
+            f"{qcfg.prefill_act_bits}: only 4 and 16 are ported")
     if qcfg.act_scale != "row":
         raise NotImplementedError(
             "act_scale='tensor' is not ported (ROADMAP queue 1 item 2)")
@@ -98,7 +100,16 @@ def quantize_layer_params_fused(layer_p: Params,
 
 
 def _act_quantize(x2d: torch.Tensor, calib: SiteCalib, qcfg: QuantConfig):
-    """Quantize a [M, K] activation for its site: (xa, gx [M, 1])."""
+    """Quantize a [M, K] activation for its site: (xa, gx [M, 1]).
+
+    act_bits 16 (W4A16) keeps the activation exact: bf16, zero-padded to
+    the packed weight's width (so the ARC residual columns carry zeros),
+    with a unit scale; no actq launch."""
+    if qcfg.act_bits == 16:
+        k = x2d.shape[1]
+        width = packing.pad_kq(k, calib.select_num)
+        return (torch.nn.functional.pad(x2d.to(torch.bfloat16),
+                                        (0, width - k)), 1.0)
     return qk.quantize_x_arc(x2d, calib.reorder_index, calib.select_num,
                              per_row=qcfg.act_scale == "row")
 

@@ -6,17 +6,28 @@ Phases, each printed as it runs:
   1. the card (nvidia-smi name and power limit) and the torch/CUDA build;
   2. the build of the CUDA kernels (csrc/*.cu, nvcc, sm_90a) and its time;
   3. each kernel against its plain PyTorch version at the Qwen2.5-7B
-     shapes of the serving path, with the tolerance, the max error, and
-     the median CUDA-event time of kernel and plain version;
+     shapes of the serving path, with the tolerance, the max error, the
+     median CUDA-event time of kernel and plain version, and at each
+     kernel's representative shape its bound (the larger of its FLOPs
+     over 989 TFLOP/s and its bytes over 3.35 TB/s, an H100 SXM's dense
+     bf16 and HBM3 peaks) and the time of one PyTorch call computing the
+     same function (timed here only, never used by the port);
   4. the engine at Qwen2.5-7B full width, all 28 layers, dummy weights,
      ARC select_frac 0.125, packed W4A16 head: 4 requests (prompts of
      1024, 777, 301 and 64 tokens) served by ``generate`` for 32 greedy
      tokens each, with each kernel's launch count over that run, then
      prefill ms, decode ms/step, decode tok/s and peak device memory
      while building the engine and while serving;
-  5. the same engine cut to 1 and to 2 layers, its prefill and 4 decode
-     steps against the same forward with the four plain versions patched
-     in (see engine_check for the bars).
+  5. the HTTP server (engine/server.py over the continuous batcher) on
+     the same 28 packed layers with serve.py's defaults (W4A16 prefill,
+     W4A4 decode, prefill_chunk 512, dynamic pages, prefix sharing):
+     twelve concurrent requests of 32 tokens in two waves, with the
+     launch counts, TTFT, output tokens/s, prefill tokens skipped by
+     sharing and peak device memory;
+  6. the same engine cut to 1 and to 2 layers, its prefill and 4 decode
+     steps against the same forward with the five plain versions patched
+     in, then at 1 layer chunked and suffix prefill (see engine_check and
+     serving_engine_check for the bars).
 The second-to-last line is the kernels' JSON summary, the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero before the
 last line; without a CUDA device it exits 1 at once.
@@ -24,10 +35,12 @@ last line; without a CUDA device it exits 1 at once.
 
 from __future__ import annotations
 
+import http.client
 import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -48,7 +61,25 @@ KERNEL_INFO = {
                    "arcquant_tpu/kernels/attention.py:35"),
     "paged_decode": ("arcquant_tpu_torch/csrc/paged_decode.cu",
                      "arcquant_tpu/kernels/paged_decode.py:48"),
+    "paged_prefill": ("arcquant_tpu_torch/csrc/paged_prefill.cu",
+                      "arcquant_tpu/kernels/paged_decode.py:197"),
 }
+# The kernels each main path must launch.
+GENERATE_KERNELS = ("actq", "gemm_w8", "flash_attn", "paged_decode")
+SERVE_KERNELS = ("actq", "gemm_w8", "paged_prefill", "paged_decode")
+
+# H100 SXM published dense peaks (NVIDIA data sheet): bf16 tensor-core
+# FLOP/s and HBM3 bytes/s. A kernel's bound is the larger of its FLOPs
+# and its bytes (each input read once, each output written once) over
+# these.
+PEAK_FLOPS = 989e12
+PEAK_BYTES = 3.35e12
+
+# Serving phase traffic: the first wave, then three requests sharing a
+# 1024-token (8-page) prefix with distinct 100-token suffixes, one
+# sampled streamed request and a short prompt.
+SERVE_WAVE1 = (1900, 1500, 1024, 777, 512, 301, 64)
+SHARED_PREFIX, SUFFIX, SAMPLED_LEN, SHORT_LEN = 1024, 100, 200, 16
 
 
 def log(msg: str) -> None:
@@ -111,28 +142,60 @@ def bf16_randn(gen, shape, scale=1.0):
         torch.bfloat16)
 
 
+def bound(flops: float, nbytes: float):
+    """(bound ms, what bounds it) on an H100 SXM at its published peaks."""
+    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes
+                                       else "bytes")
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def gemm_w8_f64(xa, codes, scales, gs, gw, bias, out_dtype):
+    """The w8 GEMM in f64 (the accuracy reference)."""
+    from arcquant_tpu_torch.quant import numerics as N
+    s = N.ue4m3_from_bytes(scales).double() * 0.5
+    w = codes.double() * s.repeat_interleave(N.NVFP4_GROUP, dim=0)
+    y = (xa.double() @ w) * gs.double() * gw.double()
+    return y if bias is None else y + bias.double()
+
+
 def kernel_checks(cfg, timer, failures):
-    """Phase 3. Returns {kernel: dict(max_abs_err, ms, plain_ms, shape)}
-    where the times are those of the representative decode (or prefill
-    for flash attention) shape."""
+    """Phase 3. Returns {kernel: dict(max_abs_err, ms, plain_ms, bound_ms,
+    bound_by, library_ms, shape)} where the times and the bound are those
+    of the representative shape of the kernel on the serving path."""
     from arcquant_tpu_torch.cache import paged
     from arcquant_tpu_torch.kernels import attention, gemm as gk
     from arcquant_tpu_torch.kernels import paged_decode as pdk
     from arcquant_tpu_torch.kernels import quantize as qk
     from arcquant_tpu_torch.quant import packing
+    sdpa = torch.nn.functional.scaled_dot_product_attention
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1234)
     summary = {}
 
-    def record(kernel, case, err, ok, ms, plain_ms, tol, rep):
-        log(f"  {kernel:12s} {case:44s} max_abs_err={err:.6g} "
+    def record(kernel, case, err, ok, ms, plain_ms, tol, rep, work=None,
+               library=None, library_what=None):
+        """work: (flops, bytes) of the call; library: a callable timed as
+        the PyTorch yardstick (representative shape only)."""
+        log(f"  {kernel:13s} {case:52s} max_abs_err={err:.6g} "
             f"({tol}) {'ok' if ok else 'FAIL'}  kernel {ms:.4f} ms  "
             f"plain {plain_ms:.4f} ms")
         s = summary.setdefault(kernel, dict(max_abs_err=0.0))
         s["max_abs_err"] = max(s["max_abs_err"], err)
         if rep:
-            s.update(ms=ms, plain_ms=plain_ms, shape=case)
+            b_ms, b_by = bound(*work)
+            lib_ms = timer(library) if library is not None else None
+            s.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                     library_ms=lib_ms, shape=case)
+            log(f"  {'':13s} bound {b_ms:.4f} ms ({b_by}; {work[0]:.4g} "
+                f"FLOP, {work[1]:.4g} B)  library "
+                + (f"{lib_ms:.4f} ms ({library_what})" if lib_ms is not None
+                   else "none (no PyTorch call computes it)"))
         if not ok:
             failures.append(f"{kernel} {case}: max_abs_err {err}")
 
@@ -161,7 +224,8 @@ def kernel_checks(cfg, timer, failures):
                 record("actq", f"{mode} M={m} K={k} kq={kq}", err, ok,
                        timer(lambda: qk._actq_cuda(a, w, **args)),
                        timer(lambda: qk.actq_plain(a, w, **args)), tol,
-                       rep=(m == 4 and k == h and mode == "plain"))
+                       rep=(m == 4 and k == h and mode == "plain"),
+                       work=(0, _nbytes(a, w, xa, gx)))
 
     # w8 GEMM at the five weights of the path
     sites = [("qkv", cfg.q_size + 2 * cfg.kv_size, h, True),
@@ -177,28 +241,64 @@ def kernel_checks(cfg, timer, failures):
         pw = packing.pack_weight_arc(
             w, ridx, sel, bias=b, w_scale="channel")
         del w
-        for m in ((4,) if name == "head" else (4, 4096)):
+        # the qkv site also at A16 (serve.py's prefill: bf16 activations,
+        # unit scale), with both versions' error against f64
+        cases = [(m, "A4") for m in ((4,) if name == "head" else (4, 4096))]
+        cases += [(4096, "A16")] if name == "qkv" else []
+        for m, act in cases:
             x = bf16_randn(gen, (m, k))
-            if name == "head":
+            if name == "head" or act == "A16":
                 xa = torch.nn.functional.pad(x, (0, pw.kq - k))
                 gs = torch.ones((m, 1), device="cuda")
-                dt = torch.float32
             else:
                 xa, gs = qk.quantize_x_arc(x, ridx, sel)
-                dt = torch.bfloat16
+            dt = torch.float32 if name == "head" else torch.bfloat16
             gw = pw.global_scale.reshape(1, -1)
             args = (xa, pw.codes, pw.scales, gs, gw, pw.bias, dt)
             y = gk._gemm_w8_cuda(*args)
             ref = gk.gemm_w8_plain(*args)
             torch.cuda.synchronize()
+            if name == "qkv" and m == 4096:
+                f64 = gemm_w8_f64(*args)
+                e_k, e_p = (float((z.double() - f64).abs().mean()
+                                  / f64.abs().mean())
+                            for z in (gk._gemm_w8_cuda(*args[:-1],
+                                                       torch.float32),
+                                      gk.gemm_w8_plain(*args[:-1],
+                                                       torch.float32)))
+                acc_ok = e_k <= 2.0 * e_p
+                log(f"  {'':13s} qkv M=4096 {act}: f32-out mean relative "
+                    f"error vs f64: kernel {e_k:.4g}, plain {e_p:.4g} "
+                    f"(bar: kernel <= 2x plain, f32 accumulation) "
+                    f"{'ok' if acc_ok else 'FAIL'}")
+                if not acc_ok:
+                    failures.append(f"gemm_w8 qkv M=4096 {act}: error vs "
+                                    f"f64 {e_k} > 2x the plain's {e_p}")
+                del f64
             f32 = dt == torch.float32
-            record("gemm_w8", f"{name} M={m} Kq={pw.kq} N={n}",
+            rep = name == "gateup" and m == 4
+            lib = None
+            if rep:   # the decoded weight, exact in bf16, made untimed
+                wd = gk.gemm_w8_plain(
+                    torch.eye(pw.kq, device="cuda", dtype=torch.bfloat16),
+                    pw.codes, pw.scales,
+                    torch.ones((pw.kq, 1), device="cuda"),
+                    torch.ones((1, n), device="cuda"), None, torch.bfloat16)
+                lib = lambda: torch.matmul(xa, wd)   # noqa: E731
+            record("gemm_w8", f"{name} M={m} Kq={pw.kq} N={n}"
+                   + (" A16" if act == "A16" else ""),
                    float((y.float() - ref.float()).abs().max()),
                    sum_order_bound(y, ref, f32),
                    timer(lambda: gk._gemm_w8_cuda(*args)),
                    timer(lambda: gk.gemm_w8_plain(*args)),
                    "f32 sum order" + ("" if f32 else " + 1 bf16 ulp"),
-                   rep=(name == "gateup" and m == 4))
+                   rep=rep, work=(2.0 * m * pw.kq * n,
+                                  _nbytes(xa, pw.codes, pw.scales, gs, gw,
+                                          pw.bias, y)),
+                   library=lib,
+                   library_what="torch.matmul over the decoded bf16 weight")
+            if rep:
+                del wd
         del pw
     # flash attention: the prefill shape, and a ragged suffix case
     hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -209,12 +309,22 @@ def kernel_checks(cfg, timer, failures):
         o = attention._flash_cuda(q, k_, v, off)
         ref = attention.flash_attention_plain(q, k_, v, off)
         torch.cuda.synchronize()
+        rep = off == 0
+        lib = None
+        if rep:
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k_, v))
+            lib = lambda: sdpa(qt, kt, vt, is_causal=True,   # noqa: E731
+                               enable_gqa=True)
         record("flash_attn", f"B={b} Tq={tq} Tk={tk} q_offset={off}",
                float((o.float() - ref.float()).abs().max()),
                close_bound(o, ref),
                timer(lambda: attention._flash_cuda(q, k_, v, off)),
                timer(lambda: attention.flash_attention_plain(q, k_, v, off)),
-               "1 bf16 ulp + 2e-3", rep=(off == 0))
+               "1 bf16 ulp + 2e-3", rep=rep,
+               work=(4.0 * b * hq * dh * tq * (tq + 1) / 2,
+                     _nbytes(q, k_, v, o)),
+               library=lib,
+               library_what="SDPA is_causal over [B, H, T, Dh] copies")
     # paged int4 decode over a filled pool
     page, bsz = 128, 4
     pps = -(-(PROMPT_LENS[0] + NEW_TOKENS + 8) // page)
@@ -237,12 +347,118 @@ def kernel_checks(cfg, timer, failures):
                                                      atol=1e-5))
           and bool(torch.allclose(l_, pl, rtol=1e-4))
           and bool((o[3] == 0).all()))
+    kd, vd = (x.to(torch.bfloat16).transpose(1, 2).contiguous()
+              for x in paged.gather_kv(cache, 0, pt, t))
+    qd = q[:, :, None]
+    kpos = torch.arange(t, device="cuda")
+    mask = (kpos[None] < sl[:, None])[:, None, None]
+    ntok = int(sl.sum())
     record("paged_decode", "B=4 seq=1056,809,333,0 page=128",
            float((o.float() - po.float()).abs().max()), ok,
            timer(lambda: pdk._paged_decode_cuda(*args)),
            timer(lambda: pdk.paged_decode_state_plain(*args)),
-           "1 bf16 ulp + 2e-3; m, l f32 sum order", rep=True)
+           "1 bf16 ulp + 2e-3; m, l f32 sum order", rep=True,
+           work=(4.0 * ntok * hq * dh,
+                 ntok * hkv * (dh + 16) + _nbytes(q, o, m_, l_)),
+           library=lambda: sdpa(qd, kd, vd, attn_mask=mask, enable_gqa=True),
+           library_what="SDPA over the pool dequantized to bf16, call only")
+    del cache, kd, vd
+    paged_prefill_check(cfg, gen, timer, record)
     return summary
+
+
+def _paged_prefill_f64(q, codes, params, pt, st, sl):
+    """paged_prefill in f64 with the K/V dequantized (codes * scale + min)
+    before the products: the accuracy reference at live queries."""
+    b, tq, hq, dh = q.shape
+    _, _, hkv, page, _ = codes.shape
+    g, pps = hq // hkv, pt.shape[1]
+    c = codes[pt.long()]                       # [B, pps, 2, H, page, D/2]
+    vals = torch.cat([c & 0xF, c >> 4], dim=-1).double()
+    vals = vals.permute(0, 2, 3, 1, 4, 5).reshape(b, 2, hkv, pps * page, dh)
+    prm = params[pt.long()].permute(0, 2, 1, 3, 4).reshape(
+        b, hkv, pps * page, 4).double()
+    k = vals[:, 0] * prm[..., 0:1] + prm[..., 1:2]
+    v = vals[:, 1] * prm[..., 2:3] + prm[..., 3:4]
+    qf = (q.double().reshape(b, tq, hkv, g, dh).permute(0, 2, 1, 3, 4)
+          .reshape(b, hkv, tq * g, dh)) / dh ** 0.5
+    qpos = (st.long()[:, None] + torch.arange(tq, device=q.device)[None]
+            ).repeat_interleave(g, dim=1)
+    kpos = torch.arange(pps * page, device=q.device)
+    mask = ((kpos[None, None] <= qpos[:, :, None])
+            & (kpos[None, None] < sl.long()[:, None, None]))[:, None]
+    s = torch.einsum("bhrd,bhtd->bhrt", qf, k).masked_fill(~mask, -1e300)
+    out = torch.einsum("bhrt,bhtd->bhrd", torch.softmax(s, -1) * mask, v)
+    return (out.reshape(b, hkv, tq, g, dh).permute(0, 2, 1, 3, 4)
+            .reshape(b, tq, hq, dh))
+
+
+def paged_prefill_check(cfg, gen, timer, record):
+    """paged_prefill at the serving shape: B 8 rows of a 512-token chunk
+    over a 2048-token page table of 128-token pages, ragged per-row
+    origins (first chunks, later chunks, prefix-shared suffixes) and one
+    idle row. Compared on every query at a position < seq_len (the
+    engine discards the rest), idle rows exactly 0."""
+    from arcquant_tpu_torch.cache import paged
+    from arcquant_tpu_torch.kernels import paged_decode as pdk
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    bsz, tq, page, pps = 8, 512, 128, 16
+    starts = [0, 512, 1024, 1536, 0, 1024, 0, 0]
+    seqs = [512, 1024, 1536, 1900, 301, 1124, 64, 0]
+    one = cfg.replace(num_layers=1)
+    cache = paged.init_cache(one, 1 + bsz * pps, page, "cuda")
+    # rows own interleaved pages, so neighbouring pages are other rows'
+    pt = (1 + torch.arange(pps)[None, :] * bsz
+          + torch.arange(bsz)[:, None]).to(torch.int32).cuda()
+    st = torch.tensor(starts, dtype=torch.int32, device="cuda")
+    sl = torch.tensor(seqs, dtype=torch.int32, device="cuda")
+    t = pps * page
+    pos = torch.arange(t, device="cuda")[None].expand(bsz, t)
+    pos = torch.where(pos < sl[:, None], pos, -1)
+    paged.append_kv(cache, 0, bf16_randn(gen, (bsz, t, hkv, dh), 2.0),
+                    bf16_randn(gen, (bsz, t, hkv, dh)), pt, pos)
+    q = bf16_randn(gen, (bsz, tq, hq, dh), 2.0)
+    args = (q, cache.codes[0], cache.params[0], pt, st, sl)
+    o = pdk._paged_prefill_cuda(*args)
+    po = pdk.paged_prefill_plain(*args)
+    torch.cuda.synchronize()
+    qpos = st[:, None] + torch.arange(tq, device="cuda")[None]   # [B, Tq]
+    live = qpos < sl[:, None]
+    # accuracy: the kernel within 1% of the plain version's mean error
+    # against f64 (both round the same f32 math to bf16 in other orders)
+    ref = _paged_prefill_f64(*args)[live]
+    err_k = float((o[live].double() - ref).abs().mean())
+    err_p = float((po[live].double() - ref).abs().mean())
+    del ref
+    differ = float((o[live] != po[live]).float().mean())
+    log(f"  {'':13s} live outputs differing from plain: {differ:.4%}; "
+        f"mean abs error vs f64: kernel {err_k:.6g}, plain {err_p:.6g}")
+    ok = (close_bound(o[live], po[live]) and bool((o[sl == 0] == 0).all())
+          and bool(torch.isfinite(o).all()) and err_k <= 1.01 * err_p)
+    # work these inputs need: every live query attends to qpos + 1 keys;
+    # a row reads the pool of its seq keys (none when idle)
+    pairs = float(((qpos + 1) * live).sum())
+    keys = sum(s for s, o_ in zip(seqs, starts) if o_ < s)
+    kd, vd = (x.to(torch.bfloat16).transpose(1, 2).contiguous()
+              for x in paged.gather_kv(cache, 0, pt, t))
+    qd = q.transpose(1, 2).contiguous()
+    kpos = torch.arange(t, device="cuda")
+    mask = ((kpos[None, None] <= qpos[:, :, None])
+            & (kpos[None, None] < sl[:, None, None]))[:, None]
+    record("paged_prefill",
+           "B=8 Tq=512 q_starts=0,512,1024,1536,0,1024,0,0 "
+           "seq=512,1024,1536,1900,301,1124,64,0 page=128",
+           float((o[live].float() - po[live].float()).abs().max()), ok,
+           timer(lambda: pdk._paged_prefill_cuda(*args)),
+           timer(lambda: pdk.paged_prefill_plain(*args)),
+           "1 bf16 ulp + 2e-3 on live queries, idle row 0, mean error "
+           "vs f64 within 1.01x the plain version's", rep=True,
+           work=(4.0 * pairs * hq * dh,
+                 keys * hkv * (dh + 16) + _nbytes(q, o)),
+           library=lambda: sdpa(qd, kd, vd, attn_mask=mask,
+                                enable_gqa=True),
+           library_what="SDPA over the pool dequantized to bf16, call only")
 
 
 def prompts_for(cfg, seed=0):
@@ -280,16 +496,16 @@ def engine_run(cfg, card, failures):
     torch.cuda.reset_peak_memory_stats()
     prompts = prompts_for(cfg)
 
-    kernels = [qk.ACTQ, gk.GEMM_W8, attention.FLASH, pdk.PAGED_DECODE]
+    kernels = all_kernels()
     for k in kernels:
         k.launches = 0
     out = eng.generate(prompts, NEW_TOKENS)
     torch.cuda.synchronize()
     launches = {k.name: k.launches for k in kernels}
     log(f"  launches in generate(): {launches}")
-    for name, n in launches.items():
-        if n <= 0:
-            failures.append(f"kernel {name} not launched by the main path")
+    for name in GENERATE_KERNELS:
+        if launches[name] <= 0:
+            failures.append(f"kernel {name} not launched by generate()")
     if [len(o) for o in out] != [NEW_TOKENS] * len(PROMPT_LENS):
         failures.append(f"generate lengths {[len(o) for o in out]}")
     flat = [t for o in out for t in o]
@@ -330,13 +546,211 @@ def engine_run(cfg, card, failures):
         logits_finite=finite, card=card)
     log(f"  engine {MODEL} {cfg.num_layers} layers bs=4: "
         f"{json.dumps(metrics)}")
+    qparams = eng.qparams
     del eng, state, logits
+    torch.cuda.empty_cache()
+    return launches, qparams, calib
+
+
+def all_kernels():
+    """The five kernels' launch counters."""
+    from arcquant_tpu_torch.kernels import attention, gemm as gk
+    from arcquant_tpu_torch.kernels import paged_decode as pdk
+    from arcquant_tpu_torch.kernels import quantize as qk
+    return [qk.ACTQ, gk.GEMM_W8, attention.FLASH, pdk.PAGED_DECODE,
+            pdk.PAGED_PREFILL]
+
+
+def serving_qcfg():
+    """serve.py's defaults: w8, W4A16 prefill, W4A4 decode, row scales."""
+    from arcquant_tpu_torch.config import QuantConfig
+    return QuantConfig(quant_type="NVFP4", use_kernels=True,
+                       weight_fmt="w8", act_scale="row", w_scale="channel",
+                       prefill_act_bits=16, quantize_lm_head=True)
+
+
+class Client(threading.Thread):
+    """One HTTP completion request in a thread; SSE when stream is set.
+    Keeps the status, tokens, error, request id and TTFT (the server's
+    ttft_s; for a stream, the time to the first token frame)."""
+
+    def __init__(self, port, body):
+        super().__init__(daemon=True)
+        self.port, self.body = port, body
+        self.out = dict(status=None, tokens=None, error="no response")
+
+    def run(self):
+        t0 = time.perf_counter()
+        try:
+            c = http.client.HTTPConnection("127.0.0.1", self.port,
+                                           timeout=900)
+            c.request("POST", "/v1/completions", json.dumps(self.body))
+            r = c.getresponse()
+            if self.body.get("stream"):
+                ttft, final = None, {}
+                for line in r:
+                    line = line.decode().strip()
+                    if not line.startswith("data: "):
+                        continue
+                    frame = json.loads(line[6:])
+                    if "token" in frame and ttft is None:
+                        ttft = time.perf_counter() - t0
+                    if frame.get("done"):
+                        final = frame
+                out = dict(final, ttft_s=ttft)
+            else:
+                out = json.loads(r.read())
+            c.close()
+            self.out = dict(status=r.status, tokens=out.get("tokens"),
+                            error=out.get("error"),
+                            request_id=out.get("request_id"),
+                            ttft_s=out.get("ttft_s"))
+        except Exception as e:                      # noqa: BLE001
+            self.out["error"] = repr(e)
+
+
+def _get_stats(port) -> dict:
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    c.request("GET", "/health")
+    out = json.loads(c.getresponse().read())
+    c.close()
+    return out
+
+
+def serving_run(cfg, qparams, calib, card, failures):
+    """Phase 5: the HTTP server over the continuous batcher on the 28
+    packed layers. Returns the kernels' launch counts over that run."""
+    from arcquant_tpu_torch.engine import (ContinuousBatcher, EngineConfig,
+                                           InferenceEngine)
+    from arcquant_tpu_torch.engine.server import ServingLoop, make_server
+    from arcquant_tpu_torch.kernels import paged_decode as pdk
+
+    ecfg = EngineConfig(max_batch=8, max_seq_len=2048, prefill_chunk=512,
+                        dynamic_pages=True, prefix_sharing=True)
+    eng = InferenceEngine(cfg, qparams, calib, serving_qcfg(), ecfg,
+                          device="cuda", quantize_params=False)
+    batcher = ContinuousBatcher(eng)
+    # which prefill route each admission took, and the paged_prefill
+    # launches in it; the shared-prefix origin of every admitted request
+    routes = {r: [0, 0] for r in ("one_shot", "chunked", "suffix")}
+    origin = {}
+
+    def wrap(name, route):
+        inner = getattr(eng, name)
+
+        def counted(*a, **kw):
+            n0 = pdk.PAGED_PREFILL.launches
+            out = inner(*a, **kw)
+            routes[route][0] += 1
+            routes[route][1] += pdk.PAGED_PREFILL.launches - n0
+            return out
+        setattr(eng, name, counted)
+    wrap("_prefill_forward", "one_shot")
+    wrap("_prefill_chunked", "chunked")
+    wrap("_prefill_suffix", "suffix")
+    inner_prefill = eng.prefill
+
+    def prefill(state, tokens, lens, starts=None):
+        for slot, r in enumerate(batcher.slots):
+            if r is not None and lens[slot] > 0:
+                origin[r.request_id] = (0 if starts is None
+                                        else int(starts[slot]))
+        return inner_prefill(state, tokens, lens, starts=starts)
+    eng.prefill = prefill
+
+    loop = ServingLoop(batcher)
+    srv = make_server(loop, "127.0.0.1", 0)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    port = srv.server_address[1]
+    rng = np.random.default_rng(2)
+
+    def toks(n):
+        return rng.integers(0, cfg.vocab_size, n).tolist()
+    prefix = toks(SHARED_PREFIX)
+    wave1 = [dict(prompt=toks(n), max_tokens=NEW_TOKENS)
+             for n in SERVE_WAVE1]
+    sharers = [dict(prompt=prefix + toks(SUFFIX), max_tokens=NEW_TOKENS)
+               for _ in range(3)]
+    sampled = dict(prompt=toks(SAMPLED_LEN), max_tokens=NEW_TOKENS,
+                   temperature=0.8, top_p=0.9, seed=7, stream=True)
+    wave2 = [dict(prompt=toks(SHORT_LEN), max_tokens=NEW_TOKENS), sampled,
+             sharers[1], sharers[2]]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels = all_kernels()
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    clients = [Client(port, b) for b in wave1 + sharers[:1]]
+    for c in clients:
+        c.start()
+    # the second wave goes out once the first is admitted (running or
+    # done): the first sharer has then registered its prefix pages
+    deadline = time.time() + 600
+    while time.time() < deadline:
+        st = _get_stats(port)["stats"]
+        if st["running"] + st["finished"] >= len(clients) or loop.error:
+            break
+        time.sleep(0.02)
+    log(f"  first wave admitted after {time.perf_counter() - t0:.3f} s: "
+        f"{st}")
+    late = [Client(port, b) for b in wave2]
+    for c in late:
+        c.start()
+    clients += late
+    for c in clients:
+        c.join(timeout=900)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels}
+    peak = torch.cuda.max_memory_allocated()
+    health = _get_stats(port)
+    srv.shutdown()
+    srv.server_close()
+    loop.shutdown()
+
+    outs = [c.out for c in clients]
+    for body, o in zip([c.body for c in clients], outs):
+        tk = o["tokens"] or []
+        if (o["status"] != 200 or o["error"] or len(tk) != NEW_TOKENS
+                or not all(0 <= t < cfg.vocab_size for t in tk)):
+            failures.append(f"serve: request of {len(body['prompt'])} "
+                            f"tokens: {o}")
+    log(f"  launches in the serving run: {launches}")
+    for name in SERVE_KERNELS:
+        if launches[name] <= 0:
+            failures.append(f"kernel {name} not launched by the server")
+    log(f"  prefill admissions [count, paged_prefill launches]: {routes}")
+    if routes["chunked"][1] <= 0 or routes["suffix"][1] <= 0:
+        failures.append(f"serve: paged_prefill not launched in both "
+                        f"chunked and suffix admissions: {routes}")
+    ps = ecfg.page_size
+    shared_pages = [origin.get(o.get("request_id"), 0) // ps
+                    for o in (c.out for c in late[2:])]
+    log(f"  late sharers' shared pages: {shared_pages}")
+    if any(n < SHARED_PREFIX // ps for n in shared_pages):
+        failures.append(f"serve: late sharers mapped {shared_pages} shared "
+                        f"pages, want >= {SHARED_PREFIX // ps} each")
+    ttft = [o["ttft_s"] for o in outs if o.get("ttft_s") is not None]
+    metrics = dict(
+        requests=len(outs), output_tokens=NEW_TOKENS * len(outs),
+        wall_s=round(wall, 3),
+        output_tok_s=round(NEW_TOKENS * len(outs) / wall, 2),
+        ttft_median_s=round(statistics.median(ttft), 4) if ttft else None,
+        ttft_max_s=round(max(ttft), 4) if ttft else None,
+        prefill_tokens_skipped_by_sharing=int(sum(origin.values())),
+        prompt_tokens=int(sum(len(c.body["prompt"]) for c in clients)),
+        peak_memory_gib=round(peak / 2 ** 30, 3),
+        server_stats=health.get("stats"), card=card)
+    log(f"  serve {MODEL} {cfg.num_layers} layers: {json.dumps(metrics)}")
+    del eng, batcher, loop
     torch.cuda.empty_cache()
     return launches
 
 
 class PlainKernels:
-    """Context manager that routes the four kernel entry points to their
+    """Context manager that routes the five kernel entry points to their
     plain PyTorch versions (the engine-level reference)."""
 
     def __enter__(self):
@@ -348,7 +762,8 @@ class PlainKernels:
                       (attention, "_flash_cuda",
                        attention.flash_attention_plain),
                       (pdk, "_paged_decode_cuda",
-                       pdk.paged_decode_state_plain)]
+                       pdk.paged_decode_state_plain),
+                      (pdk, "_paged_prefill_cuda", pdk.paged_prefill_plain)]
         self.saved = [(mod, name, getattr(mod, name), plain)
                       for mod, name, plain in self.saved]
         for mod, name, _, plain in self.saved:
@@ -367,9 +782,9 @@ def _cosine(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def engine_check(cfg, failures):
-    """Phase 5: the engine cut to 1 and to 2 layers, its prefill and 4
+    """Phase 6: the engine cut to 1 and to 2 layers, its prefill and 4
     decode steps (fed the same tokens) with the kernels against the same
-    forward with the four plain versions.
+    forward with the five plain versions.
 
     1 layer: logits cosine >= 0.999 and equal greedy tokens at every
     step. 2 layers: the forward of random dummy weights is chaotic at
@@ -414,14 +829,7 @@ def engine_check(cfg, failures):
             if layers == 2:
                 gen = torch.Generator(device="cuda")
                 gen.manual_seed(0)
-
-                def perturbed(xa, codes, scales, gs, gw, bias, out_dtype):
-                    y = gk.gemm_w8_plain(xa, codes, scales, gs, gw, bias,
-                                         torch.float32)
-                    y = y * (1 + 2.0 ** -22 * torch.randn(
-                        y.shape, generator=gen, device=y.device))
-                    return y.to(out_dtype)
-                gk._gemm_w8_cuda = perturbed
+                gk._gemm_w8_cuda = _noisy_gemm(gen)
                 floor, _ = run(feed=fed)
         for i, (a, b) in enumerate(zip(got, want)):
             cos = _cosine(a, b)
@@ -443,6 +851,138 @@ def engine_check(cfg, failures):
                 failures.append(f"{what} engine vs plain: cos {cos}, "
                                 f"tokens equal {same}")
         del eng
+
+
+def _noise(y, gen):
+    """y (f32) times (1 + 2^-22 * N(0, 1)): a stand-in for another f32
+    summation order."""
+    return y * (1 + 2.0 ** -22 * torch.randn(y.shape, generator=gen,
+                                             device=y.device))
+
+
+def _noisy_attention(fn, gen):
+    """A paged attention plain version (query first, output first) whose
+    f32 output is perturbed before it is rounded to the query's dtype."""
+    def f(q, *a):
+        out = fn(q.float(), *a)
+        first = out[0] if isinstance(out, tuple) else out
+        first = _noise(first, gen).to(q.dtype)
+        return (first, *out[1:]) if isinstance(out, tuple) else first
+    return f
+
+
+def _noisy_gemm(gen):
+    """The w8 GEMM plain version with its f32 result perturbed before it
+    is rounded to the output dtype."""
+    from arcquant_tpu_torch.kernels import gemm as gk
+
+    def f(xa, codes, scales, gs, gw, bias, out_dtype):
+        return _noise(gk.gemm_w8_plain(xa, codes, scales, gs, gw, bias,
+                                       torch.float32), gen).to(out_dtype)
+    return f
+
+
+def serving_engine_check(cfg, failures):
+    """Phase 6, continued: the 1-layer engine with prefill_chunk 256,
+    kernels against plain versions:
+      chunked  the four prompts stream through the int4 pool in chunks;
+      suffix   a prefix prefill of (512, 256, 128, 0) tokens, then the
+               rest with those per-row starts;
+    each followed by 4 decode steps fed the same tokens, with the A4
+    prefill of the engine check and with serve.py's W4A16 one.
+
+    The bar is equal greedy tokens and a logits cosine at or above the
+    noise floor measured in the same run, at most 0.999: the reference
+    forward against itself with the f32 results of its plain versions
+    multiplied by (1 + 2^-22 * N(0, 1)) before rounding, the lowest
+    cosine of three such draws. paged_prefill's bf16 outputs differ from
+    the plain version's by one ulp on about 1% of elements, both equally
+    close to an f64 reference (phase 3 checks that at the serving shape),
+    and the A4 quantize of the o projection's input turns such flips into
+    logit-level changes; after a W4A16 prefill the GEMM's bf16 outputs do
+    the same through the int4 K/V codes."""
+    from arcquant_tpu_torch.config import QuantConfig
+    from arcquant_tpu_torch.engine import EngineConfig, InferenceEngine
+    from arcquant_tpu_torch.kernels import gemm as gk
+    from arcquant_tpu_torch.kernels import paged_decode as pdk
+    from arcquant_tpu_torch.models import quantized
+
+    cfg_l = cfg.replace(num_layers=1)
+    calib = quantized.identity_calib(cfg_l, SELECT_FRAC, device="cuda")
+    ecfg = EngineConfig(max_batch=len(PROMPT_LENS),
+                        max_seq_len=max(PROMPT_LENS) + NEW_TOKENS + 8,
+                        prefill_chunk=256)
+    a4 = QuantConfig(quant_type="NVFP4", use_kernels=True, weight_fmt="w8",
+                     act_scale="row", w_scale="channel",
+                     quantize_lm_head=True)
+    engines = {"A4": InferenceEngine.dummy(cfg_l, calib, a4, ecfg, seed=2,
+                                           device="cuda")}
+    engines["A16"] = InferenceEngine(
+        cfg_l, engines["A4"].qparams, calib, serving_qcfg(), ecfg,
+        device="cuda", quantize_params=False)
+    toks, lens, _ = engines["A4"]._pad_prompts(prompts_for(cfg_l, seed=2))
+    starts = np.asarray([512, 256, 128, 0], np.int32)
+    active = torch.ones(len(PROMPT_LENS), dtype=torch.bool)
+
+    def run(eng, case, feed=None):
+        state = eng.new_state()
+        if case == "suffix":
+            pre = np.where(np.arange(512)[None] < starts[:, None],
+                           toks[:, :512], 0)
+            _, state = eng.prefill(state, pre, starts)
+            suf = np.zeros_like(toks)
+            for i, s0 in enumerate(starts):
+                suf[i, :lens[i] - s0] = toks[i, s0:lens[i]]
+            logits, state = eng.prefill(state, suf, lens, starts=starts)
+        else:
+            logits, state = eng.prefill(state, toks, lens)
+        outs, fed = [logits.float().cpu()], []
+        for i in range(4):
+            cur = (logits.argmax(-1).to(torch.int32) if feed is None
+                   else feed[i])
+            fed.append(cur)
+            logits, state = eng.decode_step(state, cur, active)
+            outs.append(logits.float().cpu())
+        return outs, fed
+
+    for prec in ("A4", "A16"):
+        for case in ("chunked", "suffix"):
+            eng = engines[prec]
+            got, fed = run(eng, case)
+            floors = []
+            with PlainKernels():
+                want, _ = run(eng, case, feed=fed)
+                for seed in range(3):
+                    gen = torch.Generator(device="cuda")
+                    gen.manual_seed(seed)
+                    gk._gemm_w8_cuda = _noisy_gemm(gen)
+                    pdk._paged_prefill_cuda = _noisy_attention(
+                        pdk.paged_prefill_plain, gen)
+                    pdk._paged_decode_cuda = _noisy_attention(
+                        pdk.paged_decode_state_plain, gen)
+                    floors.append(run(eng, case, feed=fed)[0])
+            # tokens of the floor draws, for the log only
+            noisy_same = [all(bool(torch.equal(f[i].argmax(-1),
+                                               want[i].argmax(-1)))
+                              for i in range(len(want))) for f in floors]
+            for i, (a, b) in enumerate(zip(got, want)):
+                cos = _cosine(a, b)
+                same = bool(torch.equal(a.argmax(-1), b.argmax(-1)))
+                bar = min([0.999] + [_cosine(b, f[i]) for f in floors])
+                ok = cos >= bar and same
+                what = f"1-layer {case} ({prec} prefill) " + (
+                    "prefill" if i == 0 else f"decode {i}")
+                log(f"  {what}: logits cosine {cos:.6f}, greedy tokens "
+                    f"{'equal' if same else 'differ'} (bar: equal tokens, "
+                    f"cosine >= {bar:.6f}, the noise floor, at most 0.999) "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    failures.append(f"{what} engine vs plain: cos {cos}, "
+                                    f"tokens equal {same}")
+            log(f"  1-layer {case} ({prec} prefill): floor draws with tokens "
+                f"equal to the reference at every step: "
+                f"{sum(noisy_same)} of {len(noisy_same)}")
+    del engines
 
 
 def main() -> int:
@@ -476,22 +1016,34 @@ def main() -> int:
     summary = kernel_checks(cfg, Timer(), failures)
 
     log(f"[engine] {MODEL} full width, 28 layers, on {card}")
-    launches = engine_run(cfg, card, failures)
+    gen_launches, qparams, calib = engine_run(cfg, card, failures)
+
+    log(f"[serve] HTTP server, {MODEL} full width, 28 layers, on {card}")
+    serve_launches = serving_run(cfg, qparams, calib, card, failures)
+    del qparams, calib
+    torch.cuda.empty_cache()
 
     log("[engine check] 1 and 2 layers, kernels vs plain versions")
     engine_check(cfg, failures)
+    serving_engine_check(cfg, failures)
 
     if failures:
         for f in failures:
             print(f"FAIL: {f}", file=sys.stderr)
         return 1
+    # launches: over both main paths, generate() and the HTTP server
     kernels = []
     for name, (src, replaces) in KERNEL_INFO.items():
         s = summary[name]
-        kernels.append(dict(name=name, route="cuda", source=src,
-                            replaces=replaces, launches=launches[name],
-                            max_abs_err=s["max_abs_err"], ms=s["ms"],
-                            plain_ms=s["plain_ms"], shape=s["shape"]))
+        kernels.append(dict(
+            name=name, route="cuda", source=src, replaces=replaces,
+            launches=gen_launches[name] + serve_launches[name],
+            launches_by_path=dict(generate=gen_launches[name],
+                                  serve=serve_launches[name]),
+            max_abs_err=s["max_abs_err"], ms=s["ms"],
+            plain_ms=s["plain_ms"], bound_ms=s["bound_ms"],
+            bound_by=s["bound_by"], library_ms=s["library_ms"],
+            shape=s["shape"], card=card))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -87,10 +87,11 @@ def _port(run, route):
     calib = convert.calib_from_numpy(run["calib"])
     if route == "raw":
         return InferenceEngine(cfg, convert.params_from_numpy(run["params"]),
-                               calib, QuantConfig(**QKW), EngineConfig(**EKW))
+                               calib, QuantConfig(**QKW), EngineConfig(**EKW),
+                               device="cpu")
     return InferenceEngine(cfg, convert.qparams_from_numpy(run["qparams"]),
                            calib, QuantConfig(**QKW), EngineConfig(**EKW),
-                           quantize_params=False)
+                           device="cpu", quantize_params=False)
 
 
 def _assert_close(got, want, what):
@@ -136,29 +137,28 @@ def test_generate_and_decode_scan_match_jax(jax_run):
 def test_outside_the_slice_raises():
     cfg = get_model_config("test-tiny")
     calib = quantized.identity_calib(cfg)
-    with pytest.raises(NotImplementedError, match="prefill_chunk"):
-        EngineConfig(prefill_chunk=16)
-    with pytest.raises(NotImplementedError, match="dynamic_pages"):
-        EngineConfig(dynamic_pages=True)
-    for bad in (dict(weight_fmt="w4"), dict(act_bits=16),
-                dict(prefill_act_bits=16), dict(use_kernels=False),
+    for bad in (dict(weight_fmt="w4"), dict(use_kernels=False),
                 dict(act_scale="tensor"), dict(quantize_lm_head=False)):
         with pytest.raises(NotImplementedError):
             InferenceEngine.dummy(cfg, calib,
                                   QuantConfig(**{**QKW, **bad}),
-                                  EngineConfig(**EKW))
+                                  EngineConfig(**EKW), device="cpu")
     eng = InferenceEngine.dummy(cfg, calib, QuantConfig(**QKW),
-                                EngineConfig(**EKW))
-
-    class Sampling:
-        is_greedy = False
-    with pytest.raises(NotImplementedError, match="sampling"):
-        eng.generate([[1, 2]], 2, sampling=Sampling())
+                                EngineConfig(**EKW), device="cpu")
+    from arcquant_tpu_torch.engine import ContinuousBatcher
+    with pytest.raises(NotImplementedError, match="spec"):
+        ContinuousBatcher(eng, spec_window=3)
+    if not torch.cuda.is_available():
+        # the entry points default to the card and never fall back
+        with pytest.raises(RuntimeError, match="CUDA"):
+            InferenceEngine.dummy(cfg, calib, QuantConfig(**QKW),
+                                  EngineConfig(**EKW))
 
 
 def test_port_runs_without_jax():
-    """Importing arcquant_tpu_torch and serving a tiny dummy engine loads
-    neither jax nor the JAX package."""
+    """Importing arcquant_tpu_torch, generating with a tiny dummy engine
+    and serving two HTTP requests through ServingLoop load neither jax
+    nor the JAX package."""
     code = (
         "import sys, torch\n"
         "from arcquant_tpu_torch.config import QuantConfig, get_model_config\n"
@@ -170,9 +170,32 @@ def test_port_runs_without_jax():
         "    cfg, quantized.identity_calib(cfg, 0.125),\n"
         "    QuantConfig(w_scale='channel', act_scale='row',\n"
         "                quantize_lm_head=True),\n"
-        "    EngineConfig(max_batch=2, max_seq_len=32, page_size=16))\n"
+        "    EngineConfig(max_batch=2, max_seq_len=32, page_size=16,\n"
+        "                 dynamic_pages=True, prefill_chunk=16,\n"
+        "                 prefix_sharing=True), device='cpu')\n"
         "out = eng.generate([[1, 2, 3], [4]], 3)\n"
         "assert len(out) == 2 and all(len(o) == 3 for o in out), out\n"
+        "import http.client, json, threading\n"
+        "from arcquant_tpu_torch.engine import ContinuousBatcher\n"
+        "from arcquant_tpu_torch.engine.server import ServingLoop, make_server\n"
+        "loop = ServingLoop(ContinuousBatcher(eng))\n"
+        "srv = make_server(loop, port=0)\n"
+        "threading.Thread(target=srv.serve_forever, daemon=True).start()\n"
+        "res = []\n"
+        "def post(p):\n"
+        "    c = http.client.HTTPConnection('127.0.0.1', srv.server_address[1],\n"
+        "                                   timeout=120)\n"
+        "    c.request('POST', '/v1/completions',\n"
+        "              json.dumps({'prompt': p, 'max_tokens': 3}))\n"
+        "    r = c.getresponse()\n"
+        "    res.append((r.status, json.loads(r.read())))\n"
+        "ts = [threading.Thread(target=post, args=(p,))\n"
+        "      for p in ([1, 2, 3] * 7, [4])]\n"
+        "[t.start() for t in ts]\n"
+        "[t.join(120) for t in ts]\n"
+        "srv.shutdown(); loop.shutdown()\n"
+        "assert [s for s, _ in res] == [200, 200], res\n"
+        "assert all(len(o['tokens']) == 3 for _, o in res), res\n"
         "bad = [m for m in sys.modules\n"
         "       if m == 'jax' or m.startswith(('jax.', 'arcquant_tpu.'))\n"
         "       or m == 'arcquant_tpu']\n"

@@ -1,4 +1,4 @@
-"""The four CUDA kernels of arcquant_tpu_torch held against their plain
+"""The five CUDA kernels of arcquant_tpu_torch held against their plain
 PyTorch versions on the card, at small shapes with ragged edges.
 
 Every test is marked ``gpu`` and skips when torch sees no CUDA device.
@@ -17,6 +17,7 @@ from arcquant_tpu_torch.config import get_model_config
 from arcquant_tpu_torch.kernels import attention, gemm as gk
 from arcquant_tpu_torch.kernels import paged_decode as pdk
 from arcquant_tpu_torch.kernels import quantize as qk
+from arcquant_tpu_torch.quant import numerics as N
 from arcquant_tpu_torch.quant import packing
 from arcquant_tpu_torch.testing import (gpu, outlier_x, require_cuda,
                                         to_numpy)
@@ -87,6 +88,30 @@ def test_gemm_w8(m, n, bias):
         assert_summation_order_close(y, ref, dt == torch.float32)
 
 
+@pytest.mark.parametrize("m", [4, 256])
+def test_gemm_w8_bf16_activations_accumulate_in_f32(m):
+    """W4A16 prefill operands (bf16 activations, unit scale) over a long
+    K: the kernel's mean relative error against f64 stays within 2x the
+    plain f32 version's (tensor-core sums carried across every k-step
+    lose several times that)."""
+    require_cuda()
+    rng = np.random.default_rng(50 + m)
+    k, n = 4096, 512
+    w = _bf16(rng.standard_normal((n, k)) * k ** -0.5)
+    pw = packing.pack_weight_arc(w, torch.arange(k).cuda(), 0,
+                                 w_scale="channel")
+    xa = _bf16(rng.standard_normal((m, k)))
+    gs = torch.ones((m, 1), device="cuda")
+    gw = pw.global_scale.reshape(1, -1)
+    args = (xa, pw.codes, pw.scales, gs, gw, None, torch.float32)
+    s = N.ue4m3_from_bytes(pw.scales).double() * 0.5
+    wd = pw.codes.double() * s.repeat_interleave(N.NVFP4_GROUP, dim=0)
+    f64 = (xa.double() @ wd) * gw.double()
+    err = [float(((y.double() - f64).abs().mean() / f64.abs().mean()))
+           for y in (gk._gemm_w8_cuda(*args), gk.gemm_w8_plain(*args))]
+    assert err[0] <= 2.0 * err[1], err
+
+
 @pytest.mark.parametrize("b,tq,tk,hq,hkv,dh,q_offset", [
     (2, 40, 40, 4, 2, 64, 0), (1, 130, 130, 14, 2, 128, 0),
     (2, 24, 100, 4, 2, 128, 76)])
@@ -129,4 +154,44 @@ def test_paged_decode(seq_lens):
     np.testing.assert_allclose(to_numpy(m), to_numpy(pm), rtol=1e-5,
                                atol=1e-5)
     np.testing.assert_allclose(to_numpy(l), to_numpy(pl), rtol=1e-4)
+    assert (to_numpy(o)[np.asarray(seq_lens) == 0] == 0).all()
+
+
+@pytest.mark.parametrize("heads,page,tq,starts,seq_lens", [
+    ((14, 2, 128), 128, 20, [280, 130, 0, 20], [300, 150, 0, 35]),
+    ((14, 2, 128), 128, 37, [0, 100, 0, 3], [37, 137, 0, 30]),
+    ((4, 2, 64), 16, 29, [16, 4, 0, 40], [45, 24, 0, 60])])
+def test_paged_prefill(heads, page, tq, starts, seq_lens):
+    """g = 7 with Dh = 128 and g = 2 with Dh = 64; ragged per-row starts,
+    an idle row, rows padded past their length, Tq not a multiple of the
+    kernel's query tile. Bar: 1 bf16 ulp + 2e-3 on every query at a
+    position < seq; idle rows exactly 0."""
+    require_cuda()
+    hq, hkv, dh = heads
+    cfg = get_model_config("test-tiny").replace(
+        num_heads=hq, num_kv_heads=hkv, head_dim=dh, num_layers=1)
+    bsz, pps = 4, -(-max(seq_lens) // page)
+    rng = np.random.default_rng(tq)
+    cache = paged.init_cache(cfg, 1 + bsz * pps, page, "cuda")
+    # rows own scattered pages, in reverse order
+    pt = (bsz * pps - torch.arange(bsz * pps).reshape(bsz, pps)).to(
+        torch.int32).cuda()
+    t = pps * page
+    kv = [_bf16(rng.standard_normal((bsz, t, hkv, dh)) * 2)
+          for _ in range(2)]
+    pos = torch.arange(t)[None].expand(bsz, t).cuda()
+    sl = torch.tensor(seq_lens, dtype=torch.int32, device="cuda")
+    st = torch.tensor(starts, dtype=torch.int32, device="cuda")
+    pos = torch.where(pos < sl[:, None], pos, -1)
+    paged.append_kv(cache, 0, kv[0], kv[1], pt, pos)
+    q = _bf16(rng.standard_normal((bsz, tq, hq, dh)) * 2)
+    args = (q, cache.codes[0], cache.params[0], pt, st, sl)
+    o = pdk._paged_prefill_cuda(*args)
+    po = pdk.paged_prefill_plain(*args)
+    torch.cuda.synchronize()
+    live = to_numpy(st[:, None] + torch.arange(tq, device="cuda")[None]
+                    < sl[:, None])
+    np.testing.assert_allclose(to_numpy(o)[live], to_numpy(po)[live],
+                               rtol=2.0 ** -7, atol=2e-3)
+    assert np.isfinite(to_numpy(o)).all()
     assert (to_numpy(o)[np.asarray(seq_lens) == 0] == 0).all()
