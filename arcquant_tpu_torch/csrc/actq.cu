@@ -11,82 +11,31 @@
 // 16-group per thread: xs = x / gx (the one true division, IEEE), group
 // scale ue4m3(absmax(xs) * f32(1/6)), e2m1 qdq in product space, and
 // writes xa = value * scale as bf16 (exact: <= 7 significant bits),
-// zero-filling [k, kq).
+// zero-filling [k, kq). The two passes are actq_core.cuh:actq_row, which
+// the decode megakernels (mlp_fused.cu) run too.
 //
 // Bound on the H100: device-memory bytes (2 bytes read per input
 // element, 2 written per output element, about 4 flops each). The row
 // is read from HBM once (the second pass reads shared memory); stores
 // are 16-byte vectors. Rows are independent, so M = 4096 fills the card;
-// at decode (M = 4) the launch is latency-bound, which later fusion
-// into the GEMM prologue addresses.
+// at decode (M = 4) the launch is latency-bound, which the megakernels
+// address by folding the quantize into the GEMM's launch.
 //
 // Rounding points follow the JAX kernel exactly: rmsnorm normalises in
 // f32 with 1/sqrtf (correctly rounded, not rsqrtf), rounds to bf16,
 // then multiplies by w in bf16; silu(g)*u is computed in f32 with expf
 // and rounded to bf16 before quantizing.
-#include "common.cuh"
+#include "actq_core.cuh"
 
-enum { kModePlain = 0, kModeRmsnorm = 1, kModeSiluMul = 2 };
-
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(kActqThreads)
 actq_kernel(const bf16* __restrict__ a, int64_t lda, const bf16* __restrict__ w,
             bf16* __restrict__ xa, float* __restrict__ gx, int k, int kq, int mode,
             float eps) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* row = reinterpret_cast<bf16*>(smem_raw);  // k pre-op values (exact in bf16)
   __shared__ float red[32];
   const int64_t m = blockIdx.x;
-  const bf16* src = a + m * lda;
-  const int tid = threadIdx.x, nt = blockDim.x;
-
-  float inv_rms = 0.0f;
-  if (mode == kModeRmsnorm) {
-    float ss = 0.0f;
-    for (int i = tid; i < k; i += nt) {
-      const float v = bf2f(src[i]);
-      ss += v * v;
-    }
-    ss = block_reduce(ss, red, SumOp(), 0.0f);
-    inv_rms = 1.0f / sqrtf(ss / (float)k + eps);
-  }
-
-  float amax = 0.0f;
-  for (int i = tid; i < k; i += nt) {
-    bf16 v;
-    if (mode == kModeRmsnorm) {
-      v = __hmul(f2bf(bf2f(src[i]) * inv_rms), w[i]);
-    } else if (mode == kModeSiluMul) {
-      const float g = bf2f(src[i]), u = bf2f(src[i + k]);
-      v = f2bf((g * (1.0f / (1.0f + expf(-g)))) * u);
-    } else {
-      v = src[i];
-    }
-    row[i] = v;
-    amax = fmaxf(amax, fabsf(bf2f(v)));
-  }
-  amax = block_reduce(amax, red, MaxOp(), 0.0f);
-  const float g = fmaxf(amax * kInvNvfp4GlobalDiv, 1e-12f);
-
-  bf16* dst = xa + m * (int64_t)kq;
-  for (int grp = tid; grp < k / 16; grp += nt) {
-    float xs[16];
-    float gmax = 0.0f;
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      xs[j] = bf2f(row[grp * 16 + j]) / g;
-      gmax = fmaxf(gmax, fabsf(xs[j]));
-    }
-    const float sc = ue4m3_qdq(gmax * kInvE2m1Max);
-    __align__(16) bf16 outv[16];
-#pragma unroll
-    for (int j = 0; j < 16; ++j) outv[j] = f2bf(e2m1_qdq(xs[j], sc));
-    uint4* d4 = reinterpret_cast<uint4*>(dst + grp * 16);
-    d4[0] = reinterpret_cast<const uint4*>(outv)[0];
-    d4[1] = reinterpret_cast<const uint4*>(outv)[1];
-  }
-  const bf16 zero = f2bf(0.0f);
-  for (int i = k + tid; i < kq; i += nt) dst[i] = zero;
-  if (tid == 0) gx[m] = g;
+  actq_row(a + m * lda, w, xa + m * (int64_t)kq, gx + m, k, kq, mode, eps,
+           reinterpret_cast<bf16*>(smem_raw), red);
 }
 
 // a: [M, lda] bf16 rows (the first k columns are x; silu_mul reads gate
@@ -98,7 +47,7 @@ ARC_EXPORT int arc_actq(const void* a, int64_t lda, const void* w, void* xa, voi
   cudaFuncSetAttribute(actq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem);
   if (m > 0)
-    actq_kernel<<<m, 256, smem, (cudaStream_t)stream>>>(
+    actq_kernel<<<m, kActqThreads, smem, (cudaStream_t)stream>>>(
         (const bf16*)a, lda, (const bf16*)w, (bf16*)xa, (float*)gx, k, kq, mode, eps);
   return (int)cudaGetLastError();
 }

@@ -26,176 +26,30 @@
 // decodes a 32 x 128 weight tile into shared memory once per block and
 // prefetches the next tile's codes, scales and activations into
 // registers while the current one multiplies. TMA, wgmma and a deeper
-// pipeline are later work.
-#include <mma.h>
-
-#include "common.cuh"
-
-using namespace nvcuda;
+// pipeline are later work. The tile (mainloop, promotion, epilogue) and
+// the split-K sum are gemm_w8_core.cuh, which the decode megakernels
+// (mlp_fused.cu) run too, so that they give this chain's bits.
+#include "gemm_w8_core.cuh"
 
 namespace {
 
-constexpr int BK = 32;
+using w8::BK;
 
+// Two resident blocks per SM: the 128x128 tile needs them to keep its
+// weight and activation loads in flight (the cap is 128 registers).
 template <int BM, int BN, int WM, int WN>
-__global__ void __launch_bounds__(WM * WN * 32)
+__global__ void __launch_bounds__(WM * WN * 32, 2)
 gemm_w8_kernel(const bf16* __restrict__ xa, const int8_t* __restrict__ codes,
                const uint8_t* __restrict__ scales, const float* __restrict__ gs,
                const float* __restrict__ gw,
                const bf16* __restrict__ bias, void* __restrict__ out, int out_f32,
                float* __restrict__ partial, int M, int N, int Kq, int tiles_per_split) {
-  constexpr int NT = WM * WN * 32;
-  constexpr int WTM = BM / WM, WTN = BN / WN;
-  constexpr int FM = WTM / 16, FN = WTN / 16;
-  constexpr int LDA = BK + 8, LDB = BN + 8;
-  constexpr int A_CHUNKS = BM * BK / 8;   // 8 bf16 per 16-byte chunk
-  constexpr int B_CHUNKS = BK * BN / 16;  // 16 codes per 16-byte chunk
-  constexpr int A_PER_T = (A_CHUNKS + NT - 1) / NT;
-  constexpr int B_PER_T = (B_CHUNKS + NT - 1) / NT;
-
-  __shared__ __align__(128) bf16 As[BM * LDA];
-  __shared__ __align__(128) bf16 Bs[BK * LDB];
-  __shared__ __align__(128) float Cs[WM * WN][16 * 16];
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp / WN, wn = warp % WN;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  using T = w8::Tile<BM, BN, WM, WN>;
+  __shared__ typename T::Smem sm;
   const int kt0 = blockIdx.z * tiles_per_split;
   const int kt1 = min(kt0 + tiles_per_split, Kq / BK);
-  const bool vec_n = (N % 16) == 0;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FM][FN];
-#pragma unroll
-  for (int i = 0; i < FM; ++i)
-#pragma unroll
-    for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  uint4 a_reg[A_PER_T], c_reg[B_PER_T], s_reg[B_PER_T];
-
-  auto load_tile = [&](int kt) {
-#pragma unroll
-    for (int i = 0; i < A_PER_T; ++i) {
-      const int c = tid + i * NT;
-      a_reg[i] = make_uint4(0, 0, 0, 0);
-      if (c < A_CHUNKS) {
-        const int r = c / (BK / 8), kc = (c % (BK / 8)) * 8;
-        if (m0 + r < M)
-          a_reg[i] = *reinterpret_cast<const uint4*>(xa + (int64_t)(m0 + r) * Kq + kt * BK + kc);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < B_PER_T; ++i) {
-      const int c = tid + i * NT;
-      c_reg[i] = make_uint4(0, 0, 0, 0);
-      s_reg[i] = make_uint4(0, 0, 0, 0);
-      if (c < B_CHUNKS) {
-        const int r = c / (BN / 16), nc = (c % (BN / 16)) * 16;
-        const int gk = kt * BK + r, gn = n0 + nc;
-        const int8_t* cp = codes + (int64_t)gk * N + gn;
-        const uint8_t* sp = scales + (int64_t)(gk / 16) * N + gn;
-        if (vec_n && gn + 16 <= N) {
-          c_reg[i] = *reinterpret_cast<const uint4*>(cp);
-          s_reg[i] = *reinterpret_cast<const uint4*>(sp);
-        } else {
-          uint8_t* cb = reinterpret_cast<uint8_t*>(&c_reg[i]);
-          uint8_t* sb = reinterpret_cast<uint8_t*>(&s_reg[i]);
-          for (int j = 0; j < 16 && gn + j < N; ++j) {
-            cb[j] = (uint8_t)cp[j];
-            sb[j] = sp[j];
-          }
-        }
-      }
-    }
-  };
-
-  auto store_tile = [&]() {
-#pragma unroll
-    for (int i = 0; i < A_PER_T; ++i) {
-      const int c = tid + i * NT;
-      if (c < A_CHUNKS) {
-        const int r = c / (BK / 8), kc = (c % (BK / 8)) * 8;
-        *reinterpret_cast<uint4*>(As + r * LDA + kc) = a_reg[i];
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < B_PER_T; ++i) {
-      const int c = tid + i * NT;
-      if (c < B_CHUNKS) {
-        const int r = c / (BN / 16), nc = (c % (BN / 16)) * 16;
-        const int8_t* cb = reinterpret_cast<const int8_t*>(&c_reg[i]);
-        const uint8_t* sb = reinterpret_cast<const uint8_t*>(&s_reg[i]);
-        __align__(16) bf16 wv[16];
-#pragma unroll
-        for (int j = 0; j < 16; ++j)
-          wv[j] = f2bf((float)cb[j] * (ue4m3_decode(sb[j]) * 0.5f));
-        uint4* dst = reinterpret_cast<uint4*>(Bs + r * LDB + nc);
-        dst[0] = reinterpret_cast<const uint4*>(wv)[0];
-        dst[1] = reinterpret_cast<const uint4*>(wv)[1];
-      }
-    }
-  };
-
-  if (kt0 < kt1) load_tile(kt0);
-  for (int kt = kt0; kt < kt1; ++kt) {
-    store_tile();
-    __syncthreads();
-    if (kt + 1 < kt1) load_tile(kt + 1);
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> part[FM][FN];
-#pragma unroll
-    for (int i = 0; i < FM; ++i)
-#pragma unroll
-      for (int j = 0; j < FN; ++j) wmma::fill_fragment(part[i][j], 0.0f);
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af[FM];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr[FN];
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-        wmma::load_matrix_sync(af[i], As + (wm * WTM + i * 16) * LDA + kk, LDA);
-#pragma unroll
-      for (int j = 0; j < FN; ++j)
-        wmma::load_matrix_sync(bfr[j], Bs + kk * LDB + wn * WTN + j * 16, LDB);
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-#pragma unroll
-        for (int j = 0; j < FN; ++j) wmma::mma_sync(part[i][j], af[i], bfr[j], part[i][j]);
-    }
-    // promote: accumulator fragments of one shape share their layout
-#pragma unroll
-    for (int i = 0; i < FM; ++i)
-#pragma unroll
-      for (int j = 0; j < FN; ++j)
-#pragma unroll
-        for (int e = 0; e < part[i][j].num_elements; ++e)
-          acc[i][j].x[e] = __fadd_rn(acc[i][j].x[e], part[i][j].x[e]);
-    __syncthreads();
-  }
-
-  float* cs = Cs[warp];
-#pragma unroll
-  for (int i = 0; i < FM; ++i) {
-#pragma unroll
-    for (int j = 0; j < FN; ++j) {
-      wmma::store_matrix_sync(cs, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int gm = m0 + wm * WTM + i * 16 + e / 16;
-        const int gn = n0 + wn * WTN + j * 16 + e % 16;
-        if (gm < M && gn < N) {
-          const float v = cs[e];
-          if (partial != nullptr) {
-            partial[((int64_t)blockIdx.z * M + gm) * N + gn] = v;
-          } else {
-            float y = __fmul_rn(__fmul_rn(v, gs[gm]), gw[gn]);
-            if (bias != nullptr) y = __fadd_rn(y, bf2f(bias[gn]));
-            if (out_f32) reinterpret_cast<float*>(out)[(int64_t)gm * N + gn] = y;
-            else reinterpret_cast<bf16*>(out)[(int64_t)gm * N + gn] = f2bf(y);
-          }
-        }
-      }
-      __syncwarp();
-    }
-  }
+  w8::gemm_tile<T, false>(xa, codes, scales, gs, gw, bias, out, out_f32, partial, blockIdx.z, M,
+                   N, Kq, blockIdx.y * BM, blockIdx.x * BN, kt0, kt1, sm);
 }
 
 // Sums the split-K partials in split order, then the same epilogue.
@@ -206,13 +60,8 @@ __global__ void splitk_reduce_kernel(const float* __restrict__ partial, int spli
                                      int out_f32, int M, int N) {
   const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= (int64_t)M * N) return;
-  const int gm = (int)(idx / N), gn = (int)(idx % N);
-  float v = 0.0f;
-  for (int s = 0; s < splits; ++s) v += partial[(int64_t)s * M * N + idx];
-  float y = __fmul_rn(__fmul_rn(v, gs[gm]), gw[gn]);
-  if (bias != nullptr) y = __fadd_rn(y, bf2f(bias[gn]));
-  if (out_f32) reinterpret_cast<float*>(out)[idx] = y;
-  else reinterpret_cast<bf16*>(out)[idx] = f2bf(y);
+  const float v = w8::sum_splits(partial, splits, (int64_t)M * N, idx);
+  w8::store_out(v, idx, (int)(idx / N), (int)(idx % N), gs, gw, bias, out, out_f32);
 }
 
 }  // namespace

@@ -19,9 +19,15 @@ PyTorch runs eagerly, so there is no jit. The pool is preallocated by
 ``new_state`` and every step writes into it in place (the JAX engine's
 buffer donation); the returned state holds the same tensors.
 
-The engine runs the unfused chain: the JAX engine's MLP and quantize+GEMM
-megakernels (kernels/mlp_fused.py) are pinned bit for bit to this chain
-by the JAX package's own tests, and are still to be ported.
+Where the JAX engine's gates engage its decode megakernels
+(kernels/mlp_fused.py: W4A4 sites of 4 to 16 rows, per-row scales, w8
+weights), the port takes its own, in JAX's order: quantize + GEMM in one
+launch at a select-free attn_in (with the rmsnorm) and o_in; the whole
+MLP in one launch when down_in is select-free (folding the rmsnorm when
+mlp_in is select-free too); gateup + silu*mul + quantize in one launch,
+then the ARC residual in torch and the down GEMM, when down_in has a
+residual. They equal the unfused chain bit for bit; the chain runs
+everywhere else, and everywhere with ``fused_decode=False``.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ import torch
 from ..cache import paged
 from ..config import KV_PAGE_SIZE, ModelConfig, QuantConfig
 from ..kernels import attention, gemm as gk
+from ..kernels import mlp_fused as mf
 from ..kernels import paged_decode as pdk
 from ..kernels import quantize as qk
 from ..models import llama, quantized
@@ -97,11 +104,30 @@ def _norm_quantize(x2, norm_w, eps, site, qcfg):
                                    qcfg)
 
 
-def _attn_common(cfg, p, x2, layer_calib, qcfg, b, t, norm_w):
+def _fused_ok(qcfg, fused: bool) -> bool:
+    """The fused routes' common precondition: W4A4 sites (per-row scales
+    are the only ones ported), and the engine's switch."""
+    return fused and qcfg.act_bits == 4
+
+
+def _single_gemm_fused_ok(pw, site, m, d, qcfg, fused):
+    """Gate for the quantize + GEMM megakernel at an attn_in or o_in
+    site: a select-free site on the actq kernel's shapes."""
+    return (_fused_ok(qcfg, fused) and qk.actq_ok(m, d, pw.kq)
+            and mf.gemm_actq_ok(pw, m, d, True, site.select_num))
+
+
+def _attn_common(cfg, p, x2, layer_calib, qcfg, b, t, norm_w, fused=False):
     """rmsnorm + quantize + fused qkv GEMM, split into heads."""
-    xa, gx = _norm_quantize(x2, norm_w, cfg.rms_eps,
-                            layer_calib["attn_in"], qcfg)
-    qkv = quantized._q_linear(p["qkv"], xa, gx, x2.dtype)
+    m, d = x2.shape
+    if _single_gemm_fused_ok(p["qkv"], layer_calib["attn_in"], m, d, qcfg,
+                             fused):
+        qkv, _ = mf.gemm_w8_actq_fused(x2, p["qkv"], d, out_dtype=x2.dtype,
+                                       norm_w=norm_w, norm_eps=cfg.rms_eps)
+    else:
+        xa, gx = _norm_quantize(x2, norm_w, cfg.rms_eps,
+                                layer_calib["attn_in"], qcfg)
+        qkv = quantized._q_linear(p["qkv"], xa, gx, x2.dtype)
     qs, kvs = cfg.q_size, cfg.kv_size
     q = qkv[:, :qs].reshape(b, t, cfg.num_heads, cfg.head_dim)
     k = qkv[:, qs:qs + kvs].reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
@@ -109,27 +135,57 @@ def _attn_common(cfg, p, x2, layer_calib, qcfg, b, t, norm_w):
     return q, k, v
 
 
-def _o_proj(cfg, p, attn, layer_calib, qcfg, b, t):
+def _o_proj(cfg, p, attn, layer_calib, qcfg, b, t, fused=False):
     attn2 = attn.reshape(b * t, cfg.q_size)
+    if _single_gemm_fused_ok(p["o"], layer_calib["o_in"], b * t,
+                             cfg.q_size, qcfg, fused):
+        y, _ = mf.gemm_w8_actq_fused(attn2, p["o"], cfg.q_size,
+                                     out_dtype=attn.dtype)
+        return y.reshape(b, t, -1)
     oa, go = quantized._act_quantize(attn2, layer_calib["o_in"], qcfg)
     return quantized._q_linear(p["o"], oa, go, attn.dtype).reshape(b, t, -1)
 
 
-def _mlp(cfg, p, x, layer_calib, qcfg, norm_w):
+def _mlp(cfg, p, x, layer_calib, qcfg, norm_w, fused=False):
     b, t, d = x.shape
-    x2 = x.reshape(b * t, d)
+    m = b * t
+    x2 = x.reshape(m, d)
+    gate_up, down = p["gateup"], p["down"]
+    f = gate_up.n // 2
+    sel2 = layer_calib["down_in"].select_num
+    fok = _fused_ok(qcfg, fused)
+    if (fok and layer_calib["mlp_in"].select_num == 0
+            and qk.actq_ok(m, d, gate_up.kq)
+            and mf.mlp_fused_ok(gate_up, down, m, f, True, sel2)):
+        # the whole MLP, its rmsnorm + quantize included, in one launch
+        out, _, _ = mf.mlp_w8_fused(x2, None, gate_up, down, f,
+                                    out_dtype=x.dtype, norm_w=norm_w,
+                                    norm_eps=cfg.rms_eps)
+        return out.reshape(b, t, d)
     xa, gx = _norm_quantize(x2, norm_w, cfg.rms_eps,
                             layer_calib["mlp_in"], qcfg)
-    gu = quantized._q_linear(p["gateup"], xa, gx, x.dtype)
+    if fok and mf.mlp_fused_ok(gate_up, down, m, f, True, sel2):
+        out, _, _ = mf.mlp_w8_fused(xa, gx, gate_up, down, f,
+                                    out_dtype=x.dtype)
+        return out.reshape(b, t, d)
     c = layer_calib["down_in"]
+    if fok and sel2 and mf.gu_actq_ok(gate_up, m, f, down.kq, True):
+        # gateup + silu*mul + quantize in one launch; the ARC residual of
+        # the selected columns is recomputed from gu, as the chain does
+        ia, gu, gi = mf.gateup_silu_quantize(xa, gx, gate_up, f, down.kq,
+                                             out_dtype=x.dtype)
+        idx = qk._top(c.reorder_index, sel2, x.device)
+        qk._arc_residual_into(qk._silu_mul(gu[:, idx], gu[:, idx + f]),
+                              ia, gi, idx, f)
+        return quantized._q_linear(down, ia, gi, x.dtype).reshape(b, t, d)
+    gu = quantized._q_linear(gate_up, xa, gx, x.dtype)
     if qcfg.act_bits == 4:
         ia, gi = qk.silu_mul_quantize_gu(gu, c.reorder_index, c.select_num,
                                          per_row=qcfg.act_scale == "row")
     else:   # silu * up in f32, rounded to the activation dtype
-        f = gu.shape[1] // 2
         ia, gi = quantized._act_quantize(qk._silu_mul(gu[:, :f], gu[:, f:]),
                                          c, qcfg)
-    return quantized._q_linear(p["down"], ia, gi, x.dtype).reshape(b, t, d)
+    return quantized._q_linear(down, ia, gi, x.dtype).reshape(b, t, d)
 
 
 def pack_lm_head(head: torch.Tensor, qcfg: QuantConfig,
@@ -192,16 +248,21 @@ class InferenceEngine:
 
     params holds either the raw bf16 layers (quantize_params=True, the
     engine packs them) or packed layers as built by
-    ``quantize_layer_params_fused`` (quantize_params=False)."""
+    ``quantize_layer_params_fused`` (quantize_params=False).
+
+    fused_decode=False keeps every site on the unfused chain (the A/B
+    reference of the decode megakernels); by default the megakernels run
+    where the JAX engine's gates engage them."""
 
     def __init__(self, cfg: ModelConfig, params, calib, qcfg: QuantConfig,
                  ecfg: EngineConfig, device="cuda",
-                 quantize_params: bool = True):
+                 quantize_params: bool = True, fused_decode: bool = True):
         if cfg.num_experts:
             raise NotImplementedError(
                 "MoE models are not ported (ROADMAP queue 1 item 10)")
         quantized.check_qcfg(qcfg)
         self.cfg, self.qcfg, self.ecfg = cfg, qcfg, ecfg
+        self.fused_decode = fused_decode
         # hybrid serving mode: the prefill forwards quantize with this,
         # decode with qcfg
         self.qcfg_prefill = (qcfg.replace(act_bits=qcfg.prefill_act_bits)
@@ -279,17 +340,18 @@ class InferenceEngine:
     # -- forward pieces ----------------------------------------------------
 
     def _layers(self, x, cos, sin, cache, pt, append_pos, attend, qcfg):
-        cfg = self.cfg
+        cfg, fused = self.cfg, self.fused_decode
         b, t, _ = x.shape
         for li, p in enumerate(self.qparams["layers"]):
             lc = self.calib[li]
             q, k, v = _attn_common(cfg, p, x.reshape(b * t, -1), lc, qcfg,
-                                   b, t, norm_w=p["attn_norm"])
+                                   b, t, norm_w=p["attn_norm"], fused=fused)
             q, k_r = llama.apply_rope(q, k, cos, sin)
             paged.append_kv(cache, li, k_r, v, pt, append_pos)
             attn = attend(li, q, k_r, v)
-            x = x + _o_proj(cfg, p, attn, lc, qcfg, b, t)
-            x = x + _mlp(cfg, p, x, lc, qcfg, norm_w=p["mlp_norm"])
+            x = x + _o_proj(cfg, p, attn, lc, qcfg, b, t, fused=fused)
+            x = x + _mlp(cfg, p, x, lc, qcfg, norm_w=p["mlp_norm"],
+                         fused=fused)
         return llama.rms_norm(x, self.qparams["final_norm"], cfg.rms_eps)
 
     def _prefill_forward(self, cache, pt, tokens, lens):

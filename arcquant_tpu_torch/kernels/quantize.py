@@ -9,8 +9,12 @@ selected columns into xa[:, k:k+KE].
 
 Routing follows the JAX package: the rmsnorm mode only when the site
 has no ARC residual (with ARC: rms_norm, then the plain mode, then the
-residual), and at M <= 16 ``silu_mul_quantize_gu`` rounds silu(g)*u to
-bf16 in torch and uses the plain mode.
+residual). ``silu_mul_quantize_gu`` takes the silu_mul mode at every M.
+The JAX package rounds silu(g)*u to bf16 in XLA at M <= 16 instead
+(ARC_SILU_GU_DEFUSE_M); on the CPU the two routes give the same bits,
+and on the card the kernel's expf is the one the decode megakernels
+(kernels/mlp_fused.py) run, so the chain they must equal bit for bit is
+this one.
 """
 
 from __future__ import annotations
@@ -26,9 +30,11 @@ from . import _build
 
 _MODES = {"plain": 0, "rmsnorm": 1, "silu_mul": 2}
 
-# M at or below which silu_mul_quantize_gu takes the torch silu*mul and
-# the plain mode (the JAX package's ARC_SILU_GU_DEFUSE_M default).
-SILU_GU_DEFUSE_M = 16
+# The least M at which the JAX package runs its actq kernel (the
+# _actq_pallas_min_m default); below it JAX quantizes through XLA. The
+# port's kernel runs at every M, but the fused decode routes keep JAX's
+# floor (actq_ok), so they engage on exactly JAX's shapes.
+ACTQ_MIN_M = 4
 
 ACTQ = _build.Kernel("actq", "arc_actq", [
     _build.P, _build.I64, _build.P, _build.P, _build.P,
@@ -86,6 +92,13 @@ def _actq_cuda(a: torch.Tensor, w: Optional[torch.Tensor] = None, *,
 def _actq(a, w=None, *, mode: str, k: int, kq: int, eps: float = 0.0):
     impl = actq_plain if a.device.type == "cpu" else _actq_cuda
     return impl(a, w, mode=mode, k=k, kq=kq, eps=eps)
+
+
+def actq_ok(m: int, k: int, kq: int) -> bool:
+    """Whether the JAX package would quantize an [m, k] activation into
+    width kq with its actq kernel (its _actq_pallas_ok at per-row
+    scales): the fused routes' precondition."""
+    return m >= ACTQ_MIN_M and k % 128 == 0 and kq % 128 == 0
 
 
 def _arc_residual_into(x_cols: torch.Tensor, xa: torch.Tensor,
@@ -149,13 +162,9 @@ def silu_mul_quantize_gu(gu: torch.Tensor, reorder_index: torch.Tensor,
     [M, 2F] gate-up output. The product rounds to gu.dtype before the
     quantize on every route."""
     _check_per_row(per_row)
-    m, k2 = gu.shape
-    k = k2 // 2
+    k = gu.shape[1] // 2
     if kq is None:
         kq = packing.pad_kq(k, select_num)
-    if m <= SILU_GU_DEFUSE_M:
-        return quantize_x_arc(_silu_mul(gu[:, :k], gu[:, k:]),
-                              reorder_index, select_num, kq, per_row)
     xa, gx = _actq(gu, None, mode="silu_mul", k=k, kq=kq)
     if select_num:
         idx = _top(reorder_index, select_num, gu.device)

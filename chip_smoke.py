@@ -11,7 +11,9 @@ Phases, each printed as it runs:
      kernel's representative shape its bound (the larger of its FLOPs
      over 989 TFLOP/s and its bytes over 3.35 TB/s, an H100 SXM's dense
      bf16 and HBM3 peaks) and the time of one PyTorch call computing the
-     same function (timed here only, never used by the port);
+     same function (timed here only, never used by the port); the three
+     decode megakernels at M 4, 8 and 16 also against the port's CUDA
+     chain of the same function (bitwise) and with the chain's time;
   4. the engine at Qwen2.5-7B full width, all 28 layers, dummy weights,
      ARC select_frac 0.125, packed W4A16 head: 4 requests (prompts of
      1024, 777, 301 and 64 tokens) served by ``generate`` for 32 greedy
@@ -24,9 +26,16 @@ Phases, each printed as it runs:
      twelve concurrent requests of 32 tokens in two waves, with the
      launch counts, TTFT, output tokens/s, prefill tokens skipped by
      sharing and peak device memory;
-  6. the same engine cut to 1 and to 2 layers, its prefill and 4 decode
-     steps against the same forward with the five plain versions patched
-     in, then at 1 layer chunked and suffix prefill (see engine_check and
+  6. the select-free path (select_frac 0, the north-star configuration's
+     sites): the same 4 requests through ``generate`` on 28 packed layers
+     from seed 0, whose decode runs the megakernels (quantize + GEMM at
+     attn_in and o_in, the whole MLP), with the launch counts, prefill
+     ms, decode ms/step, tok/s and peak memory; then the same weights in
+     an engine with fused_decode=False fed the same tokens, whose logits
+     must be bitwise equal at every step;
+  7. the same engine cut to 1 and to 2 layers, its prefill and 4 decode
+     steps against the same forward with the plain versions patched in,
+     then at 1 layer chunked and suffix prefill (see engine_check and
      serving_engine_check for the bars).
 The second-to-last line is the kernels' JSON summary, the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero before the
@@ -35,6 +44,7 @@ last line; without a CUDA device it exits 1 at once.
 
 from __future__ import annotations
 
+import gc
 import http.client
 import json
 import statistics
@@ -63,10 +73,23 @@ KERNEL_INFO = {
                      "arcquant_tpu/kernels/paged_decode.py:48"),
     "paged_prefill": ("arcquant_tpu_torch/csrc/paged_prefill.cu",
                       "arcquant_tpu/kernels/paged_decode.py:197"),
+    "mlp_w8": ("arcquant_tpu_torch/csrc/mlp_fused.cu",
+               "arcquant_tpu/kernels/mlp_fused.py:164"),
+    "gu_actq": ("arcquant_tpu_torch/csrc/mlp_fused.cu",
+                "arcquant_tpu/kernels/mlp_fused.py:211"),
+    "gemm_actq": ("arcquant_tpu_torch/csrc/mlp_fused.cu",
+                  "arcquant_tpu/kernels/mlp_fused.py:424"),
 }
-# The kernels each main path must launch.
-GENERATE_KERNELS = ("actq", "gemm_w8", "flash_attn", "paged_decode")
-SERVE_KERNELS = ("actq", "gemm_w8", "paged_prefill", "paged_decode")
+# The kernels each main path must launch, and those it must not: with ARC
+# every site has a residual, so only gu_actq of the megakernels engages.
+GENERATE_KERNELS = ("actq", "gemm_w8", "flash_attn", "paged_decode",
+                    "gu_actq")
+SERVE_KERNELS = ("actq", "gemm_w8", "paged_prefill", "paged_decode",
+                 "gu_actq")
+ARC_IDLE_KERNELS = ("gemm_actq", "mlp_w8")
+FREE_KERNELS = ("actq", "gemm_w8", "flash_attn", "paged_decode",
+                "gemm_actq", "mlp_w8")
+FREE_IDLE_KERNELS = ("gu_actq",)
 
 # H100 SXM published dense peaks (NVIDIA data sheet): bf16 tensor-core
 # FLOP/s and HBM3 bytes/s. A kernel's bound is the larger of its FLOPs
@@ -364,6 +387,7 @@ def kernel_checks(cfg, timer, failures):
            library_what="SDPA over the pool dequantized to bf16, call only")
     del cache, kd, vd
     paged_prefill_check(cfg, gen, timer, record)
+    fused_checks(cfg, gen, timer, record, summary)
     return summary
 
 
@@ -461,6 +485,148 @@ def paged_prefill_check(cfg, gen, timer, record):
            library_what="SDPA over the pool dequantized to bf16, call only")
 
 
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.contiguous().view(torch.int16 if t.element_size() == 2
+                               else torch.int32)
+
+
+def bitwise(got, want) -> bool:
+    return all(a.shape == b.shape and a.dtype == b.dtype
+               and torch.equal(_bits(a), _bits(b)) for a, b in zip(got, want))
+
+
+def fused_checks(cfg, gen, timer, record, summary):
+    """Phase 3, the decode megakernels at M 4, 8 and 16: the qkv (bias,
+    rmsnorm) and o (plain) sites of gemm_actq and the whole MLP (mlp_w8,
+    rmsnorm mode) with select-free packing, gu_actq with ARC select_frac
+    0.125 packing (kq1 4096, kq2 21504). Bars: every output bitwise equal
+    to the port's CUDA chain of the same function (kernels/mlp_fused.py
+    *_chain: actq, then gemm_w8 at its split-K), and each step against
+    its plain version over the same input: a GEMM output within the f32
+    sum order plus one bf16 ulp of gemm_w8_plain over the chain's
+    quantized activation, a silu_mul quantize within actq's bound of
+    actq_plain. max_abs_err is the largest such step error. The chain's
+    time is logged and kept beside the kernel's; no single PyTorch call
+    computes these functions (library: none)."""
+    from arcquant_tpu_torch.kernels import gemm as gk
+    from arcquant_tpu_torch.kernels import mlp_fused as mf
+    from arcquant_tpu_torch.kernels import quantize as qk
+    from arcquant_tpu_torch.quant import packing
+
+    h, f, eps = cfg.hidden_size, cfg.intermediate_size, cfg.rms_eps
+    bf = torch.bfloat16
+
+    def pack(n, k, sel, bias):
+        w = bf16_randn(gen, (n, k), k ** -0.5)
+        b = bf16_randn(gen, (n,), 0.1) if bias else None
+        ridx = torch.arange(k, device="cuda")
+        return packing.pack_weight_arc(w, ridx, sel, bias=b,
+                                       w_scale="channel")
+
+    def gemm_step(y, xa, gs, pw):
+        """(error, ok) of a GEMM output against gemm_w8_plain over xa."""
+        ref = gk.gemm_w8_plain(xa, pw.codes, pw.scales, gs, mf._gw(pw),
+                               pw.bias, y.dtype)
+        return (float((y.float() - ref.float()).abs().max()),
+                sum_order_bound(y, ref, y.dtype == torch.float32))
+
+    def silu_step(xa2, gx2, gu, f_, kq2):
+        pa, pg = qk.actq_plain(gu, None, mode="silu_mul", k=f_, kq=kq2)
+        return (float((xa2.float() - pa.float()).abs().max()),
+                one_step_bound(xa2, pa)
+                and bool(torch.allclose(gx2, pg, rtol=1e-2)))
+
+    def row(kernel, case, args, plain, chain, cuda, steps, work, rep):
+        got = cuda(*args)
+        want = chain(*args)
+        torch.cuda.synchronize()
+        same = bitwise(got, want)
+        errs = steps(got)
+        err = max(e for e, _ in errs)
+        ok = same and all(o for _, o in errs)
+        chain_ms = timer(lambda: chain(*args))
+        record(kernel, f"{case} bitwise-vs-chain={same}", err, ok,
+               timer(lambda: cuda(*args)), timer(lambda: plain(*args)),
+               "bitwise vs the CUDA chain; each step vs its plain version",
+               rep=rep, work=work(got))
+        log(f"  {'':13s} CUDA chain (actq -> gemm_w8 ...) {chain_ms:.4f} ms")
+        if rep:
+            summary[kernel]["chain_ms"] = chain_ms
+
+    nq = cfg.q_size + 2 * cfg.kv_size
+    sites = [("qkv", pack(nq, h, 0, True), h, True),
+             ("o", pack(h, cfg.q_size, 0, False), cfg.q_size, False)]
+    for name, pw, d, norm in sites:
+        nw = (bf16_randn(gen, (d,), 0.1) + 1).to(bf) if norm else None
+        mode = "rmsnorm" if norm else "plain"
+        for m in (4, 8, 16):
+            x = bf16_randn(gen, (m, d), 2.0)
+            args = (x, pw, d, bf, nw, eps)
+
+            def steps(got, x=x, nw=nw, mode=mode, pw=pw, d=d):
+                xa, gx = qk._actq_cuda(x, nw, mode=mode, k=d, kq=pw.kq,
+                                       eps=eps)
+                return [gemm_step(got[0], xa, gx, pw)]
+
+            def work(got, m=m, pw=pw, x=x, nw=nw):
+                return (2.0 * m * pw.kq * pw.n,
+                        _nbytes(x, nw, pw.codes, pw.scales, pw.global_scale,
+                                pw.bias, *got))
+            row("gemm_actq", f"{name} {mode} M={m} D={d} Kq={pw.kq} "
+                f"N={pw.n}", args, mf.gemm_actq_plain, mf.gemm_actq_chain,
+                mf._gemm_actq_cuda, steps, work,
+                rep=name == "qkv" and m == 4)
+        del pw
+
+    # the whole MLP, select-free (kq2 = pad_kq(18944, 0) = 19456)
+    pw_gu, pw_dn = pack(2 * f, h, 0, False), pack(h, f, 0, False)
+    nw = (bf16_randn(gen, (h,), 0.1) + 1).to(bf)
+    for m in (4, 8, 16):
+        x = bf16_randn(gen, (m, h), 2.0)
+        args = (x, None, pw_gu, pw_dn, f, bf, nw, eps)
+
+        def steps(got, x=x):
+            out, gu, gx2 = got
+            xa1, gx1 = qk._actq_cuda(x, nw, mode="rmsnorm", k=h,
+                                     kq=pw_gu.kq, eps=eps)
+            xa2, _ = qk._actq_cuda(gu, None, mode="silu_mul", k=f,
+                                   kq=pw_dn.kq)
+            return [gemm_step(gu, xa1, gx1, pw_gu),
+                    silu_step(xa2, gx2, gu, f, pw_dn.kq),
+                    gemm_step(out, xa2, gx2, pw_dn)]
+
+        def work(got, m=m, x=x):
+            return (2.0 * m * (pw_gu.kq * pw_gu.n + pw_dn.kq * pw_dn.n),
+                    _nbytes(x, nw, *pw_gu[:3], *pw_dn[:3], *got))
+        row("mlp_w8", f"rmsnorm M={m} D={h} F={f} Kq1={pw_gu.kq} "
+            f"Kq2={pw_dn.kq}", args, mf.mlp_w8_plain, mf.mlp_w8_chain,
+            mf._mlp_w8_cuda, steps, work, rep=m == 4)
+    del pw_gu, pw_dn
+
+    # gateup + silu*mul + quantize with ARC: the down_in width is 21504
+    sel1 = int(round(SELECT_FRAC * h / 64)) * 64
+    sel2 = int(round(SELECT_FRAC * f / 64)) * 64
+    pw_gu = pack(2 * f, h, sel1, False)
+    kq2 = packing.pad_kq(f, sel2)
+    for m in (4, 8, 16):
+        xa1, gs1 = qk.quantize_x_arc(bf16_randn(gen, (m, h), 2.0),
+                                     torch.arange(h, device="cuda"), sel1)
+        args = (xa1, gs1, pw_gu, f, kq2, bf)
+
+        def steps(got, xa1=xa1, gs1=gs1):
+            xa2, gu, gx2 = got
+            return [gemm_step(gu, xa1, gs1, pw_gu),
+                    silu_step(xa2, gx2, gu, f, kq2)]
+
+        def work(got, m=m, xa1=xa1, gs1=gs1):
+            return (2.0 * m * pw_gu.kq * pw_gu.n,
+                    _nbytes(xa1, gs1, *pw_gu[:3], *got))
+        row("gu_actq", f"M={m} Kq1={pw_gu.kq} N={pw_gu.n} Kq2={kq2}", args,
+            mf.gu_actq_plain, mf.gu_actq_chain, mf._gu_actq_cuda, steps,
+            work, rep=m == 4)
+    del pw_gu
+
+
 def prompts_for(cfg, seed=0):
     rng = np.random.default_rng(seed)
     return [rng.integers(0, cfg.vocab_size, n).tolist() for n in PROMPT_LENS]
@@ -506,6 +672,9 @@ def engine_run(cfg, card, failures):
     for name in GENERATE_KERNELS:
         if launches[name] <= 0:
             failures.append(f"kernel {name} not launched by generate()")
+    for name in ARC_IDLE_KERNELS:
+        if launches[name] != 0:
+            failures.append(f"kernel {name} launched by the ARC generate()")
     if [len(o) for o in out] != [NEW_TOKENS] * len(PROMPT_LENS):
         failures.append(f"generate lengths {[len(o) for o in out]}")
     flat = [t for o in out for t in o]
@@ -553,12 +722,135 @@ def engine_run(cfg, card, failures):
 
 
 def all_kernels():
-    """The five kernels' launch counters."""
+    """The eight kernels' launch counters."""
     from arcquant_tpu_torch.kernels import attention, gemm as gk
+    from arcquant_tpu_torch.kernels import mlp_fused as mf
     from arcquant_tpu_torch.kernels import paged_decode as pdk
     from arcquant_tpu_torch.kernels import quantize as qk
     return [qk.ACTQ, gk.GEMM_W8, attention.FLASH, pdk.PAGED_DECODE,
-            pdk.PAGED_PREFILL]
+            pdk.PAGED_PREFILL, mf.MLP_W8, mf.GU_ACTQ, mf.GEMM_ACTQ]
+
+
+def free_run(cfg, card, failures):
+    """Phase 6: the select-free path on 28 packed layers. Returns the
+    kernels' launch counts over generate().
+
+    Then the A/B: the same weights in an engine with fused_decode=False,
+    prefilled with the same prompts and fed the fused engine's greedy
+    tokens, two runs of each in turns (fused, unfused, unfused, fused),
+    timed; every step's logits must be bitwise equal across all four
+    (eager PyTorch runs the same ops on the same inputs apart from the
+    fused launches, so this bar does not meet the dummy model's noise
+    floor)."""
+    from arcquant_tpu_torch.config import QuantConfig
+    from arcquant_tpu_torch.engine import EngineConfig, InferenceEngine
+    from arcquant_tpu_torch.models import quantized
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    qcfg = QuantConfig(quant_type="NVFP4", use_kernels=True,
+                       weight_fmt="w8", act_scale="row", w_scale="channel",
+                       quantize_lm_head=True)
+    ecfg = EngineConfig(max_batch=len(PROMPT_LENS),
+                        max_seq_len=max(PROMPT_LENS) + NEW_TOKENS + 8)
+    calib = quantized.identity_calib(cfg, 0.0, device="cuda")
+    eng = InferenceEngine.dummy(cfg, calib, qcfg, ecfg, seed=0,
+                                device="cuda")
+    torch.cuda.synchronize()
+    build_peak = torch.cuda.max_memory_allocated()
+    log(f"  select-free engine built in {time.perf_counter() - t0:.1f} s, "
+        f"peak device memory {build_peak / 2 ** 30:.3f} GiB")
+    torch.cuda.reset_peak_memory_stats()
+    prompts = prompts_for(cfg)
+    kernels = all_kernels()
+    for k in kernels:
+        k.launches = 0
+    out = eng.generate(prompts, NEW_TOKENS)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels}
+    log(f"  launches in generate(): {launches}")
+    for name in FREE_KERNELS:
+        if launches[name] <= 0:
+            failures.append(f"kernel {name} not launched by the select-free "
+                            "generate()")
+    for name in FREE_IDLE_KERNELS:
+        if launches[name] != 0:
+            failures.append(f"kernel {name} launched by the select-free "
+                            "generate()")
+    if [len(o) for o in out] != [NEW_TOKENS] * len(PROMPT_LENS):
+        failures.append("select-free generate lengths "
+                        f"{[len(o) for o in out]}")
+    if not all(0 <= t < cfg.vocab_size for o in out for t in o):
+        failures.append("select-free generated token out of range")
+    log(f"  first tokens per request: {[o[:6] for o in out]}")
+    peak = torch.cuda.max_memory_allocated()
+
+    chain = InferenceEngine(cfg, eng.qparams, calib, qcfg, ecfg,
+                            device="cuda", quantize_params=False,
+                            fused_decode=False)
+    toks, lens, _ = eng._pad_prompts(prompts)
+    active = torch.ones(len(PROMPT_LENS), dtype=torch.bool)
+    runs = {"fused": [], "chain": []}
+    feed = None
+    # in turns, so that the host's drift does not favour either
+    for name in ("fused", "chain", "chain", "fused"):
+        e = eng if name == "fused" else chain
+        state = e.new_state()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, state = e.prefill(state, toks, lens)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        steps, fed = [logits.clone()], []
+        t0 = time.perf_counter()
+        for i in range(NEW_TOKENS):
+            cur = (logits.argmax(-1).to(torch.int32) if feed is None
+                   else feed[i])
+            fed.append(cur)
+            logits, state = e.decode_step(state, cur, active)
+            steps.append(logits.clone())
+        torch.cuda.synchronize()
+        dec_s = time.perf_counter() - t0
+        feed = fed
+        runs[name].append(dict(steps=steps, prefill_ms=prefill_ms,
+                               decode_ms=dec_s * 1e3 / NEW_TOKENS))
+    fused = runs["fused"][0]["steps"]
+    others = [r["steps"] for r in runs["fused"][1:] + runs["chain"]]
+    same = [all(bool(torch.equal(_bits(a), _bits(o[i]))) for o in others)
+            for i, a in enumerate(fused)]
+    tokens = [all(bool(torch.equal(a.argmax(-1), o[i].argmax(-1)))
+                  for o in others) for i, a in enumerate(fused)]
+    finite = all(bool(torch.isfinite(a).all()) for a in fused)
+    log(f"  fused vs fused_decode=False (two runs each, in turns), same "
+        f"tokens fed: logits bitwise equal in every run at {sum(same)} of "
+        f"{len(same)} steps (prefill + {NEW_TOKENS} decode), greedy tokens "
+        f"equal at {sum(tokens)} (bar: all) "
+        f"{'ok' if all(same) and all(tokens) else 'FAIL'}")
+    if not (all(same) and all(tokens) and finite):
+        failures.append(f"select-free fused vs unfused decode: bitwise at "
+                        f"{same}, tokens at {tokens}, finite {finite}")
+
+    def mean(name, key):
+        return round(statistics.mean(r[key] for r in runs[name]), 3)
+    dec = {k: [round(r["decode_ms"], 3) for r in runs[k]] for k in runs}
+    metrics = dict(
+        prefill_ms=mean("fused", "prefill_ms"),
+        decode_ms_per_step=mean("fused", "decode_ms"),
+        decode_tok_s=round(len(PROMPT_LENS) * 1e3
+                           / mean("fused", "decode_ms"), 2),
+        unfused_prefill_ms=mean("chain", "prefill_ms"),
+        unfused_decode_ms_per_step=mean("chain", "decode_ms"),
+        unfused_decode_tok_s=round(len(PROMPT_LENS) * 1e3
+                                   / mean("chain", "decode_ms"), 2),
+        decode_ms_per_step_by_run=dec,
+        serve_peak_memory_gib=round(peak / 2 ** 30, 3),
+        build_peak_memory_gib=round(build_peak / 2 ** 30, 3),
+        logits_finite=finite, card=card)
+    log(f"  select-free engine {MODEL} {cfg.num_layers} layers bs=4: "
+        f"{json.dumps(metrics)}")
+    del eng, chain, runs, fused, others
+    torch.cuda.empty_cache()
+    return launches
 
 
 def serving_qcfg():
@@ -721,6 +1013,9 @@ def serving_run(cfg, qparams, calib, card, failures):
     for name in SERVE_KERNELS:
         if launches[name] <= 0:
             failures.append(f"kernel {name} not launched by the server")
+    for name in ARC_IDLE_KERNELS:
+        if launches[name] != 0:
+            failures.append(f"kernel {name} launched by the ARC server")
     log(f"  prefill admissions [count, paged_prefill launches]: {routes}")
     if routes["chunked"][1] <= 0 or routes["suffix"][1] <= 0:
         failures.append(f"serve: paged_prefill not launched in both "
@@ -750,11 +1045,14 @@ def serving_run(cfg, qparams, calib, card, failures):
 
 
 class PlainKernels:
-    """Context manager that routes the five kernel entry points to their
-    plain PyTorch versions (the engine-level reference)."""
+    """Context manager that routes the kernel entry points to their plain
+    PyTorch versions (the engine-level reference): the megakernels to the
+    chain of the same function, whose actq and GEMM entry points are then
+    the plain versions (or, for a noise floor, the noisy GEMM)."""
 
     def __enter__(self):
         from arcquant_tpu_torch.kernels import attention, gemm as gk
+        from arcquant_tpu_torch.kernels import mlp_fused as mf
         from arcquant_tpu_torch.kernels import paged_decode as pdk
         from arcquant_tpu_torch.kernels import quantize as qk
         self.saved = [(qk, "_actq_cuda", qk.actq_plain),
@@ -763,7 +1061,10 @@ class PlainKernels:
                        attention.flash_attention_plain),
                       (pdk, "_paged_decode_cuda",
                        pdk.paged_decode_state_plain),
-                      (pdk, "_paged_prefill_cuda", pdk.paged_prefill_plain)]
+                      (pdk, "_paged_prefill_cuda", pdk.paged_prefill_plain),
+                      (mf, "_gemm_actq_cuda", mf.gemm_actq_chain),
+                      (mf, "_gu_actq_cuda", mf.gu_actq_chain),
+                      (mf, "_mlp_w8_cuda", mf.mlp_w8_chain)]
         self.saved = [(mod, name, getattr(mod, name), plain)
                       for mod, name, plain in self.saved]
         for mod, name, _, plain in self.saved:
@@ -782,9 +1083,9 @@ def _cosine(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def engine_check(cfg, failures):
-    """Phase 6: the engine cut to 1 and to 2 layers, its prefill and 4
+    """Phase 7: the engine cut to 1 and to 2 layers, its prefill and 4
     decode steps (fed the same tokens) with the kernels against the same
-    forward with the five plain versions.
+    forward with the plain versions.
 
     1 layer: logits cosine >= 0.999 and equal greedy tokens at every
     step. 2 layers: the forward of random dummy weights is chaotic at
@@ -883,7 +1184,7 @@ def _noisy_gemm(gen):
 
 
 def serving_engine_check(cfg, failures):
-    """Phase 6, continued: the 1-layer engine with prefill_chunk 256,
+    """Phase 7, continued: the 1-layer engine with prefill_chunk 256,
     kernels against plain versions:
       chunked  the four prompts stream through the int4 pool in chunks;
       suffix   a prefix prefill of (512, 256, 128, 0) tokens, then the
@@ -1021,7 +1322,12 @@ def main() -> int:
     log(f"[serve] HTTP server, {MODEL} full width, 28 layers, on {card}")
     serve_launches = serving_run(cfg, qparams, calib, card, failures)
     del qparams, calib
+    gc.collect()    # the serving phase's patched methods form cycles
     torch.cuda.empty_cache()
+
+    log(f"[select-free] {MODEL} full width, 28 layers, select_frac 0, "
+        f"fused vs unfused decode, on {card}")
+    free_launches = free_run(cfg, card, failures)
 
     log("[engine check] 1 and 2 layers, kernels vs plain versions")
     engine_check(cfg, failures)
@@ -1031,18 +1337,20 @@ def main() -> int:
         for f in failures:
             print(f"FAIL: {f}", file=sys.stderr)
         return 1
-    # launches: over both main paths, generate() and the HTTP server
+    # launches: over the three main paths, the ARC generate(), the HTTP
+    # server and the select-free generate()
     kernels = []
     for name, (src, replaces) in KERNEL_INFO.items():
         s = summary[name]
+        paths = dict(generate=gen_launches[name], serve=serve_launches[name],
+                     generate_select_free=free_launches[name])
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
-            launches=gen_launches[name] + serve_launches[name],
-            launches_by_path=dict(generate=gen_launches[name],
-                                  serve=serve_launches[name]),
+            launches=sum(paths.values()), launches_by_path=paths,
             max_abs_err=s["max_abs_err"], ms=s["ms"],
             plain_ms=s["plain_ms"], bound_ms=s["bound_ms"],
             bound_by=s["bound_by"], library_ms=s["library_ms"],
+            **({"chain_ms": s["chain_ms"]} if "chain_ms" in s else {}),
             shape=s["shape"], card=card))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

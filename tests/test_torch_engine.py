@@ -156,9 +156,10 @@ def test_outside_the_slice_raises():
 
 
 def test_port_runs_without_jax():
-    """Importing arcquant_tpu_torch, generating with a tiny dummy engine
-    and serving two HTTP requests through ServingLoop load neither jax
-    nor the JAX package."""
+    """Importing arcquant_tpu_torch, generating with a tiny dummy engine,
+    a select-free decode at batch 4 through the fused routes and serving
+    two HTTP requests through ServingLoop load neither jax nor the JAX
+    package."""
     code = (
         "import sys, torch\n"
         "from arcquant_tpu_torch.config import QuantConfig, get_model_config\n"
@@ -175,6 +176,18 @@ def test_port_runs_without_jax():
         "                 prefix_sharing=True), device='cpu')\n"
         "out = eng.generate([[1, 2, 3], [4]], 3)\n"
         "assert len(out) == 2 and all(len(o) == 3 for o in out), out\n"
+        "from arcquant_tpu_torch.kernels import mlp_fused as mf\n"
+        "calls = []\n"
+        "real = mf.mlp_w8_fused\n"
+        "mf.mlp_w8_fused = lambda *a, **k: calls.append(1) or real(*a, **k)\n"
+        "free = InferenceEngine.dummy(\n"
+        "    cfg, quantized.identity_calib(cfg, 0.0),\n"
+        "    QuantConfig(w_scale='channel', act_scale='row',\n"
+        "                quantize_lm_head=True),\n"
+        "    EngineConfig(max_batch=4, max_seq_len=32, page_size=16),\n"
+        "    device='cpu')\n"
+        "out = free.generate([[1] * 20, [2], [3, 4], [5]], 2)\n"
+        "assert [len(o) for o in out] == [2] * 4 and calls == [1, 1], calls\n"
         "import http.client, json, threading\n"
         "from arcquant_tpu_torch.engine import ContinuousBatcher\n"
         "from arcquant_tpu_torch.engine.server import ServingLoop, make_server\n"

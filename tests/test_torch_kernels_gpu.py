@@ -1,5 +1,6 @@
-"""The five CUDA kernels of arcquant_tpu_torch held against their plain
-PyTorch versions on the card, at small shapes with ragged edges.
+"""The CUDA kernels of arcquant_tpu_torch held against their plain
+PyTorch versions on the card, at small shapes with ragged edges; the
+decode megakernels also bitwise against the CUDA chain they fuse.
 
 Every test is marked ``gpu`` and skips when torch sees no CUDA device.
 This file imports no JAX, so it also runs on a machine without it:
@@ -15,6 +16,7 @@ import torch
 from arcquant_tpu_torch.cache import paged
 from arcquant_tpu_torch.config import get_model_config
 from arcquant_tpu_torch.kernels import attention, gemm as gk
+from arcquant_tpu_torch.kernels import mlp_fused as mf
 from arcquant_tpu_torch.kernels import paged_decode as pdk
 from arcquant_tpu_torch.kernels import quantize as qk
 from arcquant_tpu_torch.quant import numerics as N
@@ -195,3 +197,141 @@ def test_paged_prefill(heads, page, tq, starts, seq_lens):
                                rtol=2.0 ** -7, atol=2e-3)
     assert np.isfinite(to_numpy(o)).all()
     assert (to_numpy(o)[np.asarray(seq_lens) == 0] == 0).all()
+
+
+# -- decode megakernels (kernels/mlp_fused.py) --------------------------------
+
+def _bits(t):
+    """The raw bits of a tensor (bf16/f32), for bitwise comparison."""
+    return t.contiguous().view(torch.int16 if t.element_size() == 2
+                               else torch.int32)
+
+
+def assert_bitwise(got, want):
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert torch.equal(_bits(a), _bits(b))
+
+
+def _w8_pair(rng, d, f, bias, select_down=0):
+    """Packed gateup [d -> 2f] and down [f -> d] weights (down_in with an
+    ARC residual of select_down columns)."""
+    w_gu = _bf16(outlier_x(rng, 2 * f, d) * d ** -0.5)
+    w_dn = _bf16(outlier_x(rng, d, f) * f ** -0.5)
+    b_gu = _bf16(rng.standard_normal(2 * f) * 0.1) if bias else None
+    b_dn = _bf16(rng.standard_normal(d) * 0.1) if bias else None
+    ridx2 = torch.from_numpy(rng.permutation(f)).cuda()
+    pw_gu = packing.pack_weight_arc(w_gu, torch.arange(d).cuda(), 0,
+                                    bias=b_gu, w_scale="channel")
+    pw_dn = packing.pack_weight_arc(w_dn, ridx2, select_down, bias=b_dn,
+                                    w_scale="channel")
+    return pw_gu, pw_dn
+
+
+def _gs(pw):
+    return pw.global_scale.reshape(1, -1)
+
+
+def _plain_gemm_close(y, xa, gs, pw):
+    """y within the w8 GEMM's f32-sum-order bound of the plain version
+    over the same quantized activation."""
+    ref = gk.gemm_w8_plain(xa, pw.codes, pw.scales, gs, _gs(pw), pw.bias,
+                           y.dtype)
+    assert_summation_order_close(y, ref, y.dtype == torch.float32)
+
+
+@pytest.mark.parametrize("m", [4, 8, 16])
+@pytest.mark.parametrize("mode", ["rmsnorm", "plain"])
+@pytest.mark.parametrize("bias", [False, True])
+def test_gemm_actq(m, mode, bias):
+    """[rmsnorm +] quantize + GEMM in one launch: bit for bit the chain
+    (actq, then gemm_w8 with its split-K); against the plain versions
+    step by step (the GEMM over the chain's activation within the f32
+    sum order; the quantize as test_actq holds it)."""
+    require_cuda()
+    rng = np.random.default_rng(60 + m)
+    d, n = 1024, 1200               # ragged last tile; splits > 1
+    w = _bf16(outlier_x(rng, n, d) * d ** -0.5)
+    b = _bf16(rng.standard_normal(n) * 0.1) if bias else None
+    pw = packing.pack_weight_arc(w, torch.arange(d).cuda(), 0, bias=b,
+                                 w_scale="channel")
+    x = _bf16(outlier_x(rng, m, d, scale=4.0))
+    nw = _bf16(rng.standard_normal(d) * 0.1 + 1) if mode == "rmsnorm" else None
+    args = (x, pw, d, torch.bfloat16, nw, 1e-6)
+    got = mf._gemm_actq_cuda(*args)
+    want = mf.gemm_actq_chain(*args)
+    assert mf.GEMM_ACTQ.launches > 0
+    torch.cuda.synchronize()
+    assert_bitwise(got, want)
+    xa, gx = qk._actq_cuda(x, nw, mode=mode, k=d, kq=pw.kq, eps=1e-6)
+    _plain_gemm_close(got[0], xa, gx, pw)
+
+
+@pytest.mark.parametrize("m", [4, 8, 16])
+@pytest.mark.parametrize("f", [1024, 8704])
+def test_gu_actq(m, f):
+    """gateup + silu*mul + quantize in one launch: bit for bit the chain
+    (gemm_w8, then actq's silu_mul mode); f 8704 pads kq2 to 9216."""
+    require_cuda()
+    rng = np.random.default_rng(70 + m)
+    d = 512
+    pw_gu, pw_dn = _w8_pair(rng, d, f, bias=True, select_down=64)
+    xa1, gs1 = qk.quantize_x_arc(_bf16(outlier_x(rng, m, d)),
+                                 torch.arange(d).cuda(), 0, kq=pw_gu.kq)
+    args = (xa1, gs1, pw_gu, f, pw_dn.kq, torch.bfloat16)
+    got = mf._gu_actq_cuda(*args)
+    want = mf.gu_actq_chain(*args)
+    torch.cuda.synchronize()
+    assert_bitwise(got, want)
+    xa2, gu, gx2 = got
+    _plain_gemm_close(gu, xa1, gs1, pw_gu)
+    pa, pg = qk.actq_plain(gu, None, mode="silu_mul", k=f, kq=pw_dn.kq)
+    assert torch.equal(xa2, pa) and torch.equal(gx2, pg)
+
+
+@pytest.mark.parametrize("m", [4, 8, 16])
+@pytest.mark.parametrize("norm", [True, False])
+@pytest.mark.parametrize("bias", [False, True])
+def test_mlp_w8(m, norm, bias):
+    """The whole MLP in one launch, norm and quantized modes: bit for bit
+    the chain; each step against its plain version."""
+    require_cuda()
+    rng = np.random.default_rng(80 + m)
+    d, f = 512, 8704                # kq2 padded: 512 zero columns
+    pw_gu, pw_dn = _w8_pair(rng, d, f, bias)
+    x = _bf16(outlier_x(rng, m, d, scale=4.0))
+    if norm:
+        nw = _bf16(rng.standard_normal(d) * 0.1 + 1)
+        args = (x, None, pw_gu, pw_dn, f, torch.bfloat16, nw, 1e-6)
+        xa1, gs1 = qk._actq_cuda(x, nw, mode="rmsnorm", k=d, kq=pw_gu.kq,
+                                 eps=1e-6)
+    else:
+        xa1, gs1 = qk.quantize_x_arc(x, torch.arange(d).cuda(), 0,
+                                     kq=pw_gu.kq)
+        args = (xa1, gs1, pw_gu, pw_dn, f, torch.bfloat16, None, 0.0)
+    got = mf._mlp_w8_cuda(*args)
+    want = mf.mlp_w8_chain(*args)
+    torch.cuda.synchronize()
+    assert_bitwise(got, want)
+    out, gu, gx2 = got
+    _plain_gemm_close(gu, xa1, gs1, pw_gu)
+    xa2, pg = qk.actq_plain(gu, None, mode="silu_mul", k=f, kq=pw_dn.kq)
+    assert torch.equal(gx2, pg)
+    _plain_gemm_close(out, xa2, gx2, pw_dn)
+
+
+def test_fused_kernels_refuse_what_they_do_not_take():
+    """More than 16 rows, f32 activations or outputs the chain would not
+    give: raise, no fallback."""
+    require_cuda()
+    rng = np.random.default_rng(90)
+    pw_gu, pw_dn = _w8_pair(rng, 256, 512, bias=False)
+    x = _bf16(rng.standard_normal((17, 256)))
+    with pytest.raises(ValueError, match="rows"):
+        mf.mlp_w8_fused(x, None, pw_gu, pw_dn, 512, norm_w=x[0],
+                        norm_eps=1e-6)
+    with pytest.raises(ValueError, match="bf16"):
+        mf.gemm_w8_actq_fused(x[:4].float(), pw_gu, 256)
+    with pytest.raises(ValueError, match="bf16"):
+        mf.mlp_w8_fused(x[:4], None, pw_gu, pw_dn, 512,
+                        out_dtype=torch.float32, norm_w=x[0], norm_eps=1e-6)

@@ -84,8 +84,9 @@ def test_rms_norm_chain_matches():
 @pytest.mark.parametrize("m", [8, 40])
 @pytest.mark.parametrize("select", [0, 64])
 def test_silu_mul_quantize_gu_bit_exact(m, select):
-    """m = 8 takes the defused route in both packages, m = 40 the
-    silu_mul kernel mode."""
+    """The JAX package takes its defused route (XLA silu*mul, then the
+    plain quantize) at m = 8 and its silu_mul kernel mode at m = 40; the
+    port takes its silu_mul mode at both."""
     rng = np.random.default_rng(20 + m + select)
     f = 512
     gu = _bf16(outlier_x(rng, m, 2 * f, scale=4.0))
