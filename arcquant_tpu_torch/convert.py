@@ -6,7 +6,8 @@ tree)``, i.e. numpy arrays, by duck typing (no jax import): bf16 arrays
 
   params_from_numpy  raw bf16 params: embed, final_norm, lm_head and the
                      per-layer dicts of linears {"w", "b"?} and norms
-  packed_from_numpy  one packed w8 weight (a layer's linear or the head)
+  packed_from_numpy  one packed weight, w8 or w4 (a layer's linear or the
+                     head)
   qparams_from_numpy a packed engine tree (the JAX engine's ``qparams``)
   calib_from_numpy   per-layer dicts of SiteCalib
 """
@@ -17,7 +18,7 @@ import numpy as np
 import torch
 
 from .models.quantized import SiteCalib
-from .quant.packing import PackedWeightI8
+from .quant.packing import PackedWeight, PackedWeightI8
 
 
 def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
@@ -44,14 +45,15 @@ def params_from_numpy(params, device="cpu"):
     return _tree(params, device)
 
 
-def packed_from_numpy(pw, device="cpu") -> PackedWeightI8:
-    """A JAX PackedWeightI8 (numpy leaves) -> PackedWeightI8 tensors."""
+def packed_from_numpy(pw, device="cpu"):
+    """A JAX PackedWeightI8 (int8 codes) or PackedWeight (uint8 codes),
+    numpy leaves -> the port's PackedWeightI8 or PackedWeight."""
     codes = np.asarray(pw.codes)
-    if codes.dtype != np.int8:
-        raise NotImplementedError(
-            f"packed weight with {codes.dtype} codes: only w8 is ported "
-            "(ROADMAP queue 1 item 11)")
-    return PackedWeightI8(
+    kinds = {np.dtype(np.int8): PackedWeightI8,
+             np.dtype(np.uint8): PackedWeight}
+    if codes.dtype not in kinds:
+        raise ValueError(f"packed weight with {codes.dtype} codes")
+    return kinds[codes.dtype](
         codes=tensor_from_numpy(codes, device),
         scales=tensor_from_numpy(np.asarray(pw.scales).view(np.uint8),
                                  device),

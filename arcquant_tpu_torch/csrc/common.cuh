@@ -43,6 +43,15 @@ __device__ __forceinline__ float ue4m3_decode(uint32_t byte) {
   return __uint_as_float(((e + 120u) << 23) | (m << 20));
 }
 
+// e2m1x nibble (the w4 storage order: e2m1 with magnitude codes 0 and 1
+// swapped) -> f32 value: the magnitude bits land in the exponent and
+// mantissa fields, the sign bit in place; mag 1 is zero (+0).
+__device__ __forceinline__ float e2m1x_decode(uint32_t nib) {
+  const uint32_t mag = nib & 7u;
+  const float f = __uint_as_float(((mag << 22) | ((nib & 8u) << 28)) + 0x3F000000u);
+  return mag == 1u ? 0.0f : f;
+}
+
 // e2m1 quantize-dequantize of x in units of `scale`: boundary compares
 // run in product space (|x| > b*scale, exact f32 products), strict `>`
 // so ties go to the smaller magnitude; returns +-value * scale.

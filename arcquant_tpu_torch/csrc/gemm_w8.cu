@@ -26,45 +26,10 @@
 // decodes a 32 x 128 weight tile into shared memory once per block and
 // prefetches the next tile's codes, scales and activations into
 // registers while the current one multiplies. TMA, wgmma and a deeper
-// pipeline are later work. The tile (mainloop, promotion, epilogue) and
-// the split-K sum are gemm_w8_core.cuh, which the decode megakernels
-// (mlp_fused.cu) run too, so that they give this chain's bits.
+// pipeline are later work. The kernels (tile, promotion, epilogue,
+// split-K sum) are gemm_w8_core.cuh, which the w4 GEMM (gemm_w4.cu) and
+// the decode megakernels (mlp_fused.cu) run too.
 #include "gemm_w8_core.cuh"
-
-namespace {
-
-using w8::BK;
-
-// Two resident blocks per SM: the 128x128 tile needs them to keep its
-// weight and activation loads in flight (the cap is 128 registers).
-template <int BM, int BN, int WM, int WN>
-__global__ void __launch_bounds__(WM * WN * 32, 2)
-gemm_w8_kernel(const bf16* __restrict__ xa, const int8_t* __restrict__ codes,
-               const uint8_t* __restrict__ scales, const float* __restrict__ gs,
-               const float* __restrict__ gw,
-               const bf16* __restrict__ bias, void* __restrict__ out, int out_f32,
-               float* __restrict__ partial, int M, int N, int Kq, int tiles_per_split) {
-  using T = w8::Tile<BM, BN, WM, WN>;
-  __shared__ typename T::Smem sm;
-  const int kt0 = blockIdx.z * tiles_per_split;
-  const int kt1 = min(kt0 + tiles_per_split, Kq / BK);
-  w8::gemm_tile<T, false>(xa, codes, scales, gs, gw, bias, out, out_f32, partial, blockIdx.z, M,
-                   N, Kq, blockIdx.y * BM, blockIdx.x * BN, kt0, kt1, sm);
-}
-
-// Sums the split-K partials in split order, then the same epilogue.
-__global__ void splitk_reduce_kernel(const float* __restrict__ partial, int splits,
-                                     const float* __restrict__ gs,
-                                     const float* __restrict__ gw,
-                                     const bf16* __restrict__ bias, void* __restrict__ out,
-                                     int out_f32, int M, int N) {
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (int64_t)M * N) return;
-  const float v = w8::sum_splits(partial, splits, (int64_t)M * N, idx);
-  w8::store_out(v, idx, (int)(idx / N), (int)(idx % N), gs, gw, bias, out, out_f32);
-}
-
-}  // namespace
 
 // xa: [M, Kq] bf16; codes: [Kq, N] int8; scales: [Kq/16, N] uint8;
 // gs: [M] f32; gw: [N] f32; bias: [N] bf16 or
@@ -76,28 +41,6 @@ ARC_EXPORT int arc_gemm_w8(const void* xa, const void* codes, const void* scales
                            const void* bias, void* out, int out_f32, void* workspace,
                            int M, int N, int Kq, int small_m, int splits,
                            int tiles_per_split, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  float* part = splits > 1 ? (float*)workspace : nullptr;
-  if (M > 0 && N > 0) {
-    if (small_m) {
-      dim3 grid((N + 127) / 128, (M + 31) / 32, splits);
-      gemm_w8_kernel<32, 128, 1, 4><<<grid, 128, 0, st>>>(
-          (const bf16*)xa, (const int8_t*)codes, (const uint8_t*)scales, (const float*)gs,
-          (const float*)gw, (const bf16*)bias, out, out_f32, part, M, N, Kq,
-          tiles_per_split);
-    } else {
-      dim3 grid((N + 127) / 128, (M + 127) / 128, splits);
-      gemm_w8_kernel<128, 128, 2, 4><<<grid, 256, 0, st>>>(
-          (const bf16*)xa, (const int8_t*)codes, (const uint8_t*)scales, (const float*)gs,
-          (const float*)gw, (const bf16*)bias, out, out_f32, part, M, N, Kq,
-          tiles_per_split);
-    }
-    if (splits > 1) {
-      const int64_t total = (int64_t)M * N;
-      splitk_reduce_kernel<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
-          part, splits, (const float*)gs, (const float*)gw,
-          (const bf16*)bias, out, out_f32, M, N);
-    }
-  }
-  return (int)cudaGetLastError();
+  return w8::launch_gemm<false>(xa, codes, scales, gs, gw, bias, out, out_f32, workspace, M, N,
+                                Kq, small_m, splits, tiles_per_split, (cudaStream_t)stream);
 }

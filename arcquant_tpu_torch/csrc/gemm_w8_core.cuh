@@ -1,10 +1,21 @@
-// The w8 dequant GEMM's tile, as device functions.
+// The dequant GEMM's tile, as device functions, and the chain's GEMM
+// kernels built on it.
 //
-// Included by gemm_w8.cu (the GEMM of the unfused chain and its split-K
-// reduce) and by mlp_fused.cu (the decode megakernels gemm_actq, gu_actq
-// and mlp_w8). The fused kernels must give the chain's bits exactly, so
-// both run this one copy of the k-tile mainloop, the promotion of each
-// k-tile's partial into the f32 total, the split-K sum and the epilogue.
+// Included by gemm_w8.cu and gemm_w4.cu (the GEMM of the unfused chain
+// and its split-K reduce, one entry point per weight format) and by
+// mlp_fused.cu (the decode megakernels gemm_actq, gu_actq and mlp_w8).
+// The fused kernels must give the chain's bits exactly, so both run this
+// one copy of the k-tile mainloop, the promotion of each k-tile's partial
+// into the f32 total, the split-K sum and the epilogue.
+//
+// The weight format is the tile's B loader (kW4): w8 reads int8 codes
+// [Kq, N], one code row per k row; w4 reads uint8 codes [Kq/2, N], one
+// code row per two k rows (low nibble k = 2g, high nibble k = 2g+1), and
+// writes the same two bf16 rows into the shared B tile that w8 writes
+// for the same weight. Both decodes are exact in bf16 (an e2m1 value
+// times a ue4m3 scale has at most 6 significant bits), so the w4 GEMM
+// equals the w8 GEMM bit for bit at every M; it only moves half the code
+// bytes.
 //
 // What fixes an output element's value: its 16x16 WMMA fragment starts
 // each 32-deep k-tile from zero, runs the tile's two k = 16 MMAs in order
@@ -43,9 +54,7 @@ struct Tile {
   static constexpr int FM = WTM / 16, FN = WTN / 16;
   static constexpr int LDA = BK + 8, LDB = BN + 8;
   static constexpr int A_CHUNKS = BM * BK / 8;   // 8 bf16 per 16-byte chunk
-  static constexpr int B_CHUNKS = BK * BN / 16;  // 16 codes per 16-byte chunk
   static constexpr int A_PER_T = (A_CHUNKS + NT - 1) / NT;
-  static constexpr int B_PER_T = (B_CHUNKS + NT - 1) / NT;
   struct Smem {
     alignas(128) bf16 As[BM * LDA];
     alignas(128) bf16 Bs[BK * LDB];
@@ -73,15 +82,16 @@ __device__ __forceinline__ float sum_splits(const float* partial, int splits, in
 }
 
 // One BM x BN output tile at (m0, n0) over k-tiles [kt0, kt1), run by
-// the block's T::NT threads. xa: [M, Kq] bf16; codes: [Kq, N] int8;
-// scales: [Kq/16, N] uint8. With `partial` set, writes the tile's f32
+// the block's T::NT threads. xa: [M, Kq] bf16; codes: [Kq, N] int8 (w8)
+// or [Kq/2, N] bytes of e2m1x nibble pairs (kW4); scales: [Kq/16, N]
+// uint8. With `partial` set, writes the tile's f32
 // totals to partial[split] ([splits, M, N]); otherwise the epilogue into
 // out. Each k-step decodes a 32 x BN weight tile into shared memory once
 // and prefetches the next tile's codes, scales and activations into
 // registers while the current one multiplies. Inlined, so that `sm`'s
 // tiles are addressed as shared memory (a call would pass them as
 // generic pointers).
-template <class T, bool kFromL2>
+template <class T, bool kFromL2, bool kW4 = false>
 __device__ __forceinline__ void gemm_tile(
     const bf16* __restrict__ xa, const int8_t* __restrict__ codes,
     const uint8_t* __restrict__ scales, const float* gs, const float* __restrict__ gw,
@@ -90,8 +100,11 @@ __device__ __forceinline__ void gemm_tile(
   constexpr int BN = T::BN, NT = T::NT;
   constexpr int LDA = T::LDA, LDB = T::LDB, FM = T::FM, FN = T::FN;
   constexpr int WTM = T::WTM, WTN = T::WTN, WN = T::WN;
-  constexpr int A_CHUNKS = T::A_CHUNKS, B_CHUNKS = T::B_CHUNKS;
-  constexpr int A_PER_T = T::A_PER_T, B_PER_T = T::B_PER_T;
+  constexpr int A_CHUNKS = T::A_CHUNKS, A_PER_T = T::A_PER_T;
+  // code rows per k-tile and per scale row; 16 codes per 16-byte chunk
+  constexpr int CODE_ROWS = kW4 ? BK / 2 : BK, GROUP_ROWS = kW4 ? 8 : 16;
+  constexpr int B_CHUNKS = CODE_ROWS * BN / 16;
+  constexpr int B_PER_T = (B_CHUNKS + NT - 1) / NT;
   bf16* As = sm.As;
   bf16* Bs = sm.Bs;
 
@@ -128,9 +141,9 @@ __device__ __forceinline__ void gemm_tile(
       s_reg[i] = make_uint4(0, 0, 0, 0);
       if (c < B_CHUNKS) {
         const int r = c / (BN / 16), nc = (c % (BN / 16)) * 16;
-        const int gk = kt * BK + r, gn = n0 + nc;
+        const int gk = kt * CODE_ROWS + r, gn = n0 + nc;
         const int8_t* cp = codes + (int64_t)gk * N + gn;
-        const uint8_t* sp = scales + (int64_t)(gk / 16) * N + gn;
+        const uint8_t* sp = scales + (int64_t)(gk / GROUP_ROWS) * N + gn;
         if (vec_n && gn + 16 <= N) {
           c_reg[i] = *reinterpret_cast<const uint4*>(cp);
           s_reg[i] = *reinterpret_cast<const uint4*>(sp);
@@ -162,13 +175,31 @@ __device__ __forceinline__ void gemm_tile(
         const int r = c / (BN / 16), nc = (c % (BN / 16)) * 16;
         const int8_t* cb = reinterpret_cast<const int8_t*>(&c_reg[i]);
         const uint8_t* sb = reinterpret_cast<const uint8_t*>(&s_reg[i]);
-        __align__(16) bf16 wv[16];
+        if constexpr (kW4) {
+          // code row r is k rows 2r (low nibbles) and 2r + 1 (high)
+          __align__(16) bf16 lo[16], hi[16];
 #pragma unroll
-        for (int j = 0; j < 16; ++j)
-          wv[j] = f2bf((float)cb[j] * (ue4m3_decode(sb[j]) * 0.5f));
-        uint4* dst = reinterpret_cast<uint4*>(Bs + r * LDB + nc);
-        dst[0] = reinterpret_cast<const uint4*>(wv)[0];
-        dst[1] = reinterpret_cast<const uint4*>(wv)[1];
+          for (int j = 0; j < 16; ++j) {
+            const float sc = ue4m3_decode(sb[j]);
+            const uint32_t b = (uint8_t)cb[j];
+            lo[j] = f2bf(e2m1x_decode(b & 15u) * sc);
+            hi[j] = f2bf(e2m1x_decode(b >> 4) * sc);
+          }
+          uint4* d0 = reinterpret_cast<uint4*>(Bs + (2 * r) * LDB + nc);
+          uint4* d1 = reinterpret_cast<uint4*>(Bs + (2 * r + 1) * LDB + nc);
+          d0[0] = reinterpret_cast<const uint4*>(lo)[0];
+          d0[1] = reinterpret_cast<const uint4*>(lo)[1];
+          d1[0] = reinterpret_cast<const uint4*>(hi)[0];
+          d1[1] = reinterpret_cast<const uint4*>(hi)[1];
+        } else {
+          __align__(16) bf16 wv[16];
+#pragma unroll
+          for (int j = 0; j < 16; ++j)
+            wv[j] = f2bf((float)cb[j] * (ue4m3_decode(sb[j]) * 0.5f));
+          uint4* dst = reinterpret_cast<uint4*>(Bs + r * LDB + nc);
+          dst[0] = reinterpret_cast<const uint4*>(wv)[0];
+          dst[1] = reinterpret_cast<const uint4*>(wv)[1];
+        }
       }
     }
   };
@@ -229,6 +260,68 @@ __device__ __forceinline__ void gemm_tile(
       __syncwarp();
     }
   }
+}
+
+// The chain's GEMM: one tile per block, the k split over blockIdx.z.
+// Two resident blocks per SM: the 128x128 tile needs them to keep its
+// weight and activation loads in flight (the cap is 128 registers).
+template <int BM, int BN, int WM, int WN, bool kW4>
+__global__ void __launch_bounds__(WM * WN * 32, 2)
+gemm_kernel(const bf16* __restrict__ xa, const int8_t* __restrict__ codes,
+            const uint8_t* __restrict__ scales, const float* __restrict__ gs,
+            const float* __restrict__ gw,
+            const bf16* __restrict__ bias, void* __restrict__ out, int out_f32,
+            float* __restrict__ partial, int M, int N, int Kq, int tiles_per_split) {
+  using T = Tile<BM, BN, WM, WN>;
+  __shared__ typename T::Smem sm;
+  const int kt0 = blockIdx.z * tiles_per_split;
+  const int kt1 = min(kt0 + tiles_per_split, Kq / BK);
+  gemm_tile<T, false, kW4>(xa, codes, scales, gs, gw, bias, out, out_f32, partial, blockIdx.z,
+                           M, N, Kq, blockIdx.y * BM, blockIdx.x * BN, kt0, kt1, sm);
+}
+
+// Sums the split-K partials in split order, then the same epilogue.
+static __global__ void splitk_reduce_kernel(const float* __restrict__ partial, int splits,
+                                            const float* __restrict__ gs,
+                                            const float* __restrict__ gw,
+                                            const bf16* __restrict__ bias,
+                                            void* __restrict__ out, int out_f32, int M, int N) {
+  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (int64_t)M * N) return;
+  const float v = sum_splits(partial, splits, (int64_t)M * N, idx);
+  store_out(v, idx, (int)(idx / N), (int)(idx % N), gs, gw, bias, out, out_f32);
+}
+
+// Launches the chain's GEMM on `st` (see arc_gemm_w8 / arc_gemm_w4 for
+// the arguments); returns cudaGetLastError().
+template <bool kW4>
+int launch_gemm(const void* xa, const void* codes, const void* scales, const void* gs,
+                const void* gw, const void* bias, void* out, int out_f32, void* workspace,
+                int M, int N, int Kq, int small_m, int splits, int tiles_per_split,
+                cudaStream_t st) {
+  float* part = splits > 1 ? (float*)workspace : nullptr;
+  if (M > 0 && N > 0) {
+    if (small_m) {
+      dim3 grid((N + 127) / 128, (M + 31) / 32, splits);
+      gemm_kernel<32, 128, 1, 4, kW4><<<grid, 128, 0, st>>>(
+          (const bf16*)xa, (const int8_t*)codes, (const uint8_t*)scales, (const float*)gs,
+          (const float*)gw, (const bf16*)bias, out, out_f32, part, M, N, Kq,
+          tiles_per_split);
+    } else {
+      dim3 grid((N + 127) / 128, (M + 127) / 128, splits);
+      gemm_kernel<128, 128, 2, 4, kW4><<<grid, 256, 0, st>>>(
+          (const bf16*)xa, (const int8_t*)codes, (const uint8_t*)scales, (const float*)gs,
+          (const float*)gw, (const bf16*)bias, out, out_f32, part, M, N, Kq,
+          tiles_per_split);
+    }
+    if (splits > 1) {
+      const int64_t total = (int64_t)M * N;
+      splitk_reduce_kernel<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
+          part, splits, (const float*)gs, (const float*)gw,
+          (const bf16*)bias, out, out_f32, M, N);
+    }
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace w8

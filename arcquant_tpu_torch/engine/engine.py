@@ -1,8 +1,8 @@
 """W4A4 serving engine over the paged int4 KV cache (counterpart of
 ``arcquant_tpu/engine/engine.py``, single device).
 
-  - prefill: rmsnorm + act-quantize, fused qkv w8 GEMM (with Qwen2's
-    bias), RoPE, int4 KV quantize-append into the pool, causal flash
+  - prefill: rmsnorm + act-quantize, fused qkv GEMM (w8 or w4 weights,
+    qcfg.weight_fmt; with Qwen2's bias), RoPE, int4 KV quantize-append into the pool, causal flash
     attention over the bf16 chunk, quantize + o GEMM, rmsnorm +
     quantize + gateup GEMM, silu*mul + re-quantize + down GEMM; then the
     final norm and the W4A16 packed LM head on each row's last token.
@@ -188,20 +188,21 @@ def _mlp(cfg, p, x, layer_calib, qcfg, norm_w, fused=False):
     return quantized._q_linear(down, ia, gi, x.dtype).reshape(b, t, d)
 
 
-def pack_lm_head(head: torch.Tensor, qcfg: QuantConfig,
-                 step: int = 16384) -> packing.PackedWeightI8:
-    """W4A16 packed LM head: the head packed like a linear with no ARC
-    residual, in row chunks so the f32 transients of a 150k-vocab head
-    stay small. A tensor weight scale is taken over the whole head."""
+def pack_lm_head(head: torch.Tensor, qcfg: QuantConfig, step: int = 16384):
+    """W4A16 packed LM head in qcfg.weight_fmt: the head packed like a
+    linear with no ARC residual, in row chunks so the f32 transients of a
+    150k-vocab head stay small. A tensor weight scale is taken over the
+    whole head."""
     ridx = torch.arange(head.shape[1], dtype=torch.int32,
                         device=head.device)
     gs = (None if qcfg.w_scale == "channel"
           else head.abs().amax().float() * N.INV_NVFP4_GLOBAL_DIV)
     chunks = [packing.pack_weight_arc(head[i:i + step], ridx, 0,
+                                      fmt=qcfg.weight_fmt,
                                       w_scale=qcfg.w_scale,
                                       global_scale=gs)
               for i in range(0, head.shape[0], step)]
-    return packing.PackedWeightI8(
+    return type(chunks[0])(
         codes=torch.cat([c.codes for c in chunks], dim=1),
         scales=torch.cat([c.scales for c in chunks], dim=1),
         global_scale=(torch.cat([c.global_scale.reshape(-1)
@@ -214,8 +215,8 @@ def pack_lm_head(head: torch.Tensor, qcfg: QuantConfig,
 def _to_device(tree, device):
     if isinstance(tree, torch.Tensor):
         return tree.to(device)
-    if isinstance(tree, packing.PackedWeightI8):
-        return packing.PackedWeightI8(*(_to_device(x, device) for x in tree))
+    if isinstance(tree, (packing.PackedWeight, packing.PackedWeightI8)):
+        return type(tree)(*(_to_device(x, device) for x in tree))
     if isinstance(tree, quantized.SiteCalib):
         return quantized.SiteCalib(tree.reorder_index.to(device),
                                    tree.select_num)

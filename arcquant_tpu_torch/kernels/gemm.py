@@ -1,37 +1,91 @@
-"""w8 dequant GEMM (counterpart of ``arcquant_tpu/kernels/gemm.py``).
+"""Dequant GEMM in both weight formats (counterpart of
+``arcquant_tpu/kernels/gemm.py``).
 
 ``gemm_dequant`` computes y = (xa @ dec(W)) * gx[m] * gw[n] + bias with
-f32 accumulation, then casts. For CUDA tensors it launches
-``csrc/gemm_w8.cu`` (replacing the TPU kernels ``_gemm_w8_kernel`` and
-``_gemm_w8_dma_kernel``) at every M; for CPU tensors it runs
-``gemm_w8_plain``.
+f32 accumulation, then casts. It dispatches as the JAX package does:
 
-The JAX package sends prefill GEMMs with M >= 512 and n >= kq to a
-dequant pass plus XLA's matmul instead. The numerics are the same: the
-decoded weight and xa are exact in bf16, so only the f32 summation
-order differs.
+  - M >= XLA_M and N >= Kq (prefill qkv and gateup): the large-M route.
+    The weight is decoded once to bf16 (``dequant_w8`` / ``dequant_w4``,
+    replacing the TPU kernels ``_dequant_w8_kernel`` and
+    ``_dequant_w4_kernel``), for w4 the activations are split into
+    even-k then odd-k columns (``pin_rowmajor``, replacing
+    ``_copy_kernel``), then ``torch.mm`` with f32 output contracts them
+    (the product the JAX package leaves to XLA) in k slices added into
+    an f32 total, and the epilogue runs in f32 in JAX's order;
+  - otherwise the fused GEMM: ``gemm_w8`` (replacing ``_gemm_w8_kernel``
+    and its stream twin ``_gemm_w8_dma_kernel``) on a PackedWeightI8,
+    ``gemm_w4`` (replacing ``_gemm_w4_kernel`` and
+    ``_gemm_w4_dma_kernel``) on a PackedWeight.
+
+CUDA tensors launch the kernels in ``csrc/`` (``gemm_w8.cu``,
+``gemm_w4.cu``, ``dequant.cu``); CPU tensors run the plain versions
+(``*_plain``), whose matmul is f32. The decoded weights and xa are exact
+in bf16, so the routes and formats differ only by the f32 summation
+order: the w4 GEMM reads xa in natural k order and decodes each code
+byte into its two k rows, so it gives the w8 GEMM's bits on the same
+weight.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
 from ..quant import numerics as N
-from ..quant.packing import PackedWeightI8
+from ..quant.packing import PackedWeight, PackedWeightI8
 from . import _build
 
-GEMM_W8 = _build.Kernel("gemm_w8", "arc_gemm_w8", [
-    _build.P, _build.P, _build.P, _build.P, _build.P,
-    _build.P, _build.P, _build.I32, _build.P,
-    _build.I32, _build.I32, _build.I32, _build.I32, _build.I32,
-    _build.I32])
+P, I32 = _build.P, _build.I32
+_GEMM_ARGS = [P, P, P, P, P, P, P, I32, P, I32, I32, I32, I32, I32, I32]
+GEMM_W8 = _build.Kernel("gemm_w8", "arc_gemm_w8", _GEMM_ARGS)
+GEMM_W4 = _build.Kernel("gemm_w4", "arc_gemm_w4", _GEMM_ARGS)
+DEQUANT_W8 = _build.Kernel("dequant_w8", "arc_dequant_w8",
+                           [P, P, P, P, I32, I32])
+DEQUANT_W4 = _build.Kernel("dequant_w4", "arc_dequant_w4",
+                           [P, P, P, P, I32, I32])
+PIN_ROWMAJOR = _build.Kernel("pin_rowmajor", "arc_pin_rowmajor",
+                             [P, P, I32, I32])
+
+# Large-M route threshold (the JAX package's ARC_GEMM_XLA_M default):
+# M >= XLA_M with N >= Kq takes dequant + torch.mm; 0 turns it off.
+XLA_M = 512
+# k per torch.mm on the route: the f32 total takes each slice's product
+MM_CHUNK_K = 512
 
 _BK = 32
 _SMALL_M = 64          # M at or below this takes the 32-row tile
 _TARGET_BLOCKS = 264   # about two blocks per SM of an H100
 _MIN_SPLIT_TILES = 16  # k-tiles (of 32) per split at least
+
+Packed = Union[PackedWeight, PackedWeightI8]
+
+
+# -- plain versions ------------------------------------------------------------
+
+def _e2m1x_values(nib: torch.Tensor) -> torch.Tensor:
+    """e2m1x nibbles -> f32 values by the kernels' bit map: mag bits into
+    the exponent and mantissa, the sign bit in place, mag 1 -> +0."""
+    nib = nib.int()
+    mag = nib & 7
+    bits = ((mag << 22) | ((nib & 8) << 28)) + 0x3F000000
+    return torch.where(mag == 1, 0.0, bits.view(torch.float32))
+
+
+def _w4_planes(codes: torch.Tensor, scales: torch.Tensor):
+    """(even-k, odd-k) decoded f32 planes [Kq/2, N] of a w4 pack."""
+    s = N.ue4m3_from_bytes(scales).repeat_interleave(N.NVFP4_GROUP // 2,
+                                                     dim=0)
+    return _e2m1x_values(codes & 0xF) * s, _e2m1x_values(codes >> 4) * s
+
+
+def _epilogue(acc, gs, gw, bias, out_dtype):
+    """acc * gs * gw (+ bias) in f32, JAX's order, then the cast; in
+    place on the f32 accumulator acc."""
+    acc.mul_(gs).mul_(gw)
+    if bias is not None:
+        acc.add_(bias.float())
+    return acc.to(out_dtype)
 
 
 def gemm_w8_plain(xa: torch.Tensor, codes: torch.Tensor,
@@ -42,14 +96,58 @@ def gemm_w8_plain(xa: torch.Tensor, codes: torch.Tensor,
     s = N.ue4m3_from_bytes(scales) * 0.5
     w = (codes.float() * s.repeat_interleave(N.NVFP4_GROUP, dim=0))
     acc = xa.to(torch.bfloat16).float() @ w
-    y = acc * gs * gw
-    if bias is not None:
-        y = y + bias.float()
-    return y.to(out_dtype)
+    return _epilogue(acc, gs, gw, bias, out_dtype)
 
+
+def gemm_w4_plain(xa: torch.Tensor, codes: torch.Tensor,
+                  scales: torch.Tensor, gs: torch.Tensor,
+                  gw: torch.Tensor, bias: Optional[torch.Tensor],
+                  out_dtype: torch.dtype) -> torch.Tensor:
+    """Plain version of the w4 GEMM: the weight decoded in natural k
+    order (row 2g from byte g's low nibble, 2g+1 from its high one), so
+    it equals gemm_w8_plain on the same weight bit for bit."""
+    even, odd = _w4_planes(codes, scales)
+    w = torch.stack([even, odd], dim=1).reshape(-1, codes.shape[1])
+    acc = xa.to(torch.bfloat16).float() @ w
+    return _epilogue(acc, gs, gw, bias, out_dtype)
+
+
+def _fold(w: torch.Tensor, gw: Optional[torch.Tensor]) -> torch.Tensor:
+    """The f32 decoded weight (times gw [N], when given) rounded to bf16."""
+    return (w if gw is None else w * gw.float()).to(torch.bfloat16)
+
+
+def dequant_w8_plain(codes: torch.Tensor, scales: torch.Tensor,
+                     gw: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of dequant_w8: bf16 [Kq, N] = code * ue4m3 / 2
+    (times gw [N] in f32 before the round, when given)."""
+    s = N.ue4m3_from_bytes(scales) * 0.5
+    return _fold(codes.float() * s.repeat_interleave(N.NVFP4_GROUP, dim=0),
+                 gw)
+
+
+def dequant_w4_plain(codes: torch.Tensor, scales: torch.Tensor,
+                     gw: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of dequant_w4: bf16 [2, Kq/2, N], plane 0 the even
+    ks and plane 1 the odd ks (JAX's split-half layout)."""
+    return _fold(torch.stack(_w4_planes(codes, scales)), gw)
+
+
+def split_even_odd(xa: torch.Tensor) -> torch.Tensor:
+    """[M, Kq] -> [M, Kq]: the even-k columns, then the odd-k ones."""
+    return torch.cat([xa[:, 0::2], xa[:, 1::2]], dim=1)
+
+
+def pin_rowmajor_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of pin_rowmajor: split_even_odd(x) as contiguous
+    bf16 (the w4 route's activation operand)."""
+    return split_even_odd(x).to(torch.bfloat16).contiguous()
+
+
+# -- CUDA launchers ------------------------------------------------------------
 
 def _split_plan(m: int, n: int, kq: int):
-    """(small_m, splits, k-tiles per split) for the CUDA kernel."""
+    """(small_m, splits, k-tiles per split) for the CUDA GEMM."""
     small = m <= _SMALL_M
     bm = 32 if small else 128
     blocks = -(-n // 128) * -(-m // bm)
@@ -62,18 +160,22 @@ def _split_plan(m: int, n: int, kq: int):
     return small, -(-k_tiles // per), per
 
 
-def _gemm_w8_cuda(xa, codes, scales, gs, gw, bias, out_dtype):
-    """Launch csrc/gemm_w8.cu. gs: [M, 1] f32; gw: [1, N] f32."""
-    _build.require_cuda("gemm_w8", xa, codes, scales, gs, gw, bias)
+def _gemm_cuda(w4, xa, codes, scales, gs, gw, bias, out_dtype):
+    """Launch the fused GEMM of the format (w4: codes uint8 [Kq/2, N];
+    else int8 [Kq, N]). gs: [M, 1] f32; gw: [1, N] f32."""
+    kernel = GEMM_W4 if w4 else GEMM_W8
+    _build.require_cuda(kernel.name, xa, codes, scales, gs, gw, bias)
     m, kq = xa.shape
     n = codes.shape[1]
-    if (xa.dtype != torch.bfloat16 or codes.dtype != torch.int8
-            or scales.dtype != torch.uint8 or codes.shape[0] != kq
+    if (xa.dtype != torch.bfloat16
+            or codes.dtype != (torch.uint8 if w4 else torch.int8)
+            or scales.dtype != torch.uint8
+            or codes.shape[0] != (kq // 2 if w4 else kq)
             or scales.shape != (kq // 16, n) or kq % _BK
             or out_dtype not in (torch.bfloat16, torch.float32)
             or (bias is not None and bias.dtype != torch.bfloat16)):
         raise ValueError(
-            f"gemm_w8: unsupported operands xa {tuple(xa.shape)} "
+            f"{kernel.name}: unsupported operands xa {tuple(xa.shape)} "
             f"{xa.dtype}, codes {tuple(codes.shape)} {codes.dtype}, "
             f"out {out_dtype}")
     xa = xa.contiguous()
@@ -85,23 +187,130 @@ def _gemm_w8_cuda(xa, codes, scales, gs, gw, bias, out_dtype):
     small, splits, per = _split_plan(m, n, kq)
     ws = (torch.empty((splits, m, n), dtype=torch.float32,
                       device=xa.device) if splits > 1 else None)
-    GEMM_W8(_build.ptr(xa), _build.ptr(codes), _build.ptr(scales),
-            _build.ptr(gs), _build.ptr(gw), _build.ptr(bias), _build.ptr(out),
-            int(out_dtype == torch.float32), _build.ptr(ws),
-            m, n, kq, int(small), splits, per)
+    kernel(_build.ptr(xa), _build.ptr(codes), _build.ptr(scales),
+           _build.ptr(gs), _build.ptr(gw), _build.ptr(bias), _build.ptr(out),
+           int(out_dtype == torch.float32), _build.ptr(ws),
+           m, n, kq, int(small), splits, per)
     return out
 
 
-def gemm_dequant(xa: torch.Tensor, pw: PackedWeightI8, gx,
+def _gemm_w8_cuda(xa, codes, scales, gs, gw, bias, out_dtype):
+    """Launch csrc/gemm_w8.cu."""
+    return _gemm_cuda(False, xa, codes, scales, gs, gw, bias, out_dtype)
+
+
+def _gemm_w4_cuda(xa, codes, scales, gs, gw, bias, out_dtype):
+    """Launch csrc/gemm_w4.cu."""
+    return _gemm_cuda(True, xa, codes, scales, gs, gw, bias, out_dtype)
+
+
+def _dequant_cuda(w4, codes, scales, gw):
+    """Launch csrc/dequant.cu's decode of the format: bf16 [Kq, N] (w8)
+    or [2, Kq/2, N] (w4)."""
+    kernel = DEQUANT_W4 if w4 else DEQUANT_W8
+    _build.require_cuda(kernel.name, codes, scales, gw)
+    rows, n = codes.shape
+    group_rows = 8 if w4 else 16
+    if (codes.dtype != (torch.uint8 if w4 else torch.int8)
+            or scales.dtype != torch.uint8
+            or rows % group_rows or scales.shape != (rows // group_rows, n)
+            or (gw is not None and gw.numel() != n)):
+        raise ValueError(
+            f"{kernel.name}: unsupported codes {tuple(codes.shape)} "
+            f"{codes.dtype}, scales {tuple(scales.shape)} {scales.dtype}")
+    codes, scales = codes.contiguous(), scales.contiguous()
+    gw = gw.reshape(-1).float().contiguous() if gw is not None else None
+    out = torch.empty((2, rows, n) if w4 else (rows, n),
+                      dtype=torch.bfloat16, device=codes.device)
+    kernel(_build.ptr(codes), _build.ptr(scales), _build.ptr(gw),
+           _build.ptr(out), rows, n)
+    return out
+
+
+def _dequant_w8_cuda(codes, scales, gw=None):
+    return _dequant_cuda(False, codes, scales, gw)
+
+
+def _dequant_w4_cuda(codes, scales, gw=None):
+    return _dequant_cuda(True, codes, scales, gw)
+
+
+def _pin_rowmajor_cuda(x):
+    """Launch csrc/dequant.cu arc_pin_rowmajor: bf16 [M, Kq] ->
+    split_even_odd as a new contiguous bf16 [M, Kq]."""
+    _build.require_cuda("pin_rowmajor", x)
+    m, k = x.shape
+    if x.dtype != torch.bfloat16 or k % 8:
+        raise ValueError(f"pin_rowmajor: unsupported x {tuple(x.shape)} "
+                         f"{x.dtype}")
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    PIN_ROWMAJOR(_build.ptr(x), _build.ptr(out), m, k)
+    return out
+
+
+def _mm_f32_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """bf16 [M, K] @ bf16 [K, N] accumulated like f32, as XLA's dot with
+    preferred_element_type=f32 on the TPU. torch.mm's f32 output alone is
+    not enough on an H100: the tensor cores carry their partial sums
+    truncated, 8.3x the f32 error against f64 on bf16 activations (A16)
+    over K 4096. So each MM_CHUNK_K slice of k is one product whose
+    result cuBLAS adds into the f32 total (addmm, in place), as the fused
+    GEMM promotes each 32-deep k-tile: 1.2x the f32 error at 512, 2.0x
+    at 1024 (chip_smoke.py; PERF.md)."""
+    k = x.shape[1]
+    acc = torch.mm(x[:, :MM_CHUNK_K], w[:MM_CHUNK_K],
+                   out_dtype=torch.float32)
+    for c in range(MM_CHUNK_K, k, MM_CHUNK_K):
+        torch.addmm(acc, x[:, c:c + MM_CHUNK_K], w[c:c + MM_CHUNK_K],
+                    out_dtype=torch.float32, out=acc)
+    return acc
+
+
+# -- dispatch -------------------------------------------------------------------
+
+def _cpu(t: torch.Tensor) -> bool:
+    return t.device.type == "cpu"
+
+
+def dequant_weight(pw: Packed, fold_global: bool = False) -> torch.Tensor:
+    """One-pass packed -> bf16 decode of a 2-D pack: [Kq, N] in scaled
+    units, or with the weight global scale folded in. As in the JAX
+    package, w4 rows come back in the split-half k order (even ks, then
+    odd ks): contract them only with split_even_odd activations."""
+    gw = (pw.global_scale.float().reshape(-1).expand(pw.n)
+          if fold_global else None)
+    if isinstance(pw, PackedWeightI8):
+        impl = dequant_w8_plain if _cpu(pw.codes) else _dequant_w8_cuda
+        return impl(pw.codes, pw.scales, gw)
+    impl = dequant_w4_plain if _cpu(pw.codes) else _dequant_w4_cuda
+    return impl(pw.codes, pw.scales, gw).reshape(pw.kq, pw.n)
+
+
+def _gemm_route(xa, pw: Packed, gs, gw, out_dtype):
+    """The large-M route: the decoded weight, the activation operand (for
+    w4 split even/odd by pin_rowmajor; for w8 xa as it is, already
+    row-major), their f32 product, the epilogue."""
+    cpu = _cpu(xa)
+    w = dequant_weight(pw)
+    if isinstance(pw, PackedWeight):
+        x = (pin_rowmajor_plain if cpu else _pin_rowmajor_cuda)(xa)
+    else:
+        x = xa.to(torch.bfloat16)
+    acc = x.float() @ w.float() if cpu else _mm_f32_cuda(x, w)
+    del w, x                          # the decoded weight is a transient
+    return _epilogue(acc, gs, gw, pw.bias, out_dtype)
+
+
+def gemm_dequant(xa: torch.Tensor, pw: Packed, gx,
                  out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """y[M, N] = (xa @ dec(pw)) * (gx * pw.global_scale) + pw.bias.
 
-    xa: [M, Kq] bf16 in scaled units (Kq == pw.kq); gx: the activation
+    xa: [M, Kq] bf16 in scaled units and natural k order (Kq == pw.kq);
+    pw: a PackedWeightI8 (w8) or PackedWeight (w4); gx: the activation
     global scale, a float, a scalar tensor or [M, 1]."""
-    if not isinstance(pw, PackedWeightI8):
-        raise NotImplementedError(
-            "only the w8 weight format is ported (ROADMAP queue 1 item "
-            "11, w4 end to end)")
+    if not isinstance(pw, (PackedWeight, PackedWeightI8)):
+        raise TypeError(f"gemm_dequant: not a packed weight: {type(pw)}")
     m, n = xa.shape[0], pw.n
     if isinstance(gx, (int, float)):     # a fill, no host-to-device copy
         gs = torch.full((m, 1), float(gx), dtype=torch.float32,
@@ -110,5 +319,10 @@ def gemm_dequant(xa: torch.Tensor, pw: PackedWeightI8, gx,
         gs = torch.as_tensor(gx, dtype=torch.float32, device=xa.device)
         gs = gs.reshape(-1, 1).expand(m, 1)
     gw = pw.global_scale.float().reshape(1, -1).expand(1, n)
-    impl = gemm_w8_plain if xa.device.type == "cpu" else _gemm_w8_cuda
+    if XLA_M and m >= XLA_M and n >= pw.kq:
+        return _gemm_route(xa, pw, gs, gw, out_dtype)
+    if isinstance(pw, PackedWeight):
+        impl = gemm_w4_plain if _cpu(xa) else _gemm_w4_cuda
+    else:
+        impl = gemm_w8_plain if _cpu(xa) else _gemm_w8_cuda
     return impl(xa, pw.codes, pw.scales, gs, gw, pw.bias, out_dtype)

@@ -41,16 +41,15 @@ def identity_calib(cfg: ModelConfig, select_frac: float = 0.0,
 def check_qcfg(qcfg: QuantConfig) -> None:
     """Raise NotImplementedError for quantization settings outside the
     ported serving path (NVFP4 W4A4 or W4A16 activations, hybrid
-    prefill_act_bits in {0, 4, 16}, w8 packed weights, per-row activation
-    scales)."""
+    prefill_act_bits in {0, 4, 16}, w8 or w4 packed weights, per-row
+    activation scales)."""
     if qcfg.quant_type != "NVFP4" or not qcfg.use_kernels:
         raise NotImplementedError(
             f"quant_type={qcfg.quant_type!r} use_kernels="
             f"{qcfg.use_kernels}: only the NVFP4 packed-kernel path is "
             "ported (ROADMAP queue 1 items 2-3)")
-    if qcfg.weight_fmt != "w8":
-        raise NotImplementedError(
-            "weight_fmt='w4' is not ported (ROADMAP queue 1 item 11)")
+    if qcfg.weight_fmt not in ("w4", "w8"):
+        raise ValueError(f"unknown weight_fmt {qcfg.weight_fmt!r}")
     if qcfg.act_bits not in (4, 16) or qcfg.prefill_act_bits not in (0, 4,
                                                                      16):
         raise NotImplementedError(
@@ -66,10 +65,10 @@ def check_qcfg(qcfg: QuantConfig) -> None:
             "item 6)")
 
 
-def _pack(p: Params, calib: SiteCalib, w_scale: str):
+def _pack(p: Params, calib: SiteCalib, w_scale: str, fmt: str):
     return packing.pack_weight_arc(p["w"], calib.reorder_index,
                                    calib.select_num, bias=p.get("b"),
-                                   w_scale=w_scale)
+                                   fmt=fmt, w_scale=w_scale)
 
 
 def quantize_layer_params_fused(layer_p: Params,
@@ -95,7 +94,7 @@ def quantize_layer_params_fused(layer_p: Params,
     for name, (projs, site) in specs.items():
         p = cat(projs) if len(projs) > 1 else layer_p[projs[0]]
         w_scale = "channel" if len(projs) > 1 else qcfg.w_scale
-        out[name] = _pack(p, layer_calib[site], w_scale)
+        out[name] = _pack(p, layer_calib[site], w_scale, qcfg.weight_fmt)
     return out
 
 
@@ -114,7 +113,8 @@ def _act_quantize(x2d: torch.Tensor, calib: SiteCalib, qcfg: QuantConfig):
                              per_row=qcfg.act_scale == "row")
 
 
-def _q_linear(qp: packing.PackedWeightI8, xa: torch.Tensor,
-              gx: torch.Tensor, out_dtype) -> torch.Tensor:
-    """A packed linear on an already-quantized activation."""
+def _q_linear(qp, xa: torch.Tensor, gx: torch.Tensor,
+              out_dtype) -> torch.Tensor:
+    """A packed linear (PackedWeightI8 or PackedWeight) on an
+    already-quantized activation."""
     return gk.gemm_dequant(xa, qp, gx, out_dtype=out_dtype)

@@ -1,11 +1,20 @@
-"""Packed w8 weight storage (counterpart of
-``arcquant_tpu/quant/packing.py``, w8 format only).
+"""Packed weight storage (counterpart of
+``arcquant_tpu/quant/packing.py``), in the JAX package's two formats,
+the same bytes:
 
-Layout, the same bytes as the JAX package:
-  codes  : int8 [Kq, N]  — 2 x e2m1 value ("mag2", {0, ±1, .., ±12}),
-                           K-major so the GEMM reads [bk, bn] tiles
-  scales : uint8 [Kq/16, N] — ue4m3 bytes of the per-16 group scale
-  global : f32 scalar or [N] (per output channel)
+  w8 (PackedWeightI8), 8.5 bits a weight:
+    codes  : int8 [Kq, N]  — 2 x e2m1 value ("mag2", {0, ±1, .., ±12}),
+                             K-major so the GEMM reads [bk, bn] tiles
+  w4 (PackedWeight), 4.5 bits a weight:
+    codes  : uint8 [Kq/2, N] — byte g of column n holds the e2m1x codes
+                             of k = 2g (low nibble) and k = 2g+1 (high)
+  both:
+    scales : uint8 [Kq/16, N] — ue4m3 bytes of the per-16 group scale
+    global : f32 scalar or [N] (per output channel)
+
+e2m1x is e2m1 with the magnitude codes 0 and 1 swapped (sign kept), so
+that a nonzero code decodes as the f32 bits ((mag << 22) | sign << 31)
++ 0x3F000000 and only mag == 1 (zero) needs a select.
 
 Kq = K + KE padded (see ``pad_kq``): rows [K, K+KE) duplicate the ARC
 outlier columns, the rest are pad groups whose scale byte is 0 so they
@@ -25,6 +34,22 @@ K_PAD_MULTIPLE = 512
 
 # 2 x e2m1 magnitude per 3-bit magnitude code
 _MAG2_TABLE = (0, 1, 2, 3, 4, 6, 8, 12)
+
+
+class PackedWeight(NamedTuple):
+    """A quantized, packed linear weight in the w4 format."""
+    codes: torch.Tensor          # uint8 e2m1x nibble pairs [Kq/2, N]
+    scales: torch.Tensor         # uint8 ue4m3 bytes [Kq/16, N]
+    global_scale: torch.Tensor   # f32 scalar or [N]
+    bias: Optional[torch.Tensor]  # [N] or None
+
+    @property
+    def kq(self) -> int:
+        return self.codes.shape[0] * 2
+
+    @property
+    def n(self) -> int:
+        return self.codes.shape[1]
 
 
 class PackedWeightI8(NamedTuple):
@@ -47,6 +72,32 @@ def codes_to_mag2_i8(codes: torch.Tensor) -> torch.Tensor:
     """e2m1 codes (uint8 0..15) -> signed mag2 int8 in {0, ±1, .., ±12}."""
     mag = N._const(_MAG2_TABLE, torch.int8, codes.device)[(codes & 7).long()]
     return torch.where((codes & 8) != 0, -mag, mag)
+
+
+def e2m1_to_e2m1x(codes: torch.Tensor) -> torch.Tensor:
+    """e2m1 codes -> the w4 storage order e2m1x: magnitude codes 0 and 1
+    swapped, sign kept. An involution, so also e2m1x -> e2m1."""
+    return torch.where((codes & 7) < 2, codes ^ 1, codes)
+
+
+e2m1x_to_e2m1 = e2m1_to_e2m1x
+
+
+def pack_nibbles(codes: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """Pack pairs of 4-bit codes (uint8 0..15) along `axis` into bytes:
+    out = codes[even] | codes[odd] << 4."""
+    c = codes.movedim(axis, -1)
+    out = (c[..., 0::2] | (c[..., 1::2] << 4)).to(torch.uint8)
+    return out.movedim(-1, axis)
+
+
+def unpack_nibbles(packed: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """Inverse of pack_nibbles: low and high nibbles interleaved along
+    `axis`."""
+    p = packed.movedim(axis, -1)
+    out = torch.stack([p & 0xF, p >> 4], dim=-1).reshape(
+        *p.shape[:-1], 2 * p.shape[-1])
+    return out.movedim(-1, axis)
 
 
 def quantize_nvfp4_groups(x: torch.Tensor):
@@ -98,17 +149,16 @@ def pack_weight_arc(w: torch.Tensor, reorder_index: Optional[torch.Tensor],
                     pad_multiple: int = K_PAD_MULTIPLE,
                     fmt: str = "w8",
                     global_scale: Optional[torch.Tensor] = None,
-                    w_scale: str = "tensor") -> PackedWeightI8:
+                    w_scale: str = "tensor"):
     """Quantize and pack an [N, K] weight with ARC column duplication:
     the last `select_num` entries of reorder_index are re-quantized
     duplicates appended after the K plain columns.
 
-    global_scale overrides the tensor scale; w_scale="channel" gives
-    one global scale per output channel ([N])."""
-    if fmt != "w8":
-        raise NotImplementedError(
-            f"weight_fmt={fmt!r}: only w8 is ported (ROADMAP queue 1 "
-            "item 11, w4 end to end)")
+    fmt "w8" gives a PackedWeightI8, "w4" a PackedWeight. global_scale
+    overrides the tensor scale; w_scale="channel" gives one global scale
+    per output channel ([N])."""
+    if fmt not in ("w4", "w8"):
+        raise ValueError(f"unknown weight format {fmt!r}")
     n, k = w.shape
     if global_scale is not None:
         gs = torch.as_tensor(global_scale, dtype=torch.float32,
@@ -129,17 +179,23 @@ def pack_weight_arc(w: torch.Tensor, reorder_index: Optional[torch.Tensor],
     if pad:
         # padded groups get a zero scale: they contribute exactly 0
         scales[:, (k + select_num) // 16:] = 0.0
-    return PackedWeightI8(
-        codes=codes_to_mag2_i8(codes).T.contiguous(),
-        scales=N.ue4m3_to_bytes(scales).T.contiguous(),
-        global_scale=gs, bias=bias)
+    scale_bytes = N.ue4m3_to_bytes(scales).T.contiguous()
+    if fmt == "w8":
+        return PackedWeightI8(codes=codes_to_mag2_i8(codes).T.contiguous(),
+                              scales=scale_bytes, global_scale=gs, bias=bias)
+    return PackedWeight(
+        codes=pack_nibbles(e2m1_to_e2m1x(codes)).T.contiguous(),
+        scales=scale_bytes, global_scale=gs, bias=bias)
 
 
-def dequantize_weight(pw: PackedWeightI8,
-                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """Decode a packed weight to [Kq, N] in scaled units (global scale
-    not folded in). Every decoded value is exact in bf16: a mag2 code
-    (<= 4 significant bits) times ue4m3/2 (4 significant bits)."""
-    s = N.ue4m3_from_bytes(pw.scales) * 0.5
-    w = pw.codes.float() * s.repeat_interleave(N.NVFP4_GROUP, dim=0)
-    return w.to(dtype)
+def dequantize_weight(pw, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Decode a packed weight (either format) to [Kq, N] in natural k
+    order and scaled units (global scale not folded in): the golden
+    decode. Every decoded value is exact in bf16: an e2m1 value (<= 2
+    significant bits) times a ue4m3 scale (4 significant bits)."""
+    s = N.ue4m3_from_bytes(pw.scales)
+    if isinstance(pw, PackedWeightI8):
+        vals = pw.codes.float() * 0.5
+    else:
+        vals = N.e2m1_decode(e2m1x_to_e2m1(unpack_nibbles(pw.codes, 0)))
+    return (vals * s.repeat_interleave(N.NVFP4_GROUP, dim=0)).to(dtype)

@@ -13,7 +13,10 @@ Phases, each printed as it runs:
      bf16 and HBM3 peaks) and the time of one PyTorch call computing the
      same function (timed here only, never used by the port); the three
      decode megakernels at M 4, 8 and 16 also against the port's CUDA
-     chain of the same function (bitwise) and with the chain's time;
+     chain of the same function (bitwise); the w4 GEMM bitwise against
+     the w8 GEMM on the same weight; then the large-M route (dequant +
+     torch.mm) against the fused GEMMs at every prefill site at M 512,
+     1024 and 4096, and its error against f64;
   4. the engine at Qwen2.5-7B full width, all 28 layers, dummy weights,
      ARC select_frac 0.125, packed W4A16 head: 4 requests (prompts of
      1024, 777, 301 and 64 tokens) served by ``generate`` for 32 greedy
@@ -26,17 +29,24 @@ Phases, each printed as it runs:
      twelve concurrent requests of 32 tokens in two waves, with the
      launch counts, TTFT, output tokens/s, prefill tokens skipped by
      sharing and peak device memory;
-  6. the select-free path (select_frac 0, the north-star configuration's
+  6. the w4 path: the phase-4 engine with weight_fmt w4 (the same seed,
+     so the same weights), the same 4 requests through ``generate``,
+     with the launch counts, prefill ms, decode ms/step, tok/s, weight
+     bytes and peak memory; then, with the large-M route off
+     (gemm.XLA_M = 0), the w4 and w8 engines fed the same tokens, whose
+     logits must be bitwise equal at every step, and with it on, the
+     cosine of their prefill logits and both prefill times in turns;
+  7. the select-free path (select_frac 0, the north-star configuration's
      sites): the same 4 requests through ``generate`` on 28 packed layers
      from seed 0, whose decode runs the megakernels (quantize + GEMM at
      attn_in and o_in, the whole MLP), with the launch counts, prefill
      ms, decode ms/step, tok/s and peak memory; then the same weights in
      an engine with fused_decode=False fed the same tokens, whose logits
      must be bitwise equal at every step;
-  7. the same engine cut to 1 and to 2 layers, its prefill and 4 decode
+  8. the same engine cut to 1 and to 2 layers, its prefill and 4 decode
      steps against the same forward with the plain versions patched in,
-     then at 1 layer chunked and suffix prefill (see engine_check and
-     serving_engine_check for the bars).
+     the 1-layer w4 engine likewise, then at 1 layer chunked and suffix
+     prefill (see engine_check and serving_engine_check for the bars).
 The second-to-last line is the kernels' JSON summary, the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero before the
 last line; without a CUDA device it exits 1 at once.
@@ -79,17 +89,33 @@ KERNEL_INFO = {
                 "arcquant_tpu/kernels/mlp_fused.py:211"),
     "gemm_actq": ("arcquant_tpu_torch/csrc/mlp_fused.cu",
                   "arcquant_tpu/kernels/mlp_fused.py:424"),
+    "gemm_w4": ("arcquant_tpu_torch/csrc/gemm_w4.cu",
+                "arcquant_tpu/kernels/gemm.py:114"),
+    "dequant_w8": ("arcquant_tpu_torch/csrc/dequant.cu",
+                   "arcquant_tpu/kernels/gemm.py:569"),
+    "dequant_w4": ("arcquant_tpu_torch/csrc/dequant.cu",
+                   "arcquant_tpu/kernels/gemm.py:577"),
+    "pin_rowmajor": ("arcquant_tpu_torch/csrc/dequant.cu",
+                     "arcquant_tpu/kernels/gemm.py:650"),
 }
 # The kernels each main path must launch, and those it must not: with ARC
-# every site has a residual, so only gu_actq of the megakernels engages.
-GENERATE_KERNELS = ("actq", "gemm_w8", "flash_attn", "paged_decode",
-                    "gu_actq")
-SERVE_KERNELS = ("actq", "gemm_w8", "paged_prefill", "paged_decode",
-                 "gu_actq")
-ARC_IDLE_KERNELS = ("gemm_actq", "mlp_w8")
-FREE_KERNELS = ("actq", "gemm_w8", "flash_attn", "paged_decode",
-                "gemm_actq", "mlp_w8")
-FREE_IDLE_KERNELS = ("gu_actq",)
+# every site has a residual, so only gu_actq of the megakernels engages;
+# the prefill's qkv and gateup (M >= gemm.XLA_M, N >= Kq) take the
+# large-M route, whose w8 pass is dequant_w8; the w4 kernels stay idle on
+# the w8 paths, and the w8 ones (megakernels included) on the w4 path.
+W4_ONLY = ("gemm_w4", "dequant_w4", "pin_rowmajor")
+GENERATE_KERNELS = ("actq", "gemm_w8", "dequant_w8", "flash_attn",
+                    "paged_decode", "gu_actq")
+SERVE_KERNELS = ("actq", "gemm_w8", "dequant_w8", "paged_prefill",
+                 "paged_decode", "gu_actq")
+ARC_IDLE_KERNELS = ("gemm_actq", "mlp_w8") + W4_ONLY
+FREE_KERNELS = ("actq", "gemm_w8", "dequant_w8", "flash_attn",
+                "paged_decode", "gemm_actq", "mlp_w8")
+FREE_IDLE_KERNELS = ("gu_actq",) + W4_ONLY
+W4_KERNELS = ("actq", "gemm_w4", "dequant_w4", "pin_rowmajor", "flash_attn",
+              "paged_decode")
+W4_IDLE_KERNELS = ("gemm_w8", "dequant_w8", "gemm_actq", "gu_actq", "mlp_w8")
+ROUTE_MS = (512, 1024, 4096)   # the route against the fused GEMMs
 
 # H100 SXM published dense peaks (NVIDIA data sheet): bf16 tensor-core
 # FLOP/s and HBM3 bytes/s. A kernel's bound is the larger of its FLOPs
@@ -250,7 +276,8 @@ def kernel_checks(cfg, timer, failures):
                        rep=(m == 4 and k == h and mode == "plain"),
                        work=(0, _nbytes(a, w, xa, gx)))
 
-    # w8 GEMM at the five weights of the path
+    # w8 and w4 GEMMs at the five weights of the path, the w4 pack of the
+    # same weight held bitwise against the w8 GEMM
     sites = [("qkv", cfg.q_size + 2 * cfg.kv_size, h, True),
              ("o", h, cfg.q_size, False),
              ("gateup", 2 * f, h, False),
@@ -261,8 +288,9 @@ def kernel_checks(cfg, timer, failures):
         w = bf16_randn(gen, (n, k), k ** -0.5)
         b = bf16_randn(gen, (n,), 0.1) if bias else None
         ridx = torch.randperm(k, generator=gen, device="cuda")
-        pw = packing.pack_weight_arc(
-            w, ridx, sel, bias=b, w_scale="channel")
+        pw, pw4 = (packing.pack_weight_arc(w, ridx, sel, bias=b, fmt=fmt,
+                                           w_scale="channel")
+                   for fmt in ("w8", "w4"))
         del w
         # the qkv site also at A16 (serve.py's prefill: bf16 activations,
         # unit scale), with both versions' error against f64
@@ -320,9 +348,28 @@ def kernel_checks(cfg, timer, failures):
                                           pw.bias, y)),
                    library=lib,
                    library_what="torch.matmul over the decoded bf16 weight")
+            args4 = (xa, pw4.codes, pw4.scales, gs, gw, pw4.bias, dt)
+            y4 = gk._gemm_w4_cuda(*args4)
+            ref4 = gk.gemm_w4_plain(*args4)
+            torch.cuda.synchronize()
+            same = bitwise([y4], [y])
+            record("gemm_w4", f"{name} M={m} Kq={pw.kq} N={n}"
+                   + (" A16" if act == "A16" else "")
+                   + f" bitwise-vs-gemm_w8={same}",
+                   float((y4.float() - ref4.float()).abs().max()),
+                   same and sum_order_bound(y4, ref4, f32),
+                   timer(lambda: gk._gemm_w4_cuda(*args4)),
+                   timer(lambda: gk.gemm_w4_plain(*args4)),
+                   "bitwise vs gemm_w8 on the same weight; f32 sum order"
+                   + ("" if f32 else " + 1 bf16 ulp") + " vs plain",
+                   rep=rep, work=(2.0 * m * pw.kq * n,
+                                  _nbytes(xa, pw4.codes, pw4.scales, gs, gw,
+                                          pw4.bias, y4)),
+                   library=lib,
+                   library_what="torch.matmul over the decoded bf16 weight")
             if rep:
                 del wd
-        del pw
+        del pw, pw4
     # flash attention: the prefill shape, and a ragged suffix case
     hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     for b, tq, tk, off in ((4, 1024, 1024, 0), (4, 1000, 1024, 24)):
@@ -388,7 +435,158 @@ def kernel_checks(cfg, timer, failures):
     del cache, kd, vd
     paged_prefill_check(cfg, gen, timer, record)
     fused_checks(cfg, gen, timer, record, summary)
+    route_checks(cfg, gen, timer, record, failures)
     return summary
+
+
+def route_checks(cfg, gen, timer, record, failures):
+    """Phase 3, the large-M route's kernels and the route itself, at the
+    four prefill sites (ARC select_frac 0.125 packing; one weight packed
+    in w8 and in w4):
+      dequant_w8, dequant_w4  each site's weight, bitwise vs plain (and
+                              with the global scale folded, at qkv);
+      pin_rowmajor            M 4 and 4096 at each site's Kq, bitwise vs
+                              plain; its library time is the strided
+                              copy x.view(m, kq/2, 2).transpose(1, 2);
+      the route               gemm._gemm_route against the fused GEMM of
+                              the format at M 512, 1024 and 4096: both
+                              times, torch.mm's alone, the route within
+                              the f32 sum order of the plain fused GEMM;
+                              at qkv M 4096 with A16 operands, its mean
+                              error vs f64 within 2x the plain version's.
+    The w8 route takes xa as it is (already row-major): the identity
+    copy the TPU route makes there is timed and logged, not run."""
+    from arcquant_tpu_torch.kernels import gemm as gk
+    from arcquant_tpu_torch.kernels import quantize as qk
+    from arcquant_tpu_torch.quant import packing
+
+    h, f = cfg.hidden_size, cfg.intermediate_size
+    sites = [("qkv", cfg.q_size + 2 * cfg.kv_size, h, True),
+             ("o", h, cfg.q_size, False),
+             ("gateup", 2 * f, h, False),
+             ("down", h, f, False)]
+    bf = torch.bfloat16
+    for name, n, k, bias in sites:
+        sel = int(round(SELECT_FRAC * k / 64)) * 64
+        w = bf16_randn(gen, (n, k), k ** -0.5)
+        b = bf16_randn(gen, (n,), 0.1) if bias else None
+        ridx = torch.randperm(k, generator=gen, device="cuda")
+        pws = {fmt: packing.pack_weight_arc(w, ridx, sel, bias=b, fmt=fmt,
+                                            w_scale="channel")
+               for fmt in ("w8", "w4")}
+        del w
+        kq = pws["w8"].kq
+        folds = (None, pws["w8"].global_scale.reshape(-1)) if name == "qkv" \
+            else (None,)
+        for fmt, pw in pws.items():
+            kern = gk._dequant_w8_cuda if fmt == "w8" else gk._dequant_w4_cuda
+            plain = gk.dequant_w8_plain if fmt == "w8" \
+                else gk.dequant_w4_plain
+            for gwf in folds:
+                out = kern(pw.codes, pw.scales, gwf)
+                ref = plain(pw.codes, pw.scales, gwf)
+                torch.cuda.synchronize()
+                same = bitwise([out], [ref])
+                record(f"dequant_{fmt}", f"{name} Kq={kq} N={n}"
+                       + (" fold_global" if gwf is not None else ""),
+                       float((out.float() - ref.float()).abs().max()), same,
+                       timer(lambda: kern(pw.codes, pw.scales, gwf)),
+                       timer(lambda: plain(pw.codes, pw.scales, gwf)),
+                       "bitwise", rep=name == "gateup" and gwf is None,
+                       work=(0, _nbytes(pw.codes, pw.scales, gwf, out)))
+                del out, ref
+        for m in (4, 4096):
+            x = bf16_randn(gen, (m, kq))
+            out = gk._pin_rowmajor_cuda(x)
+            ref = gk.pin_rowmajor_plain(x)
+            torch.cuda.synchronize()
+            rep = name == "gateup" and m == 4096
+            record("pin_rowmajor", f"{name} M={m} Kq={kq}",
+                   float((out.float() - ref.float()).abs().max()),
+                   bitwise([out], [ref]),
+                   timer(lambda: gk._pin_rowmajor_cuda(x)),
+                   timer(lambda: gk.pin_rowmajor_plain(x)), "bitwise",
+                   rep=rep, work=(0, _nbytes(x, out)),
+                   library=(lambda: x.view(m, kq // 2, 2).transpose(1, 2)
+                            .contiguous()),
+                   library_what="x.view(m, kq//2, 2).transpose(1, 2)"
+                   ".contiguous()")
+            if rep:
+                log(f"  {'':13s} the w8 route's skipped pin: an identity "
+                    f"copy of xa [{m}, {kq}] (x.clone()) "
+                    f"{timer(lambda: x.clone()):.4f} ms")
+        for m in ROUTE_MS:
+            xa, gx = qk.quantize_x_arc(bf16_randn(gen, (m, k)), ridx, sel)
+            gs = gx.reshape(-1, 1)
+            for fmt, pw in pws.items():
+                gw = pw.global_scale.reshape(1, -1)
+                args = (xa, pw.codes, pw.scales, gs, gw, pw.bias, bf)
+                fused = gk._gemm_w8_cuda if fmt == "w8" else gk._gemm_w4_cuda
+                plain = gk.gemm_w8_plain if fmt == "w8" \
+                    else gk.gemm_w4_plain
+                y = gk._gemm_route(xa, pw, gs, gw, bf)
+                ref = plain(*args)
+                torch.cuda.synchronize()
+                ok = sum_order_bound(y, ref, False)
+                t_route = timer(lambda: gk._gemm_route(xa, pw, gs, gw, bf))
+                t_fused = timer(lambda: fused(*args))
+                wd = gk.dequant_weight(pw)
+                xo = gk.pin_rowmajor_plain(xa) if fmt == "w4" else xa
+                t_mm = timer(lambda: gk._mm_f32_cuda(xo, wd))
+                t_one = timer(lambda: torch.mm(xo, wd,
+                                               out_dtype=torch.float32))
+                del wd, xo
+                log(f"  route {fmt} {name:6s} M={m:<5d} Kq={kq} N={n}: "
+                    f"route {t_route:.4f} ms (its f32 product in "
+                    f"{gk.MM_CHUNK_K}-deep slices {t_mm:.4f}; one torch.mm "
+                    f"{t_one:.4f}) vs gemm_{fmt} {t_fused:.4f} ms; "
+                    f"max_abs_err vs plain "
+                    f"{float((y.float() - ref.float()).abs().max()):.6g} "
+                    f"(f32 sum order + 1 bf16 ulp) {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    failures.append(f"route {fmt} {name} M={m} vs plain")
+                del y, ref
+        if name == "qkv":   # A16 operands: the route's f32 accumulation
+            m = 4096
+            xa = torch.nn.functional.pad(bf16_randn(gen, (m, k)),
+                                         (0, kq - k))
+            gs = torch.ones((m, 1), device="cuda")
+            for fmt, pw in pws.items():
+                gw = pw.global_scale.reshape(1, -1)
+                wd = packing.dequantize_weight(pw, torch.float64)
+                f64 = (xa.double() @ wd) * gw.double() + pw.bias.double()
+                del wd
+                plain = gk.gemm_w8_plain if fmt == "w8" \
+                    else gk.gemm_w4_plain
+                e_r, e_p = (float((z.double() - f64).abs().mean()
+                                  / f64.abs().mean()) for z in (
+                    gk._gemm_route(xa, pw, gs, gw, torch.float32),
+                    plain(xa, pw.codes, pw.scales, gs, gw, pw.bias,
+                          torch.float32)))
+                ok = e_r <= 2.0 * e_p
+                # the product's slice depth against the error (logged)
+                wb, alt = gk.dequant_weight(pw), {}
+                xo = gk.pin_rowmajor_plain(xa) if fmt == "w4" else xa
+                saved = gk.MM_CHUNK_K
+                for depth in (1024, kq):
+                    gk.MM_CHUNK_K = depth
+                    z = gk._epilogue(gk._mm_f32_cuda(xo, wb), gs, gw,
+                                     pw.bias, torch.float32)
+                    alt[depth] = float((z.double() - f64).abs().mean()
+                                       / f64.abs().mean())
+                gk.MM_CHUNK_K = saved
+                del wb, xo, z
+                log(f"  route {fmt} qkv M=4096 A16: f32-out mean relative "
+                    f"error vs f64: route {e_r:.4g}, plain {e_p:.4g} (bar: "
+                    f"route <= 2x plain) {'ok' if ok else 'FAIL'}; with "
+                    f"1024-deep slices {alt[1024]:.4g}, one torch.mm "
+                    f"{alt[kq]:.4g}")
+                if not ok:
+                    failures.append(f"route {fmt} qkv A16: error vs f64 "
+                                    f"{e_r} > 2x the plain's {e_p}")
+                del f64
+        del pws
+        torch.cuda.empty_cache()
 
 
 def _paged_prefill_f64(q, codes, params, pt, st, sl):
@@ -722,17 +920,182 @@ def engine_run(cfg, card, failures):
 
 
 def all_kernels():
-    """The eight kernels' launch counters."""
+    """The twelve kernels' launch counters."""
     from arcquant_tpu_torch.kernels import attention, gemm as gk
     from arcquant_tpu_torch.kernels import mlp_fused as mf
     from arcquant_tpu_torch.kernels import paged_decode as pdk
     from arcquant_tpu_torch.kernels import quantize as qk
     return [qk.ACTQ, gk.GEMM_W8, attention.FLASH, pdk.PAGED_DECODE,
-            pdk.PAGED_PREFILL, mf.MLP_W8, mf.GU_ACTQ, mf.GEMM_ACTQ]
+            pdk.PAGED_PREFILL, mf.MLP_W8, mf.GU_ACTQ, mf.GEMM_ACTQ,
+            gk.GEMM_W4, gk.DEQUANT_W8, gk.DEQUANT_W4, gk.PIN_ROWMAJOR]
+
+
+def _weight_gib(qparams) -> float:
+    """Device bytes of an engine's packed layers and head, in GiB."""
+    packs = [p for layer in qparams["layers"] for n, p in layer.items()
+             if n in ("qkv", "o", "gateup", "down")]
+    packs.append(qparams["lm_head_packed"])
+    return sum(_nbytes(*p) for p in packs) / 2 ** 30
+
+
+def w4_run(cfg, card, qparams8, calib, failures):
+    """Phase 6: the w4 path on 28 packed layers. Returns the kernels'
+    launch counts over generate().
+
+    The engine is phase 4's (ARC select_frac 0.125, seed 0, so the same
+    random weights) with weight_fmt w4: decode runs actq then gemm_w4 at
+    every site and the head (the megakernels are w8 only); prefill runs
+    gemm_w4 at o and down and the large-M route (dequant_w4, pin_rowmajor,
+    torch.mm) at qkv and gateup. Then the A/B against the phase-4 w8
+    weights (qparams8) in an engine of the same settings: with the route
+    off (gemm.XLA_M = 0) both prefill and decode 32 steps fed the same
+    tokens, two runs each in turns, and the logits must be bitwise equal
+    at every step of every run (gemm_w4 gives gemm_w8's bits, and gu_actq
+    the w8 chain's), with the decode ms/step of each; with the route on,
+    the prefill logits' cosine is logged (the w4 route contracts k in
+    the split even/odd order). Prefill times of both formats with the
+    route on and off, two each, in turns."""
+    from arcquant_tpu_torch.config import QuantConfig
+    from arcquant_tpu_torch.engine import EngineConfig, InferenceEngine
+    from arcquant_tpu_torch.kernels import gemm as gk
+
+    qcfg8 = QuantConfig(quant_type="NVFP4", use_kernels=True,
+                        weight_fmt="w8", act_scale="row", w_scale="channel",
+                        quantize_lm_head=True)
+    qcfg4 = qcfg8.replace(weight_fmt="w4")
+    ecfg = EngineConfig(max_batch=len(PROMPT_LENS),
+                        max_seq_len=max(PROMPT_LENS) + NEW_TOKENS + 8)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()     # the w8 weights of the A/B
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = InferenceEngine.dummy(cfg, calib, qcfg4, ecfg, seed=0,
+                                device="cuda")
+    torch.cuda.synchronize()
+    build_peak = torch.cuda.max_memory_allocated() - held
+    log(f"  w4 engine built in {time.perf_counter() - t0:.1f} s, peak "
+        f"device memory {build_peak / 2 ** 30:.3f} GiB beyond the "
+        f"{held / 2 ** 30:.3f} GiB held for the A/B")
+    torch.cuda.reset_peak_memory_stats()
+    prompts = prompts_for(cfg)
+    kernels = all_kernels()
+    for k in kernels:
+        k.launches = 0
+    out = eng.generate(prompts, NEW_TOKENS)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels}
+    log(f"  launches in generate(): {launches}")
+    for name in W4_KERNELS:
+        if launches[name] <= 0:
+            failures.append(f"kernel {name} not launched by the w4 "
+                            "generate()")
+    for name in W4_IDLE_KERNELS:
+        if launches[name] != 0:
+            failures.append(f"kernel {name} launched by the w4 generate()")
+    if [len(o) for o in out] != [NEW_TOKENS] * len(PROMPT_LENS):
+        failures.append(f"w4 generate lengths {[len(o) for o in out]}")
+    if not all(0 <= t < cfg.vocab_size for o in out for t in o):
+        failures.append("w4 generated token out of range")
+    log(f"  first tokens per request: {[o[:6] for o in out]}")
+
+    toks, lens, _ = eng._pad_prompts(prompts)
+    active = torch.ones(len(PROMPT_LENS), dtype=torch.bool)
+    state = eng.new_state()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, state = eng.prefill(state, toks, lens)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    for _ in range(NEW_TOKENS):
+        logits, state = eng.decode_step(
+            state, logits.argmax(-1).to(torch.int32), active)
+    torch.cuda.synchronize()
+    dec_s = time.perf_counter() - t0
+    finite = bool(torch.isfinite(logits).all())
+    peak = torch.cuda.max_memory_allocated() - held
+    del state, logits
+
+    eng8 = InferenceEngine(cfg, qparams8, calib, qcfg8, ecfg,
+                           device="cuda", quantize_params=False)
+    engines = {"w8": eng8, "w4": eng}
+    saved, runs, feed = gk.XLA_M, {}, None
+    try:
+        # in turns, so that the host's drift favours no format or route
+        for fmt, route in (("w8", True), ("w4", True), ("w8", False),
+                           ("w4", False), ("w4", False), ("w8", False),
+                           ("w4", True), ("w8", True)):
+            gk.XLA_M = saved if route else 0
+            e = engines[fmt]
+            state = e.new_state()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, state = e.prefill(state, toks, lens)
+            torch.cuda.synchronize()
+            run = dict(ms=(time.perf_counter() - t0) * 1e3,
+                       steps=[logits.clone()])
+            if not route:         # the bitwise A/B: decode, fed the same
+                fed = []
+                t0 = time.perf_counter()
+                for i in range(NEW_TOKENS):
+                    cur = (logits.argmax(-1).to(torch.int32) if feed is None
+                           else feed[i])
+                    fed.append(cur)
+                    logits, state = e.decode_step(state, cur, active)
+                    run["steps"].append(logits.clone())
+                torch.cuda.synchronize()
+                run["decode_ms"] = (time.perf_counter() - t0) * 1e3 / NEW_TOKENS
+                feed = fed
+            runs.setdefault((fmt, route), []).append(run)
+            del state, logits
+    finally:
+        gk.XLA_M = saved
+    ref = runs[("w8", False)][0]["steps"]
+    others = [r["steps"] for r in runs[("w8", False)][1:]
+              + runs[("w4", False)]]
+    same = [all(bool(torch.equal(_bits(x), _bits(o[i]))) for o in others)
+            for i, x in enumerate(ref)]
+    log(f"  w4 vs w8, route off, same tokens fed (two runs each, in turns): "
+        f"logits bitwise equal in every run at {sum(same)} of {len(same)} "
+        f"steps (prefill + {NEW_TOKENS} decode; bar: all) "
+        f"{'ok' if all(same) else 'FAIL'}")
+    if not all(same):
+        failures.append(f"w4 vs w8 engine with the route off: bitwise at "
+                        f"{same}")
+    cos = _cosine(runs[("w4", True)][0]["steps"][0],
+                  runs[("w8", True)][0]["steps"][0])
+    tok_same = bool(torch.equal(runs[("w4", True)][0]["steps"][0].argmax(-1),
+                                runs[("w8", True)][0]["steps"][0].argmax(-1)))
+    log(f"  w4 vs w8, route on: prefill logits cosine {cos:.6f}, greedy "
+        f"tokens {'equal' if tok_same else 'differ'} (logged; the w4 route "
+        "sums k in the split even/odd order)")
+    dec = {fmt: [round(r["decode_ms"], 3) for r in runs[(fmt, False)]]
+           for fmt in ("w8", "w4")}
+    pre = {f"{fmt}_route_{'on' if r else 'off'}": [round(x["ms"], 3)
+                                                  for x in v]
+           for (fmt, r), v in runs.items()}
+    metrics = dict(
+        prefill_ms=round(prefill_ms, 3),
+        decode_ms_per_step=round(dec_s * 1e3 / NEW_TOKENS, 3),
+        decode_tok_s=round(len(PROMPT_LENS) * NEW_TOKENS / dec_s, 2),
+        prefill_ms_by_format_and_route=pre,
+        decode_ms_per_step_route_off_in_turns=dec,
+        weight_gib=round(_weight_gib(eng.qparams), 3),
+        w8_weight_gib=round(_weight_gib(qparams8), 3),
+        serve_peak_memory_gib=round(peak / 2 ** 30, 3),
+        build_peak_memory_gib=round(build_peak / 2 ** 30, 3),
+        logits_finite=finite, card=card)
+    log(f"  w4 engine {MODEL} {cfg.num_layers} layers bs=4: "
+        f"{json.dumps(metrics)}")
+    if not finite:
+        failures.append("w4: non-finite logits")
+    del eng, eng8, engines, runs, ref, others
+    torch.cuda.empty_cache()
+    return launches
 
 
 def free_run(cfg, card, failures):
-    """Phase 6: the select-free path on 28 packed layers. Returns the
+    """Phase 7: the select-free path on 28 packed layers. Returns the
     kernels' launch counts over generate().
 
     Then the A/B: the same weights in an engine with fused_decode=False,
@@ -1048,7 +1411,8 @@ class PlainKernels:
     """Context manager that routes the kernel entry points to their plain
     PyTorch versions (the engine-level reference): the megakernels to the
     chain of the same function, whose actq and GEMM entry points are then
-    the plain versions (or, for a noise floor, the noisy GEMM)."""
+    the plain versions (or, for a noise floor, the noisy GEMM); the
+    large-M route's dequant and pin passes to theirs."""
 
     def __enter__(self):
         from arcquant_tpu_torch.kernels import attention, gemm as gk
@@ -1064,7 +1428,14 @@ class PlainKernels:
                       (pdk, "_paged_prefill_cuda", pdk.paged_prefill_plain),
                       (mf, "_gemm_actq_cuda", mf.gemm_actq_chain),
                       (mf, "_gu_actq_cuda", mf.gu_actq_chain),
-                      (mf, "_mlp_w8_cuda", mf.mlp_w8_chain)]
+                      (mf, "_mlp_w8_cuda", mf.mlp_w8_chain),
+                      (gk, "_gemm_w4_cuda", gk.gemm_w4_plain),
+                      (gk, "_dequant_w8_cuda", gk.dequant_w8_plain),
+                      (gk, "_dequant_w4_cuda", gk.dequant_w4_plain),
+                      (gk, "_pin_rowmajor_cuda", gk.pin_rowmajor_plain),
+                      # the route's product stays torch.mm (a noise
+                      # floor patches it); saved so that it is restored
+                      (gk, "_mm_f32_cuda", gk._mm_f32_cuda)]
         self.saved = [(mod, name, getattr(mod, name), plain)
                       for mod, name, plain in self.saved]
         for mod, name, _, plain in self.saved:
@@ -1083,9 +1454,11 @@ def _cosine(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def engine_check(cfg, failures):
-    """Phase 7: the engine cut to 1 and to 2 layers, its prefill and 4
-    decode steps (fed the same tokens) with the kernels against the same
-    forward with the plain versions.
+    """Phase 8: the engine cut to 1 and to 2 layers, and the w4 engine
+    cut to 1 layer, each its prefill (4 x 1024: qkv and gateup take the
+    large-M route) and 4 decode steps (fed the same tokens) with the
+    kernels against the same forward with the plain versions (the
+    route's torch.mm is the same on both sides).
 
     1 layer: logits cosine >= 0.999 and equal greedy tokens at every
     step. 2 layers: the forward of random dummy weights is chaotic at
@@ -1093,8 +1466,8 @@ def engine_check(cfg, failures):
     moves the logits cosine to about 0.99 and changes greedy tokens), so
     the bar is that noise floor, measured in the same run: the kernels
     must stay at least as close to the plain forward as the plain
-    forward with every GEMM output multiplied by (1 + 2^-22 * N(0, 1))
-    does."""
+    forward with every GEMM output (the route's f32 product included)
+    multiplied by (1 + 2^-22 * N(0, 1)) does."""
     from arcquant_tpu_torch.config import QuantConfig
     from arcquant_tpu_torch.engine import EngineConfig, InferenceEngine
     from arcquant_tpu_torch.kernels import gemm as gk
@@ -1105,11 +1478,12 @@ def engine_check(cfg, failures):
                        quantize_lm_head=True)
     ecfg = EngineConfig(max_batch=len(PROMPT_LENS),
                         max_seq_len=max(PROMPT_LENS) + NEW_TOKENS + 8)
-    for layers in (1, 2):
+    for layers, fmt in ((1, "w8"), (2, "w8"), (1, "w4")):
         cfg_l = cfg.replace(num_layers=layers)
         calib = quantized.identity_calib(cfg_l, SELECT_FRAC, device="cuda")
-        eng = InferenceEngine.dummy(cfg_l, calib, qcfg, ecfg, seed=1,
-                                    device="cuda")
+        eng = InferenceEngine.dummy(cfg_l, calib,
+                                    qcfg.replace(weight_fmt=fmt), ecfg,
+                                    seed=1, device="cuda")
         toks, lens, _ = eng._pad_prompts(prompts_for(cfg_l, seed=1))
         active = torch.ones(len(PROMPT_LENS), dtype=torch.bool)
 
@@ -1131,12 +1505,13 @@ def engine_check(cfg, failures):
                 gen = torch.Generator(device="cuda")
                 gen.manual_seed(0)
                 gk._gemm_w8_cuda = _noisy_gemm(gen)
+                gk._mm_f32_cuda = _noisy_mm(gen)
                 floor, _ = run(feed=fed)
         for i, (a, b) in enumerate(zip(got, want)):
             cos = _cosine(a, b)
             same = bool(torch.equal(a.argmax(-1), b.argmax(-1)))
-            what = f"{layers}-layer " + ("prefill" if i == 0
-                                         else f"decode {i}")
+            what = f"{layers}-layer {fmt} " + ("prefill" if i == 0
+                                               else f"decode {i}")
             if layers == 1:
                 ok = cos >= 0.999 and same
                 bar = "cosine >= 0.999 and equal tokens"
@@ -1183,8 +1558,16 @@ def _noisy_gemm(gen):
     return f
 
 
+def _noisy_mm(gen):
+    """The large-M route's f32 product (the f32 plain matmul) perturbed
+    the same way."""
+    def f(x, w):
+        return _noise(x.float() @ w.float(), gen)
+    return f
+
+
 def serving_engine_check(cfg, failures):
-    """Phase 7, continued: the 1-layer engine with prefill_chunk 256,
+    """Phase 8, continued: the 1-layer engine with prefill_chunk 256,
     kernels against plain versions:
       chunked  the four prompts stream through the int4 pool in chunks;
       suffix   a prefix prefill of (512, 256, 128, 0) tokens, then the
@@ -1257,6 +1640,7 @@ def serving_engine_check(cfg, failures):
                     gen = torch.Generator(device="cuda")
                     gen.manual_seed(seed)
                     gk._gemm_w8_cuda = _noisy_gemm(gen)
+                    gk._mm_f32_cuda = _noisy_mm(gen)
                     pdk._paged_prefill_cuda = _noisy_attention(
                         pdk.paged_prefill_plain, gen)
                     pdk._paged_decode_cuda = _noisy_attention(
@@ -1321,15 +1705,21 @@ def main() -> int:
 
     log(f"[serve] HTTP server, {MODEL} full width, 28 layers, on {card}")
     serve_launches = serving_run(cfg, qparams, calib, card, failures)
-    del qparams, calib
     gc.collect()    # the serving phase's patched methods form cycles
+    torch.cuda.empty_cache()
+
+    log(f"[w4] {MODEL} full width, 28 layers, weight_fmt w4, ARC, "
+        f"against the w8 engine, on {card}")
+    w4_launches = w4_run(cfg, card, qparams, calib, failures)
+    del qparams, calib
     torch.cuda.empty_cache()
 
     log(f"[select-free] {MODEL} full width, 28 layers, select_frac 0, "
         f"fused vs unfused decode, on {card}")
     free_launches = free_run(cfg, card, failures)
 
-    log("[engine check] 1 and 2 layers, kernels vs plain versions")
+    log("[engine check] 1 and 2 layers (w8), 1 layer (w4), kernels vs "
+        "plain versions")
     engine_check(cfg, failures)
     serving_engine_check(cfg, failures)
 
@@ -1337,12 +1727,13 @@ def main() -> int:
         for f in failures:
             print(f"FAIL: {f}", file=sys.stderr)
         return 1
-    # launches: over the three main paths, the ARC generate(), the HTTP
-    # server and the select-free generate()
+    # launches: over the four main paths, the ARC generate(), the HTTP
+    # server, the w4 generate() and the select-free generate()
     kernels = []
     for name, (src, replaces) in KERNEL_INFO.items():
         s = summary[name]
         paths = dict(generate=gen_launches[name], serve=serve_launches[name],
+                     generate_w4=w4_launches[name],
                      generate_select_free=free_launches[name])
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,

@@ -137,8 +137,8 @@ def test_generate_and_decode_scan_match_jax(jax_run):
 def test_outside_the_slice_raises():
     cfg = get_model_config("test-tiny")
     calib = quantized.identity_calib(cfg)
-    for bad in (dict(weight_fmt="w4"), dict(use_kernels=False),
-                dict(act_scale="tensor"), dict(quantize_lm_head=False)):
+    for bad in (dict(use_kernels=False), dict(act_scale="tensor"),
+                dict(quantize_lm_head=False)):
         with pytest.raises(NotImplementedError):
             InferenceEngine.dummy(cfg, calib,
                                   QuantConfig(**{**QKW, **bad}),

@@ -1,6 +1,8 @@
 """The CUDA kernels of arcquant_tpu_torch held against their plain
 PyTorch versions on the card, at small shapes with ragged edges; the
-decode megakernels also bitwise against the CUDA chain they fuse.
+decode megakernels also bitwise against the CUDA chain they fuse, the
+w4 GEMM against the w8 GEMM on the same weight, and the GEMMs and the
+large-M route against f64.
 
 Every test is marked ``gpu`` and skips when torch sees no CUDA device.
 This file imports no JAX, so it also runs on a machine without it:
@@ -335,3 +337,96 @@ def test_fused_kernels_refuse_what_they_do_not_take():
     with pytest.raises(ValueError, match="bf16"):
         mf.mlp_w8_fused(x[:4], None, pw_gu, pw_dn, 512,
                         out_dtype=torch.float32, norm_w=x[0], norm_eps=1e-6)
+
+
+# -- w4 GEMM and the large-M route (kernels/gemm.py) ---------------------------
+
+def _pair(rng, n, k, select, bias):
+    """The same weight packed in w8 and in w4."""
+    w = _bf16(outlier_x(rng, n, k) * k ** -0.5)
+    ridx = torch.from_numpy(rng.permutation(k)).cuda()
+    b = _bf16(rng.standard_normal(n) * 0.1) if bias else None
+    return [packing.pack_weight_arc(w, ridx, select, bias=b, fmt=f,
+                                    w_scale="channel") for f in ("w8", "w4")]
+
+
+@pytest.mark.parametrize("n", [640, 200])
+@pytest.mark.parametrize("fold", [False, True])
+def test_dequant_kernels_bitwise(n, fold):
+    """dequant_w8 / dequant_w4 bit for bit their plain versions (N 200:
+    the ragged last 16 columns), with and without the folded gw."""
+    require_cuda()
+    rng = np.random.default_rng(100 + n)
+    p8, p4 = _pair(rng, n, 960, 64, False)
+    gw = p8.global_scale.reshape(-1) if fold else None
+    assert_bitwise([gk._dequant_w8_cuda(p8.codes, p8.scales, gw),
+                    gk._dequant_w4_cuda(p4.codes, p4.scales, gw)],
+                   [gk.dequant_w8_plain(p8.codes, p8.scales, gw),
+                    gk.dequant_w4_plain(p4.codes, p4.scales, gw)])
+
+
+@pytest.mark.parametrize("m,k", [(4, 512), (130, 4096)])
+def test_pin_rowmajor_bitwise(m, k):
+    require_cuda()
+    x = _bf16(np.random.default_rng(m).standard_normal((m, k)) * 3)
+    assert_bitwise([gk._pin_rowmajor_cuda(x)], [gk.pin_rowmajor_plain(x)])
+
+
+@pytest.mark.parametrize("m,n", [(4, 4608), (5, 200), (70, 1040),
+                                 (130, 384)])
+@pytest.mark.parametrize("bias", [False, True])
+def test_gemm_w4_bitwise_equals_w8(m, n, bias):
+    """gemm_w4 on a w4 pack gives gemm_w8's bits on a w8 pack of the same
+    weight (32-row tile with split-K, 128-row tile, ragged N), bf16 and
+    f32 outputs; and holds the w8 GEMM's sum-order bound of the plain
+    version."""
+    require_cuda()
+    rng = np.random.default_rng(110 + m)
+    p8, p4 = _pair(rng, n, 960, 64, bias)
+    xa, gx = qk.quantize_x_arc(_bf16(outlier_x(rng, m, 960)),
+                               torch.arange(960).cuda(), 64, kq=p8.kq)
+    for dt in (torch.float32, torch.bfloat16):
+        gs, gw = gx.reshape(-1, 1), _gs(p8)
+        y4 = gk._gemm_w4_cuda(xa, p4.codes, p4.scales, gs, gw, p4.bias, dt)
+        y8 = gk._gemm_w8_cuda(xa, p8.codes, p8.scales, gs, gw, p8.bias, dt)
+        ref = gk.gemm_w4_plain(xa, p4.codes, p4.scales, gs, gw, p4.bias, dt)
+        torch.cuda.synchronize()
+        assert_bitwise([y4], [y8])
+        assert_summation_order_close(y4, ref, dt == torch.float32)
+
+
+def _f64(xa, pw, gs):
+    wd = packing.dequantize_weight(pw, torch.float64)
+    return (xa.double() @ wd) * gs.double() * _gs(pw).double()
+
+
+def _rel_err(y, f64):
+    return float((y.double() - f64).abs().mean() / f64.abs().mean())
+
+
+@pytest.mark.parametrize("fmt", ["w8", "w4"])
+@pytest.mark.parametrize("m", [4, 600])
+def test_gemm_and_route_accumulate_in_f32(fmt, m, monkeypatch):
+    """bf16 activations (W4A16 operands, unit scale) over K 4096: the
+    GEMM kernel of the format (route off) and the large-M route (dequant
+    kernel, pin for w4, torch.mm to f32) each within 2x the plain f32
+    version's mean relative error against f64."""
+    require_cuda()
+    rng = np.random.default_rng(120 + m)
+    k, n = 4096, 4608
+    pw = _pair(rng, n, k, 0, False)[fmt == "w4"]
+    xa = _bf16(rng.standard_normal((m, k)))
+    gs = torch.ones((m, 1), device="cuda")
+    f64 = _f64(xa, pw, gs)
+    plain = (gk.gemm_w8_plain if fmt == "w8" else gk.gemm_w4_plain)(
+        xa, pw.codes, pw.scales, gs, _gs(pw), None, torch.float32)
+    cuda = (gk._gemm_w8_cuda if fmt == "w8" else gk._gemm_w4_cuda)(
+        xa, pw.codes, pw.scales, gs, _gs(pw), None, torch.float32)
+    monkeypatch.setattr(gk, "XLA_M", 2)
+    launches = gk.DEQUANT_W8.launches + gk.DEQUANT_W4.launches
+    route = gk.gemm_dequant(xa, pw, 1.0, torch.float32)
+    torch.cuda.synchronize()
+    assert gk.DEQUANT_W8.launches + gk.DEQUANT_W4.launches == launches + 1
+    e_plain = _rel_err(plain, f64)
+    for y in (cuda, route):
+        assert _rel_err(y, f64) <= 2.0 * e_plain, (_rel_err(y, f64), e_plain)

@@ -188,8 +188,9 @@ def test_gates_agree_with_jax(limit, monkeypatch):
     rng = np.random.default_rng(5)
     d, f = 256, 512
     jpw_gu, pw_gu, _ = _pack(rng, 2 * f, d, False)
-    w4 = JP.pack_weight_arc(jnp.asarray(_bf16(outlier_x(rng, 2 * f, d))),
-                            jnp.arange(d), 0, fmt="w4")
+    jw4 = JP.pack_weight_arc(jnp.asarray(_bf16(outlier_x(rng, 2 * f, d))),
+                             jnp.arange(d), 0, fmt="w4")
+    w4 = packed_from_numpy(jw4)
     monkeypatch.setattr(mf, "MLP_FUSED_M", limit)
     monkeypatch.setenv(jmf._MLP_FUSED_M_ENV, str(limit))
     jmf.mlp_fused_dispatch_m.cache_clear()
@@ -200,7 +201,7 @@ def test_gates_agree_with_jax(limit, monkeypatch):
             for m in (2, 4, 16, 32):
                 for per_row in (True, False):
                     for fmt in ("w8", "w4"):
-                        gu = (pw_gu, jpw_gu) if fmt == "w8" else (w4, w4)
+                        gu = (pw_gu, jpw_gu) if fmt == "w8" else (w4, jw4)
                         for port, jax_ok in _gates(gu[0], pw_dn, gu[1],
                                                    jpw_dn, m, d, f, per_row,
                                                    sel):

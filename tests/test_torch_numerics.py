@@ -136,9 +136,9 @@ def test_pack_weight_arc_w8_bytes(w_scale, select, bias):
         full, np.asarray(JP.dequantize_weight(jpw, k, select)))
 
 
-def test_w4_is_not_ported():
-    with pytest.raises(NotImplementedError, match="w4"):
-        packing.pack_weight_arc(torch.ones(16, 64), None, 0, fmt="w4")
+def test_pack_weight_arc_rejects_unknown_format():
+    with pytest.raises(ValueError, match="w2"):
+        packing.pack_weight_arc(torch.ones(16, 64), None, 0, fmt="w2")
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
