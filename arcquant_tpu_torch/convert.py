@@ -61,20 +61,25 @@ def packed_from_numpy(pw, device="cpu"):
         bias=None if pw.bias is None else tensor_from_numpy(pw.bias, device))
 
 
+def _packed_tree(x, device):
+    """Packed weights (stacked ones too) to the port's, nested dicts of
+    them and of arrays (an MoE layer's "moe": router {"w"}, gateup_pk,
+    down_pk, sgate/sup/sdown, shared_gate {"w"}) alike."""
+    if hasattr(x, "codes"):
+        return packed_from_numpy(x, device)
+    if isinstance(x, dict):
+        return {k: _packed_tree(v, device) for k, v in x.items()}
+    return tensor_from_numpy(x, device)
+
+
 def qparams_from_numpy(qparams, device="cpu"):
     """A packed engine tree (embed, final_norm, layers of
-    {attn_norm, mlp_norm, qkv, o, gateup, down}, lm_head_packed?)."""
-    out = {}
-    for k, v in qparams.items():
-        if k == "layers":
-            out[k] = [{n: (packed_from_numpy(x, device)
-                           if hasattr(x, "codes")
-                           else tensor_from_numpy(x, device))
-                       for n, x in layer.items()} for layer in v]
-        elif k == "lm_head_packed":
-            out[k] = packed_from_numpy(v, device)
-        else:
-            out[k] = tensor_from_numpy(v, device)
+    {attn_norm, mlp_norm, qkv, o, and gateup, down or an MoE layer's
+    "moe"}, lm_head_packed?)."""
+    out = {k: _packed_tree(v, device) for k, v in qparams.items()
+           if k != "layers"}
+    out["layers"] = [_packed_tree(layer, device)
+                     for layer in qparams["layers"]]
     return out
 
 

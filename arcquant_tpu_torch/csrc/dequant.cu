@@ -14,7 +14,9 @@
 // (JAX's split-half layout). With gw set, the f32 value is multiplied by
 // gw[n] before the bf16 round (JAX's fold_global). Every product is a
 // single correctly rounded f32 multiply, so the outputs equal the plain
-// versions' bit for bit.
+// versions' bit for bit. A stack of experts' packs (the MoE dispatch
+// path: codes [E, rows, N], gw [E, N]) decodes in one launch, blockIdx.y
+// the expert, each expert's output in the layout above.
 //
 // pin_rowmajor: on the TPU an identity copy that pins the activations
 // row-major for XLA's matmul; a torch tensor already is row-major, so on
@@ -44,6 +46,11 @@ __global__ void dequant_kernel(const uint8_t* __restrict__ codes,
   const int chunks = (N + 15) / 16;
   const int64_t c = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= (int64_t)rows * chunks) return;
+  const int64_t e = blockIdx.y;  // the expert of a stack
+  codes += e * rows * N;
+  scales += e * (rows / (kW4 ? 8 : 16)) * N;
+  out += e * (kW4 ? 2 : 1) * (int64_t)rows * N;
+  if (gw != nullptr) gw += e * N;
   const int r = (int)(c / chunks), n0 = (int)(c % chunks) * 16;
   const int cnt = min(16, N - n0);
   const bool full = cnt == 16 && (N % 16) == 0;
@@ -114,29 +121,29 @@ __global__ void pin_rowmajor_kernel(const bf16* __restrict__ x, bf16* __restrict
 }
 
 template <bool kW4>
-int launch_dequant(const void* codes, const void* scales, const void* gw, void* out, int rows,
-                   int N, cudaStream_t st) {
+int launch_dequant(const void* codes, const void* scales, const void* gw, void* out,
+                   int experts, int rows, int N, cudaStream_t st) {
   const int64_t threads = (int64_t)rows * ((N + 15) / 16);
-  if (threads > 0)
-    dequant_kernel<kW4><<<(unsigned)((threads + 255) / 256), 256, 0, st>>>(
+  if (threads > 0 && experts > 0)
+    dequant_kernel<kW4><<<dim3((unsigned)((threads + 255) / 256), experts), 256, 0, st>>>(
         (const uint8_t*)codes, (const uint8_t*)scales, (const float*)gw, (bf16*)out, rows, N);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// codes: [Kq, N] int8; scales: [Kq/16, N] uint8; gw: [N] f32 or NULL;
-// out: [Kq, N] bf16. rows = Kq.
+// codes: [E, Kq, N] int8; scales: [E, Kq/16, N] uint8; gw: [E, N] f32 or
+// NULL; out: [E, Kq, N] bf16. rows = Kq; E = experts (1 for one pack).
 ARC_EXPORT int arc_dequant_w8(const void* codes, const void* scales, const void* gw, void* out,
-                              int rows, int N, void* stream) {
-  return launch_dequant<false>(codes, scales, gw, out, rows, N, (cudaStream_t)stream);
+                              int experts, int rows, int N, void* stream) {
+  return launch_dequant<false>(codes, scales, gw, out, experts, rows, N, (cudaStream_t)stream);
 }
 
-// codes: [Kq/2, N] uint8; scales: [Kq/16, N] uint8; gw: [N] f32 or
-// NULL; out: [2, Kq/2, N] bf16. rows = Kq/2.
+// codes: [E, Kq/2, N] uint8; scales: [E, Kq/16, N] uint8; gw: [E, N] f32
+// or NULL; out: [E, 2, Kq/2, N] bf16. rows = Kq/2.
 ARC_EXPORT int arc_dequant_w4(const void* codes, const void* scales, const void* gw, void* out,
-                              int rows, int N, void* stream) {
-  return launch_dequant<true>(codes, scales, gw, out, rows, N, (cudaStream_t)stream);
+                              int experts, int rows, int N, void* stream) {
+  return launch_dequant<true>(codes, scales, gw, out, experts, rows, N, (cudaStream_t)stream);
 }
 
 // x, out: [M, K] bf16, K % 8 == 0.

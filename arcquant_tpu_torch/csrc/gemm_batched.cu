@@ -1,0 +1,111 @@
+// Batched dequant GEMM over a stack of experts' weights:
+// y[e] = (xa[e] @ dec(W[e])) * gs[e, m] * gw[e, n], w8 or w4 codes.
+//
+// Replaces the TPU kernel arcquant_tpu/kernels/gemm.py:gemm_dequant_batched
+// (a jax.vmap of _gemm_call, whose pallas_call lifts the expert axis to a
+// leading parallel grid dimension). Plain PyTorch version:
+// arcquant_tpu_torch/kernels/gemm.py:gemm_batched_plain. It runs the MoE
+// down projection in dense mode (models/moe.py:_ffn_dense_packed): every
+// expert on every token of a decode step or a short prefill, E 60, M the
+// tokens, Kq 2048 (ARC) or 1536, N 2048 on Qwen1.5-MoE-A2.7B.
+//
+// One launch for all experts. The grid is (n-tiles, m-tiles x splits, E);
+// each block offsets xa, codes, scales, gs, gw, out and the split-K
+// workspace by its expert and runs the tile of gemm_w8_core.cuh (the w8
+// loader, or the w4 loader with kW4) over its split's k-tiles. The split
+// plan is the single GEMM's for (M, N, Kq) (kernels/gemm.py:_split_plan),
+// and the reduce sums an expert's splits in split order from 0.0f, so
+// each expert's slice equals a gemm_w8 (or gemm_w4) launch on that
+// expert bit for bit.
+//
+// Bound on the H100: the weight stream at decode (1.06 bytes a weight in
+// w8, 0.5625 in w4): 267 MB and 142 MB at E 60, Kq 2048, N 2048, so
+// 0.080 and 0.042 ms at 3.35 TB/s. With the single GEMM's plan a decode
+// step launches 16 n-tiles x 4 splits x 60 experts = 3840 blocks, about
+// 15 waves of two blocks per SM, which keeps the weight loads in flight
+// as the single GEMM does; a plan tuned across experts is later work.
+#include "gemm_w8_core.cuh"
+
+namespace {
+
+template <int BM, int BN, int WM, int WN, bool kW4>
+__global__ void __launch_bounds__(WM * WN * 32, 2)
+gemm_batched_kernel(const bf16* __restrict__ xa, const int8_t* __restrict__ codes,
+                    const uint8_t* __restrict__ scales, const float* __restrict__ gs,
+                    const float* __restrict__ gw, void* __restrict__ out, int out_f32,
+                    float* __restrict__ partial, int M, int N, int Kq, int splits,
+                    int tiles_per_split) {
+  using T = w8::Tile<BM, BN, WM, WN>;
+  __shared__ typename T::Smem sm;
+  const int64_t e = blockIdx.z;
+  const int m_tile = blockIdx.y / splits, split = blockIdx.y % splits;
+  const int64_t mn = (int64_t)M * N;
+  const int64_t code_rows = kW4 ? Kq / 2 : Kq;
+  const int kt0 = split * tiles_per_split;
+  const int kt1 = min(kt0 + tiles_per_split, Kq / w8::BK);
+  void* out_e = out_f32 ? (void*)(reinterpret_cast<float*>(out) + e * mn)
+                        : (void*)(reinterpret_cast<bf16*>(out) + e * mn);
+  w8::gemm_tile<T, false, kW4>(
+      xa + e * M * Kq, codes + e * code_rows * N, scales + e * (Kq / 16) * N, gs + e * M,
+      gw + e * N, nullptr, out_e, out_f32, partial != nullptr ? partial + e * splits * mn : nullptr,
+      split, M, N, Kq, m_tile * BM, blockIdx.x * BN, kt0, kt1, sm);
+}
+
+// Sums each expert's split-K partials ([E, splits, M, N]) in split order,
+// then the single GEMM's epilogue with the expert's gs row and gw row.
+__global__ void batched_reduce_kernel(const float* __restrict__ partial, int splits,
+                                      const float* __restrict__ gs,
+                                      const float* __restrict__ gw, void* __restrict__ out,
+                                      int out_f32, int E, int M, int N) {
+  const int64_t mn = (int64_t)M * N;
+  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= E * mn) return;
+  const int64_t e = idx / mn, r = idx % mn;
+  const float v = w8::sum_splits(partial + e * splits * mn, splits, mn, r);
+  w8::store_out(v, idx, (int)(e * M + r / N), (int)(e * N + r % N), gs, gw, nullptr, out,
+                out_f32);
+}
+
+template <bool kW4>
+int launch_batched(const void* xa, const void* codes, const void* scales, const void* gs,
+                   const void* gw, void* out, int out_f32, void* workspace, int E, int M, int N,
+                   int Kq, int small_m, int splits, int tiles_per_split, cudaStream_t st) {
+  float* part = splits > 1 ? (float*)workspace : nullptr;
+  if (E > 0 && M > 0 && N > 0) {
+    if (small_m) {
+      dim3 grid((N + 127) / 128, ((M + 31) / 32) * splits, E);
+      gemm_batched_kernel<32, 128, 1, 4, kW4><<<grid, 128, 0, st>>>(
+          (const bf16*)xa, (const int8_t*)codes, (const uint8_t*)scales, (const float*)gs,
+          (const float*)gw, out, out_f32, part, M, N, Kq, splits, tiles_per_split);
+    } else {
+      dim3 grid((N + 127) / 128, ((M + 127) / 128) * splits, E);
+      gemm_batched_kernel<128, 128, 2, 4, kW4><<<grid, 256, 0, st>>>(
+          (const bf16*)xa, (const int8_t*)codes, (const uint8_t*)scales, (const float*)gs,
+          (const float*)gw, out, out_f32, part, M, N, Kq, splits, tiles_per_split);
+    }
+    if (splits > 1) {
+      const int64_t total = (int64_t)E * M * N;
+      batched_reduce_kernel<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
+          part, splits, (const float*)gs, (const float*)gw, out, out_f32, E, M, N);
+    }
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// w4: codes are uint8 [E, Kq/2, N] e2m1x nibble pairs, else int8 [E, Kq,
+// N]; xa: [E, M, Kq] bf16; scales: [E, Kq/16, N] uint8; gs: [E, M] f32;
+// gw: [E, N] f32; out: [E, M, N] bf16 or f32 (out_f32). small_m selects
+// the 32-row tile. With splits > 1, workspace holds E * splits * M * N
+// floats. Requires Kq % 32 == 0.
+ARC_EXPORT int arc_gemm_batched(int w4, const void* xa, const void* codes, const void* scales,
+                                const void* gs, const void* gw, void* out, int out_f32,
+                                void* workspace, int E, int M, int N, int Kq, int small_m,
+                                int splits, int tiles_per_split, void* stream) {
+  if (w4)
+    return launch_batched<true>(xa, codes, scales, gs, gw, out, out_f32, workspace, E, M, N, Kq,
+                                small_m, splits, tiles_per_split, (cudaStream_t)stream);
+  return launch_batched<false>(xa, codes, scales, gs, gw, out, out_f32, workspace, E, M, N, Kq,
+                               small_m, splits, tiles_per_split, (cudaStream_t)stream);
+}

@@ -28,6 +28,12 @@ mlp_in is select-free too); gateup + silu*mul + quantize in one launch,
 then the ARC residual in torch and the down GEMM, when down_in has a
 residual. They equal the unfused chain bit for bit; the chain runs
 everywhere else, and everywhere with ``fused_decode=False``.
+
+An MoE config (Qwen-MoE, Mixtral) keeps the attention sites and their
+routes; its MLP is ``models/moe.py``'s ``moe_block`` after a plain
+rms_norm, as in the JAX engine: dense mode (the fused GEMM over all
+experts' gate/up, the batched GEMM for their down projections) up to
+``moe.DENSE_MODE_MAX_T`` tokens, so at decode, capacity dispatch above.
 """
 
 from __future__ import annotations
@@ -44,7 +50,7 @@ from ..kernels import attention, gemm as gk
 from ..kernels import mlp_fused as mf
 from ..kernels import paged_decode as pdk
 from ..kernels import quantize as qk
-from ..models import llama, quantized
+from ..models import llama, moe, quantized
 from ..quant import numerics as N
 from ..quant import packing
 from . import sampling as smp
@@ -147,6 +153,13 @@ def _o_proj(cfg, p, attn, layer_calib, qcfg, b, t, fused=False):
 
 
 def _mlp(cfg, p, x, layer_calib, qcfg, norm_w, fused=False):
+    if "moe" in p:
+        # the routed experts (+ the shared expert) on the normed input,
+        # as the JAX engine runs them: no fused rmsnorm quantize and no
+        # megakernel
+        return moe.moe_block(cfg, p["moe"], llama.rms_norm(x, norm_w,
+                                                           cfg.rms_eps),
+                             layer_calib, qcfg)
     b, t, d = x.shape
     m = b * t
     x2 = x.reshape(m, d)
@@ -197,19 +210,8 @@ def pack_lm_head(head: torch.Tensor, qcfg: QuantConfig, step: int = 16384):
                         device=head.device)
     gs = (None if qcfg.w_scale == "channel"
           else head.abs().amax().float() * N.INV_NVFP4_GLOBAL_DIV)
-    chunks = [packing.pack_weight_arc(head[i:i + step], ridx, 0,
-                                      fmt=qcfg.weight_fmt,
-                                      w_scale=qcfg.w_scale,
-                                      global_scale=gs)
-              for i in range(0, head.shape[0], step)]
-    return type(chunks[0])(
-        codes=torch.cat([c.codes for c in chunks], dim=1),
-        scales=torch.cat([c.scales for c in chunks], dim=1),
-        global_scale=(torch.cat([c.global_scale.reshape(-1)
-                                 for c in chunks])
-                      if qcfg.w_scale == "channel"
-                      else chunks[0].global_scale),
-        bias=None)
+    return packing.pack_weight_arc_rows(head, ridx, 0, fmt=qcfg.weight_fmt,
+                                        global_scale=gs, step=step)
 
 
 def _to_device(tree, device):
@@ -258,9 +260,6 @@ class InferenceEngine:
     def __init__(self, cfg: ModelConfig, params, calib, qcfg: QuantConfig,
                  ecfg: EngineConfig, device="cuda",
                  quantize_params: bool = True, fused_decode: bool = True):
-        if cfg.num_experts:
-            raise NotImplementedError(
-                "MoE models are not ported (ROADMAP queue 1 item 10)")
         quantized.check_qcfg(qcfg)
         self.cfg, self.qcfg, self.ecfg = cfg, qcfg, ecfg
         self.fused_decode = fused_decode

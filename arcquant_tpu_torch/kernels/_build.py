@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
 All sources compile with ``nvcc`` for ``sm_90a`` into one shared library
-with a plain C interface, loaded with ``ctypes``. The build runs at first
+with a plain C interface, loaded with ``ctypes``: one ``nvcc -c`` per
+source, all started together, then one link. The build runs at first
 use, writes into ``build/arcquant_tpu_torch/`` at the repository root
 (listed in ``.gitignore``) and is redone whenever the sources' hash
 changes. A missing ``nvcc`` or a failed build raises: no kernel wrapper
@@ -29,8 +30,7 @@ CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "arcquant_tpu_torch"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-              "--threads", "4")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 # Toolkit roots searched after PATH and CUDA_HOME.
@@ -71,18 +71,31 @@ def library() -> ctypes.CDLL:
     so = BUILD_DIR / f"libarcquant_kernels_{source_hash()}.so"
     if not so.exists():
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cu = [str(p) for p in sorted(CSRC_DIR.glob("*.cu"))]
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(tmp), *cu]
         t0 = time.perf_counter()
-        r = subprocess.run(cmd, capture_output=True, text=True)
+        objs, procs = [], []
+        for cu in sorted(CSRC_DIR.glob("*.cu")):
+            obj = tmp.with_name(f"{tmp.name}.{cu.stem}.o")
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-c", "-o",
+                   str(obj), str(cu)]
+            objs.append(str(obj))
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        cmd = [nvcc, "-shared", "-o", str(tmp), *objs]
+        runs = [(c, p.communicate()[0], p.returncode) for c, p in procs]
+        if all(rc == 0 for _, _, rc in runs):
+            r = subprocess.run(cmd, capture_output=True, text=True)
+            runs.append((cmd, r.stdout + r.stderr, r.returncode))
         log = BUILD_DIR / "build.log"
-        log.write_text(" ".join(cmd) + "\n" + r.stdout + r.stderr
-                       + f"\nrc={r.returncode} "
-                       f"seconds={time.perf_counter() - t0:.1f}\n")
-        if r.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed (rc={r.returncode}), see {log}:\n"
-                + r.stderr[-4000:])
+        log.write_text("".join(" ".join(c) + "\n" + out + f"rc={rc}\n"
+                               for c, out, rc in runs)
+                       + f"seconds={time.perf_counter() - t0:.1f}\n")
+        for o in objs:
+            Path(o).unlink(missing_ok=True)
+        bad = [out for _, out, rc in runs if rc != 0]
+        if bad:
+            raise RuntimeError(f"nvcc failed, see {log}:\n"
+                               + bad[0][-4000:])
         os.replace(tmp, so)
     return ctypes.CDLL(str(so))
 

@@ -1,6 +1,6 @@
-"""Llama / Qwen2 decoder building blocks (counterpart of
-``arcquant_tpu/models/llama.py``): RMSNorm, RoPE and the dummy-weight
-initialiser the serving engine needs."""
+"""Llama / Qwen2 (and Qwen-MoE / Mixtral) decoder building blocks
+(counterpart of ``arcquant_tpu/models/llama.py``): RMSNorm, RoPE and the
+dummy-weight initialiser the serving engine needs."""
 
 from __future__ import annotations
 
@@ -26,28 +26,31 @@ def _init_linear(gen: torch.Generator, n_out: int, n_in: int, bias: bool,
 
 def init_layer_params(cfg: ModelConfig, gen: torch.Generator,
                       dtype=torch.bfloat16, device="cpu") -> Params:
-    """Random ("dummy") weights of one dense decoder layer, N(0, 1/K)
-    linears and unit norms, drawn from `gen` (a torch.Generator on
-    `device`)."""
-    if cfg.num_experts:
-        raise NotImplementedError(
-            "MoE layers are not ported (ROADMAP queue 1 item 10)")
+    """Random ("dummy") weights of one decoder layer, N(0, 1/K) linears
+    and unit norms, drawn from `gen` (a torch.Generator on `device`). An
+    MoE config's layer holds the attention linears and "moe" (the
+    experts, models/moe.py) in place of the dense MLP."""
     h, qb = cfg.hidden_size, cfg.qkv_bias
 
     def lin(n_out, n_in, bias=False):
         return _init_linear(gen, n_out, n_in, bias, dtype, device)
 
-    return {
+    p = {
         "attn_norm": torch.ones((h,), dtype=dtype, device=device),
         "mlp_norm": torch.ones((h,), dtype=dtype, device=device),
         "q": lin(cfg.q_size, h, qb),
         "k": lin(cfg.kv_size, h, qb),
         "v": lin(cfg.kv_size, h, qb),
         "o": lin(h, cfg.q_size),
-        "gate": lin(cfg.intermediate_size, h),
-        "up": lin(cfg.intermediate_size, h),
-        "down": lin(h, cfg.intermediate_size),
     }
+    if cfg.num_experts:
+        from . import moe
+        p["moe"] = moe.init_moe_params(cfg, gen, dtype, device)
+        return p
+    p.update(gate=lin(cfg.intermediate_size, h),
+             up=lin(cfg.intermediate_size, h),
+             down=lin(h, cfg.intermediate_size))
+    return p
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """Quantized W4A4 NVFP4 + ARC linears (counterpart of
 ``arcquant_tpu/models/quantized.py``, the packed serving path only):
 calibration artifacts, load-time weight packing with q/k/v and gate/up
-fused, the activation quantize per site and the packed linear."""
+fused (and the packed experts of an MoE layer), the activation quantize
+per site and the packed linear."""
 
 from __future__ import annotations
 
@@ -23,10 +24,26 @@ class SiteCalib(NamedTuple):
     select_num: int              # KE, a multiple of 64
 
 
+# The activation-quantization sites of a decoder layer: attention input
+# (q/k/v), attention output (o), MLP input (gate/up), MLP intermediate
+# (down).
+QUANT_SITES = ("attn_in", "o_in", "mlp_in", "down_in")
+
+
+def quant_sites(cfg: ModelConfig) -> tuple:
+    """The config's sites: an MoE model with a shared expert adds the
+    shared expert's down input, sdown_in."""
+    if cfg.num_experts and cfg.shared_expert_size:
+        return QUANT_SITES + ("sdown_in",)
+    return QUANT_SITES
+
+
 def identity_calib(cfg: ModelConfig, select_frac: float = 0.0,
                    device="cpu") -> List[Dict[str, SiteCalib]]:
     """Identity channel order and a fixed outlier fraction per site,
-    KE = round(select_frac * K / 64) * 64 (Python's round, as in JAX)."""
+    KE = round(select_frac * K / 64) * 64 (Python's round, as in JAX).
+    On an MoE config down_in is the experts' intermediate (one calib
+    shared by the experts) and sdown_in the shared expert's."""
     def site(k):
         ke = int(round(select_frac * k / 64)) * 64
         return SiteCalib(torch.arange(k, dtype=torch.int32, device=device),
@@ -34,7 +51,10 @@ def identity_calib(cfg: ModelConfig, select_frac: float = 0.0,
     per_layer = {"attn_in": site(cfg.hidden_size),
                  "o_in": site(cfg.q_size),
                  "mlp_in": site(cfg.hidden_size),
-                 "down_in": site(cfg.intermediate_size)}
+                 "down_in": site(cfg.moe_intermediate_size if cfg.num_experts
+                                 else cfg.intermediate_size)}
+    if "sdown_in" in quant_sites(cfg):
+        per_layer["sdown_in"] = site(cfg.shared_expert_size)
     return [dict(per_layer) for _ in range(cfg.num_layers)]
 
 
@@ -76,7 +96,8 @@ def quantize_layer_params_fused(layer_p: Params,
                                 qcfg: QuantConfig) -> Params:
     """Pack one layer for the engine: q/k/v concatenate into one packed
     GEMM ("qkv"), gate/up into "gateup"; multi-projection packs use
-    per-channel weight scales."""
+    per-channel weight scales. An MoE layer packs qkv and o, and its
+    experts into "moe" (moe.quantize_moe_params_packed)."""
     def cat(names):
         w = torch.cat([layer_p[n]["w"] for n in names], dim=0)
         bs = [layer_p[n].get("b") for n in names]
@@ -91,6 +112,11 @@ def quantize_layer_params_fused(layer_p: Params,
              "gateup": (("gate", "up"), "mlp_in"),
              "o": (("o",), "o_in"),
              "down": (("down",), "down_in")}
+    if "moe" in layer_p:
+        from . import moe
+        out["moe"] = moe.quantize_moe_params_packed(layer_p["moe"],
+                                                    layer_calib, qcfg)
+        specs = {k: v for k, v in specs.items() if k in ("qkv", "o")}
     for name, (projs, site) in specs.items():
         p = cat(projs) if len(projs) > 1 else layer_p[projs[0]]
         w_scale = "channel" if len(projs) > 1 else qcfg.w_scale

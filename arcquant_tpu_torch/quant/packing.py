@@ -37,7 +37,10 @@ _MAG2_TABLE = (0, 1, 2, 3, 4, 6, 8, 12)
 
 
 class PackedWeight(NamedTuple):
-    """A quantized, packed linear weight in the w4 format."""
+    """A quantized, packed linear weight in the w4 format. A stack of
+    experts' weights carries a leading axis E on codes, scales and the
+    global scale ([E, Kq/2, N], [E, Kq/16, N], [E, N]); kq and n are then
+    one expert's."""
     codes: torch.Tensor          # uint8 e2m1x nibble pairs [Kq/2, N]
     scales: torch.Tensor         # uint8 ue4m3 bytes [Kq/16, N]
     global_scale: torch.Tensor   # f32 scalar or [N]
@@ -45,15 +48,16 @@ class PackedWeight(NamedTuple):
 
     @property
     def kq(self) -> int:
-        return self.codes.shape[0] * 2
+        return self.codes.shape[-2] * 2
 
     @property
     def n(self) -> int:
-        return self.codes.shape[1]
+        return self.codes.shape[-1]
 
 
 class PackedWeightI8(NamedTuple):
-    """A quantized, packed linear weight in the w8 format."""
+    """A quantized, packed linear weight in the w8 format (stacked as
+    PackedWeight is: codes [E, Kq, N])."""
     codes: torch.Tensor          # int8 [Kq, N]
     scales: torch.Tensor         # uint8 ue4m3 bytes [Kq/16, N]
     global_scale: torch.Tensor   # f32 scalar or [N]
@@ -61,11 +65,11 @@ class PackedWeightI8(NamedTuple):
 
     @property
     def kq(self) -> int:
-        return self.codes.shape[0]
+        return self.codes.shape[-2]
 
     @property
     def n(self) -> int:
-        return self.codes.shape[1]
+        return self.codes.shape[-1]
 
 
 def codes_to_mag2_i8(codes: torch.Tensor) -> torch.Tensor:
@@ -186,6 +190,27 @@ def pack_weight_arc(w: torch.Tensor, reorder_index: Optional[torch.Tensor],
     return PackedWeight(
         codes=pack_nibbles(e2m1_to_e2m1x(codes)).T.contiguous(),
         scales=scale_bytes, global_scale=gs, bias=bias)
+
+
+def pack_weight_arc_rows(w: torch.Tensor, reorder_index: torch.Tensor,
+                         select_num: int, fmt: str = "w8",
+                         global_scale: Optional[torch.Tensor] = None,
+                         step: int = 16384):
+    """pack_weight_arc of an [N, K] weight (no bias) in chunks of `step`
+    output rows, concatenated along N, so the f32 transients of a wide
+    weight (an LM head, a stack of experts' rows) stay small. The bytes
+    are one call's: each chunk takes per-channel global scales of its own
+    rows, or the given global_scale."""
+    chunks = [pack_weight_arc(w[i:i + step], reorder_index, select_num,
+                              fmt=fmt, w_scale="channel",
+                              global_scale=global_scale)
+              for i in range(0, w.shape[0], step)]
+    gs = (torch.cat([c.global_scale.reshape(-1) for c in chunks])
+          if global_scale is None else chunks[0].global_scale)
+    return type(chunks[0])(
+        codes=torch.cat([c.codes for c in chunks], dim=1),
+        scales=torch.cat([c.scales for c in chunks], dim=1),
+        global_scale=gs, bias=None)
 
 
 def dequantize_weight(pw, dtype: torch.dtype = torch.float32) -> torch.Tensor:

@@ -16,7 +16,11 @@ Phases, each printed as it runs:
      chain of the same function (bitwise); the w4 GEMM bitwise against
      the w8 GEMM on the same weight; then the large-M route (dequant +
      torch.mm) against the fused GEMMs at every prefill site at M 512,
-     1024 and 4096, and its error against f64;
+     1024 and 4096, and its error against f64; then the MoE model's
+     kernels (qwen1.5-moe-a2.7b): the batched GEMM over 60 experts' down
+     projections in w8 and w4 at M 4, 8 and 256, bitwise against the
+     per-expert loop of the single GEMM, the 60-expert stack decoded in
+     one launch, and the attention kernels at its G = 1;
   4. the engine at Qwen2.5-7B full width, all 28 layers, dummy weights,
      ARC select_frac 0.125, packed W4A16 head: 4 requests (prompts of
      1024, 777, 301 and 64 tokens) served by ``generate`` for 32 greedy
@@ -43,10 +47,18 @@ Phases, each printed as it runs:
      ms, decode ms/step, tok/s and peak memory; then the same weights in
      an engine with fused_decode=False fed the same tokens, whose logits
      must be bitwise equal at every step;
-  8. the same engine cut to 1 and to 2 layers, its prefill and 4 decode
-     steps against the same forward with the plain versions patched in,
-     the 1-layer w4 engine likewise, then at 1 layer chunked and suffix
-     prefill (see engine_check and serving_engine_check for the bars).
+  8. the MoE model, qwen1.5-moe-a2.7b at full width, all 24 layers, in
+     w8 and then w4 (moe_run): generate() on the same 4 requests with the
+     launch counts (gemm_batched once a layer a decode step), prefill ms,
+     decode ms/step, weight GiB and peak memory, the decode logits with
+     the batched GEMM bitwise against the per-expert loop, and (w8)
+     dispatch against dense mode; then serve.py's build_loop on it with
+     four HTTP requests (moe_serve_run);
+  9. the Qwen2.5-7B engine cut to 1 and to 2 layers, its prefill and 4
+     decode steps against the same forward with the plain versions
+     patched in, the 1-layer w4 engine likewise, then at 1 layer chunked
+     and suffix prefill, and the MoE engine at 1 layer (see engine_check,
+     serving_engine_check and moe_engine_check for the bars).
 The second-to-last line is the kernels' JSON summary, the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero before the
 last line; without a CUDA device it exits 1 at once.
@@ -97,6 +109,8 @@ KERNEL_INFO = {
                    "arcquant_tpu/kernels/gemm.py:577"),
     "pin_rowmajor": ("arcquant_tpu_torch/csrc/dequant.cu",
                      "arcquant_tpu/kernels/gemm.py:650"),
+    "gemm_batched": ("arcquant_tpu_torch/csrc/gemm_batched.cu",
+                     "arcquant_tpu/kernels/gemm.py:944"),
 }
 # The kernels each main path must launch, and those it must not: with ARC
 # every site has a residual, so only gu_actq of the megakernels engages;
@@ -116,6 +130,20 @@ W4_KERNELS = ("actq", "gemm_w4", "dequant_w4", "pin_rowmajor", "flash_attn",
               "paged_decode")
 W4_IDLE_KERNELS = ("gemm_w8", "dequant_w8", "gemm_actq", "gu_actq", "mlp_w8")
 ROUTE_MS = (512, 1024, 4096)   # the route against the fused GEMMs
+# The MoE phase: the dense-model kernels that the MoE layers replace
+# (the MLP megakernels) stay idle, and with ARC so does gemm_actq; the
+# one-shot 4 x 1024 prefill decodes the expert stacks (dispatch mode) and
+# takes the route at qkv and the shared expert's gate/up, every decode
+# step runs gemm_batched once a layer (dense mode).
+MOE_MODEL = "qwen1.5-moe-a2.7b"
+MOE_COMMON = ("actq", "gemm_batched", "flash_attn", "paged_decode")
+MOE_KERNELS = {"w8": MOE_COMMON + ("gemm_w8", "dequant_w8"),
+               "w4": MOE_COMMON + ("gemm_w4", "dequant_w4", "pin_rowmajor")}
+MOE_IDLE_KERNELS = {
+    fmt: ("gemm_actq", "gu_actq", "mlp_w8", "paged_prefill") + other
+    for fmt, other in (("w8", W4_ONLY), ("w4", ("gemm_w8", "dequant_w8")))}
+MOE_SERVE_KERNELS = MOE_COMMON[:2] + ("gemm_w8", "paged_prefill",
+                                      "paged_decode")
 
 # H100 SXM published dense peaks (NVIDIA data sheet): bf16 tensor-core
 # FLOP/s and HBM3 bytes/s. A kernel's bound is the larger of its FLOPs
@@ -216,12 +244,10 @@ def kernel_checks(cfg, timer, failures):
     """Phase 3. Returns {kernel: dict(max_abs_err, ms, plain_ms, bound_ms,
     bound_by, library_ms, shape)} where the times and the bound are those
     of the representative shape of the kernel on the serving path."""
-    from arcquant_tpu_torch.cache import paged
-    from arcquant_tpu_torch.kernels import attention, gemm as gk
-    from arcquant_tpu_torch.kernels import paged_decode as pdk
+    from arcquant_tpu_torch.config import get_model_config
+    from arcquant_tpu_torch.kernels import gemm as gk
     from arcquant_tpu_torch.kernels import quantize as qk
     from arcquant_tpu_torch.quant import packing
-    sdpa = torch.nn.functional.scaled_dot_product_attention
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1234)
@@ -370,6 +396,24 @@ def kernel_checks(cfg, timer, failures):
             if rep:
                 del wd
         del pw, pw4
+    attention_checks(cfg, gen, timer, record)
+    fused_checks(cfg, gen, timer, record, summary)
+    route_checks(cfg, gen, timer, record, failures)
+    moe_kernel_checks(get_model_config(MOE_MODEL), gen, timer, record,
+                      summary)
+    return summary
+
+
+def attention_checks(cfg, gen, timer, record, rep=True):
+    """Phase 3, the attention kernels at cfg's heads: flash attention (the
+    one-shot prefill, and a ragged suffix case), paged decode over a
+    filled pool, paged prefill at the serving shape. rep: these are the
+    kernels' representative shapes (Qwen2.5-7B's G = 7); the MoE model's
+    G = 1 rows are checked and logged beside them."""
+    from arcquant_tpu_torch.cache import paged
+    from arcquant_tpu_torch.kernels import attention
+    from arcquant_tpu_torch.kernels import paged_decode as pdk
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     # flash attention: the prefill shape, and a ragged suffix case
     hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     for b, tq, tk, off in ((4, 1024, 1024, 0), (4, 1000, 1024, 24)):
@@ -379,18 +423,19 @@ def kernel_checks(cfg, timer, failures):
         o = attention._flash_cuda(q, k_, v, off)
         ref = attention.flash_attention_plain(q, k_, v, off)
         torch.cuda.synchronize()
-        rep = off == 0
+        rep_ = rep and off == 0
         lib = None
-        if rep:
+        if rep_:
             qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k_, v))
             lib = lambda: sdpa(qt, kt, vt, is_causal=True,   # noqa: E731
                                enable_gqa=True)
-        record("flash_attn", f"B={b} Tq={tq} Tk={tk} q_offset={off}",
+        record("flash_attn", f"B={b} Tq={tq} Tk={tk} q_offset={off} "
+               f"H={hq}/{hkv}",
                float((o.float() - ref.float()).abs().max()),
                close_bound(o, ref),
                timer(lambda: attention._flash_cuda(q, k_, v, off)),
                timer(lambda: attention.flash_attention_plain(q, k_, v, off)),
-               "1 bf16 ulp + 2e-3", rep=rep,
+               "1 bf16 ulp + 2e-3", rep=rep_,
                work=(4.0 * b * hq * dh * tq * (tq + 1) / 2,
                      _nbytes(q, k_, v, o)),
                library=lib,
@@ -417,26 +462,25 @@ def kernel_checks(cfg, timer, failures):
                                                      atol=1e-5))
           and bool(torch.allclose(l_, pl, rtol=1e-4))
           and bool((o[3] == 0).all()))
+    log(f"  {'':13s} outputs differing from plain (one bf16 ulp): "
+        f"{float((o != po)[:3].float().mean()):.4%}")
     kd, vd = (x.to(torch.bfloat16).transpose(1, 2).contiguous()
               for x in paged.gather_kv(cache, 0, pt, t))
     qd = q[:, :, None]
     kpos = torch.arange(t, device="cuda")
     mask = (kpos[None] < sl[:, None])[:, None, None]
     ntok = int(sl.sum())
-    record("paged_decode", "B=4 seq=1056,809,333,0 page=128",
+    record("paged_decode", f"B=4 seq=1056,809,333,0 page=128 H={hq}/{hkv}",
            float((o.float() - po.float()).abs().max()), ok,
            timer(lambda: pdk._paged_decode_cuda(*args)),
            timer(lambda: pdk.paged_decode_state_plain(*args)),
-           "1 bf16 ulp + 2e-3; m, l f32 sum order", rep=True,
+           "1 bf16 ulp + 2e-3; m, l f32 sum order", rep=rep,
            work=(4.0 * ntok * hq * dh,
                  ntok * hkv * (dh + 16) + _nbytes(q, o, m_, l_)),
            library=lambda: sdpa(qd, kd, vd, attn_mask=mask, enable_gqa=True),
            library_what="SDPA over the pool dequantized to bf16, call only")
     del cache, kd, vd
-    paged_prefill_check(cfg, gen, timer, record)
-    fused_checks(cfg, gen, timer, record, summary)
-    route_checks(cfg, gen, timer, record, failures)
-    return summary
+    paged_prefill_check(cfg, gen, timer, record, rep)
 
 
 def route_checks(cfg, gen, timer, record, failures):
@@ -615,7 +659,7 @@ def _paged_prefill_f64(q, codes, params, pt, st, sl):
             .reshape(b, tq, hq, dh))
 
 
-def paged_prefill_check(cfg, gen, timer, record):
+def paged_prefill_check(cfg, gen, timer, record, rep=True):
     """paged_prefill at the serving shape: B 8 rows of a 512-token chunk
     over a 2048-token page table of 128-token pages, ragged per-row
     origins (first chunks, later chunks, prefix-shared suffixes) and one
@@ -670,12 +714,12 @@ def paged_prefill_check(cfg, gen, timer, record):
             & (kpos[None, None] < sl[:, None, None]))[:, None]
     record("paged_prefill",
            "B=8 Tq=512 q_starts=0,512,1024,1536,0,1024,0,0 "
-           "seq=512,1024,1536,1900,301,1124,64,0 page=128",
+           f"seq=512,1024,1536,1900,301,1124,64,0 page=128 H={hq}/{hkv}",
            float((o[live].float() - po[live].float()).abs().max()), ok,
            timer(lambda: pdk._paged_prefill_cuda(*args)),
            timer(lambda: pdk.paged_prefill_plain(*args)),
            "1 bf16 ulp + 2e-3 on live queries, idle row 0, mean error "
-           "vs f64 within 1.01x the plain version's", rep=True,
+           "vs f64 within 1.01x the plain version's", rep=rep,
            work=(4.0 * pairs * hq * dh,
                  keys * hkv * (dh + 16) + _nbytes(q, o)),
            library=lambda: sdpa(qd, kd, vd, attn_mask=mask,
@@ -691,6 +735,102 @@ def _bits(t: torch.Tensor) -> torch.Tensor:
 def bitwise(got, want) -> bool:
     return all(a.shape == b.shape and a.dtype == b.dtype
                and torch.equal(_bits(a), _bits(b)) for a, b in zip(got, want))
+
+
+def _stack_experts(t: torch.Tensor, e: int) -> torch.Tensor:
+    """[rows, E * N] of E experts' packs side by side -> [E, rows, N]."""
+    return t.reshape(t.shape[0], e, -1).transpose(0, 1).contiguous()
+
+
+def moe_kernel_checks(cfg, gen, timer, record, summary):
+    """Phase 3, the MoE model's kernels (qwen1.5-moe-a2.7b: 60 experts,
+    down projections K 1408 -> N 2048):
+      gemm_batched   w8 and w4, at decode (M 4 and 8; Kq 1536 select-free
+                     and 2048 with ARC select_frac 0.125) and at a
+                     dense-mode prefill (M 256, ARC), f32 out as on the
+                     path: bitwise against the per-expert loop of gemm_w8
+                     / gemm_w4 (gemm.gemm_batched_chain, whose time is
+                     kept as chain_ms), within the f32 sum order of its
+                     plain version, its bound, and torch.bmm over the
+                     decoded bf16 stack as the library yardstick;
+      dequant_w8/w4  the 60-expert down stack decoded in one launch (the
+                     dispatch-mode prefill's decode), bitwise vs plain;
+      attention      flash, paged decode and paged prefill at the MoE
+                     model's G = 1 (16 heads of 128, 16 KV heads)."""
+    from arcquant_tpu_torch.kernels import gemm as gk
+    from arcquant_tpu_torch.quant import packing
+
+    e, d, f = cfg.num_experts, cfg.hidden_size, cfg.moe_intermediate_size
+    for frac in (0.0, SELECT_FRAC):
+        sel = int(round(frac * f / 64)) * 64
+        w = bf16_randn(gen, (e * d, f), f ** -0.5)   # the experts' down rows
+        ridx = torch.randperm(f, generator=gen, device="cuda")
+        packs = {}
+        for fmt in ("w8", "w4"):
+            pw = packing.pack_weight_arc_rows(w, ridx, sel, fmt=fmt)
+            packs[fmt] = type(pw)(_stack_experts(pw.codes, e),
+                                  _stack_experts(pw.scales, e),
+                                  pw.global_scale.reshape(e, d), None)
+        del w
+        kq = packs["w8"].kq
+        if sel:
+            for fmt, pk in packs.items():
+                kern = gk._dequant_w8_cuda if fmt == "w8" \
+                    else gk._dequant_w4_cuda
+                plain = gk.dequant_w8_plain if fmt == "w8" \
+                    else gk.dequant_w4_plain
+                for gwf in (None, pk.global_scale):
+                    out = kern(pk.codes, pk.scales, gwf)
+                    ref = plain(pk.codes, pk.scales, gwf)
+                    torch.cuda.synchronize()
+                    record(f"dequant_{fmt}", f"stacked E={e} Kq={kq} N={d}"
+                           + (" fold_global" if gwf is not None else ""),
+                           float((out.float() - ref.float()).abs().max()),
+                           bitwise([out], [ref]),
+                           timer(lambda: kern(pk.codes, pk.scales, gwf)),
+                           timer(lambda: plain(pk.codes, pk.scales, gwf)),
+                           "bitwise", rep=False)
+                    del out, ref
+        wd = gk.dequant_weight(packs["w8"])     # natural k order, bf16
+        for m in (4, 8) + ((256,) if sel else ()):
+            xa = bf16_randn(gen, (e, m, kq), 2.0)
+            gs = torch.rand((e, m, 1), generator=gen, device="cuda") + 0.5
+            for fmt, pk in packs.items():
+                gw = pk.global_scale.reshape(e, 1, d)
+                args = (xa, pk.codes, pk.scales, gs, gw, torch.float32)
+                y = gk._gemm_batched_cuda(*args)
+                loop = gk.gemm_batched_chain(*args)
+                ref = gk.gemm_batched_plain(*args)
+                torch.cuda.synchronize()
+                same = bitwise([y], [loop])
+                ok = same and sum_order_bound(y.reshape(e * m, d),
+                                              ref.reshape(e * m, d), True)
+                rep = fmt == "w8" and m == 4 and sel > 0
+                ms = timer(lambda: gk._gemm_batched_cuda(*args))
+                loop_ms = timer(lambda: gk.gemm_batched_chain(*args))
+                work = (2.0 * e * m * kq * d,
+                        _nbytes(xa, pk.codes, pk.scales, gs, gw, y))
+                record("gemm_batched", f"{fmt} E={e} M={m} Kq={kq} N={d} "
+                       f"bitwise-vs-loop={same}",
+                       float((y - ref).abs().max()), ok, ms,
+                       timer(lambda: gk.gemm_batched_plain(*args)),
+                       f"bitwise vs the per-expert gemm_{fmt} loop; f32 "
+                       "sum order vs plain", rep=rep, work=work,
+                       library=lambda: torch.bmm(xa, wd),
+                       library_what="torch.bmm over the decoded bf16 "
+                       "stack")
+                b_ms, _ = bound(*work)
+                log(f"  {'':13s} the per-expert loop ({e} gemm_{fmt} "
+                    f"launches) {loop_ms:.4f} ms; bound {b_ms:.4f} ms")
+                if rep:
+                    summary["gemm_batched"]["chain_ms"] = loop_ms
+                elif fmt == "w4" and m == 4 and sel:
+                    summary["gemm_batched"].update(
+                        w4_ms=ms, w4_bound_ms=b_ms, w4_chain_ms=loop_ms)
+                del y, loop, ref
+        del packs, wd
+        torch.cuda.empty_cache()
+    attention_checks(cfg, gen, timer, record, rep=False)
 
 
 def fused_checks(cfg, gen, timer, record, summary):
@@ -927,15 +1067,25 @@ def all_kernels():
     from arcquant_tpu_torch.kernels import quantize as qk
     return [qk.ACTQ, gk.GEMM_W8, attention.FLASH, pdk.PAGED_DECODE,
             pdk.PAGED_PREFILL, mf.MLP_W8, mf.GU_ACTQ, mf.GEMM_ACTQ,
-            gk.GEMM_W4, gk.DEQUANT_W8, gk.DEQUANT_W4, gk.PIN_ROWMAJOR]
+            gk.GEMM_W4, gk.DEQUANT_W8, gk.DEQUANT_W4, gk.PIN_ROWMAJOR,
+            gk.GEMM_BATCHED]
+
+
+def _packs(tree):
+    """Every packed weight in a parameter tree (an MoE layer's included)."""
+    from arcquant_tpu_torch.quant import packing
+    if isinstance(tree, (packing.PackedWeight, packing.PackedWeightI8)):
+        return [tree]
+    if isinstance(tree, dict):
+        return [p for v in tree.values() for p in _packs(v)]
+    if isinstance(tree, list):
+        return [p for v in tree for p in _packs(v)]
+    return []
 
 
 def _weight_gib(qparams) -> float:
     """Device bytes of an engine's packed layers and head, in GiB."""
-    packs = [p for layer in qparams["layers"] for n, p in layer.items()
-             if n in ("qkv", "o", "gateup", "down")]
-    packs.append(qparams["lm_head_packed"])
-    return sum(_nbytes(*p) for p in packs) / 2 ** 30
+    return sum(_nbytes(*p) for p in _packs(qparams)) / 2 ** 30
 
 
 def w4_run(cfg, card, qparams8, calib, failures):
@@ -1216,6 +1366,451 @@ def free_run(cfg, card, failures):
     return launches
 
 
+def _moe_generate(eng, cfg, fmt, card, failures):
+    """generate() on the PROMPT_LENS prompts with each kernel's launches
+    and the decode steps counted, then a timed prefill and NEW_TOKENS
+    decode steps. Returns (launches, metrics, tokens, lens)."""
+    prompts = prompts_for(cfg)
+    steps = []
+    inner = eng.decode_step
+    eng.decode_step = lambda *a: steps.append(1) or inner(*a)
+    kernels = all_kernels()
+    for k in kernels:
+        k.launches = 0
+    out = eng.generate(prompts, NEW_TOKENS)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels}
+    del eng.decode_step
+    log(f"  launches in generate(): {launches}")
+    what = f"the MoE {fmt} generate()"
+    for name in MOE_KERNELS[fmt]:
+        if launches[name] <= 0:
+            failures.append(f"kernel {name} not launched by {what}")
+    for name in MOE_IDLE_KERNELS[fmt]:
+        if launches[name] != 0:
+            failures.append(f"kernel {name} launched by {what}")
+    want = cfg.num_layers * len(steps)
+    log(f"  gemm_batched launches {launches['gemm_batched']} over "
+        f"{len(steps)} decode steps of {cfg.num_layers} layers (bar: "
+        f"exactly {want}, one a layer a dense-mode forward) "
+        f"{'ok' if launches['gemm_batched'] == want else 'FAIL'}")
+    if launches["gemm_batched"] != want:
+        failures.append(f"{what}: gemm_batched launched "
+                        f"{launches['gemm_batched']} times, want {want}")
+    if [len(o) for o in out] != [NEW_TOKENS] * len(PROMPT_LENS):
+        failures.append(f"{what} lengths {[len(o) for o in out]}")
+    if not all(0 <= t < cfg.vocab_size for o in out for t in o):
+        failures.append(f"{what}: token out of range")
+    log(f"  first tokens per request: {[o[:6] for o in out]}")
+
+    toks, lens, _ = eng._pad_prompts(prompts)
+    active = torch.ones(len(PROMPT_LENS), dtype=torch.bool)
+    torch.cuda.reset_peak_memory_stats()
+    state = eng.new_state()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    logits, state = eng.prefill(state, toks, lens)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    # dispatch mode's per-layer transient: the decoded expert stacks (from
+    # their shapes), and the prefill's measured peak above what it holds
+    gpk, dpk = (eng.qparams["layers"][0]["moe"][n]
+                for n in ("gateup_pk", "down_pk"))
+    e = dpk.codes.shape[0]
+    decoded = 2 * (gpk.kq * gpk.n + e * dpk.kq * dpk.n)
+    log(f"  dispatch-mode prefill: the decoded stacks of a layer (gate/up "
+        f"[{gpk.kq}, {gpk.n}] and down [{e}, {dpk.kq}, {dpk.n}], bf16) "
+        f"{decoded / 2 ** 30:.3f} GiB; the prefill's peak above the memory "
+        f"it starts with "
+        f"{(torch.cuda.max_memory_allocated() - held) / 2 ** 30:.3f} GiB")
+    finite = bool(torch.isfinite(logits).all())
+    t0 = time.perf_counter()
+    for _ in range(NEW_TOKENS):
+        logits, state = eng.decode_step(
+            state, logits.argmax(-1).to(torch.int32), active)
+    torch.cuda.synchronize()
+    dec_s = time.perf_counter() - t0
+    finite = finite and bool(torch.isfinite(logits).all())
+    if not finite:
+        failures.append(f"{what}: non-finite logits")
+    metrics = dict(
+        prefill_ms=round(prefill_ms, 3),
+        decode_ms_per_step=round(dec_s * 1e3 / NEW_TOKENS, 3),
+        decode_tok_s=round(len(PROMPT_LENS) * NEW_TOKENS / dec_s, 2),
+        weight_gib=round(_weight_gib(eng.qparams), 3),
+        serve_peak_memory_gib=round(torch.cuda.max_memory_allocated()
+                                    / 2 ** 30, 3),
+        logits_finite=finite, card=card)
+    del state, logits
+    return launches, metrics, toks, lens
+
+
+def _moe_ab(eng, toks, lens, fmt, failures):
+    """Decode with gemm_batched against the same engine with the per-expert
+    loop of gemm_{fmt} patched in (gemm.gemm_batched_chain), in turns
+    (batched, loop, loop, batched), each prefilled and fed the first
+    run's greedy tokens: the logits must be bitwise equal at every step
+    of every run. Returns the ms/step of each run by name."""
+    from arcquant_tpu_torch.kernels import gemm as gk
+    active = torch.ones(len(PROMPT_LENS), dtype=torch.bool)
+    real, runs, feed = gk._gemm_batched_cuda, [], None
+    try:
+        for name in ("batched", "loop", "loop", "batched"):
+            gk._gemm_batched_cuda = (real if name == "batched"
+                                     else gk.gemm_batched_chain)
+            n0 = gk.GEMM_BATCHED.launches
+            logits, state = eng.prefill(eng.new_state(), toks, lens)
+            steps, fed = [logits.clone()], []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(NEW_TOKENS):
+                cur = (logits.argmax(-1).to(torch.int32) if feed is None
+                       else feed[i])
+                fed.append(cur)
+                logits, state = eng.decode_step(state, cur, active)
+                steps.append(logits.clone())
+            torch.cuda.synchronize()
+            runs.append((name, steps, (time.perf_counter() - t0) * 1e3
+                         / NEW_TOKENS, gk.GEMM_BATCHED.launches - n0))
+            feed = fed
+            del state, logits
+    finally:
+        gk._gemm_batched_cuda = real
+    ref = runs[0][1]
+    same = [all(bool(torch.equal(_bits(x), _bits(r[1][i]))) for r in runs[1:])
+            for i, x in enumerate(ref)]
+    used = [n for _, _, _, n in runs]
+    ok = all(same) and used[1] == used[2] == 0 and used[0] == used[3] > 0
+    log(f"  {fmt} gemm_batched vs the per-expert gemm_{fmt} loop (two runs "
+        f"each, in turns), same tokens fed: logits bitwise equal in every "
+        f"run at {sum(same)} of {len(same)} steps (prefill + {NEW_TOKENS} "
+        f"decode; bar: all); gemm_batched launches per run {used} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"MoE {fmt}: batched vs loop decode bitwise at "
+                        f"{same}, launches {used}")
+    ms = {}
+    for name, _, t, _ in runs:
+        ms.setdefault(name, []).append(round(t, 3))
+    del runs, ref
+    return ms
+
+
+def _noisy_kernel_gemms(gen, w8, batched):
+    """The gemm_w8 and gemm_batched launchers w8 and batched with their
+    f32 results times (1 + 2^-22 * N(0, 1)) before the cast: a forward on
+    the kernels with another f32 summation order standing in."""
+    def g8(xa, codes, scales, gs, gw, bias, out_dtype):
+        return _noise(w8(xa, codes, scales, gs, gw, bias, torch.float32),
+                      gen).to(out_dtype)
+
+    def gb(xa, codes, scales, gs, gw, out_dtype):
+        return _noise(batched(xa, codes, scales, gs, gw, torch.float32),
+                      gen).to(out_dtype)
+    return g8, gb
+
+
+def _moe_mode_check(eng, cfg, failures, gate=True):
+    """Dispatch against dense mode: the prefill of one 64-token prompt
+    (4 x 64 padded tokens, dense mode) and the same prefill with
+    moe.DENSE_MODE_MAX_T lowered to 0 (capacity dispatch), the row's
+    logits held to the noise floor measured in the same run: the dense
+    prefill against itself with the GEMMs' f32 results perturbed by
+    2^-22 (lowest cosine of three draws, at most 0.999). gate=False logs
+    the comparison without holding it (the 24-layer dummy model, whose
+    logits move chaotically with an ulp: dispatch mode rounds each
+    expert's down output to bf16 before the combine, as the JAX package
+    does, dense mode combines them in f32)."""
+    from arcquant_tpu_torch.kernels import gemm as gk
+    from arcquant_tpu_torch.models import moe
+    toks, lens, _ = eng._pad_prompts([prompts_for(cfg)[3]])
+
+    def prefill():
+        return eng.prefill(eng.new_state(), toks, lens)[0][0].float()
+    dense = prefill()
+    saved = moe.DENSE_MODE_MAX_T
+    real = gk._gemm_w8_cuda, gk._gemm_batched_cuda
+    floors = []
+    try:
+        moe.DENSE_MODE_MAX_T = 0
+        disp = prefill()
+        moe.DENSE_MODE_MAX_T = saved
+        for seed in range(3):
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(seed)
+            gk._gemm_w8_cuda, gk._gemm_batched_cuda = _noisy_kernel_gemms(
+                gen, *real)
+            floors.append(_cosine(dense, prefill()))
+    finally:
+        moe.DENSE_MODE_MAX_T = saved
+        gk._gemm_w8_cuda, gk._gemm_batched_cuda = real
+    cos, bar = _cosine(disp, dense), min([0.999] + floors)
+    same = int(disp.argmax()) == int(dense.argmax())
+    ok = cos >= bar
+    log(f"  {cfg.num_layers}-layer dispatch vs dense prefill of a "
+        f"{int(lens[0])}-token prompt: logits cosine {cos:.6f}, greedy "
+        f"token {'equal' if same else 'differs'} ("
+        + (f"bar: cosine >= {bar:.6f}, the noise floor of 3 draws "
+           if gate else "logged; the noise floor's 3 draws ")
+        + f"{[round(x, 6) for x in floors]}"
+        + (f", at most 0.999) {'ok' if ok else 'FAIL'}" if gate else ")"))
+    if gate and not ok:
+        failures.append(f"MoE dispatch vs dense prefill: cos {cos} < {bar}")
+
+
+def moe_run(cfg, card, failures):
+    """Phase 8: qwen1.5-moe-a2.7b at full width, all 24 layers, dummy
+    weights from seed 0 (ARC select_frac 0.125, per-row activation and
+    per-channel weight scales, W4A16 packed head), in w8 and then in w4
+    (the same seed, so the same weights): each built, timed, driven
+    through generate() on the PROMPT_LENS prompts (the one-shot 4 x 1024
+    prefill in dispatch mode, decode in dense mode) with its launches,
+    prefill ms, decode ms/step, weight GiB and peak memory; then the
+    batched GEMM against the per-expert loop (_moe_ab); for w8 also the
+    dispatch against dense mode check. Returns {fmt: launches}."""
+    from arcquant_tpu_torch.config import QuantConfig
+    from arcquant_tpu_torch.engine import EngineConfig, InferenceEngine
+    from arcquant_tpu_torch.models import quantized
+
+    qcfg = QuantConfig(quant_type="NVFP4", use_kernels=True,
+                       weight_fmt="w8", act_scale="row", w_scale="channel",
+                       quantize_lm_head=True)
+    ecfg = EngineConfig(max_batch=len(PROMPT_LENS),
+                        max_seq_len=max(PROMPT_LENS) + NEW_TOKENS + 8)
+    calib = quantized.identity_calib(cfg, SELECT_FRAC, device="cuda")
+    log(f"  ARC residual columns per site: "
+        f"{ {s: c.select_num for s, c in calib[0].items()} }")
+    paths = {}
+    for fmt in ("w8", "w4"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        eng = InferenceEngine.dummy(cfg, calib,
+                                    qcfg.replace(weight_fmt=fmt), ecfg,
+                                    seed=0, device="cuda")
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        build_peak = torch.cuda.max_memory_allocated()
+        log(f"  {fmt} MoE engine built ({cfg.num_layers} layers packed on "
+            f"the card) in {build_s:.1f} s, packed weights "
+            f"{_weight_gib(eng.qparams):.3f} GiB, peak device memory "
+            f"{build_peak / 2 ** 30:.3f} GiB")
+        launches, metrics, toks, lens = _moe_generate(eng, cfg, fmt, card,
+                                                      failures)
+        metrics.update(
+            build_s=round(build_s, 1),
+            build_peak_memory_gib=round(build_peak / 2 ** 30, 3),
+            decode_ms_per_step_batched_vs_loop=_moe_ab(eng, toks, lens,
+                                                       fmt, failures))
+        if fmt == "w8":
+            _moe_mode_check(eng, cfg, failures, gate=False)
+        log(f"  MoE engine {MOE_MODEL} {cfg.num_layers} layers {fmt} bs=4: "
+            f"{json.dumps(metrics)}")
+        paths[fmt] = launches
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    return paths
+
+
+def moe_serve_run(card, failures):
+    """Phase 8, continued: serve.py's build_loop with --model qwen1.5-moe-a2.7b
+    and its defaults (w8, W4A16 prefill in chunks of 512, W4A4 decode,
+    select_frac 0.125, dummy weights from seed 0), dynamic pages, batch
+    4: four concurrent HTTP requests of NEW_TOKENS tokens, prompts of
+    1500, 700, 40 and 12 tokens. Returns the launches over the run."""
+    from arcquant_tpu_torch import serve
+    from arcquant_tpu_torch.engine.server import make_server
+
+    args = serve.build_parser().parse_args(
+        ["--model", MOE_MODEL, "--dynamic_pages", "--max_batch", "4"])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loop = serve.build_loop(args)
+    log(f"  build_loop({MOE_MODEL}) in {time.perf_counter() - t0:.1f} s")
+    cfg = loop.batcher.engine.cfg
+    srv = make_server(loop, "127.0.0.1", 0)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    rng = np.random.default_rng(3)
+    bodies = [dict(prompt=rng.integers(0, cfg.vocab_size, n).tolist(),
+                   max_tokens=NEW_TOKENS) for n in (1500, 700, 40, 12)]
+    kernels = all_kernels()
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    clients = [Client(srv.server_address[1], b) for b in bodies]
+    for c in clients:
+        c.start()
+    for c in clients:
+        c.join(timeout=900)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels}
+    peak = torch.cuda.max_memory_allocated()
+    health = _get_stats(srv.server_address[1])
+    srv.shutdown()
+    srv.server_close()
+    loop.shutdown()
+    for body, c in zip(bodies, clients):
+        o, tk = c.out, c.out["tokens"] or []
+        if (o["status"] != 200 or o["error"] or len(tk) != NEW_TOKENS
+                or not all(0 <= t < cfg.vocab_size for t in tk)):
+            failures.append(f"MoE serve: request of {len(body['prompt'])} "
+                            f"tokens: {o}")
+    log(f"  launches in the MoE serving run: {launches}")
+    for name in MOE_SERVE_KERNELS:
+        if launches[name] <= 0:
+            failures.append(f"kernel {name} not launched by the MoE server")
+    ttft = [c.out["ttft_s"] for c in clients if c.out.get("ttft_s")]
+    metrics = dict(
+        requests=len(clients), statuses=[c.out["status"] for c in clients],
+        wall_s=round(wall, 3),
+        output_tok_s=round(NEW_TOKENS * len(clients) / wall, 2),
+        ttft_median_s=round(statistics.median(ttft), 4) if ttft else None,
+        peak_memory_gib=round(peak / 2 ** 30, 3),
+        server_stats=health.get("stats"), card=card)
+    log(f"  serve {MOE_MODEL} {cfg.num_layers} layers: {json.dumps(metrics)}")
+    del loop, srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _noisy_batched(gen):
+    """The batched GEMM's plain version with its f32 result perturbed
+    before it is rounded to the output dtype."""
+    from arcquant_tpu_torch.kernels import gemm as gk
+
+    def f(xa, codes, scales, gs, gw, out_dtype):
+        return _noise(gk.gemm_batched_plain(xa, codes, scales, gs, gw,
+                                            torch.float32), gen).to(out_dtype)
+    return f
+
+
+def moe_engine_check(cfg, failures):
+    """Phase 9 for the MoE model: the engine cut to 1 layer (w8, ARC,
+    full width), its prefill of the four prompts (dispatch mode) and 4
+    decode steps (dense mode: gemm_batched) fed the same tokens, against
+    the same forward with the plain versions (PlainKernels: gemm_batched
+    too). The router and the quantizers read each forward's own
+    activations, so both runs' top-k sets and quantized activations
+    (o_in, mlp_in, down_in, sdown_in) are compared: where none
+    differs, the bar is cosine >= 0.999 and equal greedy tokens; where a
+    routing flip or an e2m1 flip shows, the noise floor measured in the
+    same run (the plain forward against itself with every GEMM's f32
+    result times (1 + 2^-22 N(0, 1)) and paged decode's times (1 + 2^-16
+    N(0, 1)) before their rounding, lowest of five draws, at most 0.999),
+    and equal tokens unless a floor draw's tokens differ too. The
+    attention's noise is the size of the kernel's own deviation: its bf16
+    outputs differ from the plain version's by one ulp on 0.2-0.3% of
+    elements (phase 3 logs the share), which an f32 perturbation of about
+    2^-16 reproduces (0.8 x 2^-16 over a bf16 ulp of 2^-7.5 relative),
+    where 2^-22 flips almost none; in W4A4 such a flip can cross an e2m1
+    boundary at o_in. A flip moves a whole row: one
+    element's e2m1 step at mlp_in moves that token's gate/up in all 60
+    experts, and a bf16 ulp of a row's largest element moves the row's
+    global scale and so every element of it.
+    Then dispatch against dense mode on the same engine (_moe_mode_check),
+    gated."""
+    from arcquant_tpu_torch.config import QuantConfig
+    from arcquant_tpu_torch.engine import EngineConfig, InferenceEngine
+    from arcquant_tpu_torch.kernels import gemm as gk
+    from arcquant_tpu_torch.kernels import paged_decode as pdk
+    from arcquant_tpu_torch.models import moe, quantized
+
+    cfg_l = cfg.replace(num_layers=1)
+    calib = quantized.identity_calib(cfg_l, SELECT_FRAC, device="cuda")
+    eng = InferenceEngine.dummy(
+        cfg_l, calib, QuantConfig(quant_type="NVFP4", use_kernels=True,
+                                  weight_fmt="w8", act_scale="row",
+                                  w_scale="channel", quantize_lm_head=True),
+        EngineConfig(max_batch=len(PROMPT_LENS),
+                     max_seq_len=max(PROMPT_LENS) + NEW_TOKENS + 8),
+        seed=1, device="cuda")
+    toks, lens, _ = eng._pad_prompts(prompts_for(cfg_l, seed=1))
+    active = torch.ones(len(PROMPT_LENS), dtype=torch.bool)
+    # per forward, in call order: ("route", its top-k sets) and
+    # ("quantize", the quantized activation) of o_in and the MoE sites
+    seen = []
+    real_route, real_q = moe.route, quantized._act_quantize
+
+    def route(*a):
+        cw = real_route(*a)
+        seen[-1].append(("route", cw > 0))
+        return cw
+
+    def quantize(*a):
+        xa, gx = real_q(*a)
+        seen[-1].append(("quantize", xa))
+        return xa, gx
+
+    def forward(fn, *a):
+        seen.append([])
+        return fn(*a)
+
+    def run(feed=None):
+        seen.clear()
+        logits, state = forward(eng.prefill, eng.new_state(), toks, lens)
+        outs, fed = [logits.float().cpu()], []
+        for i in range(4):
+            cur = (logits.argmax(-1).to(torch.int32) if feed is None
+                   else feed[i])
+            fed.append(cur)
+            logits, state = forward(eng.decode_step, state, cur, active)
+            outs.append(logits.float().cpu())
+        return outs, fed, list(seen)
+
+    moe.route, quantized._act_quantize = route, quantize
+    try:
+        got, fed, s_got = run()
+        floors = []
+        with PlainKernels():
+            want, _, s_want = run(feed=fed)
+            for seed in range(5):
+                gen = torch.Generator(device="cuda")
+                gen.manual_seed(seed)
+                gk._gemm_w8_cuda = _noisy_gemm(gen)
+                gk._mm_f32_cuda = _noisy_mm(gen)
+                gk._gemm_batched_cuda = _noisy_batched(gen)
+                pdk._paged_decode_cuda = _noisy_attention(
+                    pdk.paged_decode_state_plain, gen, 2.0 ** -16)
+                floors.append(run(feed=fed)[0])
+    finally:
+        moe.route, quantized._act_quantize = real_route, real_q
+    for i, (a, b) in enumerate(zip(got, want)):
+        diff = {"route": 0, "quantize": 0}
+        for (kind, x), (_, y) in zip(s_got[i], s_want[i]):
+            diff[kind] += int(((x != y).any(-1) if kind == "route"
+                               else x != y).sum())
+        flips, moved = diff["route"], diff["quantize"]
+        cos = _cosine(a, b)
+        same = bool(torch.equal(a.argmax(-1), b.argmax(-1)))
+        what = "1-layer MoE " + ("prefill" if i == 0 else f"decode {i}")
+        if flips == 0 and moved == 0:
+            ok, bar = cos >= 0.999 and same, "cosine >= 0.999, equal tokens"
+        else:
+            floor = min([0.999] + [_cosine(b, f[i]) for f in floors])
+            noisy = any(not torch.equal(f[i].argmax(-1), b.argmax(-1))
+                        for f in floors)
+            ok = cos >= floor and (same or noisy)
+            bar = (f"cosine >= {floor:.6f}, the noise floor, at most 0.999; "
+                   "equal tokens unless a floor draw's differ too: "
+                   f"{'they do' if noisy else 'they do not'}")
+        log(f"  {what}: tokens whose top-k set differs from the plain "
+            f"forward's: {flips}, quantized activation elements that "
+            f"differ: {moved}; logits cosine {cos:.6f}, greedy tokens "
+            f"{'equal' if same else 'differ'} (bar: {bar}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"{what} engine vs plain: cos {cos}, tokens "
+                            f"equal {same}, routing flips {flips}, "
+                            f"quantize flips {moved}")
+    del s_got, s_want
+    _moe_mode_check(eng, cfg_l, failures)
+    del eng
+
+
 def serving_qcfg():
     """serve.py's defaults: w8, W4A16 prefill, W4A4 decode, row scales."""
     from arcquant_tpu_torch.config import QuantConfig
@@ -1433,6 +2028,7 @@ class PlainKernels:
                       (gk, "_dequant_w8_cuda", gk.dequant_w8_plain),
                       (gk, "_dequant_w4_cuda", gk.dequant_w4_plain),
                       (gk, "_pin_rowmajor_cuda", gk.pin_rowmajor_plain),
+                      (gk, "_gemm_batched_cuda", gk.gemm_batched_plain),
                       # the route's product stays torch.mm (a noise
                       # floor patches it); saved so that it is restored
                       (gk, "_mm_f32_cuda", gk._mm_f32_cuda)]
@@ -1454,7 +2050,7 @@ def _cosine(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def engine_check(cfg, failures):
-    """Phase 8: the engine cut to 1 and to 2 layers, and the w4 engine
+    """Phase 9: the engine cut to 1 and to 2 layers, and the w4 engine
     cut to 1 layer, each its prefill (4 x 1024: qkv and gateup take the
     large-M route) and 4 decode steps (fed the same tokens) with the
     kernels against the same forward with the plain versions (the
@@ -1529,20 +2125,20 @@ def engine_check(cfg, failures):
         del eng
 
 
-def _noise(y, gen):
-    """y (f32) times (1 + 2^-22 * N(0, 1)): a stand-in for another f32
+def _noise(y, gen, scale=2.0 ** -22):
+    """y (f32) times (1 + scale * N(0, 1)): a stand-in for another f32
     summation order."""
-    return y * (1 + 2.0 ** -22 * torch.randn(y.shape, generator=gen,
-                                             device=y.device))
+    return y * (1 + scale * torch.randn(y.shape, generator=gen,
+                                        device=y.device))
 
 
-def _noisy_attention(fn, gen):
+def _noisy_attention(fn, gen, scale=2.0 ** -22):
     """A paged attention plain version (query first, output first) whose
     f32 output is perturbed before it is rounded to the query's dtype."""
     def f(q, *a):
         out = fn(q.float(), *a)
         first = out[0] if isinstance(out, tuple) else out
-        first = _noise(first, gen).to(q.dtype)
+        first = _noise(first, gen, scale).to(q.dtype)
         return (first, *out[1:]) if isinstance(out, tuple) else first
     return f
 
@@ -1567,7 +2163,7 @@ def _noisy_mm(gen):
 
 
 def serving_engine_check(cfg, failures):
-    """Phase 8, continued: the 1-layer engine with prefill_chunk 256,
+    """Phase 9, continued: the 1-layer engine with prefill_chunk 256,
     kernels against plain versions:
       chunked  the four prompts stream through the int4 pool in chunks;
       suffix   a prefix prefill of (512, 256, 128, 0) tokens, then the
@@ -1718,30 +2314,44 @@ def main() -> int:
         f"fused vs unfused decode, on {card}")
     free_launches = free_run(cfg, card, failures)
 
+    moe_cfg = get_model_config(MOE_MODEL)
+    log(f"[moe] {MOE_MODEL} full width, {moe_cfg.num_layers} layers, ARC, "
+        f"w8 then w4, on {card}")
+    moe_launches = moe_run(moe_cfg, card, failures)
+    log(f"[moe serve] HTTP server, {MOE_MODEL} full width, "
+        f"{moe_cfg.num_layers} layers, on {card}")
+    moe_serve_launches = moe_serve_run(card, failures)
+
     log("[engine check] 1 and 2 layers (w8), 1 layer (w4), kernels vs "
-        "plain versions")
+        "plain versions; the MoE model at 1 layer")
     engine_check(cfg, failures)
     serving_engine_check(cfg, failures)
+    moe_engine_check(moe_cfg, failures)
 
     if failures:
         for f in failures:
             print(f"FAIL: {f}", file=sys.stderr)
         return 1
-    # launches: over the four main paths, the ARC generate(), the HTTP
-    # server, the w4 generate() and the select-free generate()
+    # launches: over the seven main paths, the ARC generate(), the HTTP
+    # server, the w4 generate(), the select-free generate(), and the MoE
+    # model's w8 and w4 generate() and HTTP server
     kernels = []
     for name, (src, replaces) in KERNEL_INFO.items():
         s = summary[name]
         paths = dict(generate=gen_launches[name], serve=serve_launches[name],
                      generate_w4=w4_launches[name],
-                     generate_select_free=free_launches[name])
+                     generate_select_free=free_launches[name],
+                     generate_moe=moe_launches["w8"][name],
+                     generate_moe_w4=moe_launches["w4"][name],
+                     serve_moe=moe_serve_launches[name])
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=sum(paths.values()), launches_by_path=paths,
             max_abs_err=s["max_abs_err"], ms=s["ms"],
             plain_ms=s["plain_ms"], bound_ms=s["bound_ms"],
             bound_by=s["bound_by"], library_ms=s["library_ms"],
-            **({"chain_ms": s["chain_ms"]} if "chain_ms" in s else {}),
+            **{k: s[k] for k in ("chain_ms", "w4_ms", "w4_bound_ms",
+                                 "w4_chain_ms") if k in s},
             shape=s["shape"], card=card))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

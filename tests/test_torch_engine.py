@@ -157,8 +157,9 @@ def test_outside_the_slice_raises():
 
 def test_port_runs_without_jax():
     """Importing arcquant_tpu_torch, generating with a tiny dummy engine,
-    a select-free decode at batch 4 through the fused routes and serving
-    two HTTP requests through ServingLoop load neither jax nor the JAX
+    a select-free decode at batch 4 through the fused routes, generating
+    with a tiny MoE engine (in dispatch and dense mode) and serving two
+    HTTP requests through ServingLoop load neither jax nor the JAX
     package."""
     code = (
         "import sys, torch\n"
@@ -188,6 +189,15 @@ def test_port_runs_without_jax():
         "    device='cpu')\n"
         "out = free.generate([[1] * 20, [2], [3, 4], [5]], 2)\n"
         "assert [len(o) for o in out] == [2] * 4 and calls == [1, 1], calls\n"
+        "mcfg = get_model_config('test-tiny-moe').replace(num_layers=1)\n"
+        "moe_eng = InferenceEngine.dummy(\n"
+        "    mcfg, quantized.identity_calib(mcfg, 0.5),\n"
+        "    QuantConfig(w_scale='channel', act_scale='row',\n"
+        "                quantize_lm_head=True, weight_fmt='w4'),\n"
+        "    EngineConfig(max_batch=2, max_seq_len=160, page_size=16),\n"
+        "    device='cpu')\n"
+        "out = moe_eng.generate([list(range(1, 140)), [4]], 2)\n"
+        "assert [len(o) for o in out] == [2, 2], out\n"
         "import http.client, json, threading\n"
         "from arcquant_tpu_torch.engine import ContinuousBatcher\n"
         "from arcquant_tpu_torch.engine.server import ServingLoop, make_server\n"

@@ -430,3 +430,77 @@ def test_gemm_and_route_accumulate_in_f32(fmt, m, monkeypatch):
     e_plain = _rel_err(plain, f64)
     for y in (cuda, route):
         assert _rel_err(y, f64) <= 2.0 * e_plain, (_rel_err(y, f64), e_plain)
+
+
+# -- the batched GEMM and stacked dequant (MoE experts) -----------------------
+
+def _stack(rng, e, n, k, select):
+    """E experts' [n, k] weights packed together in w8 and in w4, as
+    moe.quantize_moe_params_packed stacks the down projections."""
+    w = _bf16(outlier_x(rng, e * n, k) * k ** -0.5)
+    ridx = torch.from_numpy(rng.permutation(k)).cuda()
+    out = []
+    for fmt in ("w8", "w4"):
+        pw = packing.pack_weight_arc_rows(w, ridx, select, fmt=fmt)
+
+        def stack(t):
+            return t.reshape(t.shape[0], e, n).transpose(0, 1).contiguous()
+        out.append(type(pw)(stack(pw.codes), stack(pw.scales),
+                            pw.global_scale.reshape(e, n), None))
+    return out
+
+
+@pytest.mark.parametrize("e,m", [(4, 1), (4, 4), (4, 256), (60, 1),
+                                 (60, 4), (60, 256)])
+def test_gemm_batched_bitwise_equals_per_expert_gemm(e, m):
+    """gemm_batched (one launch over the experts) gives each expert the
+    bits of a gemm_w8 / gemm_w4 launch on that expert (the per-expert
+    chain), in both formats and output types, per-row scales; and holds
+    the sum-order bound of its plain version. Qwen1.5-MoE's down shape:
+    K 1408 with 192 ARC columns (Kq 2048), N 2048 (E 4: a narrower N)."""
+    require_cuda()
+    rng = np.random.default_rng(200 + e + m)
+    n = 2048 if e == 60 else 520
+    p8, p4 = _stack(rng, e, n, 1408, 192)
+    xa = _bf16(rng.standard_normal((e, m, p8.kq)) * 2)
+    gs = torch.from_numpy(rng.random((e, m, 1), np.float32) + 0.5).cuda()
+    for pk in (p8, p4):
+        gw = pk.global_scale.reshape(e, 1, n)
+        for dt in (torch.float32, torch.bfloat16):
+            n0 = gk.GEMM_BATCHED.launches
+            y = gk._gemm_batched_cuda(xa, pk.codes, pk.scales, gs, gw, dt)
+            assert gk.GEMM_BATCHED.launches == n0 + 1
+            chain = gk.gemm_batched_chain(xa, pk.codes, pk.scales, gs, gw, dt)
+            ref = gk.gemm_batched_plain(xa, pk.codes, pk.scales, gs, gw, dt)
+            torch.cuda.synchronize()
+            assert y.shape == (e, m, n) and y.dtype == dt
+            assert_bitwise([y], [chain])
+            assert_summation_order_close(y.reshape(e * m, n),
+                                         ref.reshape(e * m, n),
+                                         dt == torch.float32)
+    # the dispatcher with a scalar and a per-expert activation scale
+    for gx in (0.5, torch.full((e,), 0.5, device="cuda")):
+        y = gk.gemm_dequant_batched(xa, p8, gx)
+        assert_bitwise([y], [gk.gemm_batched_chain(
+            xa, p8.codes, p8.scales, torch.full((e, m, 1), 0.5,
+                                                device="cuda"),
+            p8.global_scale.reshape(e, 1, n), torch.bfloat16)])
+
+
+@pytest.mark.parametrize("fold", [False, True])
+def test_dequant_stacked_bitwise(fold):
+    """A stack of 60 experts' packs decodes in one launch, bit for bit the
+    plain decode of the stack (w4 in each expert's split-half order)."""
+    require_cuda()
+    rng = np.random.default_rng(300)
+    e, n = 60, 200
+    p8, p4 = _stack(rng, e, n, 1408, 192)
+    for pk in (p8, p4):
+        gw = pk.global_scale if fold else None
+        kern = gk._dequant_w4_cuda if pk is p4 else gk._dequant_w8_cuda
+        plain = gk.dequant_w4_plain if pk is p4 else gk.dequant_w8_plain
+        launches = gk.DEQUANT_W8.launches + gk.DEQUANT_W4.launches
+        got = kern(pk.codes, pk.scales, gw)
+        assert gk.DEQUANT_W8.launches + gk.DEQUANT_W4.launches == launches + 1
+        assert_bitwise([got], [plain(pk.codes, pk.scales, gw)])
+        assert gk.dequant_weight(pk, fold).shape == (e, pk.kq, n)
