@@ -14,6 +14,12 @@
     W4A16 (exact bf16 activations, unit scale), decode stays W4A4.
   - decode: the same sites at M = batch, with paged int4 flash-decode
     over the pool instead of flash attention.
+  - quant_type "BF16": the same engine on unquantized bf16 linears
+    (``llama.linear``, f32 accumulation) with no activation quantize,
+    over the same int4 pool and attention kernels: the baseline the
+    W4A4 engine is measured against. ``quantize_lm_head=False`` (and
+    BF16) keep the bf16 LM head, an f32-accumulated product with f32
+    logits.
 
 PyTorch runs eagerly, so there is no jit. The pool is preallocated by
 ``new_state`` and every step writes into it in place (the JAX engine's
@@ -100,9 +106,10 @@ class EngineConfig:
 
 
 def _norm_quantize(x2, norm_w, eps, site, qcfg):
-    """rmsnorm + activation quantize of one site: (xa, gx). W4A4 runs the
-    actq kernel's rmsnorm route; W4A16 applies rms_norm, then pads."""
-    if qcfg.act_bits == 4:
+    """rmsnorm + activation quantize of one site: (xa, gx). NVFP4 W4A4
+    runs the actq kernel's rmsnorm route; W4A16 and BF16 apply rms_norm,
+    then the site's quantize (a pad, or nothing)."""
+    if qcfg.quant_type == "NVFP4" and qcfg.act_bits == 4:
         return qk.rmsnorm_quantize_x(x2, norm_w, eps, site.reorder_index,
                                      site.select_num,
                                      per_row=qcfg.act_scale == "row")
@@ -111,9 +118,9 @@ def _norm_quantize(x2, norm_w, eps, site, qcfg):
 
 
 def _fused_ok(qcfg, fused: bool) -> bool:
-    """The fused routes' common precondition: W4A4 sites (per-row scales
-    are the only ones ported), and the engine's switch."""
-    return fused and qcfg.act_bits == 4
+    """The fused routes' common precondition: NVFP4 W4A4 sites (per-row
+    scales are the only ones ported), and the engine's switch."""
+    return fused and qcfg.quant_type == "NVFP4" and qcfg.act_bits == 4
 
 
 def _single_gemm_fused_ok(pw, site, m, d, qcfg, fused):
@@ -164,7 +171,7 @@ def _mlp(cfg, p, x, layer_calib, qcfg, norm_w, fused=False):
     m = b * t
     x2 = x.reshape(m, d)
     gate_up, down = p["gateup"], p["down"]
-    f = gate_up.n // 2
+    f = cfg.intermediate_size
     sel2 = layer_calib["down_in"].select_num
     fok = _fused_ok(qcfg, fused)
     if (fok and layer_calib["mlp_in"].select_num == 0
@@ -192,7 +199,7 @@ def _mlp(cfg, p, x, layer_calib, qcfg, norm_w, fused=False):
                               ia, gi, idx, f)
         return quantized._q_linear(down, ia, gi, x.dtype).reshape(b, t, d)
     gu = quantized._q_linear(gate_up, xa, gx, x.dtype)
-    if qcfg.act_bits == 4:
+    if qcfg.quant_type == "NVFP4" and qcfg.act_bits == 4:
         ia, gi = qk.silu_mul_quantize_gu(gu, c.reorder_index, c.select_num,
                                          per_row=qcfg.act_scale == "row")
     else:   # silu * up in f32, rounded to the activation dtype
@@ -251,7 +258,9 @@ class InferenceEngine:
 
     params holds either the raw bf16 layers (quantize_params=True, the
     engine packs them) or packed layers as built by
-    ``quantize_layer_params_fused`` (quantize_params=False).
+    ``quantize_layer_params_fused`` (quantize_params=False). The head is
+    packed (W4A16) when qcfg.quantize_lm_head is set and the quant type
+    is NVFP4; otherwise "lm_head" (or the tied embedding) stays bf16.
 
     fused_decode=False keeps every site on the unfused chain (the A/B
     reference of the decode megakernels); by default the megakernels run
@@ -260,7 +269,7 @@ class InferenceEngine:
     def __init__(self, cfg: ModelConfig, params, calib, qcfg: QuantConfig,
                  ecfg: EngineConfig, device="cuda",
                  quantize_params: bool = True, fused_decode: bool = True):
-        quantized.check_qcfg(qcfg)
+        quantized.check_qcfg(qcfg, cfg)
         self.cfg, self.qcfg, self.ecfg = cfg, qcfg, ecfg
         self.fused_decode = fused_decode
         # hybrid serving mode: the prefill forwards quantize with this,
@@ -275,7 +284,8 @@ class InferenceEngine:
             [quantized.quantize_layer_params_fused(lp, self.calib[i], qcfg)
              for i, lp in enumerate(params["layers"])]
             if quantize_params else params["layers"])
-        if "lm_head_packed" not in self.qparams:
+        if ("lm_head_packed" not in self.qparams and qcfg.quantize_lm_head
+                and qcfg.quant_type == "NVFP4"):
             head = self.qparams.pop("lm_head", self.qparams["embed"])
             self.qparams["lm_head_packed"] = pack_lm_head(head, qcfg)
         self.inv_freq = llama.rope_inv_freq(cfg).to(self.device)
@@ -285,11 +295,11 @@ class InferenceEngine:
               ecfg: EngineConfig, seed: int = 0, device="cuda",
               dtype=torch.bfloat16) -> "InferenceEngine":
         """Random ("dummy") weights from `seed`, packed layer by layer so
-        the full bf16 model never exists at once."""
+        the full bf16 model never exists at once (BF16: bf16 layers)."""
         device = resolve_device(device)
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
-        quantized.check_qcfg(qcfg)
+        quantized.check_qcfg(qcfg, cfg)
         calib = _to_device(calib, device)
         layers = []
         for i in range(cfg.num_layers):
@@ -308,12 +318,16 @@ class InferenceEngine:
                    quantize_params=False)
 
     def _head_logits(self, x2d: torch.Tensor) -> torch.Tensor:
-        """LM head: the W4A16 packed GEMM (x padded to kq, unit
-        activation scale, f32 out)."""
-        pw = self.qparams["lm_head_packed"]
-        xp = torch.nn.functional.pad(x2d.to(torch.bfloat16),
-                                     (0, pw.kq - x2d.shape[-1]))
-        return gk.gemm_dequant(xp, pw, 1.0, out_dtype=torch.float32)
+        """LM head, f32 logits: the W4A16 packed GEMM (x padded to kq,
+        unit activation scale) when the head is packed, else the bf16
+        head's product accumulated like f32."""
+        if "lm_head_packed" in self.qparams:
+            pw = self.qparams["lm_head_packed"]
+            xp = torch.nn.functional.pad(x2d.to(torch.bfloat16),
+                                         (0, pw.kq - x2d.shape[-1]))
+            return gk.gemm_dequant(xp, pw, 1.0, out_dtype=torch.float32)
+        head = self.qparams.get("lm_head", self.qparams["embed"])
+        return gk.matmul_f32(x2d, head.t())
 
     # -- state ------------------------------------------------------------
 

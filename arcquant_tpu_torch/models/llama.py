@@ -1,6 +1,6 @@
 """Llama / Qwen2 (and Qwen-MoE / Mixtral) decoder building blocks
-(counterpart of ``arcquant_tpu/models/llama.py``): RMSNorm, RoPE and the
-dummy-weight initialiser the serving engine needs."""
+(counterpart of ``arcquant_tpu/models/llama.py``): RMSNorm, RoPE, the
+bf16 linear and the dummy-weight initialiser the serving engine needs."""
 
 from __future__ import annotations
 
@@ -10,6 +10,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..config import ModelConfig
+from ..kernels import gemm as gk
 
 Params = Dict[str, object]
 
@@ -59,6 +60,17 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     xf = x.float()
     var = (xf * xf).mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w
+
+
+def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """x @ p["w"].T (+ p["b"]) of an unquantized linear: the product
+    accumulated like f32 (gemm.matmul_f32, the product JAX leaves to
+    XLA with preferred_element_type=f32), the bias added in f32, the
+    result cast back to x's dtype."""
+    y = gk.matmul_f32(x, p["w"].t())
+    if "b" in p:
+        y = y + p["b"].float()
+    return y.to(x.dtype)
 
 
 def rope_inv_freq(cfg: ModelConfig) -> torch.Tensor:

@@ -20,7 +20,14 @@ Phases, each printed as it runs:
      kernels (qwen1.5-moe-a2.7b): the batched GEMM over 60 experts' down
      projections in w8 and w4 at M 4, 8 and 256, bitwise against the
      per-expert loop of the single GEMM, the 60-expert stack decoded in
-     one launch, and the attention kernels at its G = 1;
+     one launch, and the attention kernels at its G = 1; and the GEMM
+     lab's four kernels (csrc/gemm_lab.cu) in every decode mode at the
+     gateup and qkv sites at M 4, the exact ones bitwise against gemm_w8,
+     and at qkv whether a bitwise A/B can see the k order (gemm_w8's f32
+     sums and lab_w8's outputs at 1 split and at production's 7, on
+     quantized and on bf16 activations). Kernel times are device times
+     (benchmarks/common.py's Timer holds the stream while the host
+     enqueues the call);
   4. the engine at Qwen2.5-7B full width, all 28 layers, dummy weights,
      ARC select_frac 0.125, packed W4A16 head: 4 requests (prompts of
      1024, 777, 301 and 64 tokens) served by ``generate`` for 32 greedy
@@ -47,18 +54,29 @@ Phases, each printed as it runs:
      ms, decode ms/step, tok/s and peak memory; then the same weights in
      an engine with fused_decode=False fed the same tokens, whose logits
      must be bitwise equal at every step;
-  8. the MoE model, qwen1.5-moe-a2.7b at full width, all 24 layers, in
+  8. [bench_e2e]: arcquant_tpu_torch/benchmarks/benchmark_e2e.py's run()
+     at Qwen2.5-7B, 28 layers, bs 4, prefill 1024, 32 decode steps, in
+     the north-star configuration (NVFP4 select-free w8) and with --quant
+     BF16, with the script's lines, its JSON and the launch counts;
+  9. [lab]: the GEMM lab's script (benchmarks/gemm_lab.py) at the four
+     decode sites at M 4: production against bf16 torch.matmul and the
+     bound, every built lab variant in w8 and w4 (tiles, depths, k
+     splits, the rings) timed and held to production (bitwise where it
+     keeps production's k order), the fastest per site, then production,
+     the fastest and the default tile re-timed in turns over five rounds;
+ 10. the MoE model, qwen1.5-moe-a2.7b at full width, all 24 layers, in
      w8 and then w4 (moe_run): generate() on the same 4 requests with the
      launch counts (gemm_batched once a layer a decode step), prefill ms,
      decode ms/step, weight GiB and peak memory, the decode logits with
      the batched GEMM bitwise against the per-expert loop, and (w8)
      dispatch against dense mode; then serve.py's build_loop on it with
      four HTTP requests (moe_serve_run);
-  9. the Qwen2.5-7B engine cut to 1 and to 2 layers, its prefill and 4
+ 11. the Qwen2.5-7B engine cut to 1 and to 2 layers, its prefill and 4
      decode steps against the same forward with the plain versions
-     patched in, the 1-layer w4 engine likewise, then at 1 layer chunked
-     and suffix prefill, and the MoE engine at 1 layer (see engine_check,
-     serving_engine_check and moe_engine_check for the bars).
+     patched in, the 1-layer w4 and BF16 engines likewise, then at 1
+     layer chunked and suffix prefill, and the MoE engine at 1 layer (see
+     engine_check, serving_engine_check and moe_engine_check for the
+     bars).
 The second-to-last line is the kernels' JSON summary, the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero before the
 last line; without a CUDA device it exits 1 at once.
@@ -70,13 +88,16 @@ import gc
 import http.client
 import json
 import statistics
-import subprocess
 import sys
 import threading
 import time
 
 import numpy as np
 import torch
+
+from arcquant_tpu_torch.benchmarks import common
+from arcquant_tpu_torch.benchmarks.common import (Timer, bound_ms, nbytes,
+                                                 sum_order_bound)
 
 MODEL = "qwen2.5-7b"
 SELECT_FRAC = 0.125
@@ -111,7 +132,16 @@ KERNEL_INFO = {
                      "arcquant_tpu/kernels/gemm.py:650"),
     "gemm_batched": ("arcquant_tpu_torch/csrc/gemm_batched.cu",
                      "arcquant_tpu/kernels/gemm.py:944"),
+    "lab_w8": ("arcquant_tpu_torch/csrc/gemm_lab.cu",
+               "benchmarks/gemm_lab.py:48"),
+    "lab_w8_ring": ("arcquant_tpu_torch/csrc/gemm_lab.cu",
+                    "benchmarks/gemm_lab.py:231"),
+    "lab_w8_ring_n": ("arcquant_tpu_torch/csrc/gemm_lab.cu",
+                      "benchmarks/gemm_lab.py:300"),
+    "lab_w4": ("arcquant_tpu_torch/csrc/gemm_lab.cu",
+               "benchmarks/gemm_lab.py:429"),
 }
+LAB_KERNELS = ("lab_w8", "lab_w8_ring", "lab_w8_ring_n", "lab_w4")
 # The kernels each main path must launch, and those it must not: with ARC
 # every site has a residual, so only gu_actq of the megakernels engages;
 # the prefill's qkv and gateup (M >= gemm.XLA_M, N >= Kq) take the
@@ -144,13 +174,10 @@ MOE_IDLE_KERNELS = {
     for fmt, other in (("w8", W4_ONLY), ("w4", ("gemm_w8", "dequant_w8")))}
 MOE_SERVE_KERNELS = MOE_COMMON[:2] + ("gemm_w8", "paged_prefill",
                                       "paged_decode")
-
-# H100 SXM published dense peaks (NVIDIA data sheet): bf16 tensor-core
-# FLOP/s and HBM3 bytes/s. A kernel's bound is the larger of its FLOPs
-# and its bytes (each input read once, each output written once) over
-# these.
-PEAK_FLOPS = 989e12
-PEAK_BYTES = 3.35e12
+# benchmark_e2e: NVFP4 select-free runs FREE_KERNELS; BF16 only the
+# attention kernels of the engine's path (its linears are library
+# products accumulated like f32)
+BF16_KERNELS = ("flash_attn", "paged_decode")
 
 # Serving phase traffic: the first wave, then three requests sharing a
 # 1024-token (8-page) prefix with distinct 100-token suffixes, one
@@ -163,31 +190,6 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-class Timer:
-    """Median CUDA-event time of a callable, with L2 flushed (a 256 MB
-    write) before every timed run so weights are read from HBM as in a
-    real step."""
-
-    def __init__(self):
-        self.flush = torch.empty(64 * 2 ** 20, dtype=torch.float32,
-                                 device="cuda")
-
-    def __call__(self, fn, reps: int = REPS) -> float:
-        fn()
-        fn()
-        times = []
-        for _ in range(reps):
-            self.flush.zero_()
-            s = torch.cuda.Event(enable_timing=True)
-            e = torch.cuda.Event(enable_timing=True)
-            s.record()
-            fn()
-            e.record()
-            e.synchronize()
-            times.append(s.elapsed_time(e))
-        return statistics.median(times)
-
-
 def one_step_bound(a: torch.Tensor, g: torch.Tensor) -> bool:
     """The JAX package's TestRmsnormFused bound: < 3% of elements differ
     and each by at most one e2m1 grid step (<= max(|a|, |g|))."""
@@ -195,16 +197,6 @@ def one_step_bound(a: torch.Tensor, g: torch.Tensor) -> bool:
     diff = (a - g).abs()
     return (float((a != g).float().mean()) < 0.03 and bool(
         (diff <= torch.maximum(a.abs(), g.abs()) * 1.0001 + 1e-6).all()))
-
-
-def sum_order_bound(y: torch.Tensor, ref: torch.Tensor, f32: bool) -> bool:
-    """f32 summation order: a few f32 ulps of the row's magnitude, plus
-    one bf16 ulp of the value for bf16 outputs."""
-    y, ref = y.double(), ref.double()
-    scale = ref.abs().amax(dim=-1, keepdim=True)
-    tol = (1e-5 * scale + 1e-6 * ref.abs() if f32
-           else 1e-4 * scale + 2.0 ** -7 * ref.abs())
-    return bool(((y - ref).abs() <= tol).all())
 
 
 def close_bound(y: torch.Tensor, ref: torch.Tensor) -> bool:
@@ -217,18 +209,6 @@ def close_bound(y: torch.Tensor, ref: torch.Tensor) -> bool:
 def bf16_randn(gen, shape, scale=1.0):
     return (torch.randn(shape, generator=gen, device="cuda") * scale).to(
         torch.bfloat16)
-
-
-def bound(flops: float, nbytes: float):
-    """(bound ms, what bounds it) on an H100 SXM at its published peaks."""
-    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes
-                                       else "bytes")
-
-
-def _nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors
-               if t is not None)
 
 
 def gemm_w8_f64(xa, codes, scales, gs, gw, bias, out_dtype):
@@ -263,7 +243,7 @@ def kernel_checks(cfg, timer, failures):
         s = summary.setdefault(kernel, dict(max_abs_err=0.0))
         s["max_abs_err"] = max(s["max_abs_err"], err)
         if rep:
-            b_ms, b_by = bound(*work)
+            b_ms, b_by = bound_ms(*work)
             lib_ms = timer(library) if library is not None else None
             s.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                      library_ms=lib_ms, shape=case)
@@ -300,7 +280,7 @@ def kernel_checks(cfg, timer, failures):
                        timer(lambda: qk._actq_cuda(a, w, **args)),
                        timer(lambda: qk.actq_plain(a, w, **args)), tol,
                        rep=(m == 4 and k == h and mode == "plain"),
-                       work=(0, _nbytes(a, w, xa, gx)))
+                       work=(0, nbytes(a, w, xa, gx)))
 
     # w8 and w4 GEMMs at the five weights of the path, the w4 pack of the
     # same weight held bitwise against the w8 GEMM
@@ -370,7 +350,7 @@ def kernel_checks(cfg, timer, failures):
                    timer(lambda: gk.gemm_w8_plain(*args)),
                    "f32 sum order" + ("" if f32 else " + 1 bf16 ulp"),
                    rep=rep, work=(2.0 * m * pw.kq * n,
-                                  _nbytes(xa, pw.codes, pw.scales, gs, gw,
+                                  nbytes(xa, pw.codes, pw.scales, gs, gw,
                                           pw.bias, y)),
                    library=lib,
                    library_what="torch.matmul over the decoded bf16 weight")
@@ -389,7 +369,7 @@ def kernel_checks(cfg, timer, failures):
                    "bitwise vs gemm_w8 on the same weight; f32 sum order"
                    + ("" if f32 else " + 1 bf16 ulp") + " vs plain",
                    rep=rep, work=(2.0 * m * pw.kq * n,
-                                  _nbytes(xa, pw4.codes, pw4.scales, gs, gw,
+                                  nbytes(xa, pw4.codes, pw4.scales, gs, gw,
                                           pw4.bias, y4)),
                    library=lib,
                    library_what="torch.matmul over the decoded bf16 weight")
@@ -399,6 +379,7 @@ def kernel_checks(cfg, timer, failures):
     attention_checks(cfg, gen, timer, record)
     fused_checks(cfg, gen, timer, record, summary)
     route_checks(cfg, gen, timer, record, failures)
+    lab_kernel_checks(cfg, gen, timer, record, failures)
     moe_kernel_checks(get_model_config(MOE_MODEL), gen, timer, record,
                       summary)
     return summary
@@ -437,7 +418,7 @@ def attention_checks(cfg, gen, timer, record, rep=True):
                timer(lambda: attention.flash_attention_plain(q, k_, v, off)),
                "1 bf16 ulp + 2e-3", rep=rep_,
                work=(4.0 * b * hq * dh * tq * (tq + 1) / 2,
-                     _nbytes(q, k_, v, o)),
+                     nbytes(q, k_, v, o)),
                library=lib,
                library_what="SDPA is_causal over [B, H, T, Dh] copies")
     # paged int4 decode over a filled pool
@@ -476,7 +457,7 @@ def attention_checks(cfg, gen, timer, record, rep=True):
            timer(lambda: pdk.paged_decode_state_plain(*args)),
            "1 bf16 ulp + 2e-3; m, l f32 sum order", rep=rep,
            work=(4.0 * ntok * hq * dh,
-                 ntok * hkv * (dh + 16) + _nbytes(q, o, m_, l_)),
+                 ntok * hkv * (dh + 16) + nbytes(q, o, m_, l_)),
            library=lambda: sdpa(qd, kd, vd, attn_mask=mask, enable_gqa=True),
            library_what="SDPA over the pool dequantized to bf16, call only")
     del cache, kd, vd
@@ -537,7 +518,7 @@ def route_checks(cfg, gen, timer, record, failures):
                        timer(lambda: kern(pw.codes, pw.scales, gwf)),
                        timer(lambda: plain(pw.codes, pw.scales, gwf)),
                        "bitwise", rep=name == "gateup" and gwf is None,
-                       work=(0, _nbytes(pw.codes, pw.scales, gwf, out)))
+                       work=(0, nbytes(pw.codes, pw.scales, gwf, out)))
                 del out, ref
         for m in (4, 4096):
             x = bf16_randn(gen, (m, kq))
@@ -550,7 +531,7 @@ def route_checks(cfg, gen, timer, record, failures):
                    bitwise([out], [ref]),
                    timer(lambda: gk._pin_rowmajor_cuda(x)),
                    timer(lambda: gk.pin_rowmajor_plain(x)), "bitwise",
-                   rep=rep, work=(0, _nbytes(x, out)),
+                   rep=rep, work=(0, nbytes(x, out)),
                    library=(lambda: x.view(m, kq // 2, 2).transpose(1, 2)
                             .contiguous()),
                    library_what="x.view(m, kq//2, 2).transpose(1, 2)"
@@ -631,6 +612,139 @@ def route_checks(cfg, gen, timer, record, failures):
                 del f64
         del pws
         torch.cuda.empty_cache()
+
+
+def lab_kernel_checks(cfg, gen, timer, record, failures):
+    """Phase 3, the GEMM lab's kernels (#16) with their default tile (128
+    columns, 128-deep stages, 3 stages) at Qwen2.5-7B's gateup (M 4, Kq
+    3584 select-free: production plans one split) and qkv (M 4: 7 splits),
+    one weight packed in w8 and w4:
+      lab_w8         base, mul3d, bf16, noscale;
+      lab_w8_ring    a block an SM, production's plan;
+      lab_w8_ring_n  one split over the whole K;
+      lab_w4         f32, i16, nodec;
+    each against its plain version within the f32 sum order plus one bf16
+    ulp; the exact modes (and the ring) bitwise equal to gemm_w8, which
+    gemm_w4 equals too, ring_n only where production has one split (bars:
+    fail if not); bf16 and i16 also their error against f64 beside
+    production's; the probes (noscale, nodec) checked for shape and
+    finiteness only. Kernel ms, plain ms, bound and torch.matmul over the
+    decoded bf16 weight at gateup (the representative rows: base, f32)."""
+    from arcquant_tpu_torch.kernels import gemm as gk
+    from arcquant_tpu_torch.kernels import gemm_lab as gl
+    from arcquant_tpu_torch.kernels import quantize as qk
+    from arcquant_tpu_torch.quant import packing
+
+    h, f, m, bf = cfg.hidden_size, cfg.intermediate_size, 4, torch.bfloat16
+    for name, n in (("gateup", 2 * f), ("qkv", cfg.q_size + 2 * cfg.kv_size)):
+        w = bf16_randn(gen, (n, h), h ** -0.5)
+        ridx = torch.arange(h, device="cuda")
+        p8, p4 = (packing.pack_weight_arc(w, ridx, 0, fmt=fmt,
+                                          w_scale="channel")
+                  for fmt in ("w8", "w4"))
+        del w
+        xa, gx = qk.quantize_x_arc(bf16_randn(gen, (m, h), 2.0), ridx, 0)
+        gs, gw = gx.reshape(-1), p8.global_scale.reshape(-1).float()
+        prod = gk._gemm_w8_cuda(xa, p8.codes, p8.scales, gx, gw[None], None,
+                                bf)
+        prod4 = gk._gemm_w4_cuda(xa, p4.codes, p4.scales, gx, gw[None], None,
+                                 bf)
+        f64 = gemm_w8_f64(xa, p8.codes, p8.scales, gx, gw[None], None, None)
+        _, splits, _ = gk._split_plan(m, n, p8.kq)
+        rep = name == "gateup"
+        wd = gk.dequant_weight(p8) if rep else None   # natural k order
+        a8 = (xa, p8.codes, p8.scales, gs, gw)
+        a4 = (xa, p4.codes, p4.scales, gs, gw)
+        rows = [("lab_w8", mode, lambda mode=mode: gl.lab_w8(*a8, mode=mode),
+                 lambda mode=mode: gl.lab_w8_plain(*a8, mode), p8)
+                for mode in gl.W8_MODES]
+        rows += [("lab_w8_ring", "base", lambda: gl.lab_w8_ring(*a8),
+                  lambda: gl.lab_w8_plain(*a8), p8),
+                 ("lab_w8_ring_n", "base", lambda: gl.lab_w8_ring_n(*a8),
+                  lambda: gl.lab_w8_plain(*a8), p8)]
+        rows += [("lab_w4", mode, lambda mode=mode: gl.lab_w4(*a4, mode=mode),
+                  lambda mode=mode: gl.lab_w4_plain(*a4, mode), p4)
+                 for mode in gl.W4_MODES]
+        torch.cuda.synchronize()
+        if not bitwise([prod4], [prod]):
+            failures.append(f"lab {name}: gemm_w4 differs from gemm_w8")
+        for kernel, mode, run, plain, pk in rows:
+            y, ref = run(), plain()
+            torch.cuda.synchronize()
+            err = float((y.float() - ref.float()).abs().max())
+            same = bitwise([y], [prod])
+            must = mode in gl.EXACT_MODES and not (
+                kernel == "lab_w8_ring_n" and splits > 1)
+            if mode in ("noscale", "nodec"):
+                ok = y.shape == prod.shape and bool(torch.isfinite(y).all())
+                tol = "probe: shape and finite only"
+            else:
+                ok = sum_order_bound(y, ref, False) and (same or not must)
+                tol = ("bitwise vs gemm_w8; " if must else "") + \
+                    "f32 sum order + 1 bf16 ulp vs plain"
+            if mode in ("bf16", "i16"):
+                e_y, e_p = (float((z.double() - f64).abs().mean()
+                                  / f64.abs().mean()) for z in (y, prod))
+                log(f"  {'':13s} {name} {mode}: mean relative error vs f64 "
+                    f"{e_y:.6g} (gemm_w8 {e_p:.6g})")
+            is_rep = rep and mode in ("base", "f32")
+            record(kernel, f"{name} {mode} M={m} Kq={pk.kq} N={n} "
+                   f"splits={1 if kernel == 'lab_w8_ring_n' else splits} "
+                   f"bitwise-vs-gemm_w8={same}", err, ok, timer(run),
+                   timer(plain), tol, rep=is_rep,
+                   work=(2.0 * m * pk.kq * n,
+                         nbytes(xa, pk.codes, pk.scales, gs, gw, y)),
+                   library=(lambda: torch.matmul(xa, wd)) if is_rep else None,
+                   library_what="torch.matmul over the decoded bf16 weight")
+            del y, ref
+        if splits > 1:
+            split_order_check(gen, xa, p8, splits, failures)
+        del p8, p4, wd, f64
+        torch.cuda.empty_cache()
+
+
+def split_order_check(gen, xa, pw, splits, failures):
+    """Can a bitwise A/B see the k order? gemm_w8's f32 sums (gs = gw = 1,
+    f32 out) at production's `splits` against one split (the plan patched
+    over), and lab_w8's bf16 outputs at 1 and at `splits`, on the
+    quantized xa (e2m1 values) and on bf16 activations (A16). Logs how
+    many outputs differ and how many f32 sums equal the f64 sum; fails
+    only if the two orders differ by more than the f32 sum-order bound."""
+    from arcquant_tpu_torch.kernels import gemm as gk
+    from arcquant_tpu_torch.kernels import gemm_lab as gl
+
+    m, n = xa.shape[0], pw.codes.shape[1]
+    ones_m = torch.ones((m, 1), device="cuda")
+    ones_n = torch.ones((1, n), device="cuda")
+    plan = gk._split_plan
+    xbf = bf16_randn(gen, xa.shape, 2.0)
+    for what, x in (("quantized xa", xa), ("bf16 xa (A16)", xbf)):
+        def acc():
+            return gk._gemm_w8_cuda(x, pw.codes, pw.scales, ones_m, ones_n,
+                                    None, torch.float32)
+        at_plan = acc()
+        gk._split_plan = lambda m_, n_, kq: (plan(m_, n_, kq)[0], 1,
+                                             kq // gk._BK)
+        try:
+            at_one = acc()
+        finally:
+            gk._split_plan = plan
+        exact = gemm_w8_f64(x, pw.codes, pw.scales, ones_m, ones_n, None,
+                            None)
+        lab = [gl.lab_w8(x, pw.codes, pw.scales, ones_m, ones_n, splits=s)
+               for s in (1, splits)]
+        torch.cuda.synchronize()
+        n_f32 = int((at_plan != at_one).sum())
+        n_exact = [int((z.double() == exact).sum()) for z in (at_one, at_plan)]
+        n_bf16 = int((lab[0].view(torch.int16) != lab[1].view(torch.int16))
+                     .sum())
+        log(f"  {'':13s} k order, qkv M={m}, {what}: gemm_w8 f32 sums at 1 "
+            f"and {splits} splits differ at {n_f32} of {m * n}; equal to the "
+            f"f64 sum at {n_exact[0]} / {n_exact[1]}; lab_w8 bf16 outputs "
+            f"at 1 and {splits} splits differ at {n_bf16}")
+        if not sum_order_bound(at_plan, at_one, True):
+            failures.append(f"gemm_w8 {what}: {splits} splits vs 1 beyond "
+                            "the f32 sum-order bound")
 
 
 def _paged_prefill_f64(q, codes, params, pt, st, sl):
@@ -721,7 +835,7 @@ def paged_prefill_check(cfg, gen, timer, record, rep=True):
            "1 bf16 ulp + 2e-3 on live queries, idle row 0, mean error "
            "vs f64 within 1.01x the plain version's", rep=rep,
            work=(4.0 * pairs * hq * dh,
-                 keys * hkv * (dh + 16) + _nbytes(q, o)),
+                 keys * hkv * (dh + 16) + nbytes(q, o)),
            library=lambda: sdpa(qd, kd, vd, attn_mask=mask,
                                 enable_gqa=True),
            library_what="SDPA over the pool dequantized to bf16, call only")
@@ -809,7 +923,7 @@ def moe_kernel_checks(cfg, gen, timer, record, summary):
                 ms = timer(lambda: gk._gemm_batched_cuda(*args))
                 loop_ms = timer(lambda: gk.gemm_batched_chain(*args))
                 work = (2.0 * e * m * kq * d,
-                        _nbytes(xa, pk.codes, pk.scales, gs, gw, y))
+                        nbytes(xa, pk.codes, pk.scales, gs, gw, y))
                 record("gemm_batched", f"{fmt} E={e} M={m} Kq={kq} N={d} "
                        f"bitwise-vs-loop={same}",
                        float((y - ref).abs().max()), ok, ms,
@@ -819,7 +933,7 @@ def moe_kernel_checks(cfg, gen, timer, record, summary):
                        library=lambda: torch.bmm(xa, wd),
                        library_what="torch.bmm over the decoded bf16 "
                        "stack")
-                b_ms, _ = bound(*work)
+                b_ms, _ = bound_ms(*work)
                 log(f"  {'':13s} the per-expert loop ({e} gemm_{fmt} "
                     f"launches) {loop_ms:.4f} ms; bound {b_ms:.4f} ms")
                 if rep:
@@ -908,7 +1022,7 @@ def fused_checks(cfg, gen, timer, record, summary):
 
             def work(got, m=m, pw=pw, x=x, nw=nw):
                 return (2.0 * m * pw.kq * pw.n,
-                        _nbytes(x, nw, pw.codes, pw.scales, pw.global_scale,
+                        nbytes(x, nw, pw.codes, pw.scales, pw.global_scale,
                                 pw.bias, *got))
             row("gemm_actq", f"{name} {mode} M={m} D={d} Kq={pw.kq} "
                 f"N={pw.n}", args, mf.gemm_actq_plain, mf.gemm_actq_chain,
@@ -935,7 +1049,7 @@ def fused_checks(cfg, gen, timer, record, summary):
 
         def work(got, m=m, x=x):
             return (2.0 * m * (pw_gu.kq * pw_gu.n + pw_dn.kq * pw_dn.n),
-                    _nbytes(x, nw, *pw_gu[:3], *pw_dn[:3], *got))
+                    nbytes(x, nw, *pw_gu[:3], *pw_dn[:3], *got))
         row("mlp_w8", f"rmsnorm M={m} D={h} F={f} Kq1={pw_gu.kq} "
             f"Kq2={pw_dn.kq}", args, mf.mlp_w8_plain, mf.mlp_w8_chain,
             mf._mlp_w8_cuda, steps, work, rep=m == 4)
@@ -958,7 +1072,7 @@ def fused_checks(cfg, gen, timer, record, summary):
 
         def work(got, m=m, xa1=xa1, gs1=gs1):
             return (2.0 * m * pw_gu.kq * pw_gu.n,
-                    _nbytes(xa1, gs1, *pw_gu[:3], *got))
+                    nbytes(xa1, gs1, *pw_gu[:3], *got))
         row("gu_actq", f"M={m} Kq1={pw_gu.kq} N={pw_gu.n} Kq2={kq2}", args,
             mf.gu_actq_plain, mf.gu_actq_chain, mf._gu_actq_cuda, steps,
             work, rep=m == 4)
@@ -1060,15 +1174,16 @@ def engine_run(cfg, card, failures):
 
 
 def all_kernels():
-    """The twelve kernels' launch counters."""
+    """The kernels' launch counters."""
     from arcquant_tpu_torch.kernels import attention, gemm as gk
+    from arcquant_tpu_torch.kernels import gemm_lab as gl
     from arcquant_tpu_torch.kernels import mlp_fused as mf
     from arcquant_tpu_torch.kernels import paged_decode as pdk
     from arcquant_tpu_torch.kernels import quantize as qk
     return [qk.ACTQ, gk.GEMM_W8, attention.FLASH, pdk.PAGED_DECODE,
             pdk.PAGED_PREFILL, mf.MLP_W8, mf.GU_ACTQ, mf.GEMM_ACTQ,
             gk.GEMM_W4, gk.DEQUANT_W8, gk.DEQUANT_W4, gk.PIN_ROWMAJOR,
-            gk.GEMM_BATCHED]
+            gk.GEMM_BATCHED, *gl.KERNELS]
 
 
 def _packs(tree):
@@ -1085,7 +1200,7 @@ def _packs(tree):
 
 def _weight_gib(qparams) -> float:
     """Device bytes of an engine's packed layers and head, in GiB."""
-    return sum(_nbytes(*p) for p in _packs(qparams)) / 2 ** 30
+    return sum(nbytes(*p) for p in _packs(qparams)) / 2 ** 30
 
 
 def w4_run(cfg, card, qparams8, calib, failures):
@@ -1366,6 +1481,107 @@ def free_run(cfg, card, failures):
     return launches
 
 
+def lab_run(card, failures):
+    """The [lab] phase: the GEMM lab's script (benchmarks/gemm_lab.py) at
+    Qwen2.5-7B's four decode sites at M 4, one process: exp_shapes
+    (production w8 and w4 against bf16 torch.matmul and the bound), then
+    every built lab variant of each format (tiles, depths, k splits, the
+    rings) timed and checked against production, the fastest, and
+    production, the fastest and the default tile re-timed in turns
+    (best_by_site; bars: a variant that keeps production's k order gives
+    its bits, the others, lab_w8_ring_n where production splits K and the
+    other split counts, stay within the sum-order bound). Returns the
+    launch counts over the phase."""
+    from arcquant_tpu_torch.benchmarks import gemm_lab as bl
+
+    lab = bl.Lab(log=log)
+    kernels = all_kernels()
+    for k in kernels:
+        k.launches = 0
+    bl.exp_shapes(lab)
+    rows = bl.best_by_site(lab)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels}
+    log(f"  launches in the lab: {launches}")
+    for name in LAB_KERNELS:
+        if launches[name] <= 0:
+            failures.append(f"kernel {name} not launched by the lab")
+    for r in rows:
+        bad = [w for w, (_, exact, must, close) in r["variants"].items()
+               if not (exact if must else close)]
+        if bad:
+            failures.append(f"lab {r['site']} {r['fmt']}: not bitwise "
+                            f"equal to production (or beyond the sum-order "
+                            f"bound where the k order differs): {bad}")
+
+    def ms(t):
+        return dict(median=t.median, spread=[t.lo, t.hi])
+    summary = [dict(site=r["site"], fmt=r["fmt"], best=r["best"],
+                    exact=r["variants"][r["best"]][1],
+                    **{f"{w}_ms": ms(t) for w, t in r["ab"].items()},
+                    best_over_production=r["ab"]["best"].median
+                    / r["ab"]["production"].median,
+                    unheld_production_ms=r["unheld"]["production"].median,
+                    unheld_best_ms=r["unheld"]["best"].median,
+                    bound_ms=r["bound_ms"])
+               for r in rows]
+    log(f"  lab summary: {json.dumps(dict(sites=summary, card=card))}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def bench_e2e_run(card, failures):
+    """The [bench_e2e] phase: benchmarks/benchmark_e2e.py's run() at
+    Qwen2.5-7B, 28 layers, bs 4, prefill 1024, decode 32, warmup 1,
+    repeats 3, first the north-star configuration (NVFP4 W4A4 select-free,
+    w8, packed head), then --quant BF16; each with the script's lines, its
+    JSON and the launch counts (BF16 launches the attention kernels and
+    none of the quantize, GEMM, dequant or lab kernels). Returns
+    {quant: launches}."""
+    from arcquant_tpu_torch.benchmarks import benchmark_e2e as be
+
+    paths = {}
+    for quant, want, idle in (
+            ("NVFP4", FREE_KERNELS, FREE_IDLE_KERNELS + LAB_KERNELS),
+            ("BF16", BF16_KERNELS,
+             tuple(k for k in KERNEL_INFO if k not in BF16_KERNELS))):
+        args = be.build_parser().parse_args(
+            ["--model", MODEL, "--batch_size", "4", "--prefill_seq_len",
+             "1024", "--decode_steps", str(NEW_TOKENS), "--warmup", "1",
+             "--repeats", "3", "--quant", quant])
+        kernels = all_kernels()
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        r = be.run(args)
+        torch.cuda.synchronize()
+        launches = {k.name: k.launches for k in kernels}
+        log(f"  benchmark_e2e --quant {quant} ({r['layers']} layers) in "
+            f"{time.perf_counter() - t0:.1f} s:")
+        for line in be.lines(r):
+            log(f"    {line}")
+        log(f"  {json.dumps(be.public(r))}")
+        log(f"  launches in benchmark_e2e --quant {quant}: {launches}")
+        for name in want:
+            if launches[name] <= 0:
+                failures.append(f"kernel {name} not launched by "
+                                f"benchmark_e2e --quant {quant}")
+        for name in idle:
+            if launches[name] != 0:
+                failures.append(f"kernel {name} launched by benchmark_e2e "
+                                f"--quant {quant}")
+        if not (r["_tokens_valid"] and r["_logits_finite"]):
+            failures.append(f"benchmark_e2e --quant {quant}: tokens valid "
+                            f"{r['_tokens_valid']}, logits finite "
+                            f"{r['_logits_finite']}")
+        paths[quant] = launches
+        del r
+        gc.collect()
+        torch.cuda.empty_cache()
+    return paths
+
+
 def _moe_generate(eng, cfg, fmt, card, failures):
     """generate() on the PROMPT_LENS prompts with each kernel's launches
     and the decode steps counted, then a timed prefill and NEW_TOKENS
@@ -1560,7 +1776,7 @@ def _moe_mode_check(eng, cfg, failures, gate=True):
 
 
 def moe_run(cfg, card, failures):
-    """Phase 8: qwen1.5-moe-a2.7b at full width, all 24 layers, dummy
+    """Phase 10: qwen1.5-moe-a2.7b at full width, all 24 layers, dummy
     weights from seed 0 (ARC select_frac 0.125, per-row activation and
     per-channel weight scales, W4A16 packed head), in w8 and then in w4
     (the same seed, so the same weights): each built, timed, driven
@@ -1615,7 +1831,7 @@ def moe_run(cfg, card, failures):
 
 
 def moe_serve_run(card, failures):
-    """Phase 8, continued: serve.py's build_loop with --model qwen1.5-moe-a2.7b
+    """Phase 10, continued: serve.py's build_loop with --model qwen1.5-moe-a2.7b
     and its defaults (w8, W4A16 prefill in chunks of 512, W4A4 decode,
     select_frac 0.125, dummy weights from seed 0), dynamic pages, batch
     4: four concurrent HTTP requests of NEW_TOKENS tokens, prompts of
@@ -1689,7 +1905,7 @@ def _noisy_batched(gen):
 
 
 def moe_engine_check(cfg, failures):
-    """Phase 9 for the MoE model: the engine cut to 1 layer (w8, ARC,
+    """Phase 11 for the MoE model: the engine cut to 1 layer (w8, ARC,
     full width), its prefill of the four prompts (dispatch mode) and 4
     decode steps (dense mode: gemm_batched) fed the same tokens, against
     the same forward with the plain versions (PlainKernels: gemm_batched
@@ -2050,11 +2266,12 @@ def _cosine(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def engine_check(cfg, failures):
-    """Phase 9: the engine cut to 1 and to 2 layers, and the w4 engine
-    cut to 1 layer, each its prefill (4 x 1024: qkv and gateup take the
-    large-M route) and 4 decode steps (fed the same tokens) with the
-    kernels against the same forward with the plain versions (the
-    route's torch.mm is the same on both sides).
+    """Phase 11: the engine cut to 1 and to 2 layers, and the w4 and BF16
+    engines cut to 1 layer, each its prefill (4 x 1024: qkv and gateup
+    take the large-M route; BF16's linears are the same f32-accumulated
+    library products on both sides) and 4 decode steps (fed the same
+    tokens) with the kernels against the same forward with the plain
+    versions (the route's torch.mm is the same on both sides).
 
     1 layer: logits cosine >= 0.999 and equal greedy tokens at every
     step. 2 layers: the forward of random dummy weights is chaotic at
@@ -2074,12 +2291,12 @@ def engine_check(cfg, failures):
                        quantize_lm_head=True)
     ecfg = EngineConfig(max_batch=len(PROMPT_LENS),
                         max_seq_len=max(PROMPT_LENS) + NEW_TOKENS + 8)
-    for layers, fmt in ((1, "w8"), (2, "w8"), (1, "w4")):
+    for layers, fmt in ((1, "w8"), (2, "w8"), (1, "w4"), (1, "BF16")):
         cfg_l = cfg.replace(num_layers=layers)
         calib = quantized.identity_calib(cfg_l, SELECT_FRAC, device="cuda")
-        eng = InferenceEngine.dummy(cfg_l, calib,
-                                    qcfg.replace(weight_fmt=fmt), ecfg,
-                                    seed=1, device="cuda")
+        eng = InferenceEngine.dummy(
+            cfg_l, calib, QuantConfig(quant_type="BF16") if fmt == "BF16"
+            else qcfg.replace(weight_fmt=fmt), ecfg, seed=1, device="cuda")
         toks, lens, _ = eng._pad_prompts(prompts_for(cfg_l, seed=1))
         active = torch.ones(len(PROMPT_LENS), dtype=torch.bool)
 
@@ -2163,7 +2380,7 @@ def _noisy_mm(gen):
 
 
 def serving_engine_check(cfg, failures):
-    """Phase 9, continued: the 1-layer engine with prefill_chunk 256,
+    """Phase 11, continued: the 1-layer engine with prefill_chunk 256,
     kernels against plain versions:
       chunked  the four prompts stream through the int4 pool in chunks;
       suffix   a prefix prefill of (512, 256, 128, 0) tokens, then the
@@ -2275,11 +2492,7 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()
-    card = smi[0].strip()
+    card = common.card()
     log(card)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
@@ -2294,7 +2507,8 @@ def main() -> int:
     cfg = get_model_config(MODEL)
     log(f"[kernels vs plain versions] {MODEL} shapes, median of {REPS} "
         f"CUDA-event runs, L2 flushed, on {card}")
-    summary = kernel_checks(cfg, Timer(), failures)
+    timer = Timer(REPS)
+    summary = kernel_checks(cfg, lambda fn: timer(fn).median, failures)
 
     log(f"[engine] {MODEL} full width, 28 layers, on {card}")
     gen_launches, qparams, calib = engine_run(cfg, card, failures)
@@ -2314,6 +2528,14 @@ def main() -> int:
         f"fused vs unfused decode, on {card}")
     free_launches = free_run(cfg, card, failures)
 
+    log(f"[bench_e2e] benchmarks/benchmark_e2e.py, {MODEL} full width, 28 "
+        f"layers, NVFP4 select-free then BF16, on {card}")
+    e2e_launches = bench_e2e_run(card, failures)
+
+    log(f"[lab] the GEMM lab at {MODEL}'s decode sites, M 4, w8 and w4, "
+        f"median of 7 CUDA-event runs, L2 flushed, on {card}")
+    lab_launches = lab_run(card, failures)
+
     moe_cfg = get_model_config(MOE_MODEL)
     log(f"[moe] {MOE_MODEL} full width, {moe_cfg.num_layers} layers, ARC, "
         f"w8 then w4, on {card}")
@@ -2322,8 +2544,8 @@ def main() -> int:
         f"{moe_cfg.num_layers} layers, on {card}")
     moe_serve_launches = moe_serve_run(card, failures)
 
-    log("[engine check] 1 and 2 layers (w8), 1 layer (w4), kernels vs "
-        "plain versions; the MoE model at 1 layer")
+    log("[engine check] 1 and 2 layers (w8), 1 layer (w4), 1 layer (BF16), "
+        "kernels vs plain versions; the MoE model at 1 layer")
     engine_check(cfg, failures)
     serving_engine_check(cfg, failures)
     moe_engine_check(moe_cfg, failures)
@@ -2332,9 +2554,10 @@ def main() -> int:
         for f in failures:
             print(f"FAIL: {f}", file=sys.stderr)
         return 1
-    # launches: over the seven main paths, the ARC generate(), the HTTP
-    # server, the w4 generate(), the select-free generate(), and the MoE
-    # model's w8 and w4 generate() and HTTP server
+    # launches: over the ten main paths, the ARC generate(), the HTTP
+    # server, the w4 generate(), the select-free generate(), the MoE
+    # model's w8 and w4 generate() and HTTP server, benchmark_e2e in NVFP4
+    # and BF16, and the GEMM lab
     kernels = []
     for name, (src, replaces) in KERNEL_INFO.items():
         s = summary[name]
@@ -2343,7 +2566,10 @@ def main() -> int:
                      generate_select_free=free_launches[name],
                      generate_moe=moe_launches["w8"][name],
                      generate_moe_w4=moe_launches["w4"][name],
-                     serve_moe=moe_serve_launches[name])
+                     serve_moe=moe_serve_launches[name],
+                     bench_e2e_nvfp4=e2e_launches["NVFP4"][name],
+                     bench_e2e_bf16=e2e_launches["BF16"][name],
+                     gemm_lab=lab_launches[name])
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=sum(paths.values()), launches_by_path=paths,

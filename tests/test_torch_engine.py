@@ -137,10 +137,12 @@ def test_generate_and_decode_scan_match_jax(jax_run):
 def test_outside_the_slice_raises():
     cfg = get_model_config("test-tiny")
     calib = quantized.identity_calib(cfg)
-    for bad in (dict(use_kernels=False), dict(act_scale="tensor"),
-                dict(quantize_lm_head=False)):
+    moe = get_model_config("test-tiny-moe")
+    for c, bad in ((cfg, dict(use_kernels=False)),
+                   (cfg, dict(act_scale="tensor")),
+                   (moe, dict(quant_type="BF16"))):
         with pytest.raises(NotImplementedError):
-            InferenceEngine.dummy(cfg, calib,
+            InferenceEngine.dummy(c, quantized.identity_calib(c),
                                   QuantConfig(**{**QKW, **bad}),
                                   EngineConfig(**EKW), device="cpu")
     eng = InferenceEngine.dummy(cfg, calib, QuantConfig(**QKW),
@@ -219,6 +221,13 @@ def test_port_runs_without_jax():
         "srv.shutdown(); loop.shutdown()\n"
         "assert [s for s, _ in res] == [200, 200], res\n"
         "assert all(len(o['tokens']) == 3 for _, o in res), res\n"
+        "from arcquant_tpu_torch.benchmarks import benchmark_e2e\n"
+        "from arcquant_tpu_torch.benchmarks import bench_gemm, gemm_lab\n"
+        "r = benchmark_e2e.run(benchmark_e2e.build_parser().parse_args(\n"
+        "    ['--model', 'test-tiny', '--layers', '1', '--prefill_seq_len',\n"
+        "     '8', '--decode_steps', '1', '--warmup', '0', '--repeats', '1',\n"
+        "     '--quant', 'BF16', '--cpu']))\n"
+        "assert r['_tokens_valid'], r\n"
         "bad = [m for m in sys.modules\n"
         "       if m == 'jax' or m.startswith(('jax.', 'arcquant_tpu.'))\n"
         "       or m == 'arcquant_tpu']\n"

@@ -1,8 +1,9 @@
 """The CUDA kernels of arcquant_tpu_torch held against their plain
 PyTorch versions on the card, at small shapes with ragged edges; the
 decode megakernels also bitwise against the CUDA chain they fuse, the
-w4 GEMM against the w8 GEMM on the same weight, and the GEMMs and the
-large-M route against f64.
+w4 GEMM against the w8 GEMM on the same weight, the GEMM lab's exact
+variants against the production GEMM, and the GEMMs and the large-M
+route against f64.
 
 Every test is marked ``gpu`` and skips when torch sees no CUDA device.
 This file imports no JAX, so it also runs on a machine without it:
@@ -18,6 +19,7 @@ import torch
 from arcquant_tpu_torch.cache import paged
 from arcquant_tpu_torch.config import get_model_config
 from arcquant_tpu_torch.kernels import attention, gemm as gk
+from arcquant_tpu_torch.kernels import gemm_lab as gl
 from arcquant_tpu_torch.kernels import mlp_fused as mf
 from arcquant_tpu_torch.kernels import paged_decode as pdk
 from arcquant_tpu_torch.kernels import quantize as qk
@@ -504,3 +506,125 @@ def test_dequant_stacked_bitwise(fold):
         assert gk.DEQUANT_W8.launches + gk.DEQUANT_W4.launches == launches + 1
         assert_bitwise([got], [plain(pk.codes, pk.scales, gw)])
         assert gk.dequant_weight(pk, fold).shape == (e, pk.kq, n)
+
+
+# -- the GEMM lab (kernels/gemm_lab.py) ----------------------------------------
+
+def _lab_case(rng, m, n, k, select):
+    """One weight in w8 and w4, its quantized activations, and the lab
+    operands (gs [M], gw [N])."""
+    p8, p4 = _pair(rng, n, k, select, False)
+    xa, gx = qk.quantize_x_arc(_bf16(outlier_x(rng, m, k)),
+                               torch.arange(k).cuda(), select, kq=p8.kq)
+    gw = p8.global_scale.reshape(-1).float().contiguous()
+    return p8, p4, xa, gx, gw
+
+
+def _lab_checks(y, ref, production, exact):
+    """y vs its plain version within the sum-order bound (+1e-30 for the
+    near-denormal nodec probe); an exact decode bitwise = production."""
+    torch.cuda.synchronize()
+    assert y.dtype == torch.bfloat16 and y.shape == production.shape
+    assert bool(torch.isfinite(y).all())
+    y, ref = to_numpy(y).astype(np.float64), to_numpy(ref).astype(np.float64)
+    tol = (1e-4 * np.abs(ref).max(axis=-1, keepdims=True)
+           + 2.0 ** -7 * np.abs(ref) + 1e-30)
+    assert (np.abs(y - ref) <= tol).all(), float(np.abs(y - ref).max())
+    if exact:
+        np.testing.assert_array_equal(y, to_numpy(production))
+
+
+@pytest.mark.parametrize("m,n,select", [(4, 4608, 0), (5, 208, 64),
+                                        (16, 1040, 64), (40, 384, 0)])
+def test_lab_modes_against_plain_and_production(m, n, select):
+    """Every decode mode of lab_w8 and lab_w4 (128 x 128, 3 stages, the
+    production split plan: 7 splits at M 4, N 4608): within the sum-order
+    bound of its plain version; the exact modes bit for bit gemm_w8
+    (gemm_w4 for w4, which gives the same bits)."""
+    require_cuda()
+    rng = np.random.default_rng(400 + m)
+    p8, p4, xa, gx, gw = _lab_case(rng, m, n, 960, select)
+    prod = gk._gemm_w8_cuda(xa, p8.codes, p8.scales, gx, gw.reshape(1, -1),
+                            None, torch.bfloat16)
+    gs = gx.reshape(-1)
+    for mode in gl.W8_MODES:
+        n0 = gl.LAB_W8.launches
+        y = gl.lab_w8(xa, p8.codes, p8.scales, gs, gw, mode=mode)
+        assert gl.LAB_W8.launches == n0 + 1
+        _lab_checks(y, gl.lab_w8_plain(xa, p8.codes, p8.scales, gs, gw, mode),
+                    prod, mode in gl.EXACT_MODES)
+    for mode in gl.W4_MODES:
+        y = gl.lab_w4(xa, p4.codes, p4.scales, gs, gw, mode=mode)
+        _lab_checks(y, gl.lab_w4_plain(xa, p4.codes, p4.scales, gs, gw, mode),
+                    prod, mode in gl.EXACT_MODES)
+
+
+def test_lab_every_configuration():
+    """Every instantiated tile and ring configuration launches and, in an
+    exact mode at the production plan, gives gemm_w8's bits (M 4, N 1040:
+    a ragged last tile for every BN; Kq 1024, 2 splits)."""
+    require_cuda()
+    rng = np.random.default_rng(410)
+    p8, p4, xa, gx, gw = _lab_case(rng, 4, 1040, 960, 64)
+    gs = gx.reshape(-1)
+    prod = gk._gemm_w8_cuda(xa, p8.codes, p8.scales, gx, gw.reshape(1, -1),
+                            None, torch.bfloat16)
+    for bn, bks, stages, mode in gl.LAB_CONFIGS:
+        if mode in gl.W8_MODES:
+            y = gl.lab_w8(xa, p8.codes, p8.scales, gs, gw, mode=mode, bn=bn,
+                          bks=bks, stages=stages)
+            ref = gl.lab_w8_plain(xa, p8.codes, p8.scales, gs, gw, mode)
+        else:
+            y = gl.lab_w4(xa, p4.codes, p4.scales, gs, gw, mode=mode, bn=bn,
+                          bks=bks, stages=stages)
+            ref = gl.lab_w4_plain(xa, p4.codes, p4.scales, gs, gw, mode)
+        _lab_checks(y, ref, prod, mode in gl.EXACT_MODES)
+    ref = gl.lab_w8_plain(xa, p8.codes, p8.scales, gs, gw)
+    for bn, bks, stages in gl.RING_CONFIGS:
+        for blocks in (None, 7, 1000):
+            y = gl.lab_w8_ring(xa, p8.codes, p8.scales, gs, gw, bn=bn,
+                               bks=bks, stages=stages, blocks=blocks)
+            _lab_checks(y, ref, prod, True)
+    with pytest.raises(ValueError, match="not built"):
+        gl.lab_w8(xa, p8.codes, p8.scales, gs, gw, bn=256, bks=256)
+
+
+@pytest.mark.parametrize("n", [37888, 4608])
+def test_lab_ring_n(n):
+    """One block per n tile over the whole K: bit for bit gemm_w8 where
+    the production plan has one split (gateup at M 4: 296 n tiles), the
+    sum-order bound of the plain version where it splits (qkv: 7)."""
+    require_cuda()
+    rng = np.random.default_rng(420)
+    p8, _, xa, gx, gw = _lab_case(rng, 4, n, 3584, 0)
+    _, splits, _ = gk._split_plan(4, n, p8.kq)
+    assert (splits == 1) == (n == 37888)
+    gs = gx.reshape(-1)
+    prod = gk._gemm_w8_cuda(xa, p8.codes, p8.scales, gx, gw.reshape(1, -1),
+                            None, torch.bfloat16)
+    for bn, bks, stages, mode in gl.LAB_CONFIGS:
+        if mode == "base" and (bn, bks) == (128, 128):
+            y = gl.lab_w8_ring_n(xa, p8.codes, p8.scales, gs, gw, bn=bn,
+                                 bks=bks, stages=stages)
+            _lab_checks(y, gl.lab_w8_plain(xa, p8.codes, p8.scales, gs, gw),
+                        prod, splits == 1)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 5, 7, 16])
+def test_lab_splits(splits):
+    """lab_w8 and lab_w4 at a given split count (qkv at M 4: production
+    plans 7): within the sum-order bound of the plain version, and bit
+    for bit gemm_w8 where the count gives production's plan."""
+    require_cuda()
+    rng = np.random.default_rng(430 + splits)
+    p8, p4, xa, gx, gw = _lab_case(rng, 4, 4608, 3584, 0)
+    gs = gx.reshape(-1)
+    prod = gk._gemm_w8_cuda(xa, p8.codes, p8.scales, gx, gw.reshape(1, -1),
+                            None, torch.bfloat16)
+    same = gl._plan(4, 4608, p8.kq, splits) == gl._plan(4, 4608, p8.kq, None)
+    y = gl.lab_w8(xa, p8.codes, p8.scales, gs, gw, splits=splits)
+    _lab_checks(y, gl.lab_w8_plain(xa, p8.codes, p8.scales, gs, gw), prod,
+                same)
+    y = gl.lab_w4(xa, p4.codes, p4.scales, gs, gw, splits=splits)
+    _lab_checks(y, gl.lab_w4_plain(xa, p4.codes, p4.scales, gs, gw), prod,
+                same)
