@@ -90,3 +90,18 @@ __device__ float block_reduce(float v, float* scratch, Op op, float init) {
   v = lane < nwarps ? scratch[lane] : init;
   return warp_reduce(v, op);
 }
+
+// 16-byte cp.async from global to shared memory; !pred fills the 16
+// bytes with zeros (src-size 0) and reads nothing. Both addresses must
+// be 16-byte aligned.
+__device__ __forceinline__ void cp16(void* smem, const void* gmem, bool pred) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  const int n = pred ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}

@@ -1,195 +1,271 @@
-// Causal GQA flash attention over bf16 q/k/v (prefill).
+// Causal GQA flash attention over bf16 q/k/v (prefill), on bf16 tensor
+// cores (mma.sync m16n8k16, f32 accumulators).
 //
 // Replaces the TPU kernel arcquant_tpu/kernels/attention.py:_flash_kernel
 // (pallas_call in _flash_call). Plain PyTorch version:
 // arcquant_tpu_torch/kernels/attention.py:flash_attention_plain.
 //
-// One block per (q tile of 64 rows, q head, batch); the kv head is
-// q_head / (Hq / Hkv), so no repeat_kv copy. The block walks kv tiles
-// of 64 rows up to its causal limit (tiles wholly above the diagonal
-// are never loaded) with the online softmax (m, l, acc) in f32, the
-// JAX kernel's mask (q_id >= k_id && k_id < kv_len, q_id counted from
-// q_offset, masked scores = -1e30) and its final divide by
-// max(l, 1e-30). Scores and the PV product are f32 FMAs on the CUDA
-// cores, as in the reference kernel's f32 dots; q is pre-scaled by
-// 1/sqrt(Dh) in f32.
+// The function: the JAX kernel's mask (q_id >= k_id && k_id < Tk, q_id
+// counted from q_offset, masked scores -1e30), online softmax in f32,
+// final divide by max(l, 1e-30). The kv head of query head hq is
+// hq / (Hq / Hkv), so no repeat_kv copy.
 //
-// Bound on the H100: at prefill T = 1024 the flops (4*T^2*Dh/2 per
-// head) on the f32 CUDA cores bound it; the design keeps q, the k/v
-// tiles and the score tile in shared memory so each k/v element is read
-// from HBM once per q tile. Moving QK^T and PV onto bf16 tensor cores is
-// later work.
+// Bound on the H100: at prefill T = 1024 the tensor-core operations
+// (4 * T^2 * Dh / 2 a head). The design, FA2-style:
+// - a block holds 64 query rows, 4 warps of 16, two blocks an SM; a
+//   warp's q fragments live in registers for the whole kernel. Grid (Hq,
+//   B, q tiles) with the q tiles reversed, so the heaviest causal tiles
+//   start first. (128-row blocks of 8 warps, or of 4 warps with two
+//   m-tiles each and q in shared memory, measured slower; the latter
+//   spills at 255 registers);
+// - 64-key K/V tiles stream through a 3-stage cp.async ring of padded
+//   rows (Dh + 8 bf16: ldmatrix rows fall on distinct banks), one
+//   __syncthreads a tile; tiles wholly above the diagonal are never
+//   loaded, a warp skips those above its own rows, and the mask is
+//   built only on tiles that cross the diagonal or Tk;
+// - S = q k^T: raw bf16 q times k, exact products summed in f32, then
+//   multiplied by 1/sqrt(Dh) (bf16 cannot hold q * scale exactly, the
+//   reference holds it in f32). Row max and sum stay in registers,
+//   reduced across the lane quad; expf, not __expf;
+// - O += P V: P goes from the score accumulators straight into A
+//   fragments as two bf16 halves, p_hi = bf16(p), p_lo = bf16(p - p_hi),
+//   and two MMAs against V (ldmatrix.trans): the reference's PV is f32 p
+//   times bf16 v, and the split keeps p to about 2^-16 relative where one
+//   bf16 p would add 2^-9 at every element (a single-bf16 p, tried, fell
+//   outside one bf16 ulp + 2e-3 of the plain version).
 #include "common.cuh"
 
 namespace {
 
-constexpr int BQ = 64, BKV = 64, NTHREADS = 256;
+constexpr int kWarps = 4;          // 16 query rows each
+constexpr int BQ = 16 * kWarps;    // query rows a block
+constexpr int BKV = 64;            // keys a tile
+constexpr int kStages = 3;         // K/V tiles in flight
+constexpr int kThreads = 32 * kWarps;
+constexpr int kMinBlocks = 2;      // blocks an SM (210 registers a thread at Dh 128)
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Two bf16 halves of the f32 pair (x, y): hi = bf16(x, y), lo = bf16 of
+// the remainders (exact in f32), x in the low 16 bits as mma expects.
+__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  hi = bits(h);
+  lo = bits(__floats2bfloat162_rn(x - hf.x, y - hf.y));
+}
 
 template <int DH>
-__global__ void __launch_bounds__(NTHREADS)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 flash_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, bf16* __restrict__ o, int Tq, int Tk,
                   int Hq, int Hkv, int64_t q_sb, int64_t q_st, int64_t k_sb, int64_t k_st,
                   int64_t v_sb, int64_t v_st, int64_t o_sb, int64_t o_st, int q_offset,
                   float scale) {
-  constexpr int LDK = DH + 2;         // bf16 row stride of K (bank spread)
-  constexpr int LDS = BKV + 1;        // f32 row stride of the score tile
-  constexpr int CPT = DH / 32;        // output dims per thread
+  constexpr int LD = DH + 8;         // padded bf16 row of a staged K/V tile
+  constexpr int KSTEPS = DH / 16;    // k-steps of q k^T
+  constexpr int NT = BKV / 8;        // 8-key score tiles
+  constexpr int DT = DH / 8;         // 8-dim output tiles
+  constexpr int CPR = DH / 8;        // 16-byte chunks a K/V row
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* Qs = reinterpret_cast<float*>(smem_raw);            // [BQ][DH]
-  float* Ss = Qs + BQ * DH;                                  // [BQ][LDS]
-  float* m_s = Ss + BQ * LDS;                                // [BQ]
-  float* l_s = m_s + BQ;                                     // [BQ]
-  float* a_s = l_s + BQ;                                     // [BQ]
-  bf16* Ks = reinterpret_cast<bf16*>(a_s + BQ);              // [BKV][LDK]
-  bf16* Vs = Ks + BKV * LDK;                                 // [BKV][DH]
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [kStages][BKV][LD]
+  bf16* Vs = Ks + kStages * BKV * LD;            // [kStages][BKV][LD]
 
-  const int tid = threadIdx.x;
-  const int q0 = blockIdx.x * BQ, hq = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;  // mma fragment row group, lane in quad
+  const int hq = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;  // heaviest causal tiles first
   const int hk = hq / (Hq / Hkv);
-  const bf16* qb = q + b * q_sb + (int64_t)hq * DH;
   const bf16* kb = k + b * k_sb + (int64_t)hk * DH;
   const bf16* vb = v + b * v_sb + (int64_t)hk * DH;
 
-  for (int e = tid; e < BQ * DH; e += NTHREADS) {
-    const int r = e / DH, d = e % DH;
-    Qs[e] = (q0 + r < Tq) ? bf2f(qb[(int64_t)(q0 + r) * q_st + d]) * scale : 0.0f;
-  }
-  if (tid < BQ) {
-    m_s[tid] = kNegInf;
-    l_s[tid] = 0.0f;
-  }
-
-  // output micro-tile: 8 rows x CPT contiguous dims
-  const int orow = (tid / 32) * 8, ocol = (tid % 32) * CPT;
-  float acc[8][CPT];
+  // this thread's rows: r0 (fragment elements 0, 1) and r1 = r0 + 8 (2, 3)
+  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
+  const int qlo = q0 + warp * 16 + q_offset;  // the warp's first query id
+  uint32_t qf[KSTEPS][4];
+  {
+    const bf16* qb = q + b * q_sb + (int64_t)hq * DH + 2 * t4;
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) acc[i][j] = 0.0f;
-
-  // score micro-tile: 4 rows x 4 strided columns
-  const int srow = (tid / 16) * 4, scol = tid % 16;
-  const int kv_end = min(Tk, q0 + BQ + q_offset);  // exclusive causal limit
-  for (int kv0 = 0; kv0 < kv_end; kv0 += BKV) {
-    __syncthreads();
-    for (int e = tid; e < BKV * DH / 2; e += NTHREADS) {
-      const int r = e / (DH / 2), d = (e % (DH / 2)) * 2;
-      __nv_bfloat162 kk = __floats2bfloat162_rn(0.0f, 0.0f), vv = kk;
-      if (kv0 + r < Tk) {
-        kk = *reinterpret_cast<const __nv_bfloat162*>(kb + (int64_t)(kv0 + r) * k_st + d);
-        vv = *reinterpret_cast<const __nv_bfloat162*>(vb + (int64_t)(kv0 + r) * v_st + d);
-      }
-      *reinterpret_cast<__nv_bfloat162*>(Ks + r * LDK + d) = kk;
-      *reinterpret_cast<__nv_bfloat162*>(Vs + r * DH + d) = vv;
-    }
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
-    for (int d = 0; d < DH; d += 2) {
-      float2 qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = *reinterpret_cast<const float2*>(Qs + (srow + i) * DH + d);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        kv[j] = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(Ks + (scol + 16 * j) * LDK + d));
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] += qv[i].x * kv[j].x + qv[i].y * kv[j].y;
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qid = q0 + srow + i + q_offset;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kid = kv0 + scol + 16 * j;
-        Ss[(srow + i) * LDS + scol + 16 * j] = (qid >= kid && kid < Tk) ? s[i][j] : kNegInf;
-      }
-    }
-    __syncthreads();
-
-    // online softmax: 4 threads per row, 16 columns each
-    {
-      const int r = tid / 4, part = tid % 4;
-      float* srow_p = Ss + r * LDS + part * 16;
-      float mx = kNegInf;
-#pragma unroll
-      for (int c = 0; c < 16; ++c) mx = fmaxf(mx, srow_p[c]);
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_prev = m_s[r];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.0f;
-#pragma unroll
-      for (int c = 0; c < 16; ++c) {
-        const float p = expf(srow_p[c] - m_new);
-        srow_p[c] = p;
-        sum += p;
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      __syncwarp();
-      if (part == 0) {
-        const float alpha = expf(m_prev - m_new);
-        a_s[r] = alpha;
-        l_s[r] = alpha * l_s[r] + sum;
-        m_s[r] = m_new;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float alpha = a_s[orow + i];
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) acc[i][j] *= alpha;
-    }
-    const int nkv = min(BKV, kv_end - kv0);
-    for (int c = 0; c < nkv; ++c) {
-      float vv[CPT];
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) vv[j] = bf2f(Vs[c * DH + ocol + j]);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float p = Ss[(orow + i) * LDS + c];
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) acc[i][j] += p * vv[j];
-      }
+    for (int ks = 0; ks < KSTEPS; ++ks) {
+      const int c = ks * 16;
+      qf[ks][0] = r0 < Tq ? *reinterpret_cast<const uint32_t*>(qb + r0 * q_st + c) : 0u;
+      qf[ks][1] = r1 < Tq ? *reinterpret_cast<const uint32_t*>(qb + r1 * q_st + c) : 0u;
+      qf[ks][2] = r0 < Tq ? *reinterpret_cast<const uint32_t*>(qb + r0 * q_st + c + 8) : 0u;
+      qf[ks][3] = r1 < Tq ? *reinterpret_cast<const uint32_t*>(qb + r1 * q_st + c + 8) : 0u;
     }
   }
-  __syncthreads();
+
+  float oacc[DT][4];
+#pragma unroll
+  for (int d = 0; d < DT; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) oacc[d][e] = 0.0f;
+  float m0 = kNegInf, m1 = kNegInf;  // running row max of r0, r1
+  float l0 = 0.0f, l1 = 0.0f;        // running row sum over this thread's columns
+
+  const int kv_end = min(Tk, min(q0 + BQ, Tq) + q_offset);  // exclusive causal limit
+  const int ntiles = kv_end > 0 ? (kv_end + BKV - 1) / BKV : 0;
+
+  auto load_tile = [&](int tile) {
+    const int kv0 = tile * BKV;
+    bf16* ks = Ks + (tile % kStages) * BKV * LD;
+    bf16* vs = Vs + (tile % kStages) * BKV * LD;
+    for (int c = tid; c < BKV * CPR; c += kThreads) {
+      const int r = c / CPR, d = (c % CPR) * 8;
+      const bool ok = kv0 + r < Tk;  // rows past Tk are zero-filled
+      const int64_t rr = ok ? kv0 + r : 0;
+      cp16(ks + r * LD + d, kb + rr * k_st + d, ok);
+      cp16(vs + r * LD + d, vb + rr * v_st + d, ok);
+    }
+  };
 
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = orow + i;
-    if (q0 + r >= Tq) continue;
-    const float l = fmaxf(l_s[r], 1e-30f);
-    bf16* dst = o + b * o_sb + (int64_t)(q0 + r) * o_st + (int64_t)hq * DH + ocol;
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) dst[j] = f2bf(acc[i][j] / l);
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < ntiles) load_tile(s);
+    cp_commit();
   }
-}
+  for (int j = 0; j < ntiles; ++j) {
+    cp_wait<kStages - 2>();  // tile j has landed (this thread's copies)
+    __syncthreads();            // ... everyone's; and tile j - 1's stage is free
+    if (j + kStages - 1 < ntiles) load_tile(j + kStages - 1);
+    cp_commit();
+    const int kv0 = j * BKV;
+    if (kv0 > qlo + 15) continue;  // the whole tile lies above this warp's rows
+    const bf16* ks = Ks + (j % kStages) * BKV * LD;
+    const bf16* vs = Vs + (j % kStages) * BKV * LD;
+    const int mi = lane >> 3, mr = lane & 7;  // ldmatrix: matrix and row this lane addresses
 
-template <int DH>
-size_t flash_smem() {
-  return (size_t)(BQ * DH + BQ * (BKV + 1) + 3 * BQ) * sizeof(float) +
-         (size_t)(BKV * (DH + 2) + BKV * DH) * sizeof(bf16);
+    // S = q k^T: ldmatrix x4 gives the B fragments of two 8-key tiles
+    float sacc[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sacc[n][e] = 0.0f;
+#pragma unroll
+    for (int ks_ = 0; ks_ < KSTEPS; ++ks_) {
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t bfr[4];
+        ldsm_x4(bfr, ks + (np * 16 + (mi >> 1) * 8 + mr) * LD + ks_ * 16 + (mi & 1) * 8);
+        mma_bf16(sacc[2 * np], qf[ks_], bfr[0], bfr[1]);
+        mma_bf16(sacc[2 * np + 1], qf[ks_], bfr[2], bfr[3]);
+      }
+    }
+
+    const bool need_mask = kv0 + BKV - 1 > qlo || kv0 + BKV > Tk;
+    float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float s = sacc[n][e] * scale;
+        if (need_mask) {
+          const int kid = kv0 + n * 8 + 2 * t4 + (e & 1);
+          const int qid = (e < 2 ? r0 : r1) + q_offset;
+          if (!(qid >= kid && kid < Tk)) s = kNegInf;
+        }
+        sacc[n][e] = s;
+      }
+      mx0 = fmaxf(mx0, fmaxf(sacc[n][0], sacc[n][1]));
+      mx1 = fmaxf(mx1, fmaxf(sacc[n][2], sacc[n][3]));
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float a0 = expf(m0 - mn0), a1 = expf(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    l0 *= a0;
+    l1 *= a1;
+#pragma unroll
+    for (int d = 0; d < DT; ++d) {
+      oacc[d][0] *= a0;
+      oacc[d][1] *= a0;
+      oacc[d][2] *= a1;
+      oacc[d][3] *= a1;
+    }
+
+    // O += P V over four 16-key steps; the A fragment of step kk is score
+    // tiles 2kk (keys +0..7) and 2kk + 1 (keys +8..15)
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk) {
+      const int na = 2 * kk, nb = 2 * kk + 1;
+      const float p00 = expf(sacc[na][0] - mn0), p01 = expf(sacc[na][1] - mn0);
+      const float p10 = expf(sacc[na][2] - mn1), p11 = expf(sacc[na][3] - mn1);
+      const float p20 = expf(sacc[nb][0] - mn0), p21 = expf(sacc[nb][1] - mn0);
+      const float p30 = expf(sacc[nb][2] - mn1), p31 = expf(sacc[nb][3] - mn1);
+      l0 += (p00 + p01) + (p20 + p21);
+      l1 += (p10 + p11) + (p30 + p31);
+      uint32_t ph[4], pl[4];
+      split_bf16(p00, p01, ph[0], pl[0]);
+      split_bf16(p10, p11, ph[1], pl[1]);
+      split_bf16(p20, p21, ph[2], pl[2]);
+      split_bf16(p30, p31, ph[3], pl[3]);
+#pragma unroll
+      for (int dp = 0; dp < DT / 2; ++dp) {
+        uint32_t bfr[4];
+        ldsm_x4_trans(bfr, vs + (kk * 16 + (mi & 1) * 8 + mr) * LD + dp * 16 + (mi >> 1) * 8);
+        mma_bf16(oacc[2 * dp], ph, bfr[0], bfr[1]);
+        mma_bf16(oacc[2 * dp], pl, bfr[0], bfr[1]);
+        mma_bf16(oacc[2 * dp + 1], ph, bfr[2], bfr[3]);
+        mma_bf16(oacc[2 * dp + 1], pl, bfr[2], bfr[3]);
+      }
+    }
+  }
+  cp_wait<0>();
+
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float L0 = fmaxf(l0, 1e-30f), L1 = fmaxf(l1, 1e-30f);
+  bf16* ob = o + b * o_sb + (int64_t)hq * DH + 2 * t4;
+#pragma unroll
+  for (int d = 0; d < DT; ++d) {
+    if (r0 < Tq)
+      *reinterpret_cast<__nv_bfloat162*>(ob + r0 * o_st + d * 8) =
+          __floats2bfloat162_rn(oacc[d][0] / L0, oacc[d][1] / L0);
+    if (r1 < Tq)
+      *reinterpret_cast<__nv_bfloat162*>(ob + r1 * o_st + d * 8) =
+          __floats2bfloat162_rn(oacc[d][2] / L1, oacc[d][3] / L1);
+  }
 }
 
 template <int DH>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int Tq, int Tk,
            int Hq, int Hkv, const int64_t* st, int q_offset, float scale, cudaStream_t s) {
-  const size_t smem = flash_smem<DH>();
+  const size_t smem = (size_t)kStages * 2 * BKV * (DH + 8) * sizeof(bf16);
   cudaFuncSetAttribute(flash_attn_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem);
-  dim3 grid((Tq + BQ - 1) / BQ, Hq, B);
-  flash_attn_kernel<DH><<<grid, NTHREADS, smem, s>>>(
+  dim3 grid(Hq, B, (Tq + BQ - 1) / BQ);
+  flash_attn_kernel<DH><<<grid, kThreads, smem, s>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, Tq, Tk, Hq, Hkv, st[0], st[1],
       st[2], st[3], st[4], st[5], st[6], st[7], q_offset, scale);
   return (int)cudaGetLastError();
@@ -199,7 +275,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Tq, 
 
 // q: [B, Tq, Hq, Dh], k/v: [B, Tk, Hkv, Dh], o: [B, Tq, Hq, Dh], all
 // bf16 with the head and dim axes contiguous; strides[8] = batch and
-// token strides (in elements) of q, k, v, o. Dh is 64 or 128.
+// token strides (in elements) of q, k, v, o, multiples of 8, and q, k, v
+// 16-byte aligned (cp.async). Dh is 64 or 128.
 ARC_EXPORT int arc_flash_attention(const void* q, const void* k, const void* v, void* o,
                                    int B, int Tq, int Tk, int Hq, int Hkv, int Dh,
                                    const int64_t* strides, int q_offset, float scale,

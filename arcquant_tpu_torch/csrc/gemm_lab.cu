@@ -90,17 +90,6 @@ struct Cfg {
 
 typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> Acc;
 
-__device__ __forceinline__ void cp16(void* smem, const void* gmem, bool pred) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  const int n = pred ? 16 : 0;  // 0: fill the 16 bytes with zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
-}
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // Copies the stage of 32-tiles [t0, t0 + nsub) of the (m0, n0) tile into
 // `stage` (rows past nsub are left alone; activation rows past M and
 // weight columns past N are zero-filled).

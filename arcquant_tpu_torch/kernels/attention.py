@@ -44,17 +44,22 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
 
 def _flash_cuda(q, k, v, q_offset: int = 0) -> torch.Tensor:
     """Launch csrc/flash_attn.cu. The head and dim axes must be
-    contiguous; batch and token strides are free (q/k/v may be views
-    of the fused qkv output)."""
+    contiguous; batch and token strides are free multiples of 8 (q/k/v
+    may be views of the fused qkv output) and each base pointer is
+    16-byte aligned, as the kernel's cp.async copies need."""
     _build.require_cuda("flash_attention", q, k, v)
     b, tq, hq, dh = q.shape
     tk, hkv = k.shape[1], k.shape[2]
     for t in (q, k, v):
         if (t.dtype != torch.bfloat16 or t.stride(3) != 1
-                or t.stride(2) != dh or t.stride(1) % 8):
+                or t.stride(2) != dh or t.stride(1) % 8 or t.stride(0) % 8):
             raise ValueError("flash_attention kernel takes bf16 [B,T,H,Dh] "
                              f"with contiguous heads, got {t.dtype} "
                              f"strides {t.stride()}")
+        if t.data_ptr() % 16:
+            raise ValueError("flash_attention kernel needs 16-byte aligned "
+                             "q/k/v (cp.async), got a tensor at "
+                             f"{t.data_ptr():#x}")
     if dh not in (64, 128) or hq % hkv or q_offset < 0:
         raise ValueError(f"flash_attention: Dh={dh} Hq={hq} Hkv={hkv} "
                          f"q_offset={q_offset}")

@@ -2,7 +2,9 @@
 ``arcquant_tpu/kernels/paged_decode.py``).
 
 For CUDA tensors the decode entries launch ``csrc/paged_decode.cu``
-(replacing the TPU kernel ``_decode_kernel``) and ``paged_prefill``
+(replacing the TPU kernel ``_decode_kernel``; its page loop split across
+blocks by ``decode_split_plan``, the splits merged in the same call, the
+rule of ``merge_decode_states``) and ``paged_prefill``
 launches ``csrc/paged_prefill.cu`` (replacing ``_prefill_kernel``); for
 CPU tensors they run ``paged_decode_state_plain`` and
 ``paged_prefill_plain``.
@@ -21,8 +23,12 @@ _NEG_INF = -1e30
 
 PAGED_DECODE = _build.Kernel("paged_decode", "arc_paged_decode", [
     _build.P, _build.P, _build.P, _build.P, _build.P, _build.P,
-    _build.P, _build.P, _build.I32, _build.I32, _build.I32, _build.I32,
+    _build.P, _build.P, _build.P, _build.P, _build.P, _build.I32,
+    _build.I32, _build.I32, _build.I32, _build.I32, _build.I32,
     _build.I32, _build.I32, _build.F32])
+
+# Blocks the decode kernel aims at: two waves of an H100's 132 SMs.
+SPLIT_BLOCKS = 264
 
 PAGED_PREFILL = _build.Kernel("paged_prefill", "arc_paged_prefill", [
     _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P,
@@ -66,28 +72,72 @@ def paged_decode_state_plain(q: torch.Tensor, codes: torch.Tensor,
             l.reshape(b, hq))
 
 
+def decode_split_plan(b: int, hkv: int, pps: int):
+    """(splits, pages_per_split) of the decode kernel's page loop, from
+    host-known shapes only (never seq_lens, so the decode step reads
+    nothing back from the device): about SPLIT_BLOCKS blocks over the
+    b * hkv (row, kv head) pairs, at most one split a page of the page
+    table's pps, and no split wholly past pps. Split s takes pages
+    [s * pages_per_split, (s + 1) * pages_per_split)."""
+    if pps <= 1:
+        return 1, 1
+    want = min(pps, max(1, -(-SPLIT_BLOCKS // max(1, b * hkv))))
+    per = -(-pps // want)
+    return -(-pps // per), per
+
+
+def merge_decode_states(outs, ms, ls):
+    """Merge decode states over disjoint key runs, in f32: outs [S, B,
+    Hq, Dh] normalized outputs, ms and ls [S, B, Hq] (sequences of S
+    tensors are stacked). m = max m_s, w_s = l_s * exp(m_s - m) (exactly
+    0 for an empty run, l_s = 0), l = sum w_s, out = sum w_s out_s /
+    max(l, 1e-30), the rule of arcquant_tpu/parallel/ring.py. Returns
+    (out [B, Hq, Dh] f32, m, l); all runs empty gives out 0, m -1e30,
+    l 0."""
+    outs, ms, ls = (torch.stack(list(x)).float() for x in (outs, ms, ls))
+    m = ms.amax(dim=0)
+    w = ls * torch.exp(ms - m)
+    l = w.sum(dim=0)
+    out = (outs * w[..., None]).sum(dim=0) / torch.clamp(l, min=1e-30)[
+        ..., None]
+    return out, m, l
+
+
 def _paged_decode_cuda(q, codes, params, page_table, seq_lens):
-    """Launch csrc/paged_decode.cu over one layer's pool."""
+    """Launch csrc/paged_decode.cu over one layer's pool: the split
+    kernel over decode_split_plan's page runs, then (more than one split)
+    the merge kernel, both from the one C call."""
     _build.require_cuda("paged_decode", q, codes, params, page_table,
                         seq_lens)
     b, hq, dh = q.shape
     _, _, hkv, page, _ = codes.shape
     g = hq // hkv
-    if (q.dtype != torch.bfloat16 or hq % hkv or g > 8 or dh > 128
-            or dh % 8 or not codes.is_contiguous()
-            or not params.is_contiguous()):
+    if (q.dtype != torch.bfloat16 or hq % hkv or g > 8
+            or dh not in (32, 64, 128) or page * dh // 2 % 16
+            or not codes.is_contiguous() or not params.is_contiguous()
+            or codes.data_ptr() % 16 or params.data_ptr() % 16):
         raise ValueError(f"paged_decode: unsupported q {tuple(q.shape)} "
                          f"{q.dtype} over pool {tuple(codes.shape)}")
     q = q.contiguous()
     pt = page_table.to(torch.int32).contiguous()
     sl = seq_lens.to(torch.int32).contiguous()
+    pps = pt.shape[1]
+    splits, per = decode_split_plan(b, hkv, pps)
     out = torch.empty_like(q)
     m = torch.empty((b, hq), dtype=torch.float32, device=q.device)
     l = torch.empty((b, hq), dtype=torch.float32, device=q.device)
+    acc_p = m_p = l_p = None
+    if splits > 1:
+        acc_p = torch.empty((b, hq, splits, dh), dtype=torch.float32,
+                            device=q.device)
+        m_p = torch.empty((b, hq, splits), dtype=torch.float32,
+                          device=q.device)
+        l_p = torch.empty_like(m_p)
     PAGED_DECODE(_build.ptr(q), _build.ptr(codes), _build.ptr(params),
                  _build.ptr(pt), _build.ptr(sl), _build.ptr(out),
-                 _build.ptr(m), _build.ptr(l), b, hkv, g, dh, page,
-                 pt.shape[1], 1.0 / math.sqrt(dh))
+                 _build.ptr(m), _build.ptr(l), _build.ptr(acc_p),
+                 _build.ptr(m_p), _build.ptr(l_p), b, hkv, g, dh, page,
+                 pps, splits, per, 1.0 / math.sqrt(dh))
     return out, m, l
 
 

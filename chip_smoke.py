@@ -14,7 +14,10 @@ Phases, each printed as it runs:
      same function (timed here only, never used by the port); the three
      decode megakernels at M 4, 8 and 16 also against the port's CUDA
      chain of the same function (bitwise); the w4 GEMM bitwise against
-     the w8 GEMM on the same weight; then the large-M route (dequant +
+     the w8 GEMM on the same weight; flash attention also against f64
+     (its mean relative error within 2x the plain f32 version's); paged
+     decode at the serving shape and at four rows of 8192 tokens, each
+     with its split plan and SDPA beside it; then the large-M route (dequant +
      torch.mm) against the fused GEMMs at every prefill site at M 512,
      1024 and 4096, and its error against f64; then the MoE model's
      kernels (qwen1.5-moe-a2.7b): the batched GEMM over 60 experts' down
@@ -32,7 +35,8 @@ Phases, each printed as it runs:
      ARC select_frac 0.125, packed W4A16 head: 4 requests (prompts of
      1024, 777, 301 and 64 tokens) served by ``generate`` for 32 greedy
      tokens each, with each kernel's launch count over that run, then
-     prefill ms, decode ms/step, decode tok/s and peak device memory
+     prefill ms, decode ms/step (each step counting one paged_decode
+     call a layer), decode tok/s and peak device memory
      while building the engine and while serving;
   5. the HTTP server (engine/server.py over the continuous batcher) on
      the same 28 packed layers with serve.py's defaults (W4A16 prefill,
@@ -220,6 +224,23 @@ def gemm_w8_f64(xa, codes, scales, gs, gw, bias, out_dtype):
     return y if bias is None else y + bias.double()
 
 
+def flash_f64(q, k, v, q_offset):
+    """Causal GQA attention in f64 (the accuracy reference of flash
+    attention), one batch row at a time."""
+    b, tq, hq, dh = q.shape
+    tk, hkv = k.shape[1], k.shape[2]
+    qi = torch.arange(tq, device=q.device)[:, None] + q_offset
+    visible = qi >= torch.arange(tk, device=q.device)[None]
+    out = torch.empty(q.shape, dtype=torch.float64, device=q.device)
+    for i in range(b):
+        qq, kk, vv = (x[i].double().repeat_interleave(hq // x.shape[2], dim=1)
+                      .transpose(0, 1) for x in (q, k, v))
+        s = (qq @ kk.transpose(1, 2)) / dh ** 0.5
+        s = s.masked_fill(~visible, float("-inf"))
+        out[i] = (torch.softmax(s, dim=-1) @ vv).transpose(0, 1)
+    return out
+
+
 def kernel_checks(cfg, timer, failures):
     """Phase 3. Returns {kernel: dict(max_abs_err, ms, plain_ms, bound_ms,
     bound_by, library_ms, shape)} where the times and the bound are those
@@ -403,7 +424,15 @@ def attention_checks(cfg, gen, timer, record, rep=True):
         v = bf16_randn(gen, (b, tk, hkv, dh))
         o = attention._flash_cuda(q, k_, v, off)
         ref = attention.flash_attention_plain(q, k_, v, off)
+        f64 = flash_f64(q, k_, v, off)
         torch.cuda.synchronize()
+        e_k, e_p = (float((z.double() - f64).abs().mean() / f64.abs().mean())
+                    for z in (o, ref))
+        del f64
+        acc_ok = e_k <= 2.0 * e_p
+        log(f"  {'':13s} B={b} Tq={tq} H={hq}/{hkv}: mean relative error vs "
+            f"f64: kernel {e_k:.4g}, plain {e_p:.4g} (bar: kernel <= 2x "
+            f"plain) {'ok' if acc_ok else 'FAIL'}")
         rep_ = rep and off == 0
         lib = None
         if rep_:
@@ -413,54 +442,66 @@ def attention_checks(cfg, gen, timer, record, rep=True):
         record("flash_attn", f"B={b} Tq={tq} Tk={tk} q_offset={off} "
                f"H={hq}/{hkv}",
                float((o.float() - ref.float()).abs().max()),
-               close_bound(o, ref),
+               close_bound(o, ref) and acc_ok,
                timer(lambda: attention._flash_cuda(q, k_, v, off)),
                timer(lambda: attention.flash_attention_plain(q, k_, v, off)),
-               "1 bf16 ulp + 2e-3", rep=rep_,
+               "1 bf16 ulp + 2e-3; vs f64 <= 2x plain", rep=rep_,
                work=(4.0 * b * hq * dh * tq * (tq + 1) / 2,
                      nbytes(q, k_, v, o)),
                library=lib,
                library_what="SDPA is_causal over [B, H, T, Dh] copies")
-    # paged int4 decode over a filled pool
+    # paged int4 decode over a filled pool: the smoke shape, then four
+    # rows of 8192 tokens; each with its split plan and SDPA beside it
     page, bsz = 128, 4
-    pps = -(-(PROMPT_LENS[0] + NEW_TOKENS + 8) // page)
     one = cfg.replace(num_layers=1)
-    cache = paged.init_cache(one, 1 + bsz * pps, page, "cuda")
-    pt = (1 + torch.arange(bsz)[:, None] * pps
-          + torch.arange(pps)[None]).to(torch.int32).cuda()
-    sl = torch.tensor([1056, 809, 333, 0], dtype=torch.int32, device="cuda")
-    t = pps * page
-    pos = torch.arange(t, device="cuda")[None].expand(bsz, t)
-    pos = torch.where(pos < sl[:, None], pos, -1)
-    paged.append_kv(cache, 0, bf16_randn(gen, (bsz, t, hkv, dh), 2.0),
-                    bf16_randn(gen, (bsz, t, hkv, dh)), pt, pos)
-    q = bf16_randn(gen, (bsz, hq, dh), 2.0)
-    args = (q, cache.codes[0], cache.params[0], pt, sl)
-    o, m_, l_ = pdk._paged_decode_cuda(*args)
-    po, pm, pl = pdk.paged_decode_state_plain(*args)
-    torch.cuda.synchronize()
-    ok = (close_bound(o, po) and bool(torch.allclose(m_, pm, rtol=1e-5,
-                                                     atol=1e-5))
-          and bool(torch.allclose(l_, pl, rtol=1e-4))
-          and bool((o[3] == 0).all()))
-    log(f"  {'':13s} outputs differing from plain (one bf16 ulp): "
-        f"{float((o != po)[:3].float().mean()):.4%}")
-    kd, vd = (x.to(torch.bfloat16).transpose(1, 2).contiguous()
-              for x in paged.gather_kv(cache, 0, pt, t))
-    qd = q[:, :, None]
-    kpos = torch.arange(t, device="cuda")
-    mask = (kpos[None] < sl[:, None])[:, None, None]
-    ntok = int(sl.sum())
-    record("paged_decode", f"B=4 seq=1056,809,333,0 page=128 H={hq}/{hkv}",
-           float((o.float() - po.float()).abs().max()), ok,
-           timer(lambda: pdk._paged_decode_cuda(*args)),
-           timer(lambda: pdk.paged_decode_state_plain(*args)),
-           "1 bf16 ulp + 2e-3; m, l f32 sum order", rep=rep,
-           work=(4.0 * ntok * hq * dh,
-                 ntok * hkv * (dh + 16) + nbytes(q, o, m_, l_)),
-           library=lambda: sdpa(qd, kd, vd, attn_mask=mask, enable_gqa=True),
-           library_what="SDPA over the pool dequantized to bf16, call only")
-    del cache, kd, vd
+    for lens in ((1056, 809, 333, 0), (8192,) * bsz):
+        long = lens[0] == 8192
+        pps = -(-(max(lens) + 8) // page)
+        splits, per = pdk.decode_split_plan(bsz, hkv, pps)
+        cache = paged.init_cache(one, 1 + bsz * pps, page, "cuda")
+        pt = (1 + torch.arange(bsz)[:, None] * pps
+              + torch.arange(pps)[None]).to(torch.int32).cuda()
+        sl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        t = pps * page
+        pos = torch.arange(t, device="cuda")[None].expand(bsz, t)
+        pos = torch.where(pos < sl[:, None], pos, -1)
+        paged.append_kv(cache, 0, bf16_randn(gen, (bsz, t, hkv, dh), 2.0),
+                        bf16_randn(gen, (bsz, t, hkv, dh)), pt, pos)
+        q = bf16_randn(gen, (bsz, hq, dh), 2.0)
+        args = (q, cache.codes[0], cache.params[0], pt, sl)
+        o, m_, l_ = pdk._paged_decode_cuda(*args)
+        po, pm, pl = pdk.paged_decode_state_plain(*args)
+        torch.cuda.synchronize()
+        ok = (close_bound(o, po) and bool(torch.allclose(m_, pm, rtol=1e-5,
+                                                         atol=1e-5))
+              and bool(torch.allclose(l_, pl, rtol=1e-4))
+              and bool((o[sl == 0] == 0).all()))
+        log(f"  {'':13s} outputs differing from plain (one bf16 ulp): "
+            f"{float((o != po)[sl > 0].float().mean()):.4%}")
+        kd, vd = (x.to(torch.bfloat16).transpose(1, 2).contiguous()
+                  for x in paged.gather_kv(cache, 0, pt, t))
+        qd = q[:, :, None]
+        kpos = torch.arange(t, device="cuda")
+        mask = (kpos[None] < sl[:, None])[:, None, None]
+        ntok = int(sum(lens))
+        lib = lambda: sdpa(qd, kd, vd, attn_mask=mask,   # noqa: E731
+                           enable_gqa=True)
+        record("paged_decode",
+               f"B=4 seq={','.join(map(str, lens))} page=128 H={hq}/{hkv} "
+               f"splits={splits}x{per} pages",
+               float((o.float() - po.float()).abs().max()), ok,
+               timer(lambda: pdk._paged_decode_cuda(*args)),
+               timer(lambda: pdk.paged_decode_state_plain(*args)),
+               "1 bf16 ulp + 2e-3; m, l f32 sum order", rep=rep and not long,
+               work=(4.0 * ntok * hq * dh,
+                     ntok * hkv * (dh + 16) + nbytes(q, o, m_, l_)),
+               library=lib,
+               library_what="SDPA over the pool dequantized to bf16, "
+                            "call only")
+        if long:
+            log(f"  {'':13s} SDPA over the dequantized pool "
+                f"{timer(lib):.4f} ms")
+        del cache, kd, vd, po, pm, pl
     paged_prefill_check(cfg, gen, timer, record, rep)
 
 
@@ -1145,12 +1186,20 @@ def engine_run(cfg, card, failures):
     finite = bool(torch.isfinite(logits).all())
     cur = logits.argmax(-1).to(torch.int32)
     active = torch.ones(len(PROMPT_LENS), dtype=torch.bool)
+    step_counts = []    # paged_decode calls a step: one a layer
     t0 = time.perf_counter()
     for _ in range(NEW_TOKENS):
+        before = pdk.PAGED_DECODE.launches
         logits, state = eng.decode_step(state, cur, active)
+        step_counts.append(pdk.PAGED_DECODE.launches - before)
         cur = logits.argmax(-1).to(torch.int32)
     torch.cuda.synchronize()
     dec_s = time.perf_counter() - t0
+    log(f"  paged_decode counts a decode step: {sorted(set(step_counts))} "
+        f"(want {cfg.num_layers}, one a layer)")
+    if set(step_counts) != {cfg.num_layers}:
+        failures.append(f"paged_decode counted {step_counts} over the "
+                        f"decode steps, not {cfg.num_layers} a step")
     finite = finite and bool(torch.isfinite(logits).all())
     if not finite:
         failures.append("non-finite logits")

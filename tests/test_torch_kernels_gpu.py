@@ -118,9 +118,16 @@ def test_gemm_w8_bf16_activations_accumulate_in_f32(m):
     assert err[0] <= 2.0 * err[1], err
 
 
+# tile edges (Tq, Tk of 1, 15, 129, 200 against 64-row q tiles and
+# 64-key kv tiles), Dh 64 and 128, G 1 and 7, q_offset > 0 with Tq < Tk
 @pytest.mark.parametrize("b,tq,tk,hq,hkv,dh,q_offset", [
     (2, 40, 40, 4, 2, 64, 0), (1, 130, 130, 14, 2, 128, 0),
-    (2, 24, 100, 4, 2, 128, 76)])
+    (2, 24, 100, 4, 2, 128, 76),
+    (1, 1, 1, 7, 1, 128, 0), (2, 15, 15, 2, 2, 64, 0),
+    (1, 129, 129, 7, 1, 128, 0), (2, 200, 200, 4, 4, 64, 0),
+    (1, 200, 200, 14, 2, 128, 0), (1, 1, 200, 14, 2, 128, 199),
+    (2, 15, 129, 7, 1, 64, 114), (1, 129, 200, 4, 4, 128, 71),
+    (1, 15, 200, 7, 1, 128, 100)])
 def test_flash_attention(b, tq, tk, hq, hkv, dh, q_offset):
     require_cuda()
     rng = np.random.default_rng(tq)
@@ -132,6 +139,38 @@ def test_flash_attention(b, tq, tk, hq, hkv, dh, q_offset):
     torch.cuda.synchronize()
     np.testing.assert_allclose(to_numpy(out), to_numpy(ref), rtol=2.0 ** -7,
                                atol=2e-3)
+
+
+@pytest.mark.parametrize("t,hq,hkv,dh", [(200, 14, 2, 128), (129, 4, 4, 64)])
+def test_flash_attention_fused_qkv_views(t, hq, hkv, dh):
+    """q/k/v as slices of one [B, T, (Hq + 2 Hkv) Dh] tensor, as the
+    engine passes the fused qkv output."""
+    require_cuda()
+    rng = np.random.default_rng(t)
+    b = 2
+    qkv = _bf16(rng.standard_normal((b, t, (hq + 2 * hkv) * dh)) * 2)
+    q = qkv[..., :hq * dh].view(b, t, hq, dh)
+    k = qkv[..., hq * dh:(hq + hkv) * dh].view(b, t, hkv, dh)
+    v = qkv[..., (hq + hkv) * dh:].view(b, t, hkv, dh)
+    out = attention._flash_cuda(q, k, v)
+    ref = attention.flash_attention_plain(q.contiguous(), k.contiguous(),
+                                          v.contiguous())
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(to_numpy(out), to_numpy(ref), rtol=2.0 ** -7,
+                               atol=2e-3)
+
+
+def test_flash_attention_refuses_misaligned():
+    """cp.async needs 16-byte aligned q/k/v: a view 2 bytes off raises."""
+    require_cuda()
+    b, t, h, dh = 1, 16, 2, 64
+    q = torch.zeros((b, t, h, dh), dtype=torch.bfloat16, device="cuda")
+    buf = torch.zeros(b * t * h * dh + 1, dtype=torch.bfloat16,
+                      device="cuda")
+    off = buf[1:].view(b, t, h, dh)
+    for args in ((off, q, q), (q, off, q), (q, q, off)):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            attention._flash_cuda(*args)
 
 
 @pytest.mark.parametrize("seq_lens", [[33, 0, 16, 7], [64, 1, 0, 50]])
@@ -161,6 +200,45 @@ def test_paged_decode(seq_lens):
                                atol=1e-5)
     np.testing.assert_allclose(to_numpy(l), to_numpy(pl), rtol=1e-4)
     assert (to_numpy(o)[np.asarray(seq_lens) == 0] == 0).all()
+
+
+# more than one split of the page loop (decode_split_plan), G 1 and 7, a
+# seq-0 row, rows whose later splits lie wholly past seq_len, and every
+# split empty
+@pytest.mark.parametrize("hq,hkv,pps,seq_lens", [
+    (14, 2, 16, [256, 0, 17, 100]), (4, 4, 16, [1, 255, 0, 130]),
+    (14, 2, 80, [1280, 0, 1, 700]), (7, 1, 24, [384, 200, 0, 33]),
+    (4, 4, 20, [0, 0, 0, 0])])
+def test_paged_decode_splits(hq, hkv, pps, seq_lens):
+    require_cuda()
+    bsz, page, dh = 4, 16, 128
+    splits, per = pdk.decode_split_plan(bsz, hkv, pps)
+    assert splits > 1
+    cfg = get_model_config("test-tiny").replace(
+        num_heads=hq, num_kv_heads=hkv, head_dim=dh, num_layers=1)
+    rng = np.random.default_rng(pps)
+    cache = paged.init_cache(cfg, 1 + bsz * pps, page, "cuda")
+    pt = (1 + torch.arange(bsz)[:, None] * pps
+          + torch.arange(pps)[None]).to(torch.int32).cuda()
+    t = pps * page
+    kv = [_bf16(rng.standard_normal((bsz, t, hkv, dh))) for _ in range(2)]
+    pos = torch.arange(t)[None].expand(bsz, t).cuda()
+    sl = torch.tensor(seq_lens, dtype=torch.int32, device="cuda")
+    pos = torch.where(pos < sl[:, None], pos, -1)
+    paged.append_kv(cache, 0, kv[0], kv[1], pt, pos)
+    q = _bf16(rng.standard_normal((bsz, hq, dh)) * 2)
+    args = (q, cache.codes[0], cache.params[0], pt, sl)
+    o, m, l = pdk._paged_decode_cuda(*args)
+    po, pm, pl = pdk.paged_decode_state_plain(*args)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(to_numpy(o), to_numpy(po), rtol=2.0 ** -7,
+                               atol=1e-3)
+    np.testing.assert_allclose(to_numpy(m), to_numpy(pm), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(to_numpy(l), to_numpy(pl), rtol=1e-4)
+    idle = np.asarray(seq_lens) == 0
+    assert (to_numpy(o)[idle] == 0).all() and (to_numpy(l)[idle] == 0).all()
+    assert (to_numpy(m)[idle] == -1e30).all()
 
 
 @pytest.mark.parametrize("heads,page,tq,starts,seq_lens", [
