@@ -9,14 +9,16 @@
 // expert on every token of a decode step or a short prefill, E 60, M the
 // tokens, Kq 2048 (ARC) or 1536, N 2048 on Qwen1.5-MoE-A2.7B.
 //
-// One launch for all experts. The grid is (n-tiles, m-tiles x splits, E);
-// each block offsets xa, codes, scales, gs, gw, out and the split-K
-// workspace by its expert and runs the tile of gemm_w8_core.cuh (the w8
-// loader, or the w4 loader with kW4) over its split's k-tiles. The split
-// plan is the single GEMM's for (M, N, Kq) (kernels/gemm.py:_split_plan),
-// and the reduce sums an expert's splits in split order from 0.0f, so
-// each expert's slice equals a gemm_w8 (or gemm_w4) launch on that
-// expert bit for bit.
+// One launch for all experts. At M <= 64 the grid is (n-tiles, m-tiles x
+// splits, E); each block offsets xa, codes, scales, gs, gw, out and the
+// split-K workspace by its expert and runs the small-M tile of
+// gemm_w8_core.cuh (the w8 loader, or the w4 loader with kW4) over its
+// split's k-tiles. The split plan is the single GEMM's for (M, N, Kq)
+// (kernels/gemm.py:_split_plan), and the reduce sums an expert's splits
+// in split order from 0.0f. At M > 64 it launches the single GEMM's
+// warpgroup-MMA kernel (gemm_wgmma.cuh) with the expert as the tensor
+// maps' third coordinate (grid z). Either way each expert's slice equals
+// a gemm_w8 (or gemm_w4) launch on that expert bit for bit.
 //
 // Bound on the H100: the weight stream at decode (1.06 bytes a weight in
 // w8, 0.5625 in w4): 267 MB and 142 MB at E 60, Kq 2048, N 2048, so
@@ -24,7 +26,7 @@
 // step launches 16 n-tiles x 4 splits x 60 experts = 3840 blocks, about
 // 15 waves of two blocks per SM, which keeps the weight loads in flight
 // as the single GEMM does; a plan tuned across experts is later work.
-#include "gemm_w8_core.cuh"
+#include "gemm_wgmma.cuh"
 
 namespace {
 
@@ -72,17 +74,15 @@ int launch_batched(const void* xa, const void* codes, const void* scales, const 
                    int Kq, int small_m, int splits, int tiles_per_split, cudaStream_t st) {
   float* part = splits > 1 ? (float*)workspace : nullptr;
   if (E > 0 && M > 0 && N > 0) {
-    if (small_m) {
-      dim3 grid((N + 127) / 128, ((M + 31) / 32) * splits, E);
-      gemm_batched_kernel<32, 128, 1, 4, kW4><<<grid, 128, 0, st>>>(
-          (const bf16*)xa, (const int8_t*)codes, (const uint8_t*)scales, (const float*)gs,
-          (const float*)gw, out, out_f32, part, M, N, Kq, splits, tiles_per_split);
-    } else {
-      dim3 grid((N + 127) / 128, ((M + 127) / 128) * splits, E);
-      gemm_batched_kernel<128, 128, 2, 4, kW4><<<grid, 256, 0, st>>>(
-          (const bf16*)xa, (const int8_t*)codes, (const uint8_t*)scales, (const float*)gs,
-          (const float*)gw, out, out_f32, part, M, N, Kq, splits, tiles_per_split);
+    if (!small_m) {
+      if (splits != 1) return (int)cudaErrorInvalidValue;
+      return w8::big::launch_big<kW4>(xa, codes, scales, gs, gw, nullptr, out, out_f32, E, M, N,
+                                      Kq, st);
     }
+    dim3 grid((N + 127) / 128, ((M + 31) / 32) * splits, E);
+    gemm_batched_kernel<32, 128, 1, 4, kW4><<<grid, 128, 0, st>>>(
+        (const bf16*)xa, (const int8_t*)codes, (const uint8_t*)scales, (const float*)gs,
+        (const float*)gw, out, out_f32, part, M, N, Kq, splits, tiles_per_split);
     if (splits > 1) {
       const int64_t total = (int64_t)E * M * N;
       batched_reduce_kernel<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
@@ -98,7 +98,8 @@ int launch_batched(const void* xa, const void* codes, const void* scales, const 
 // N]; xa: [E, M, Kq] bf16; scales: [E, Kq/16, N] uint8; gs: [E, M] f32;
 // gw: [E, N] f32; out: [E, M, N] bf16 or f32 (out_f32). small_m selects
 // the 32-row tile. With splits > 1, workspace holds E * splits * M * N
-// floats. Requires Kq % 32 == 0.
+// floats. Requires Kq % 32 == 0; without small_m, also N % 16 == 0 and
+// 16-byte aligned xa, codes and scales.
 ARC_EXPORT int arc_gemm_batched(int w4, const void* xa, const void* codes, const void* scales,
                                 const void* gs, const void* gw, void* out, int out_f32,
                                 void* workspace, int E, int M, int N, int Kq, int small_m,

@@ -27,7 +27,7 @@
 // the zero code) runs on the CUDA cores beside it. At prefill the tensor
 // cores bound it, as for w8; the large-M route (dequant.cu + torch.mm)
 // takes the N >= Kq sites there.
-#include "gemm_w8_core.cuh"
+#include "gemm_wgmma.cuh"
 
 // As arc_gemm_w8, with codes: [Kq/2, N] uint8 e2m1x nibble pairs.
 ARC_EXPORT int arc_gemm_w4(const void* xa, const void* codes, const void* scales,

@@ -22,20 +22,20 @@
 // across blocks until about two blocks per SM are in flight; partial
 // sums go to an f32 workspace and a second kernel reduces them in a
 // fixed order (deterministic). At prefill (M = 4096) the tensor cores
-// bound it, so large M uses 128x128 tiles with 8 warps. Each k-step
-// decodes a 32 x 128 weight tile into shared memory once per block and
-// prefetches the next tile's codes, scales and activations into
-// registers while the current one multiplies. TMA, wgmma and a deeper
-// pipeline are later work. The kernels (tile, promotion, epilogue,
-// split-K sum) are gemm_w8_core.cuh, which the w4 GEMM (gemm_w4.cu) and
-// the decode megakernels (mlp_fused.cu) run too.
-#include "gemm_w8_core.cuh"
+// bound it: M > 64 takes the warpgroup-MMA tile of gemm_wgmma.cuh (TMA
+// ring, codes decoded once a block into a swizzled bf16 B tile, wgmma
+// with each 128-deep partial promoted into the f32 total). The small-M
+// kernels (tile, promotion, epilogue, split-K sum) are gemm_w8_core.cuh,
+// which the w4 GEMM (gemm_w4.cu) and the decode megakernels
+// (mlp_fused.cu) run too.
+#include "gemm_wgmma.cuh"
 
 // xa: [M, Kq] bf16; codes: [Kq, N] int8; scales: [Kq/16, N] uint8;
 // gs: [M] f32; gw: [N] f32; bias: [N] bf16 or
 // NULL; out: [M, N] bf16 or f32 (out_f32). small_m selects the 32-row
-// tile. With splits > 1, workspace holds splits * M * N floats.
-// Requires Kq % 32 == 0.
+// tile (else splits must be 1). With splits > 1, workspace holds
+// splits * M * N floats. Requires Kq % 32 == 0; without small_m, also
+// N % 16 == 0 and 16-byte aligned xa, codes and scales (TMA).
 ARC_EXPORT int arc_gemm_w8(const void* xa, const void* codes, const void* scales,
                            const void* gs, const void* gw,
                            const void* bias, void* out, int out_f32, void* workspace,

@@ -1,9 +1,10 @@
-// The dequant GEMM's tile, as device functions, and the chain's GEMM
-// kernels built on it.
+// The dequant GEMM's small-M tile, as device functions, and the chain's
+// small-M GEMM kernels built on it.
 //
-// Included by gemm_w8.cu and gemm_w4.cu (the GEMM of the unfused chain
-// and its split-K reduce, one entry point per weight format) and by
-// mlp_fused.cu (the decode megakernels gemm_actq, gu_actq and mlp_w8).
+// Included by gemm_wgmma.cuh (the GEMM of the unfused chain and its
+// split-K reduce at M <= 64, beside the large-M tile), by mlp_fused.cu
+// (the decode megakernels gemm_actq, gu_actq and mlp_w8) and by
+// gemm_lab.cu.
 // The fused kernels must give the chain's bits exactly, so both run this
 // one copy of the k-tile mainloop, the promotion of each k-tile's partial
 // into the f32 total, the split-K sum and the epilogue.
@@ -32,8 +33,7 @@
 // activations and the per-row scales, and an SM's L1 is not coherent
 // with their stores, so those read them with __ldcg (L2 only;
 // kFromL2). The chain's GEMM reads its activations through the cached
-// read-only path, as it did before the fused kernels shared this code:
-// at M = 4096 every n-tile block reads the same A rows.
+// read-only path, as it did before the fused kernels shared this code.
 #pragma once
 
 #include <mma.h>
@@ -262,9 +262,8 @@ __device__ __forceinline__ void gemm_tile(
   }
 }
 
-// The chain's GEMM: one tile per block, the k split over blockIdx.z.
-// Two resident blocks per SM: the 128x128 tile needs them to keep its
-// weight and activation loads in flight (the cap is 128 registers).
+// The chain's GEMM at small M (the 32-row tile): one tile per block, the
+// k split over blockIdx.z. The large-M tile is gemm_wgmma.cuh's.
 template <int BM, int BN, int WM, int WN, bool kW4>
 __global__ void __launch_bounds__(WM * WN * 32, 2)
 gemm_kernel(const bf16* __restrict__ xa, const int8_t* __restrict__ codes,
@@ -290,38 +289,6 @@ static __global__ void splitk_reduce_kernel(const float* __restrict__ partial, i
   if (idx >= (int64_t)M * N) return;
   const float v = sum_splits(partial, splits, (int64_t)M * N, idx);
   store_out(v, idx, (int)(idx / N), (int)(idx % N), gs, gw, bias, out, out_f32);
-}
-
-// Launches the chain's GEMM on `st` (see arc_gemm_w8 / arc_gemm_w4 for
-// the arguments); returns cudaGetLastError().
-template <bool kW4>
-int launch_gemm(const void* xa, const void* codes, const void* scales, const void* gs,
-                const void* gw, const void* bias, void* out, int out_f32, void* workspace,
-                int M, int N, int Kq, int small_m, int splits, int tiles_per_split,
-                cudaStream_t st) {
-  float* part = splits > 1 ? (float*)workspace : nullptr;
-  if (M > 0 && N > 0) {
-    if (small_m) {
-      dim3 grid((N + 127) / 128, (M + 31) / 32, splits);
-      gemm_kernel<32, 128, 1, 4, kW4><<<grid, 128, 0, st>>>(
-          (const bf16*)xa, (const int8_t*)codes, (const uint8_t*)scales, (const float*)gs,
-          (const float*)gw, (const bf16*)bias, out, out_f32, part, M, N, Kq,
-          tiles_per_split);
-    } else {
-      dim3 grid((N + 127) / 128, (M + 127) / 128, splits);
-      gemm_kernel<128, 128, 2, 4, kW4><<<grid, 256, 0, st>>>(
-          (const bf16*)xa, (const int8_t*)codes, (const uint8_t*)scales, (const float*)gs,
-          (const float*)gw, (const bf16*)bias, out, out_f32, part, M, N, Kq,
-          tiles_per_split);
-    }
-    if (splits > 1) {
-      const int64_t total = (int64_t)M * N;
-      splitk_reduce_kernel<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
-          part, splits, (const float*)gs, (const float*)gw,
-          (const bf16*)bias, out, out_f32, M, N);
-    }
-  }
-  return (int)cudaGetLastError();
 }
 
 }  // namespace w8

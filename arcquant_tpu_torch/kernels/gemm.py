@@ -193,6 +193,25 @@ def _split_plan(m: int, n: int, kq: int):
     return small, -(-k_tiles // per), per
 
 
+def _aligned(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """t, or a copy of it at a 16-byte aligned address (TMA's)."""
+    return t if t is None or t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _pad_n(n: int, codes, scales, gw, bias):
+    """The large-M kernel's TMA maps need rows of a multiple of 16 bytes:
+    (n16, codes, scales, gw, bias) with N padded by zero columns to n16
+    (the operands as they are when N % 16 == 0). The zero columns give
+    zero outputs, sliced off by the caller."""
+    pad = -n % 16
+    if not pad:
+        return n, codes, scales, gw, bias
+
+    def p(t):
+        return None if t is None else torch.nn.functional.pad(t, (0, pad))
+    return n + pad, p(codes), p(scales), p(gw), p(bias)
+
+
 def _gemm_cuda(w4, xa, codes, scales, gs, gw, bias, out_dtype):
     """Launch the fused GEMM of the format (w4: codes uint8 [Kq/2, N];
     else int8 [Kq, N]). gs: [M, 1] f32; gw: [1, N] f32."""
@@ -216,15 +235,19 @@ def _gemm_cuda(w4, xa, codes, scales, gs, gw, bias, out_dtype):
     gs = gs.reshape(-1).float().contiguous()
     gw = gw.reshape(-1).float().contiguous()
     bias = bias.contiguous() if bias is not None else None
-    out = torch.empty((m, n), dtype=out_dtype, device=xa.device)
     small, splits, per = _split_plan(m, n, kq)
+    n_run = n
+    if not small:
+        n_run, codes, scales, gw, bias = _pad_n(n, codes, scales, gw, bias)
+        xa, codes, scales = _aligned(xa), _aligned(codes), _aligned(scales)
+    out = torch.empty((m, n_run), dtype=out_dtype, device=xa.device)
     ws = (torch.empty((splits, m, n), dtype=torch.float32,
                       device=xa.device) if splits > 1 else None)
     kernel(_build.ptr(xa), _build.ptr(codes), _build.ptr(scales),
            _build.ptr(gs), _build.ptr(gw), _build.ptr(bias), _build.ptr(out),
            int(out_dtype == torch.float32), _build.ptr(ws),
-           m, n, kq, int(small), splits, per)
-    return out
+           m, n_run, kq, int(small), splits, per)
+    return out if n_run == n else out[:, :n].contiguous()
 
 
 def _gemm_w8_cuda(xa, codes, scales, gs, gw, bias, out_dtype):
@@ -260,15 +283,19 @@ def _gemm_batched_cuda(xa, codes, scales, gs, gw, out_dtype):
     codes, scales = codes.contiguous(), scales.contiguous()
     gs = gs.float().expand(e, m, 1).contiguous()
     gw = gw.float().expand(e, 1, n).contiguous()
-    out = torch.empty((e, m, n), dtype=out_dtype, device=xa.device)
     small, splits, per = _split_plan(m, n, kq)
+    n_run = n
+    if not small:
+        n_run, codes, scales, gw, _ = _pad_n(n, codes, scales, gw, None)
+        xa, codes, scales = _aligned(xa), _aligned(codes), _aligned(scales)
+    out = torch.empty((e, m, n_run), dtype=out_dtype, device=xa.device)
     ws = (torch.empty((e, splits, m, n), dtype=torch.float32,
                       device=xa.device) if splits > 1 else None)
     GEMM_BATCHED(int(w4), _build.ptr(xa), _build.ptr(codes),
                  _build.ptr(scales), _build.ptr(gs), _build.ptr(gw),
                  _build.ptr(out), int(out_dtype == torch.float32),
-                 _build.ptr(ws), e, m, n, kq, int(small), splits, per)
-    return out
+                 _build.ptr(ws), e, m, n_run, kq, int(small), splits, per)
+    return out if n_run == n else out[..., :n].contiguous()
 
 
 def gemm_batched_chain(xa, codes, scales, gs, gw, out_dtype):

@@ -209,7 +209,8 @@ def _paged_prefill_cuda(q, codes, params, page_table, q_starts, seq_lens):
     _, _, hkv, page, _ = codes.shape
     g = hq // hkv
     if (q.dtype != torch.bfloat16 or hq % hkv or g > 64 or dh not in (64, 128)
-            or not codes.is_contiguous() or not params.is_contiguous()):
+            or not codes.is_contiguous() or not params.is_contiguous()
+            or codes.data_ptr() % 16 or params.data_ptr() % 16):
         raise ValueError(f"paged_prefill: unsupported q {tuple(q.shape)} "
                          f"{q.dtype} over pool {tuple(codes.shape)}")
     q = q.contiguous()

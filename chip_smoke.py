@@ -28,7 +28,10 @@ Phases, each printed as it runs:
      gateup and qkv sites at M 4, the exact ones bitwise against gemm_w8,
      and at qkv whether a bitwise A/B can see the k order (gemm_w8's f32
      sums and lab_w8's outputs at 1 split and at production's 7, on
-     quantized and on bf16 activations). Kernel times are device times
+     quantized and on bf16 activations); gemm_w8's and gemm_w4's large-M
+     tile (M 4096) at the four prefill sites beside its bound and
+     torch.matmul over the decoded bf16 weight (kept in the kernels line
+     as each row's large_m). Kernel times are device times
      (benchmarks/common.py's Timer holds the stream while the host
      enqueues the call);
   4. the engine at Qwen2.5-7B full width, all 28 layers, dummy weights,
@@ -355,25 +358,42 @@ def kernel_checks(cfg, timer, failures):
                 del f64
             f32 = dt == torch.float32
             rep = name == "gateup" and m == 4
+            large = m == 4096 and act == "A4"
             lib = None
-            if rep:   # the decoded weight, exact in bf16, made untimed
-                wd = gk.gemm_w8_plain(
-                    torch.eye(pw.kq, device="cuda", dtype=torch.bfloat16),
-                    pw.codes, pw.scales,
-                    torch.ones((pw.kq, 1), device="cuda"),
-                    torch.ones((1, n), device="cuda"), None, torch.bfloat16)
+            if rep or large:   # the decoded weight, exact in bf16, untimed
+                wd = gk.dequant_weight(pw)
                 lib = lambda: torch.matmul(xa, wd)   # noqa: E731
+            t_k = timer(lambda: gk._gemm_w8_cuda(*args))
+            t_p = timer(lambda: gk.gemm_w8_plain(*args))
+            for fmt, fn, pk in (("w8", gk._gemm_w8_cuda, pw),
+                                ("w4", gk._gemm_w4_cuda, pw4)):
+                if not large:
+                    break
+                # the large-M tile (prefill): its time, the library call's
+                # and the bound, kept beside the kernel's row
+                a_ = (xa, pk.codes, pk.scales, gs, gw, pk.bias, dt)
+                t_f = t_k if fmt == "w8" else timer(lambda: fn(*a_))
+                t_l = timer(lib)
+                b_ms, _ = bound_ms(2.0 * m * pw.kq * n,
+                                   nbytes(xa, pk.codes, pk.scales, gs, gw,
+                                          pk.bias, y))
+                summary.setdefault(f"gemm_{fmt}", dict(max_abs_err=0.0)) \
+                    .setdefault("large_m", {})[name] = dict(
+                        ms=t_f, library_ms=t_l, bound_ms=b_ms,
+                        shape=f"M={m} Kq={pw.kq} N={n}")
+                log(f"  gemm_{fmt:9s} large-M tile {name} M={m} Kq={pw.kq} "
+                    f"N={n}: kernel {t_f:.4f} ms, torch.matmul over the "
+                    f"decoded bf16 weight {t_l:.4f} ms, bound {b_ms:.4f} ms "
+                    f"({2.0 * m * pw.kq * n / t_f / 1e9:.1f} TFLOP/s)")
             record("gemm_w8", f"{name} M={m} Kq={pw.kq} N={n}"
                    + (" A16" if act == "A16" else ""),
                    float((y.float() - ref.float()).abs().max()),
-                   sum_order_bound(y, ref, f32),
-                   timer(lambda: gk._gemm_w8_cuda(*args)),
-                   timer(lambda: gk.gemm_w8_plain(*args)),
+                   sum_order_bound(y, ref, f32), t_k, t_p,
                    "f32 sum order" + ("" if f32 else " + 1 bf16 ulp"),
                    rep=rep, work=(2.0 * m * pw.kq * n,
                                   nbytes(xa, pw.codes, pw.scales, gs, gw,
                                           pw.bias, y)),
-                   library=lib,
+                   library=lib if rep else None,
                    library_what="torch.matmul over the decoded bf16 weight")
             args4 = (xa, pw4.codes, pw4.scales, gs, gw, pw4.bias, dt)
             y4 = gk._gemm_w4_cuda(*args4)
@@ -392,9 +412,9 @@ def kernel_checks(cfg, timer, failures):
                    rep=rep, work=(2.0 * m * pw.kq * n,
                                   nbytes(xa, pw4.codes, pw4.scales, gs, gw,
                                           pw4.bias, y4)),
-                   library=lib,
+                   library=lib if rep else None,
                    library_what="torch.matmul over the decoded bf16 weight")
-            if rep:
+            if rep or large:
                 del wd
         del pw, pw4
     attention_checks(cfg, gen, timer, record)
@@ -1179,10 +1199,15 @@ def engine_run(cfg, card, failures):
     toks, lens, _ = eng._pad_prompts(prompts)
     state = eng.new_state()
     torch.cuda.synchronize()
+    n8 = gk.GEMM_W8.launches
     t0 = time.perf_counter()
     logits, state = eng.prefill(state, toks, lens)
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
+    log(f"  gemm_w8 launches in the timed prefill (M {toks.size} rows: "
+        f"the large-M tile at down and o of each layer, the route at qkv "
+        f"and gateup; the head at M {len(PROMPT_LENS)}): "
+        f"{gk.GEMM_W8.launches - n8}")
     finite = bool(torch.isfinite(logits).all())
     cur = logits.argmax(-1).to(torch.int32)
     active = torch.ones(len(PROMPT_LENS), dtype=torch.bool)
@@ -2626,7 +2651,7 @@ def main() -> int:
             plain_ms=s["plain_ms"], bound_ms=s["bound_ms"],
             bound_by=s["bound_by"], library_ms=s["library_ms"],
             **{k: s[k] for k in ("chain_ms", "w4_ms", "w4_bound_ms",
-                                 "w4_chain_ms") if k in s},
+                                 "w4_chain_ms", "large_m") if k in s},
             shape=s["shape"], card=card))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

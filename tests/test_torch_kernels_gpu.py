@@ -72,15 +72,28 @@ def assert_summation_order_close(y, ref, out_f32):
     assert (np.abs(y - ref) <= tol).all(), float(np.abs(y - ref).max())
 
 
-@pytest.mark.parametrize("m,n", [(4, 4608), (5, 200), (70, 1040),
-                                 (130, 384), (4, 128)])
+# Qwen2.5-7B's down projection: K 18944 with its ARC residual (select
+# 0.125), the widest Kq of the prefill's large-M GEMMs
+K_DOWN, SEL_DOWN = 18944, 2368
+KQ_DOWN = packing.pad_kq(K_DOWN, SEL_DOWN)    # 21504
+# the large-M tile's cases: M 65 (one row past the small tile), 128, 1000
+# (a ragged m tile) and 4096 at down's Kq, N 1040 (not a multiple of the
+# 128-column tile)
+LARGE_M = [(65, 1040), (128, 1040), (1000, 1040), (4096, 1040)]
+
+
+@pytest.mark.parametrize("m,n,k,select",
+                         [(m, n, 960, 64) for m, n in
+                          [(4, 4608), (5, 200), (70, 1040), (130, 384),
+                           (4, 128), (1000, 200)]]
+                         + [(m, n, K_DOWN, SEL_DOWN) for m, n in LARGE_M])
 @pytest.mark.parametrize("bias", [False, True])
-def test_gemm_w8(m, n, bias):
-    """Ragged M and N (N % 16 != 0 takes the scalar edge loads), the
-    split-K path at small M, bf16 and f32 outputs."""
+def test_gemm_w8(m, n, k, select, bias):
+    """Ragged M and N (N % 16 != 0: the small tile's scalar edge loads,
+    the large tile's zero-padded columns), the split-K path at small M,
+    the large-M tile at down's Kq, bf16 and f32 outputs."""
     require_cuda()
     rng = np.random.default_rng(40 + m)
-    k, select = 960, 64
     w = _bf16(outlier_x(rng, n, k) * 0.05)
     ridx = torch.from_numpy(rng.permutation(k)).cuda()
     b = _bf16(rng.standard_normal(n)) if bias else None
@@ -94,15 +107,15 @@ def test_gemm_w8(m, n, bias):
         assert_summation_order_close(y, ref, dt == torch.float32)
 
 
-@pytest.mark.parametrize("m", [4, 256])
-def test_gemm_w8_bf16_activations_accumulate_in_f32(m):
+@pytest.mark.parametrize("m,k,n", [(4, 4096, 512), (256, 4096, 512)]
+                         + [(m, KQ_DOWN, n) for m, n in LARGE_M])
+def test_gemm_w8_bf16_activations_accumulate_in_f32(m, k, n):
     """W4A16 prefill operands (bf16 activations, unit scale) over a long
-    K: the kernel's mean relative error against f64 stays within 2x the
-    plain f32 version's (tensor-core sums carried across every k-step
-    lose several times that)."""
+    K (up to down's Kq, 21504): the kernel's mean relative error against f64
+    stays within 2x the plain f32 version's (tensor-core sums carried
+    across every k-step lose several times that)."""
     require_cuda()
     rng = np.random.default_rng(50 + m)
-    k, n = 4096, 512
     w = _bf16(rng.standard_normal((n, k)) * k ** -0.5)
     pw = packing.pack_weight_arc(w, torch.arange(k).cuda(), 0,
                                  w_scale="channel")
@@ -244,12 +257,16 @@ def test_paged_decode_splits(hq, hkv, pps, seq_lens):
 @pytest.mark.parametrize("heads,page,tq,starts,seq_lens", [
     ((14, 2, 128), 128, 20, [280, 130, 0, 20], [300, 150, 0, 35]),
     ((14, 2, 128), 128, 37, [0, 100, 0, 3], [37, 137, 0, 30]),
-    ((4, 2, 64), 16, 29, [16, 4, 0, 40], [45, 24, 0, 60])])
+    ((4, 2, 64), 16, 29, [16, 4, 0, 40], [45, 24, 0, 60]),
+    ((16, 16, 128), 128, 100, [0, 30, 0, 200], [100, 130, 0, 250]),
+    ((28, 4, 128), 16, 512, [0, 30, 0, 500], [512, 542, 0, 1000])])
 def test_paged_prefill(heads, page, tq, starts, seq_lens):
-    """g = 7 with Dh = 128 and g = 2 with Dh = 64; ragged per-row starts,
-    an idle row, rows padded past their length, Tq not a multiple of the
-    kernel's query tile. Bar: 1 bf16 ulp + 2e-3 on every query at a
-    position < seq; idle rows exactly 0."""
+    """g = 7 with Dh = 128, g = 2 with Dh = 64 and g = 1 with Dh = 128
+    (Qwen1.5-MoE's 16/16 heads); pages of 16 under a 64-key tile; a Tq
+    512 chunk whose starts (30, 500) put the diagonal inside key tiles;
+    ragged per-row starts, an idle row, rows padded past their length, Tq
+    not a multiple of the kernel's query tile. Bar: 1 bf16 ulp + 2e-3 on
+    every query at a position < seq; idle rows exactly 0."""
     require_cuda()
     hq, hkv, dh = heads
     cfg = get_model_config("test-tiny").replace(
@@ -452,19 +469,22 @@ def test_pin_rowmajor_bitwise(m, k):
     assert_bitwise([gk._pin_rowmajor_cuda(x)], [gk.pin_rowmajor_plain(x)])
 
 
-@pytest.mark.parametrize("m,n", [(4, 4608), (5, 200), (70, 1040),
-                                 (130, 384)])
+@pytest.mark.parametrize("m,n,k,select",
+                         [(m, n, 960, 64) for m, n in
+                          [(4, 4608), (5, 200), (70, 1040), (130, 384),
+                           (1000, 200)]]
+                         + [(m, n, K_DOWN, SEL_DOWN) for m, n in LARGE_M])
 @pytest.mark.parametrize("bias", [False, True])
-def test_gemm_w4_bitwise_equals_w8(m, n, bias):
+def test_gemm_w4_bitwise_equals_w8(m, n, k, select, bias):
     """gemm_w4 on a w4 pack gives gemm_w8's bits on a w8 pack of the same
-    weight (32-row tile with split-K, 128-row tile, ragged N), bf16 and
-    f32 outputs; and holds the w8 GEMM's sum-order bound of the plain
-    version."""
+    weight (32-row tile with split-K, the large-M tile up to M 4096 at
+    down's Kq, ragged N), bf16 and f32 outputs; and holds the w8 GEMM's
+    sum-order bound of the plain version."""
     require_cuda()
     rng = np.random.default_rng(110 + m)
-    p8, p4 = _pair(rng, n, 960, 64, bias)
-    xa, gx = qk.quantize_x_arc(_bf16(outlier_x(rng, m, 960)),
-                               torch.arange(960).cuda(), 64, kq=p8.kq)
+    p8, p4 = _pair(rng, n, k, select, bias)
+    xa, gx = qk.quantize_x_arc(_bf16(outlier_x(rng, m, k)),
+                               torch.arange(k).cuda(), select, kq=p8.kq)
     for dt in (torch.float32, torch.bfloat16):
         gs, gw = gx.reshape(-1, 1), _gs(p8)
         y4 = gk._gemm_w4_cuda(xa, p4.codes, p4.scales, gs, gw, p4.bias, dt)
@@ -485,15 +505,17 @@ def _rel_err(y, f64):
 
 
 @pytest.mark.parametrize("fmt", ["w8", "w4"])
-@pytest.mark.parametrize("m", [4, 600])
-def test_gemm_and_route_accumulate_in_f32(fmt, m, monkeypatch):
-    """bf16 activations (W4A16 operands, unit scale) over K 4096: the
-    GEMM kernel of the format (route off) and the large-M route (dequant
-    kernel, pin for w4, torch.mm to f32) each within 2x the plain f32
-    version's mean relative error against f64."""
+@pytest.mark.parametrize("m,k,n", [(4, 4096, 4608), (600, 4096, 4608)]
+                         + [(m, KQ_DOWN, 21520)
+                            for m in (65, 128, 1000, 4096)])
+def test_gemm_and_route_accumulate_in_f32(fmt, m, k, n, monkeypatch):
+    """bf16 activations (W4A16 operands, unit scale) over K 4096 and
+    down's Kq 21504 (N 21520 >= Kq, so the route engages, not a multiple of
+    the 128-column tile): the GEMM kernel of the format (route off) and
+    the large-M route (dequant kernel, pin for w4, torch.mm to f32) each
+    within 2x the plain f32 version's mean relative error against f64."""
     require_cuda()
     rng = np.random.default_rng(120 + m)
-    k, n = 4096, 4608
     pw = _pair(rng, n, k, 0, False)[fmt == "w4"]
     xa = _bf16(rng.standard_normal((m, k)))
     gs = torch.ones((m, 1), device="cuda")
@@ -531,13 +553,16 @@ def _stack(rng, e, n, k, select):
 
 
 @pytest.mark.parametrize("e,m", [(4, 1), (4, 4), (4, 256), (60, 1),
-                                 (60, 4), (60, 256)])
+                                 (60, 4), (60, 256), (4, 65), (4, 128),
+                                 (4, 1000), (4, 4096)])
 def test_gemm_batched_bitwise_equals_per_expert_gemm(e, m):
     """gemm_batched (one launch over the experts) gives each expert the
     bits of a gemm_w8 / gemm_w4 launch on that expert (the per-expert
     chain), in both formats and output types, per-row scales; and holds
     the sum-order bound of its plain version. Qwen1.5-MoE's down shape:
-    K 1408 with 192 ARC columns (Kq 2048), N 2048 (E 4: a narrower N)."""
+    K 1408 with 192 ARC columns (Kq 2048), N 2048 (E 4: N 520, neither a
+    multiple of the 128-column tile nor of 16); M 65-4096 run the large-M
+    tile, M 1000 with a ragged m tile."""
     require_cuda()
     rng = np.random.default_rng(200 + e + m)
     n = 2048 if e == 60 else 520
