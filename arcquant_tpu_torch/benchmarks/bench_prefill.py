@@ -1,17 +1,20 @@
-"""Device times of the two prefill kernels at the shapes of Qwen2.5-7B's
-prefill, each beside its bound and one PyTorch call computing the same
-function:
+"""Device times of the fused dequant GEMMs and the paged prefill at the
+shapes of Qwen2.5-7B, each beside its bound and one PyTorch call
+computing the same function:
 
-  - the fused dequant GEMM (``gemm_w8`` and ``gemm_w4``, the large-M
-    tile) at the four linear sites (qkv, o, gateup, down) with ARC
-    select_frac 0.125 packing, A4 activations, M rows (default 4096);
-    the library call is ``torch.matmul`` of xa with the weight decoded
-    to bf16 (exact), the plain version ``gemm_w8_plain``;
+  - the fused dequant GEMM (``gemm_w8`` and ``gemm_w4``) at the four
+    linear sites (qkv, o, gateup, down) with ARC select_frac 0.125
+    packing, A4 activations, at each M of ``--m`` (default 4096, the
+    prefill). Each row names its tile: M <= 64 runs the small-M tile
+    (``csrc/gemm_small_m.cuh``, the decode's), larger M the large-M
+    tile (``csrc/gemm_wgmma.cuh``, the prefill's). The library call is
+    ``torch.matmul`` of xa with the weight decoded to bf16 (exact), the
+    plain version ``gemm_w8_plain``;
   - ``paged_prefill`` at the serving shape (B 8 rows of a 512-token
     chunk over 128-token pages, ragged origins, one idle row, chip_smoke's
     case); the library call is SDPA over the pool dequantized to bf16.
 
-  python -m arcquant_tpu_torch.benchmarks.bench_prefill [--m 4096]
+  python -m arcquant_tpu_torch.benchmarks.bench_prefill [--m 4 16 4096]
       [--sites qkv o gateup down] [--no-attention] [--a16]
 
 ``--a16`` adds the GEMMs' accuracy on W4A16 operands (bf16 activations,
@@ -57,7 +60,7 @@ def site_shapes(cfg):
             ("down", h, f, False)]
 
 
-def gemm_rows(cfg, m, sites, timer, emit):
+def gemm_rows(cfg, ms, sites, timer, emit):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(7)
     for name, n, k, bias in site_shapes(cfg):
@@ -72,26 +75,30 @@ def gemm_rows(cfg, m, sites, timer, emit):
                for fmt in ("w8", "w4")}
         del w
         kq = pws["w8"].kq
-        xa, gx = qk.quantize_x_arc(_randn(gen, (m, k)), ridx, sel)
-        gs = gx.reshape(-1, 1)
         wd = gk.dequant_weight(pws["w8"])   # bf16 [Kq, N], exact, untimed
-        for fmt, pw in pws.items():
-            fused = gk._gemm_w8_cuda if fmt == "w8" else gk._gemm_w4_cuda
-            plain = gk.gemm_w8_plain if fmt == "w8" else gk.gemm_w4_plain
-            gw = pw.global_scale.reshape(1, -1)
-            args = (xa, pw.codes, pw.scales, gs, gw, pw.bias, torch.bfloat16)
-            y = fused(*args)
-            t = timer(lambda: fused(*args))
-            t_lib = timer(lambda: torch.matmul(xa, wd))
-            t_plain = timer(lambda: plain(*args))
-            b_ms, b_by = bound_ms(2.0 * m * kq * n,
-                                  nbytes(xa, pw.codes, pw.scales, gs, gw,
-                                         pw.bias, y))
-            emit(dict(kernel=f"gemm_{fmt}", site=name, m=m, kq=kq, n=n,
-                      ms=t.median, lo=t.lo, hi=t.hi, plain_ms=t_plain.median,
-                      library_ms=t_lib.median, bound_ms=b_ms, bound_by=b_by,
-                      tflops=2.0 * m * kq * n / t.median / 1e9))
-            del y
+        for m in ms:
+            xa, gx = qk.quantize_x_arc(_randn(gen, (m, k)), ridx, sel)
+            gs = gx.reshape(-1, 1)
+            for fmt, pw in pws.items():
+                fused = gk._gemm_w8_cuda if fmt == "w8" else gk._gemm_w4_cuda
+                plain = gk.gemm_w8_plain if fmt == "w8" else gk.gemm_w4_plain
+                gw = pw.global_scale.reshape(1, -1)
+                args = (xa, pw.codes, pw.scales, gs, gw, pw.bias,
+                        torch.bfloat16)
+                y = fused(*args)
+                t = timer(lambda: fused(*args))
+                t_lib = timer(lambda: torch.matmul(xa, wd))
+                t_plain = timer(lambda: plain(*args))
+                b_ms, b_by = bound_ms(2.0 * m * kq * n,
+                                      nbytes(xa, pw.codes, pw.scales, gs, gw,
+                                             pw.bias, y))
+                emit(dict(kernel=f"gemm_{fmt}", site=name, m=m, kq=kq, n=n,
+                          tile="small_m" if m <= gk._SMALL_M else "large_m",
+                          ms=t.median, lo=t.lo, hi=t.hi,
+                          plain_ms=t_plain.median, library_ms=t_lib.median,
+                          bound_ms=b_ms, bound_by=b_by,
+                          tflops=2.0 * m * kq * n / t.median / 1e9))
+                del y
         del pws, xa, wd
         torch.cuda.empty_cache()
 
@@ -173,7 +180,7 @@ def paged_prefill_row(cfg, timer, emit):
 def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="python -m arcquant_tpu_torch.benchmarks.bench_prefill")
-    ap.add_argument("--m", type=int, default=4096)
+    ap.add_argument("--m", type=int, nargs="+", default=[4096])
     ap.add_argument("--sites", nargs="*",
                     default=["qkv", "o", "gateup", "down"])
     ap.add_argument("--no-attention", action="store_true")

@@ -138,6 +138,15 @@ __device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+__device__ __forceinline__ __nv_bfloat162 as_bf162(uint32_t v) {
+  return *reinterpret_cast<const __nv_bfloat162*>(&v);
+}
+
+// bf16 pair (lo, hi) rounded to nearest, lo in the low 16 bits.
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  return bits(__floats2bfloat162_rn(lo, hi));
+}
+
 // Two bf16 halves of the f32 pair (x, y): hi = bf16(x, y), lo = bf16 of
 // the remainders (exact in f32), x in the low 16 bits as mma expects.
 __device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi, uint32_t& lo) {

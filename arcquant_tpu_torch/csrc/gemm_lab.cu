@@ -11,9 +11,10 @@
 //                                               nodec
 // Plain PyTorch versions: arcquant_tpu_torch/kernels/gemm_lab.py
 // (lab_w8_plain, lab_w4_plain). The lab measures alternatives to the
-// production mainloop (gemm_w8_core.cuh: a register-staged,
-// single-buffered 32-deep k-tile) against the same bits; it is not on a
-// serving path.
+// production mainloops (gemm_w8_core.cuh's register-staged,
+// single-buffered 32-deep k-tile, which the megakernels and gemm_batched
+// run; gemm_small_m.cuh's ring, gemm_w8's and gemm_w4's at M <= 64)
+// against the same bits; it is not on a serving path.
 //
 // What the lab varies, and what it keeps:
 //   - a ring of STAGES shared-memory stages, filled with 16-byte

@@ -12,21 +12,22 @@
 // The TPU kernel reads xa as two halves (even ks, then odd ks;
 // split_even_odd) so that one stacked MXU dot covers both nibbles. That
 // layout is not carried over: here xa is read in natural k order, as the
-// w8 GEMM reads it, and the B-tile loader of gemm_w8_core.cuh (kW4)
-// decodes each 16-byte chunk of a code row into the two bf16 k rows it
-// holds. The shared B tile then holds the values the w8 loader writes
-// for the same weight, so the mainloop, the per-k-tile f32 promotion,
-// the split-K plan (kernels/gemm.py:_split_plan) and the epilogue are
-// the w8 GEMM's, and the output is the w8 GEMM's bit for bit.
+// w8 GEMM reads it, and the decode turns each code byte into the two k
+// rows it holds (at M <= 64, gemm_small_m.cuh: the k rows 2t and 2t + 1
+// of an mma B fragment are the two nibbles of one byte, packed in one
+// conversion). The decoded values are the ones the w8 decode gives for
+// the same weight, so the mainloop, the per-k-tile f32 promotion, the
+// split-K plan (kernels/gemm.py:_split_plan) and the epilogue are the w8
+// GEMM's, and the output is the w8 GEMM's bit for bit.
 //
 // Bound on the H100: at decode (M <= 64) the weight stream, 0.5625 bytes
 // per weight (half the code bytes of w8, the same scale bytes): gateup
-// at M 4 moves 87 MB, 0.026 ms at 3.35 TB/s. A 32-deep k-tile is 16 code
-// rows, so each block loads half the code chunks w8 does per k-step; the
-// decode (a bit map into the f32 exponent and mantissa, one select for
-// the zero code) runs on the CUDA cores beside it. At prefill the tensor
-// cores bound it, as for w8; the large-M route (dequant.cu + torch.mm)
-// takes the N >= Kq sites there.
+// at M 4 moves 87 MB, 0.026 ms at 3.35 TB/s. A 128-deep stage of the
+// small-M ring holds 64 code rows, half of w8's; the decode (a bit map
+// into the f32 exponent and mantissa, one select for the zero code, a
+// multiply by the scale) runs on the CUDA cores beside the copies. At
+// prefill the tensor cores bound it, as for w8; the large-M route
+// (dequant.cu + torch.mm) takes the N >= Kq sites there.
 #include "gemm_wgmma.cuh"
 
 // As arc_gemm_w8, with codes: [Kq/2, N] uint8 e2m1x nibble pairs.

@@ -8,8 +8,8 @@
 // W is int8 [Kq, N] mag2 codes (2 x e2m1) with one ue4m3 scale byte per
 // 16 k-rows and column ([Kq/16, N]); dec(W) = code * ue4m3(scale) / 2,
 // which is exact in bf16. xa is bf16 [M, Kq]. Products run on the tensor
-// cores (WMMA bf16 x bf16 -> f32). Each k-tile's MMAs start from zero and
-// the tile's partial sum is added to the f32 total on the CUDA cores: the
+// cores (bf16 x bf16 -> f32). Each k-tile's MMAs start from zero and the
+// tile's partial sum is added to the f32 total on the CUDA cores: the
 // tensor cores align and truncate the sums they carry, which over a long
 // chain of k-steps on bf16 activations (the A16 prefill sites) loses
 // several times the error of an f32 sum. The epilogue applies the per-row
@@ -18,21 +18,23 @@
 // __fadd_rn, so no FMA changes the rounding), then casts to bf16 or f32.
 //
 // Bound on the H100: at decode (M <= 64) the weight stream (1.06 bytes
-// per weight) bounds it, so small M uses a 32-row tile and splits K
-// across blocks until about two blocks per SM are in flight; partial
-// sums go to an f32 workspace and a second kernel reduces them in a
-// fixed order (deterministic). At prefill (M = 4096) the tensor cores
-// bound it: M > 64 takes the warpgroup-MMA tile of gemm_wgmma.cuh (TMA
-// ring, codes decoded once a block into a swizzled bf16 B tile, wgmma
-// with each 128-deep partial promoted into the f32 total). The small-M
-// kernels (tile, promotion, epilogue, split-K sum) are gemm_w8_core.cuh,
-// which the w4 GEMM (gemm_w4.cu) and the decode megakernels
-// (mlp_fused.cu) run too.
+// per weight) bounds it: small M takes gemm_small_m.cuh's tile (a
+// cp.async ring of 128-deep stages, the codes decoded straight into the
+// MMAs' B fragments on the integer and bf16x2 pipes) and splits K across
+// blocks until about two blocks per SM are in flight; partial sums go to
+// an f32 workspace and a second kernel reduces them in a fixed order
+// (deterministic). At prefill (M = 4096) the tensor cores bound it: M >
+// 64 takes the warpgroup-MMA tile of gemm_wgmma.cuh (TMA ring, codes
+// decoded once a block into a swizzled bf16 B tile, wgmma with each
+// 128-deep partial promoted into the f32 total). The small-M k order,
+// promotion, epilogue and split-K sum are gemm_w8_core.cuh's, which the
+// w4 GEMM (gemm_w4.cu) and the decode megakernels (mlp_fused.cu) keep
+// too.
 #include "gemm_wgmma.cuh"
 
 // xa: [M, Kq] bf16; codes: [Kq, N] int8; scales: [Kq/16, N] uint8;
 // gs: [M] f32; gw: [N] f32; bias: [N] bf16 or
-// NULL; out: [M, N] bf16 or f32 (out_f32). small_m selects the 32-row
+// NULL; out: [M, N] bf16 or f32 (out_f32). small_m selects the small-M
 // tile (else splits must be 1). With splits > 1, workspace holds
 // splits * M * N floats. Requires Kq % 32 == 0; without small_m, also
 // N % 16 == 0 and 16-byte aligned xa, codes and scales (TMA).

@@ -1,13 +1,13 @@
-// The dequant GEMM's small-M tile, as device functions, and the chain's
-// small-M GEMM kernels built on it.
+// The dequant GEMM's WMMA small-M tile (gemm_tile), as device functions,
+// with the split-K sum and the epilogue that every small-M GEMM shares.
 //
-// Included by gemm_wgmma.cuh (the GEMM of the unfused chain and its
-// split-K reduce at M <= 64, beside the large-M tile), by mlp_fused.cu
-// (the decode megakernels gemm_actq, gu_actq and mlp_w8) and by
-// gemm_lab.cu.
-// The fused kernels must give the chain's bits exactly, so both run this
-// one copy of the k-tile mainloop, the promotion of each k-tile's partial
-// into the f32 total, the split-K sum and the epilogue.
+// Included by gemm_small_m.cuh (the chain's GEMM at M <= 64 runs its own
+// mainloop, but this file's epilogue, split-K reduce and k order), by
+// mlp_fused.cu (the decode megakernels gemm_actq, gu_actq and mlp_w8),
+// gemm_batched.cu and gemm_lab.cu, which run gemm_tile. The fused kernels
+// must give the chain's bits exactly: both keep the k order below, the
+// promotion of each k-tile's partial into the f32 total, the split-K sum
+// and the epilogue.
 //
 // The weight format is the tile's B loader (kW4): w8 reads int8 codes
 // [Kq, N], one code row per k row; w4 reads uint8 codes [Kq/2, N], one
@@ -23,8 +23,9 @@
 // and adds the tile's partial to the f32 total with __fadd_rn; a split's
 // total covers its k-tiles in order from its first; the splits are then
 // summed in split order from 0.0f. A tile of another height or warp
-// layout (the fused kernels' 16 rows x 8 warps against the chain's 32 x
-// 4) changes which warp computes an element, not that element's sums.
+// layout (the fused kernels' 16 rows x 8 warps, the chain's mma.sync
+// tile of gemm_small_m.cuh) changes which warp computes an element, not
+// that element's sums.
 // The epilogue applies the per-row activation scale, the per-channel (or
 // scalar) weight scale and the bias in f32 in the JAX kernel's order
 // (uncontracted: __fmul_rn, __fadd_rn, so no FMA changes the rounding).
@@ -32,8 +33,7 @@
 // In the fused kernels other blocks of the same launch wrote the
 // activations and the per-row scales, and an SM's L1 is not coherent
 // with their stores, so those read them with __ldcg (L2 only;
-// kFromL2). The chain's GEMM reads its activations through the cached
-// read-only path, as it did before the fused kernels shared this code.
+// kFromL2); gemm_batched reads them through the cached read-only path.
 #pragma once
 
 #include <mma.h>
@@ -260,23 +260,6 @@ __device__ __forceinline__ void gemm_tile(
       __syncwarp();
     }
   }
-}
-
-// The chain's GEMM at small M (the 32-row tile): one tile per block, the
-// k split over blockIdx.z. The large-M tile is gemm_wgmma.cuh's.
-template <int BM, int BN, int WM, int WN, bool kW4>
-__global__ void __launch_bounds__(WM * WN * 32, 2)
-gemm_kernel(const bf16* __restrict__ xa, const int8_t* __restrict__ codes,
-            const uint8_t* __restrict__ scales, const float* __restrict__ gs,
-            const float* __restrict__ gw,
-            const bf16* __restrict__ bias, void* __restrict__ out, int out_f32,
-            float* __restrict__ partial, int M, int N, int Kq, int tiles_per_split) {
-  using T = Tile<BM, BN, WM, WN>;
-  __shared__ typename T::Smem sm;
-  const int kt0 = blockIdx.z * tiles_per_split;
-  const int kt1 = min(kt0 + tiles_per_split, Kq / BK);
-  gemm_tile<T, false, kW4>(xa, codes, scales, gs, gw, bias, out, out_f32, partial, blockIdx.z,
-                           M, N, Kq, blockIdx.y * BM, blockIdx.x * BN, kt0, kt1, sm);
 }
 
 // Sums the split-K partials in split order, then the same epilogue.

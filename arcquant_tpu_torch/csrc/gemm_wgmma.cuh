@@ -3,8 +3,8 @@
 //
 // Included by gemm_w8.cu and gemm_w4.cu (one entry point per weight
 // format) and gemm_batched.cu (the same kernel over a stack of experts,
-// blockIdx.z). The small-M tile (gemm_w8_core.cuh's gemm_tile, 32 rows
-// with split-K) is the decode's and is not touched here.
+// blockIdx.z). The small-M tile of the chain's GEMM (M <= 64, the
+// decode, with split-K) is gemm_small_m.cuh's.
 //
 // Bound on the H100: the tensor cores. down at M 4096 (Kq 21504, N
 // 3584) is 6.31e11 FLOPs, 0.638 ms at 989 TFLOP/s; its bytes (0.26 GB)
@@ -43,7 +43,7 @@
 #include <cuda.h>
 #include <cudaTypedefs.h>
 
-#include "gemm_w8_core.cuh"
+#include "gemm_small_m.cuh"
 
 namespace w8 {
 namespace big {
@@ -162,15 +162,6 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
 __device__ __forceinline__ void promote(float (&acc)[64], float (&part)[64]) {
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = __fadd_rn(acc[i], part[i]);
-}
-
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ __nv_bfloat162 as_bf162(uint32_t v) {
-  return *reinterpret_cast<const __nv_bfloat162*>(&v);
 }
 
 // Decodes one stage's codes (cs) and scale rows (ss) into the bf16 B
@@ -401,7 +392,7 @@ int launch_big(const void* xa, const void* codes, const void* scales, const void
 
 // Launches the chain's GEMM on `st` (see arc_gemm_w8 / arc_gemm_w4 for
 // the arguments); returns cudaGetLastError(). M <= 64 (small_m) takes
-// the 32-row tile with split-K, larger M the warpgroup-MMA tile.
+// gemm_small_m.cuh's tile with split-K, larger M the warpgroup-MMA tile.
 template <bool kW4>
 int launch_gemm(const void* xa, const void* codes, const void* scales, const void* gs,
                 const void* gw, const void* bias, void* out, int out_f32, void* workspace,
@@ -413,10 +404,9 @@ int launch_gemm(const void* xa, const void* codes, const void* scales, const voi
     return big::launch_big<kW4>(xa, codes, scales, gs, gw, bias, out, out_f32, 1, M, N, Kq, st);
   }
   float* part = splits > 1 ? (float*)workspace : nullptr;
-  dim3 grid((N + 127) / 128, (M + 31) / 32, splits);
-  gemm_kernel<32, 128, 1, 4, kW4><<<grid, 128, 0, st>>>(
-      (const bf16*)xa, (const int8_t*)codes, (const uint8_t*)scales, (const float*)gs,
-      (const float*)gw, (const bf16*)bias, out, out_f32, part, M, N, Kq, tiles_per_split);
+  const int rc = small::launch<kW4>(xa, codes, scales, gs, gw, bias, out, out_f32, part, M, N, Kq,
+                                    splits, tiles_per_split, st);
+  if (rc != 0) return rc;
   if (splits > 1) {
     const int64_t total = (int64_t)M * N;
     splitk_reduce_kernel<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(

@@ -64,7 +64,7 @@ XLA_M = 512
 MM_CHUNK_K = 512
 
 _BK = 32
-_SMALL_M = 64          # M at or below this takes the 32-row tile
+_SMALL_M = 64          # M at or below this takes the small-M tile
 _TARGET_BLOCKS = 264   # about two blocks per SM of an H100
 _MIN_SPLIT_TILES = 16  # k-tiles (of 32) per split at least
 
@@ -180,7 +180,10 @@ def pin_rowmajor_plain(x: torch.Tensor) -> torch.Tensor:
 # -- CUDA launchers ------------------------------------------------------------
 
 def _split_plan(m: int, n: int, kq: int):
-    """(small_m, splits, k-tiles per split) for the CUDA GEMM."""
+    """(small_m, splits, k-tiles per split) for the CUDA GEMM. The k
+    split fixes the bits of a small-M output (each split's 32-deep
+    k-tiles summed in order, the splits in order): the megakernels
+    (mlp_fused.py) and gemm_batched take the same plan."""
     small = m <= _SMALL_M
     bm = 32 if small else 128
     blocks = -(-n // 128) * -(-m // bm)

@@ -31,7 +31,9 @@ Phases, each printed as it runs:
      quantized and on bf16 activations); gemm_w8's and gemm_w4's large-M
      tile (M 4096) at the four prefill sites beside its bound and
      torch.matmul over the decoded bf16 weight (kept in the kernels line
-     as each row's large_m). Kernel times are device times
+     as each row's large_m), and their small-M tile (csrc/gemm_small_m.cuh)
+     at the four decode sites at M 4 and at gateup at M 16 and 64, alike
+     (each row's small_m). Kernel times are device times
      (benchmarks/common.py's Timer holds the stream while the host
      enqueues the call);
   4. the engine at Qwen2.5-7B full width, all 28 layers, dummy weights,
@@ -326,6 +328,7 @@ def kernel_checks(cfg, timer, failures):
         # unit scale), with both versions' error against f64
         cases = [(m, "A4") for m in ((4,) if name == "head" else (4, 4096))]
         cases += [(4096, "A16")] if name == "qkv" else []
+        cases += [(16, "A4"), (64, "A4")] if name == "gateup" else []
         for m, act in cases:
             x = bf16_randn(gen, (m, k))
             if name == "head" or act == "A16":
@@ -359,29 +362,34 @@ def kernel_checks(cfg, timer, failures):
             f32 = dt == torch.float32
             rep = name == "gateup" and m == 4
             large = m == 4096 and act == "A4"
+            small = m <= gk._SMALL_M and name != "head"
             lib = None
-            if rep or large:   # the decoded weight, exact in bf16, untimed
+            if rep or large or small:   # the decoded weight, exact, untimed
                 wd = gk.dequant_weight(pw)
                 lib = lambda: torch.matmul(xa, wd)   # noqa: E731
             t_k = timer(lambda: gk._gemm_w8_cuda(*args))
             t_p = timer(lambda: gk.gemm_w8_plain(*args))
             for fmt, fn, pk in (("w8", gk._gemm_w8_cuda, pw),
                                 ("w4", gk._gemm_w4_cuda, pw4)):
-                if not large:
+                if not (large or small):
                     break
-                # the large-M tile (prefill): its time, the library call's
-                # and the bound, kept beside the kernel's row
+                # the large-M tile (prefill) and the small-M tile (decode):
+                # its time, the library call's and the bound, kept beside
+                # the kernel's row
                 a_ = (xa, pk.codes, pk.scales, gs, gw, pk.bias, dt)
                 t_f = t_k if fmt == "w8" else timer(lambda: fn(*a_))
                 t_l = timer(lib)
                 b_ms, _ = bound_ms(2.0 * m * pw.kq * n,
                                    nbytes(xa, pk.codes, pk.scales, gs, gw,
                                           pk.bias, y))
+                tile, key = (("large_m", name) if large
+                             else ("small_m", f"{name} M={m}"))
                 summary.setdefault(f"gemm_{fmt}", dict(max_abs_err=0.0)) \
-                    .setdefault("large_m", {})[name] = dict(
+                    .setdefault(tile, {})[key] = dict(
                         ms=t_f, library_ms=t_l, bound_ms=b_ms,
                         shape=f"M={m} Kq={pw.kq} N={n}")
-                log(f"  gemm_{fmt:9s} large-M tile {name} M={m} Kq={pw.kq} "
+                log(f"  gemm_{fmt:9s} {'large' if large else 'small'}-M "
+                    f"tile {name} M={m} Kq={pw.kq} "
                     f"N={n}: kernel {t_f:.4f} ms, torch.matmul over the "
                     f"decoded bf16 weight {t_l:.4f} ms, bound {b_ms:.4f} ms "
                     f"({2.0 * m * pw.kq * n / t_f / 1e9:.1f} TFLOP/s)")
@@ -414,7 +422,7 @@ def kernel_checks(cfg, timer, failures):
                                           pw4.bias, y4)),
                    library=lib if rep else None,
                    library_what="torch.matmul over the decoded bf16 weight")
-            if rep or large:
+            if rep or large or small:
                 del wd
         del pw, pw4
     attention_checks(cfg, gen, timer, record)
@@ -2651,7 +2659,8 @@ def main() -> int:
             plain_ms=s["plain_ms"], bound_ms=s["bound_ms"],
             bound_by=s["bound_by"], library_ms=s["library_ms"],
             **{k: s[k] for k in ("chain_ms", "w4_ms", "w4_bound_ms",
-                                 "w4_chain_ms", "large_m") if k in s},
+                                 "w4_chain_ms", "large_m", "small_m")
+                 if k in s},
             shape=s["shape"], card=card))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

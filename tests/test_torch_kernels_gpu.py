@@ -80,25 +80,42 @@ KQ_DOWN = packing.pad_kq(K_DOWN, SEL_DOWN)    # 21504
 # (a ragged m tile) and 4096 at down's Kq, N 1040 (not a multiple of the
 # 128-column tile)
 LARGE_M = [(65, 1040), (128, 1040), (1000, 1040), (4096, 1040)]
+# the small-M tile's cases (M <= 64): every m-tile height at Qwen2.5-7B's
+# qkv (K 3584 with select 448: Kq 4096, N 4608), M 4 at down's Kq 21504
+# and N 3584, and M 4 at Kq 960 (a multiple of 32 but not of the ring's
+# 128-deep stage: a partial last stage) with N 200 (not a multiple of 16)
+SMALL_M = ([(m, 4608, 3584, 448) for m in (1, 16, 17, 33, 64)]
+           + [(4, 3584, K_DOWN, SEL_DOWN), (4, 200, 960, 0)])
+
+
+def _pad_multiple(k, select):
+    """pack_weight_arc's pad_multiple in the GEMM tests: 32 for a
+    select-free K that is not a multiple of 128 (SMALL_M's ragged Kq 960),
+    else the default."""
+    return 32 if select == 0 and k % 128 else packing.K_PAD_MULTIPLE
 
 
 @pytest.mark.parametrize("m,n,k,select",
                          [(m, n, 960, 64) for m, n in
                           [(4, 4608), (5, 200), (70, 1040), (130, 384),
                            (4, 128), (1000, 200)]]
-                         + [(m, n, K_DOWN, SEL_DOWN) for m, n in LARGE_M])
+                         + [(m, n, K_DOWN, SEL_DOWN) for m, n in LARGE_M]
+                         + SMALL_M)
 @pytest.mark.parametrize("bias", [False, True])
 def test_gemm_w8(m, n, k, select, bias):
-    """Ragged M and N (N % 16 != 0: the small tile's scalar edge loads,
-    the large tile's zero-padded columns), the split-K path at small M,
-    the large-M tile at down's Kq, bf16 and f32 outputs."""
+    """Ragged M and N (N % 16 != 0: the small tile's plain-load stages,
+    the large tile's zero-padded columns), the split-K path at small M
+    with every m-tile height and a partial last stage, the large-M tile
+    at down's Kq, bf16 and f32 outputs."""
     require_cuda()
     rng = np.random.default_rng(40 + m)
     w = _bf16(outlier_x(rng, n, k) * 0.05)
     ridx = torch.from_numpy(rng.permutation(k)).cuda()
     b = _bf16(rng.standard_normal(n)) if bias else None
-    pw = packing.pack_weight_arc(w, ridx, select, bias=b, w_scale="channel")
-    xa, gx = qk.quantize_x_arc(_bf16(outlier_x(rng, m, k)), ridx, select)
+    pw = packing.pack_weight_arc(w, ridx, select, bias=b, w_scale="channel",
+                                 pad_multiple=_pad_multiple(k, select))
+    xa, gx = qk.quantize_x_arc(_bf16(outlier_x(rng, m, k)), ridx, select,
+                               kq=pw.kq)
     for dt in (torch.float32, torch.bfloat16):
         gs, gw = gx.reshape(-1, 1), pw.global_scale.reshape(1, -1)
         y = gk._gemm_w8_cuda(xa, pw.codes, pw.scales, gs, gw, pw.bias, dt)
@@ -108,7 +125,8 @@ def test_gemm_w8(m, n, k, select, bias):
 
 
 @pytest.mark.parametrize("m,k,n", [(4, 4096, 512), (256, 4096, 512)]
-                         + [(m, KQ_DOWN, n) for m, n in LARGE_M])
+                         + [(m, KQ_DOWN, n) for m, n in LARGE_M]
+                         + [(m, KQ_DOWN, 1040) for m in (16, 64)])
 def test_gemm_w8_bf16_activations_accumulate_in_f32(m, k, n):
     """W4A16 prefill operands (bf16 activations, unit scale) over a long
     K (up to down's Kq, 21504): the kernel's mean relative error against f64
@@ -438,13 +456,15 @@ def test_fused_kernels_refuse_what_they_do_not_take():
 
 # -- w4 GEMM and the large-M route (kernels/gemm.py) ---------------------------
 
-def _pair(rng, n, k, select, bias):
+def _pair(rng, n, k, select, bias, pad_multiple=packing.K_PAD_MULTIPLE):
     """The same weight packed in w8 and in w4."""
     w = _bf16(outlier_x(rng, n, k) * k ** -0.5)
     ridx = torch.from_numpy(rng.permutation(k)).cuda()
     b = _bf16(rng.standard_normal(n) * 0.1) if bias else None
     return [packing.pack_weight_arc(w, ridx, select, bias=b, fmt=f,
-                                    w_scale="channel") for f in ("w8", "w4")]
+                                    w_scale="channel",
+                                    pad_multiple=pad_multiple)
+            for f in ("w8", "w4")]
 
 
 @pytest.mark.parametrize("n", [640, 200])
@@ -473,7 +493,8 @@ def test_pin_rowmajor_bitwise(m, k):
                          [(m, n, 960, 64) for m, n in
                           [(4, 4608), (5, 200), (70, 1040), (130, 384),
                            (1000, 200)]]
-                         + [(m, n, K_DOWN, SEL_DOWN) for m, n in LARGE_M])
+                         + [(m, n, K_DOWN, SEL_DOWN) for m, n in LARGE_M]
+                         + SMALL_M)
 @pytest.mark.parametrize("bias", [False, True])
 def test_gemm_w4_bitwise_equals_w8(m, n, k, select, bias):
     """gemm_w4 on a w4 pack gives gemm_w8's bits on a w8 pack of the same
@@ -482,7 +503,7 @@ def test_gemm_w4_bitwise_equals_w8(m, n, k, select, bias):
     sum-order bound of the plain version."""
     require_cuda()
     rng = np.random.default_rng(110 + m)
-    p8, p4 = _pair(rng, n, k, select, bias)
+    p8, p4 = _pair(rng, n, k, select, bias, _pad_multiple(k, select))
     xa, gx = qk.quantize_x_arc(_bf16(outlier_x(rng, m, k)),
                                torch.arange(k).cuda(), select, kq=p8.kq)
     for dt in (torch.float32, torch.bfloat16):
