@@ -11,10 +11,9 @@
 //                                               nodec
 // Plain PyTorch versions: arcquant_tpu_torch/kernels/gemm_lab.py
 // (lab_w8_plain, lab_w4_plain). The lab measures alternatives to the
-// production mainloops (gemm_w8_core.cuh's register-staged,
-// single-buffered 32-deep k-tile, which the megakernels and gemm_batched
-// run; gemm_small_m.cuh's ring, gemm_w8's and gemm_w4's at M <= 64)
-// against the same bits; it is not on a serving path.
+// production mainloop at M <= 64 (gemm_small_m.cuh's ring, which
+// gemm_w8, gemm_w4, gemm_batched and the megakernels run) against the
+// same bits; it is not on a serving path.
 //
 // What the lab varies, and what it keeps:
 //   - a ring of STAGES shared-memory stages, filled with 16-byte
@@ -50,6 +49,8 @@
 // Bound on the H100: at decode (M 4) the weight stream, 1.06 bytes a
 // weight in w8 and 0.5625 in w4 (gateup 37888 x 3584: 43.2 and 22.9 us
 // at 3.35 TB/s).
+#include <mma.h>
+
 #include "gemm_w8_core.cuh"
 
 namespace lab {

@@ -3,9 +3,13 @@
 // tensor cores' B fragments.
 //
 // Included by gemm_wgmma.cuh, whose launch_gemm runs it for gemm_w8 and
-// gemm_w4 at M <= 64. The tile is a device function over a shared-memory
-// buffer its caller passes in (gemm_small_tile), so a fused kernel can run
-// it inside its own launch.
+// gemm_w4 at M <= 64 and whose header gemm_batched.cu includes, and by
+// mlp_fused.cu. The tile is a device function over a shared-memory
+// buffer its caller passes in (gemm_small_tile), so a fused kernel runs
+// it inside its own launch: gemm_batched offsets the operands by its
+// block's expert, and the decode megakernels walk (n-tile, split) items
+// with 256-thread blocks whose eight warps all issue the copies and
+// whose first four compute.
 //
 // Bound on the H100: the weight stream, 1.06 bytes a weight in w8 and
 // 0.5625 in w4 (gateup at M 4: 161 MB and 87 MB, 0.048 and 0.026 ms at
@@ -34,15 +38,15 @@
 //   by byte permutes, and one bf16x2 multiply by the scale a pair, exact.
 //   Each thread builds a column's scale once per 16 k rows from its bits.
 //   Nothing runs on the conversion unit (16 results a clock an SM);
-// - mma.sync m16n8k16 (bf16 x bf16 -> f32). The k order is the small-M
-//   tile's (gemm_w8_core.cuh's gemm_tile) exactly: each 32-deep k-tile's
-//   two k = 16 MMAs start from zero, the tile's partial is added to the
-//   f32 total with __fadd_rn, a split covers its k-tiles in order, and
-//   the splits are summed in split order by splitk_reduce_kernel; the
-//   epilogue is store_out's. An m16n16k16 WMMA is two of these MMAs on the
-//   same operands, so every output element gets gemm_tile's bits: the
-//   megakernels and gemm_batched, which run gemm_tile, stay bitwise equal
-//   to the chain, and gemm_w4 to gemm_w8 (both decodes are exact).
+// - mma.sync m16n8k16 (bf16 x bf16 -> f32) in the small-M k order of
+//   gemm_w8_core.cuh: each 32-deep k-tile's two k = 16 MMAs start from
+//   zero, the tile's partial is added to the f32 total with __fadd_rn, a
+//   split covers its k-tiles in order, and the splits are summed in split
+//   order by splitk_reduce_kernel; the epilogue is store_out's. Every
+//   small-M GEMM of the library (gemm_w8, gemm_w4, gemm_batched and the
+//   megakernels) runs this tile at the split plan of kernels/gemm.py, so
+//   they agree bit for bit, and gemm_w4 equals gemm_w8 (both decodes are
+//   exact).
 // Ragged shapes: a split whose k-tiles are not a whole number of stages
 // ends on a partial stage; when N is not a multiple of 16 or an operand
 // is not 16-byte aligned, the launch loads the stages with plain loads
@@ -80,10 +84,13 @@ struct Cfg {
 
 #undef ARC_SMALL_AL
 
-// Copies k rows [k0, k0 + 32 nsub) of the (m0, n0) tile into `stage`:
-// by cp.async when `vec` (N % 16 == 0, 16-byte aligned operands), else
-// by plain loads. Rows past nsub k-tiles are left alone.
-template <int FM, bool kW4>
+// Copies k rows [k0, k0 + 32 nsub) of the (m0, n0) tile into `stage`,
+// with the block's first NTH threads: by cp.async when `vec` (N % 16 ==
+// 0, 16-byte aligned operands), else by plain loads, which read xa
+// through L2 only when kFromL2 (activations another block of the same
+// launch wrote: an SM's L1 is not coherent with their stores; cp.async.cg
+// reads through L2 already). Rows past nsub k-tiles are left alone.
+template <int FM, bool kW4, int NTH, bool kFromL2>
 __device__ __forceinline__ void load_stage(uint8_t* stage, const bf16* xa, const int8_t* codes,
                                            const uint8_t* scales, int M, int N, int Kq, int m0,
                                            int n0, int k0, int nsub, bool vec) {
@@ -97,34 +104,41 @@ __device__ __forceinline__ void load_stage(uint8_t* stage, const bf16* xa, const
   const uint8_t* cg = reinterpret_cast<const uint8_t*>(codes);
   if (vec) {
     constexpr int CPR = BN / 16;  // 16-byte chunks of a code or scale row
-    for (int c = tid; c < crows * CPR; c += NT) {
+    for (int c = tid; c < crows * CPR; c += NTH) {
       const int r = c / CPR, nc = (c % CPR) * 16;
       const bool ok = n0 + nc < N;
       cp16(cs + r * C::LDC + nc, cg + (int64_t)(crow0 + r) * N + (ok ? n0 + nc : 0), ok);
     }
-    for (int c = tid; c < srows * CPR; c += NT) {
+    for (int c = tid; c < srows * CPR; c += NTH) {
       const int r = c / CPR, nc = (c % CPR) * 16;
       const bool ok = n0 + nc < N;
       cp16(ss + r * BN + nc, scales + (int64_t)(k0 / 16 + r) * N + (ok ? n0 + nc : 0), ok);
     }
     const int apr = kcols / 8;  // 16-byte chunks of an activation row
-    for (int c = tid; c < C::BM * apr; c += NT) {
+    for (int c = tid; c < C::BM * apr; c += NTH) {
       const int r = c / apr, kc = (c % apr) * 8;
       const bool ok = m0 + r < M;
       cp16(as + r * LDA + kc, xa + (int64_t)(ok ? m0 + r : 0) * Kq + k0 + kc, ok);
     }
   } else {
-    for (int c = tid; c < crows * BN; c += NT) {
+    for (int c = tid; c < crows * BN; c += NTH) {
       const int r = c / BN, n = c % BN;
       cs[r * C::LDC + n] = n0 + n < N ? cg[(int64_t)(crow0 + r) * N + n0 + n] : 0;
     }
-    for (int c = tid; c < srows * BN; c += NT) {
+    for (int c = tid; c < srows * BN; c += NTH) {
       const int r = c / BN, n = c % BN;
       ss[r * BN + n] = n0 + n < N ? scales[(int64_t)(k0 / 16 + r) * N + n0 + n] : 0;
     }
-    for (int c = tid; c < C::BM * kcols; c += NT) {
+    for (int c = tid; c < C::BM * kcols; c += NTH) {
       const int r = c / kcols, kc = c % kcols;
-      as[r * LDA + kc] = m0 + r < M ? xa[(int64_t)(m0 + r) * Kq + k0 + kc] : f2bf(0.0f);
+      if (m0 + r >= M) {
+        as[r * LDA + kc] = f2bf(0.0f);
+      } else {
+        const bf16* src = xa + (int64_t)(m0 + r) * Kq + k0 + kc;
+        as[r * LDA + kc] =
+            kFromL2 ? __ushort_as_bfloat16(__ldcg(reinterpret_cast<const unsigned short*>(src)))
+                    : *src;
+      }
     }
   }
 }
@@ -250,20 +264,25 @@ __device__ __forceinline__ void compute_stage(const uint8_t* stage, int nsub, in
   }
 }
 
-// One BM x 128 output tile at (m0, n0) over k-tiles [kt0, kt1), run by
-// the block's 128 threads in `smem` (Cfg<FM, kW4>::SMEM bytes, 16-byte
-// aligned). xa: [M, Kq] bf16; codes: [Kq, N] int8 (w8) or [Kq/2, N]
-// e2m1x nibble pairs (kW4); scales: [Kq/16, N]. With `partial` set,
-// writes the tile's f32 totals to partial[split] ([splits, M, N]);
-// otherwise store_out's epilogue into out.
-template <int FM, bool kW4>
+// One BM x 128 output tile at (m0, n0) over k-tiles [kt0, kt1), in
+// `smem` (Cfg<FM, kW4>::SMEM bytes, 16-byte aligned). The block's first
+// NTH threads (a multiple of NT) issue the copies and meet at its
+// barriers; warps 0-3 compute and store. xa: [M, Kq] bf16; codes: [Kq, N]
+// int8 (w8) or [Kq/2, N] e2m1x nibble pairs (kW4); scales: [Kq/16, N].
+// With `partial` set, writes the tile's f32 totals to partial[split]
+// ([splits, M, N]); otherwise store_out's epilogue into out. kFromL2: as
+// load_stage. A caller that runs a second tile in the same `smem` syncs
+// the block first, so that no warp still reads the last stage.
+template <int FM, bool kW4, int NTH = NT, bool kFromL2 = false>
 __device__ __forceinline__ void gemm_small_tile(
     const bf16* __restrict__ xa, const int8_t* __restrict__ codes,
     const uint8_t* __restrict__ scales, const float* gs, const float* __restrict__ gw,
     const bf16* __restrict__ bias, void* out, int out_f32, float* partial, int split, int M,
     int N, int Kq, int m0, int n0, int kt0, int kt1, bool vec, uint8_t* smem) {
+  static_assert(NTH % NT == 0, "every warp of the tile must issue copies");
   using C = Cfg<FM, kW4>;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bool computes = NTH == NT || warp < NT / 32;
   const int ntl = kt1 - kt0, nst = (ntl + SUB - 1) / SUB;
   float acc[FM][NJ][4];
 #pragma unroll
@@ -274,8 +293,9 @@ __device__ __forceinline__ void gemm_small_tile(
       for (int e = 0; e < 4; ++e) acc[f][i][e] = 0.0f;
 
   auto load = [&](int q) {
-    load_stage<FM, kW4>(smem + (q % STAGES) * C::STAGE_B, xa, codes, scales, M, N, Kq, m0, n0,
-                        (kt0 + q * SUB) * BK, min(SUB, ntl - q * SUB), vec);
+    load_stage<FM, kW4, NTH, kFromL2>(smem + (q % STAGES) * C::STAGE_B, xa, codes, scales, M, N,
+                                      Kq, m0, n0, (kt0 + q * SUB) * BK, min(SUB, ntl - q * SUB),
+                                      vec);
   };
 #pragma unroll
   for (int q = 0; q < STAGES - 1; ++q) {
@@ -287,10 +307,12 @@ __device__ __forceinline__ void gemm_small_tile(
     __syncthreads();  // stage q has landed; every warp is done with stage q - 1's slot
     if (q + STAGES - 1 < nst) load(q + STAGES - 1);
     cp_commit();
-    compute_stage<FM, kW4>(smem + (q % STAGES) * C::STAGE_B, min(SUB, ntl - q * SUB), warp, lane,
-                           acc);
+    if (computes)
+      compute_stage<FM, kW4>(smem + (q % STAGES) * C::STAGE_B, min(SUB, ntl - q * SUB), warp,
+                             lane, acc);
   }
   cp_wait<0>();
+  if (!computes) return;
 
   // acc[f][i]: rows 16 f + g (+ 8 for e >= 2), fragment columns 2t + (e
   // & 1), which are the warp's columns NJ (2t + (e & 1)) + i

@@ -26,10 +26,10 @@
 // (deterministic). At prefill (M = 4096) the tensor cores bound it: M >
 // 64 takes the warpgroup-MMA tile of gemm_wgmma.cuh (TMA ring, codes
 // decoded once a block into a swizzled bf16 B tile, wgmma with each
-// 128-deep partial promoted into the f32 total). The small-M k order,
-// promotion, epilogue and split-K sum are gemm_w8_core.cuh's, which the
-// w4 GEMM (gemm_w4.cu) and the decode megakernels (mlp_fused.cu) keep
-// too.
+// 128-deep partial promoted into the f32 total). The small-M mainloop
+// (gemm_small_m.cuh) and gemm_w8_core.cuh's epilogue and split-K sum are
+// shared with the w4 GEMM (gemm_w4.cu), gemm_batched (gemm_batched.cu)
+// and the decode megakernels (mlp_fused.cu).
 #include "gemm_wgmma.cuh"
 
 // xa: [M, Kq] bf16; codes: [Kq, N] int8; scales: [Kq/16, N] uint8;

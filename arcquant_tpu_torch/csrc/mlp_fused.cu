@@ -17,7 +17,7 @@
 // the card cannot hold is refused and the wrapper raises), that walks
 // phases separated by grid-wide barriers:
 //   A   [rmsnorm +] quantize: block r quantizes row r (actq_row) -> xa, gx
-//   B   the w8 GEMM over (n-tile, k-split) items (gemm_tile); with splits
+//   B   the w8 GEMM over (n-tile, k-split) items (gemm_small_tile); with splits
 //       > 1 the partials go to an f32 workspace and, after a barrier,
 //       each element sums them in split order and runs the epilogue
 //   C1  silu(g)*u of each 16-group, rounded to bf16, into xa2; each
@@ -27,11 +27,16 @@
 //   D   the down GEMM over xa2, as B
 // gemm_actq runs A, B; gu_actq runs B, C1, C2; mlp_w8 runs [A,] B, C1,
 // C2, D. Every phase runs the unfused chain's own device code
-// (actq_core.cuh, gemm_w8_core.cuh) at the chain's k split (passed in
-// from kernels/gemm.py:_split_plan), so the outputs equal the chain's
-// bit for bit. The GEMM tile is 16 rows (M <= 16) by 128 columns, one
-// 16x16 fragment per warp; blocks have 256 threads, the count whose
-// reduction order actq_row reproduces. __launch_bounds__(256, 3) keeps
+// (actq_core.cuh; gemm_small_m.cuh's mainloop, which gemm_w8 runs at M
+// <= 64) at the chain's k split (passed in from
+// kernels/gemm.py:_split_plan), so the outputs equal the chain's bit for
+// bit. Blocks have 256 threads, the count whose reduction order actq_row
+// reproduces. The GEMM item is the chain's 16-row (M <= 16) by 128-column
+// tile of four computing warps: all eight warps issue its stages'
+// cp.async copies (or plain loads, which read the activations through L2
+// only) and meet at its barriers, and warps 0-3 run its MMAs and its
+// epilogue. Its two stages (46.5 KiB) live in dynamic shared memory,
+// which phase A's row buffer reuses. __launch_bounds__(256, 3) keeps
 // three blocks resident per SM (396 on an H100), so Qwen2.5-7B's 296
 // gateup tiles and 280 down items run in one wave.
 //
@@ -39,8 +44,8 @@
 // between phases: producer and consumer are different blocks, and xa2
 // alone (16 x 19456 bf16, 608 KB at Qwen2.5-7B) is larger than the
 // 227 KB of shared memory a Hopper block has. What another block of the
-// same launch wrote is read with __ldcg (L2), never through L1 or the
-// read-only path.
+// same launch wrote is read through L2 (__ldcg, or cp.async.cg), never
+// through L1 or the read-only path.
 //
 // Bound on the H100: the weight stream (about 1.06 bytes per weight; at
 // M <= 16 a weight byte carries at most 32 FLOPs). The items spread the
@@ -49,49 +54,53 @@
 // later work.
 //
 // The grid barrier is hand-rolled on a device-global counter, so the
-// build needs no -rdc (cooperative_groups' grid sync is not used); it
-// spins with __nanosleep and traps after seconds without progress
-// instead of hanging. It assumes one megakernel at a time per device,
-// which the engine's single stream gives.
+// build needs no -rdc (cooperative_groups' grid sync is not used), in
+// cooperative_groups' scheme: one thread a block fences and arrives,
+// the arrivals of a generation add up to 2^31 so that bit 31 flips when
+// the last block arrives, and the counter needs no reset. It spins, and
+// traps after seconds without progress instead of hanging. It assumes
+// one megakernel at a time per device, which the engine's single stream
+// gives.
 #include <algorithm>
 
 #include "actq_core.cuh"
-#include "gemm_w8_core.cuh"
+#include "gemm_small_m.cuh"
 
 namespace {
 
 constexpr int kThreads = kActqThreads;
 constexpr int kMaxRows = 16;
-using FTile = w8::Tile<16, 128, 1, 8>;
-static_assert(FTile::NT == kThreads, "the GEMM tile must use the whole block");
+// The GEMM item: the chain's tile at M <= 16 (one 16-row m-tile, w8).
+using GCfg = w8::small::Cfg<1, false>;
+constexpr int kBN = w8::small::BN;
+static_assert(kThreads % w8::small::NT == 0, "every warp of the block issues the tile's copies");
 
-__device__ unsigned int g_bar[2];  // arrivals, generation
+__device__ unsigned int g_bar;  // arrivals; bit 31 flips once a generation
 
+// Every thread's writes before the barrier are seen by every thread of
+// the grid after it: the block barrier orders them before thread 0's
+// fence, which publishes them with its arrival; after the flip, thread
+// 0's second fence and the block barrier order the reads that follow.
 __device__ __forceinline__ void grid_sync() {
-  __threadfence();
   __syncthreads();
   if (threadIdx.x == 0) {
-    volatile unsigned int* gen = &g_bar[1];
-    const unsigned int g = *gen;
+    // block 0 adds 2^31 - (G - 1), every other block 1: 2^31 in all
+    const unsigned int nb = blockIdx.x == 0 ? 0x80000000u - (gridDim.x - 1) : 1u;
+    volatile unsigned int* bar = &g_bar;
     __threadfence();
-    if (atomicAdd(&g_bar[0], 1u) == gridDim.x - 1) {
-      atomicExch(&g_bar[0], 0u);
-      __threadfence();
-      atomicAdd(&g_bar[1], 1u);
-    } else {
-      unsigned int spins = 0;
-      while (*gen == g) {
-        __nanosleep(64);
-        if (++spins == (1u << 24)) __trap();
-      }
-    }
+    const unsigned int old = atomicAdd(&g_bar, nb);
+    unsigned int spins = 0;
+    while (((old ^ *bar) & 0x80000000u) == 0)
+      if (++spins == (1u << 24)) __trap();
     __threadfence();
   }
   __syncthreads();
 }
 
 // One w8 GEMM of a fused kernel: out[M, N] = xa[M, Kq] @ dec(W) * gs * gw
-// (+ bias), at the chain's k split (splits, per k-tiles each).
+// (+ bias), at the chain's k split (splits, per k-tiles each). vec: the
+// stages load by cp.async (N % 16 == 0, 16-byte aligned xa, codes and
+// scales), else by plain loads; decided on the host for each GEMM.
 struct Gemm {
   const bf16* xa;
   const int8_t* codes;
@@ -100,19 +109,21 @@ struct Gemm {
   const float* gw;
   const bf16* bias;
   void* out;
-  int out_f32, N, Kq, splits, per;
+  int out_f32, N, Kq, splits, per, vec;
 };
 
-__device__ void gemm_phase(const Gemm& g, int M, float* partial, FTile::Smem& sm) {
-  const int n_tiles = (g.N + FTile::BN - 1) / FTile::BN;
+// smem: GCfg::SMEM bytes of dynamic shared memory.
+__device__ void gemm_phase(const Gemm& g, int M, float* partial, uint8_t* smem) {
+  const int n_tiles = (g.N + kBN - 1) / kBN;
   const int items = n_tiles * g.splits;
   float* part = g.splits > 1 ? partial : nullptr;
   for (int it = blockIdx.x; it < items; it += gridDim.x) {
     const int nt = it % n_tiles, s = it / n_tiles;
     const int kt0 = s * g.per, kt1 = min(kt0 + g.per, g.Kq / w8::BK);
-    w8::gemm_tile<FTile, true>(g.xa, g.codes, g.scales, g.gs, g.gw, g.bias, g.out, g.out_f32, part,
-                         s, M, g.N, g.Kq, 0, nt * FTile::BN, kt0, kt1, sm);
-    __syncthreads();
+    w8::small::gemm_small_tile<1, false, kThreads, true>(
+        g.xa, g.codes, g.scales, g.gs, g.gw, g.bias, g.out, g.out_f32, part, s, M, g.N, g.Kq, 0,
+        nt * kBN, kt0, kt1, g.vec != 0, smem);
+    __syncthreads();  // no warp still reads a stage the next item's prologue fills
   }
   if (g.splits > 1) {
     grid_sync();
@@ -215,14 +226,15 @@ struct GemmActqArgs {
   float* partial;
 };
 
+// Dynamic shared memory of each kernel: the GEMM's stages, which phase
+// A's row buffer (D bf16) reuses; launch() passes the larger size.
 __global__ void __launch_bounds__(kThreads, 3) gemm_actq_kernel(GemmActqArgs a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ FTile::Smem sm;
+  extern __shared__ __align__(128) uint8_t smem_raw[];
   __shared__ float red[32];
   rows_phase(a.x, a.ldx, a.normw, a.mode, a.eps, a.d, a.xa, a.gx, a.M, a.g.Kq,
              reinterpret_cast<bf16*>(smem_raw), red);
   grid_sync();
-  gemm_phase(a.g, a.M, a.partial, sm);
+  gemm_phase(a.g, a.M, a.partial, smem_raw);
 }
 
 struct GuActqArgs {
@@ -235,10 +247,10 @@ struct GuActqArgs {
 };
 
 __global__ void __launch_bounds__(kThreads, 3) gu_actq_kernel(GuActqArgs a) {
-  __shared__ FTile::Smem sm;
+  extern __shared__ __align__(128) uint8_t smem_raw[];
   __shared__ unsigned int smax[kMaxRows];
   if (blockIdx.x == 0 && threadIdx.x < kMaxRows) a.amax[threadIdx.x] = 0u;
-  gemm_phase(a.g, a.M, a.partial, sm);
+  gemm_phase(a.g, a.M, a.partial, smem_raw);
   grid_sync();
   silu_phase((const bf16*)a.g.out, a.M, a.F, a.xa2, a.kq2, a.amax, smax);
   grid_sync();
@@ -263,8 +275,7 @@ struct MlpArgs {
 };
 
 __global__ void __launch_bounds__(kThreads, 3) mlp_w8_kernel(MlpArgs a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ FTile::Smem sm;
+  extern __shared__ __align__(128) uint8_t smem_raw[];
   __shared__ float red[32];
   __shared__ unsigned int smax[kMaxRows];
   if (blockIdx.x == 0 && threadIdx.x < kMaxRows) a.amax[threadIdx.x] = 0u;
@@ -273,21 +284,24 @@ __global__ void __launch_bounds__(kThreads, 3) mlp_w8_kernel(MlpArgs a) {
                reinterpret_cast<bf16*>(smem_raw), red);
     grid_sync();
   }
-  gemm_phase(a.g1, a.M, a.partial, sm);
+  gemm_phase(a.g1, a.M, a.partial, smem_raw);
   grid_sync();
   silu_phase((const bf16*)a.g1.out, a.M, a.F, a.xa2, a.g2.Kq, a.amax, smax);
   grid_sync();
   quant_phase(a.M, a.F, a.xa2, a.g2.Kq, a.amax, a.gx2);
   grid_sync();
-  gemm_phase(a.g2, a.M, a.partial, sm);
+  gemm_phase(a.g2, a.M, a.partial, smem_raw);
 }
 
-int items(const Gemm& g) { return (g.N + FTile::BN - 1) / FTile::BN * g.splits; }
+int items(const Gemm& g) { return (g.N + kBN - 1) / kBN * g.splits; }
 
 // Cooperative launch of `kernel` with as many resident blocks as the card
-// holds, at most `want`. Returns a cudaError_t value (0 = launched).
+// holds, at most `want`, and the larger of the GEMM's stages and
+// `row_bytes` of dynamic shared memory. Returns a cudaError_t value (0 =
+// launched).
 template <class Args>
-int launch(void (*kernel)(Args), Args args, int want, size_t smem, void* stream) {
+int launch(void (*kernel)(Args), Args args, int want, size_t row_bytes, void* stream) {
+  const size_t smem = std::max(row_bytes, (size_t)GCfg::SMEM);
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   int dev = 0, sms = 0, per_sm = 0;
@@ -308,9 +322,11 @@ int launch(void (*kernel)(Args), Args args, int want, size_t smem, void* stream)
 Gemm make_gemm(const void* xa, const void* codes, const void* scales, const void* gs,
                const void* gw, const void* bias, void* out, int out_f32, int N, int Kq,
                int splits, int per) {
+  const int vec =
+      N % 16 == 0 && (((uintptr_t)xa | (uintptr_t)codes | (uintptr_t)scales) & 15) == 0;
   return Gemm{(const bf16*)xa, (const int8_t*)codes, (const uint8_t*)scales,
               (const float*)gs, (const float*)gw, (const bf16*)bias, out, out_f32, N, Kq,
-              splits, per};
+              splits, per, vec};
 }
 
 }  // namespace

@@ -18,8 +18,9 @@ CPU tensors:
 Numerics: equal bit for bit to the unfused chain of the same M (actq ->
 gemm_w8 at gemm.py:_split_plan's k split -> actq silu_mul -> gemm_w8),
 which is the JAX package's contract for these kernels. The CUDA kernels
-run the chain's own device code (csrc/actq_core.cuh, gemm_w8_core.cuh);
-the plain versions compose the chain's plain versions.
+run the chain's own device code (csrc/actq_core.cuh, and the small-M
+GEMM mainloop of csrc/gemm_small_m.cuh); the plain versions compose the
+chain's plain versions.
 
 Gates (gemm_actq_ok, gu_actq_ok, mlp_fused_ok) keep the JAX package's
 conditions: M at least quantize.ACTQ_MIN_M (no fused route where JAX

@@ -929,13 +929,15 @@ def moe_kernel_checks(cfg, gen, timer, record, summary):
     """Phase 3, the MoE model's kernels (qwen1.5-moe-a2.7b: 60 experts,
     down projections K 1408 -> N 2048):
       gemm_batched   w8 and w4, at decode (M 4 and 8; Kq 1536 select-free
-                     and 2048 with ARC select_frac 0.125) and at a
-                     dense-mode prefill (M 256, ARC), f32 out as on the
-                     path: bitwise against the per-expert loop of gemm_w8
-                     / gemm_w4 (gemm.gemm_batched_chain, whose time is
-                     kept as chain_ms), within the f32 sum order of its
-                     plain version, its bound, and torch.bmm over the
-                     decoded bf16 stack as the library yardstick;
+                     and 2048 with ARC select_frac 0.125), at M 17 and
+                     64 (ARC: the small-M mainloop's 32- and 64-row
+                     tiles) and at a dense-mode prefill (M 256, ARC), f32
+                     out as on the path: bitwise against the per-expert
+                     loop of gemm_w8 / gemm_w4 (gemm.gemm_batched_chain,
+                     whose time is kept as chain_ms), within the f32 sum
+                     order of its plain version, its bound, and torch.bmm
+                     over the decoded bf16 stack as the library
+                     yardstick;
       dequant_w8/w4  the 60-expert down stack decoded in one launch (the
                      dispatch-mode prefill's decode), bitwise vs plain;
       attention      flash, paged decode and paged prefill at the MoE
@@ -975,7 +977,7 @@ def moe_kernel_checks(cfg, gen, timer, record, summary):
                            "bitwise", rep=False)
                     del out, ref
         wd = gk.dequant_weight(packs["w8"])     # natural k order, bf16
-        for m in (4, 8) + ((256,) if sel else ()):
+        for m in (4, 8) + ((17, 64, 256) if sel else ()):
             xa = bf16_randn(gen, (e, m, kq), 2.0)
             gs = torch.rand((e, m, 1), generator=gen, device="cuda") + 0.5
             for fmt, pk in packs.items():

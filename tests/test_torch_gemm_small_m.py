@@ -11,9 +11,14 @@ plain torch on the CPU, where the kernel cannot run:
   - its k order (32-deep partials promoted in order into the f32 total,
     a split's k-tiles in order, the splits summed in order from 0.0) at
     kernels/gemm.py:_split_plan's plan, held against the JAX package's
-    gemm_dequant at test_torch_gemm.py's tolerances;
+    gemm_dequant at test_torch_gemm.py's tolerances; and run per expert
+    at the single GEMM's plan, as gemm_batched runs it, against the JAX
+    package's gemm_dequant_batched;
   - the plan itself: at every M <= 64 and each of Qwen2.5-7B's decode
-    sites its splits cover the k-tiles [0, Kq/32) once each, in order.
+    sites its splits cover the k-tiles [0, Kq/32) once each, in order;
+  - the decode megakernels' item walk (csrc/mlp_fused.cu:gemm_phase): at
+    every grid the cooperative launch can take, the blocks' items cover
+    each (n-tile, split) of a decode site's GEMM exactly once.
 """
 
 import jax.numpy as jnp
@@ -22,12 +27,13 @@ import pytest
 import torch
 
 from arcquant_tpu.kernels import gemm as jgemm
+from arcquant_tpu.quant import packing as JP
 from arcquant_tpu_torch.config import get_model_config
 from arcquant_tpu_torch.convert import packed_from_numpy
 from arcquant_tpu_torch.kernels import gemm as gk
 from arcquant_tpu_torch.quant import numerics as N
 from arcquant_tpu_torch.quant import packing
-from arcquant_tpu_torch.testing import to_numpy, to_torch
+from arcquant_tpu_torch.testing import outlier_x, to_numpy, to_torch
 
 from test_torch_gemm import _case, assert_summation_order_close
 
@@ -238,3 +244,81 @@ def test_split_plan_covers_k_once_in_order(site, kq, n):
         assert covered == list(range(k_tiles)), (site, m, splits, per)
         # no split is empty
         assert (splits - 1) * per < k_tiles
+
+
+@pytest.mark.parametrize("m", [1, 4, 16])
+@pytest.mark.parametrize("out_dtype", ["f32", "bf16"])
+def test_batched_k_order_matches_jax(m, out_dtype):
+    """A tiny MoE down projection (E 3 experts, K 1984 + 64 ARC columns:
+    Kq 2048, N 256, per-channel weight scales, per-row activation scales,
+    bf16 activations): each expert's slice emulated at the single GEMM's
+    plan for (M, N, Kq), which gemm_batched takes, against the JAX
+    package's gemm_dequant_batched (its fused kernel under vmap, in
+    interpret mode on the CPU)."""
+    rng = np.random.default_rng(90 + m)
+    e, n, k, sel = 3, 256, 1984, 64
+    packs = []
+    for _ in range(e):
+        w = np.asarray(jnp.asarray(outlier_x(rng, n, k) * 0.05, jnp.bfloat16))
+        packs.append(JP.pack_weight_arc(
+            jnp.asarray(w), jnp.asarray(rng.permutation(k).astype(np.int32)),
+            sel, fmt="w8", w_scale="channel"))
+    jpw = type(packs[0])(*(jnp.stack([getattr(p, f) for p in packs])
+                           for f in ("codes", "scales", "global_scale")),
+                         None)
+    kq = jpw.codes.shape[1]
+    assert kq == 2048 and gk._split_plan(m, n, kq) == (True, 4, 16)
+    xa = np.asarray(jnp.asarray(rng.standard_normal((e, m, kq)) * 2,
+                                jnp.bfloat16))
+    gx = rng.random((e, m, 1), np.float32) + 0.5
+    jdt = jnp.float32 if out_dtype == "f32" else jnp.bfloat16
+    tdt = torch.float32 if out_dtype == "f32" else torch.bfloat16
+    ref = np.asarray(jgemm.gemm_dequant_batched(
+        jnp.asarray(xa), jpw, jnp.asarray(gx), out_dtype=jdt), np.float32)
+    for i, p in enumerate(packs):
+        pw = packed_from_numpy(p)
+        y = mainloop_emulation(to_torch(xa[i]), pw.codes, pw.scales,
+                               torch.from_numpy(gx[i]),
+                               pw.global_scale.reshape(1, -1).float(), None,
+                               tdt)
+        assert y.shape == (m, n) and y.dtype == tdt
+        assert_summation_order_close(to_numpy(y), ref[i], out_dtype)
+
+
+def _megakernel_gemms():
+    """(name, Kq, N) of the GEMMs the decode megakernels run at
+    Qwen2.5-7B: the four decode sites (gemm_actq at qkv and o, gu_actq's
+    and mlp_w8's gateup, mlp_w8's down) with ARC select_frac 0.125, and
+    the select-free Kq of mlp_w8's gateup and down."""
+    cfg = get_model_config("qwen2.5-7b")
+    h, f = cfg.hidden_size, cfg.intermediate_size
+    return _decode_sites() + [("gateup select-free", packing.pad_kq(h, 0),
+                               2 * f),
+                              ("down select-free", packing.pad_kq(f, 0), h)]
+
+
+@pytest.mark.parametrize("site,kq,n", _megakernel_gemms())
+def test_megakernel_items_cover_each_tile_once(site, kq, n):
+    """gemm_phase's walk, emulated: block b of a grid of G takes items it
+    = b, b + G, ... below n_tiles x splits, item it being n-tile it %
+    n_tiles of split it / n_tiles over k-tiles [s per, min((s + 1) per,
+    Kq / 32)). At every G from 1 to 396 (three 256-thread blocks on each
+    of the H100's 132 SMs) and every M the megakernels take (4-16), each
+    (n-tile, split) is one block's item exactly once, and the splits of
+    an n-tile cover its k-tiles once each, in order."""
+    n_tiles, k_tiles = -(-n // 128), kq // BK
+    for m in range(4, 17):
+        small, splits, per = gk._split_plan(m, n, kq)
+        assert small
+        items = n_tiles * splits
+        want = sorted((nt, s) for nt in range(n_tiles)
+                      for s in range(splits))
+        for grid in range(1, 397):
+            got = []
+            for b in range(grid):
+                got += [(it % n_tiles, it // n_tiles)
+                        for it in range(b, items, grid)]
+            assert sorted(got) == want, (site, m, grid)
+        covered = [kt for s in range(splits)
+                   for kt in range(s * per, min((s + 1) * per, k_tiles))]
+        assert covered == list(range(k_tiles)), (site, m)

@@ -437,6 +437,41 @@ def test_mlp_w8(m, norm, bias):
     _plain_gemm_close(out, xa2, gx2, pw_dn)
 
 
+@pytest.mark.parametrize("m", [4, 16])
+def test_megakernels_plain_loads(m):
+    """An N that is not a multiple of 16: the fused GEMMs load their
+    stages with plain loads, which read the activations other blocks of
+    the launch wrote (phase A's xa, phase C2's xa2) through L2. Still bit
+    for bit the chain: gemm_actq (rmsnorm) at N 1000, and mlp_w8
+    (quantized mode) whose down GEMM writes D 1000 columns."""
+    require_cuda()
+    rng = np.random.default_rng(95 + m)
+    d, n = 1024, 1000
+    w = _bf16(outlier_x(rng, n, d) * d ** -0.5)
+    b = _bf16(rng.standard_normal(n) * 0.1)
+    pw = packing.pack_weight_arc(w, torch.arange(d).cuda(), 0, bias=b,
+                                 w_scale="channel")
+    x = _bf16(outlier_x(rng, m, d, scale=4.0))
+    nw = _bf16(rng.standard_normal(d) * 0.1 + 1)
+    args = (x, pw, d, torch.bfloat16, nw, 1e-6)
+    got = mf._gemm_actq_cuda(*args)
+    want = mf.gemm_actq_chain(*args)
+    torch.cuda.synchronize()
+    assert_bitwise(got, want)
+    d2, f = 1000, 1024
+    pw_gu, pw_dn = _w8_pair(rng, d2, f, bias=True)
+    x2 = np.zeros((m, 1008), np.float32)    # the quantizer takes 16-groups
+    x2[:, :d2] = outlier_x(rng, m, d2)
+    xa1, gs1 = qk.quantize_x_arc(_bf16(x2), torch.arange(1008).cuda(), 0,
+                                 kq=pw_gu.kq)
+    args = (xa1, gs1, pw_gu, pw_dn, f, torch.bfloat16, None, 0.0)
+    got = mf._mlp_w8_cuda(*args)
+    want = mf.mlp_w8_chain(*args)
+    torch.cuda.synchronize()
+    assert got[0].shape == (m, d2)
+    assert_bitwise(got, want)
+
+
 def test_fused_kernels_refuse_what_they_do_not_take():
     """More than 16 rows, f32 activations or outputs the chain would not
     give: raise, no fallback."""
@@ -575,15 +610,20 @@ def _stack(rng, e, n, k, select):
 
 @pytest.mark.parametrize("e,m", [(4, 1), (4, 4), (4, 256), (60, 1),
                                  (60, 4), (60, 256), (4, 65), (4, 128),
-                                 (4, 1000), (4, 4096)])
+                                 (4, 1000), (4, 4096),
+                                 (60, 16), (60, 17), (60, 33), (60, 64),
+                                 (4, 16), (4, 17), (4, 33), (4, 64)])
 def test_gemm_batched_bitwise_equals_per_expert_gemm(e, m):
     """gemm_batched (one launch over the experts) gives each expert the
     bits of a gemm_w8 / gemm_w4 launch on that expert (the per-expert
     chain), in both formats and output types, per-row scales; and holds
     the sum-order bound of its plain version. Qwen1.5-MoE's down shape:
     K 1408 with 192 ARC columns (Kq 2048), N 2048 (E 4: N 520, neither a
-    multiple of the 128-column tile nor of 16); M 65-4096 run the large-M
-    tile, M 1000 with a ragged m tile."""
+    multiple of the 128-column tile nor of 16, so the small-M mainloop
+    loads its stages with plain loads); M <= 64 run the small-M mainloop
+    at its three tile heights (M 1-16, 17-32, 33-64), M 65-4096 the
+    large-M tile, M 1000 with a ragged m tile. The activations are bf16,
+    not quantized, so that a changed k order shows in the bits."""
     require_cuda()
     rng = np.random.default_rng(200 + e + m)
     n = 2048 if e == 60 else 520
