@@ -1,6 +1,12 @@
 """Device times of the decode step's fused small-M kernels against the
-unfused chains they replace, at the shapes of Qwen2.5-7B and
-Qwen1.5-MoE-A2.7B, each beside its bound:
+unfused chains they replace, and of the activation quantize they fuse,
+at the shapes of Qwen2.5-7B and Qwen1.5-MoE-A2.7B, each beside its bound:
+
+  - #1 actq (``kernels/quantize.py:_actq_cuda``) at each M of
+    ``--actq_m`` (decode 4-16 and the prefill's 4096), K 3584 (hidden)
+    and 18944 (intermediate), each mode, each at the ARC width kq and at
+    kq = k, beside the launch floor (an empty kernel of the same grid,
+    ``quantize.launch_floor``, timed alike) where the checkout has one;
 
   - the decode megakernels (``kernels/mlp_fused.py``): gemm_actq at the
     qkv (rmsnorm, bias) and o (plain) sites, mlp_w8 (rmsnorm, select-free
@@ -17,7 +23,12 @@ Qwen1.5-MoE-A2.7B, each beside its bound:
     stack (the library call).
 
   python -m arcquant_tpu_torch.benchmarks.bench_decode [--m 4 8 16]
-      [--moe_m 4 8] [--no-fused] [--no-moe]
+      [--moe_m 4 8] [--actq_m 4 8 16 4096] [--no-actq] [--no-fused]
+      [--no-moe] [--sweep]
+
+``--sweep`` times the plans instead: actq at M 4 and 16 over a range of
+slices a row, and gemm_actq (qkv) and mlp_w8 at M 4 and 16 with phase A
+on a range of block counts (both patched over the wrappers' plans).
 
 It imports the package by its absolute name, so it also times another
 checkout of it: ``PYTHONPATH=<checkout> python <this file>``. One JSON
@@ -29,6 +40,7 @@ Weights are random from fixed seeds.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 
 import torch
@@ -63,6 +75,86 @@ def _pack(gen, n, k, sel, bias, fmt="w8"):
 def _gemm(xa, gs, pw):
     return gk._gemm_w8_cuda(xa, pw.codes, pw.scales, gs.reshape(-1, 1),
                             mf._gw(pw), pw.bias, torch.bfloat16)
+
+
+def _actq_inputs(gen, m, k, mode):
+    a = _randn(gen, (m, 2 * k if mode == "silu_mul" else k), 2.0)
+    w = ((_randn(gen, (k,), 0.1) + 1).to(torch.bfloat16)
+         if mode == "rmsnorm" else None)
+    return a, w
+
+
+def actq_rows(ms, timer, emit):
+    """#1 actq's rows (module docstring)."""
+    cfg = get_model_config("qwen2.5-7b")
+    h, f, eps = cfg.hidden_size, cfg.intermediate_size, cfg.rms_eps
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    plan = getattr(qk, "actq_plan", None)     # absent in older checkouts
+    for m in ms:
+        for k, mode in itertools.product((h, f),
+                                         ("plain", "rmsnorm", "silu_mul")):
+            a, w = _actq_inputs(gen, m, k, mode)
+            for kq in (packing.pad_kq(k, _select(k)), k):
+                args = dict(mode=mode, k=k, kq=kq, eps=eps)
+                xa, gx = qk._actq_cuda(a, w, **args)
+                t = timer(lambda: qk._actq_cuda(a, w, **args))
+                b_ms, b_by = bound_ms(0.0, nbytes(a, w, xa, gx))
+                row = dict(kernel="actq", mode=mode, m=m, k=k, kq=kq,
+                           ms=t.median, lo=t.lo, hi=t.hi, bound_ms=b_ms,
+                           bound_by=b_by)
+                if plan is not None:
+                    n = plan(m, k, mode)
+                    row.update(blocks=n, floor_ms=timer(
+                        lambda: qk.launch_floor(n)).median)
+                emit(row)
+            del a, w
+    torch.cuda.empty_cache()
+
+
+def sweep_rows(timer, emit):
+    """actq over slices a row, gemm_actq and mlp_w8 over phase A's
+    blocks, at M 4 and 16 (each plan patched over the wrapper's for the
+    run)."""
+    cfg = get_model_config("qwen2.5-7b")
+    h, f, eps = cfg.hidden_size, cfg.intermediate_size, cfg.rms_eps
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    plan, phase_a = qk.actq_plan, mf.phase_a_blocks
+    try:
+        for m in (4, 16):
+            for k, mode in ((h, "plain"), (h, "rmsnorm"), (f, "silu_mul")):
+                a, w = _actq_inputs(gen, m, k, mode)
+                args = dict(mode=mode, k=k, kq=packing.pad_kq(k, _select(k)),
+                            eps=eps)
+                for slices in (1, 2, 4, 8, 16, 24, 33, 48, 66):
+                    qk.actq_plan = lambda m_, k_, mode_, s=slices: m_ * s
+                    t = timer(lambda: qk._actq_cuda(a, w, **args))
+                    emit(dict(sweep="actq", mode=mode, m=m, k=k,
+                              slices=slices, blocks=m * slices,
+                              ms=t.median, lo=t.lo, hi=t.hi))
+                qk.actq_plan = plan
+        nq = cfg.q_size + 2 * cfg.kv_size
+        pw = _pack(gen, nq, h, 0, True)
+        pw_gu, pw_dn = (_pack(gen, 2 * f, h, 0, False),
+                        _pack(gen, h, f, 0, False))
+        nw = (_randn(gen, (h,), 0.1) + 1).to(torch.bfloat16)
+        for m in (4, 16):
+            x = _randn(gen, (m, h), 2.0)
+            for name, fn, args in (
+                    ("gemm_actq qkv", mf._gemm_actq_cuda,
+                     (x, pw, h, torch.bfloat16, nw, eps)),
+                    ("mlp_w8", mf._mlp_w8_cuda,
+                     (x, None, pw_gu, pw_dn, f, torch.bfloat16, nw, eps))):
+                for nb in (m, 4 * m, plan(m, h, "rmsnorm"), 264, 396):
+                    mf.phase_a_blocks = lambda m_, d_, mode_, n=nb: n
+                    t = timer(lambda: fn(*args))
+                    emit(dict(sweep=name, m=m, a_blocks=nb, ms=t.median,
+                              lo=t.lo, hi=t.hi))
+                mf.phase_a_blocks = phase_a
+    finally:
+        qk.actq_plan, mf.phase_a_blocks = plan, phase_a
+    torch.cuda.empty_cache()
 
 
 def fused_rows(ms, timer, emit):
@@ -179,8 +271,12 @@ def main(argv=None):
         prog="python -m arcquant_tpu_torch.benchmarks.bench_decode")
     ap.add_argument("--m", type=int, nargs="+", default=[4, 8, 16])
     ap.add_argument("--moe_m", type=int, nargs="+", default=[4, 8])
+    ap.add_argument("--actq_m", type=int, nargs="+",
+                    default=[4, 8, 16, 4096])
+    ap.add_argument("--no-actq", action="store_true")
     ap.add_argument("--no-fused", action="store_true")
     ap.add_argument("--no-moe", action="store_true")
+    ap.add_argument("--sweep", action="store_true")
     args = ap.parse_args(argv)
     require_cuda("bench_decode")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -189,6 +285,11 @@ def main(argv=None):
     def emit(row):
         print(json.dumps(row), flush=True)
     emit(dict(card=card(), torch=torch.__version__, cuda=torch.version.cuda))
+    if args.sweep:
+        sweep_rows(timer, emit)
+        return
+    if not args.no_actq:
+        actq_rows(args.actq_m, timer, emit)
     if not args.no_fused:
         fused_rows(args.m, timer, emit)
     if not args.no_moe:

@@ -16,7 +16,11 @@
 // resident (cudaLaunchCooperativeKernel at the occupancy limit; a grid
 // the card cannot hold is refused and the wrapper raises), that walks
 // phases separated by grid-wide barriers:
-//   A   [rmsnorm +] quantize: block r quantizes row r (actq_row) -> xa, gx
+//   A   [rmsnorm +] quantize -> xa, gx: the first a_blocks blocks (a
+//       count the wrapper plans from the shapes) each take a contiguous
+//       range of the (row, 16-group) space and compute the reductions of
+//       the rows they meet themselves (actq_core.cuh:actq_walk, the actq
+//       kernel's own walk), so no barrier beyond the one before B
 //   B   the w8 GEMM over (n-tile, k-split) items (gemm_small_tile); with splits
 //       > 1 the partials go to an f32 workspace and, after a barrier,
 //       each element sums them in split order and runs the epilogue
@@ -30,15 +34,17 @@
 // (actq_core.cuh; gemm_small_m.cuh's mainloop, which gemm_w8 runs at M
 // <= 64) at the chain's k split (passed in from
 // kernels/gemm.py:_split_plan), so the outputs equal the chain's bit for
-// bit. Blocks have 256 threads, the count whose reduction order actq_row
-// reproduces. The GEMM item is the chain's 16-row (M <= 16) by 128-column
+// bit. Blocks have 256 threads, the count actq_core.cuh's sum order is
+// stated for. The GEMM item is the chain's 16-row (M <= 16) by 128-column
 // tile of four computing warps: all eight warps issue its stages'
 // cp.async copies (or plain loads, which read the activations through L2
 // only) and meet at its barriers, and warps 0-3 run its MMAs and its
 // epilogue. Its two stages (46.5 KiB) live in dynamic shared memory,
-// which phase A's row buffer reuses. __launch_bounds__(256, 3) keeps
-// three blocks resident per SM (396 on an H100), so Qwen2.5-7B's 296
-// gateup tiles and 280 down items run in one wave.
+// which phase A reuses for the chunks of a row beyond K 4096 (none at
+// Qwen2.5-7B's hidden 3584: its rows stay in registers).
+// __launch_bounds__(256, 3) keeps three blocks resident per SM (396 on
+// an H100), so Qwen2.5-7B's 296 gateup tiles and 280 down items run in
+// one wave.
 //
 // xa, gu and xa2 go through device memory (L2-resident at these sizes)
 // between phases: producer and consumer are different blocks, and xa2
@@ -135,13 +141,16 @@ __device__ void gemm_phase(const Gemm& g, int M, float* partial, uint8_t* smem) 
   }
 }
 
-// Phase A: rows of x [M, d] (row stride ldx) -> xa [M, kq], gx [M].
-__device__ void rows_phase(const bf16* x, int64_t ldx, const bf16* normw, int mode, float eps,
-                           int d, bf16* xa, float* gx, int M, int kq, bf16* row, float* red) {
-  for (int r = blockIdx.x; r < M; r += gridDim.x) {
-    actq_row(x + r * ldx, normw, xa + (int64_t)r * kq, gx + r, d, kq, mode, eps, row, red);
-    __syncthreads();
-  }
+// Phase A: rows of x [M, d] (row stride ldx) -> xa [M, kq], gx [M], on
+// the first min(a_blocks, grid) blocks. smem: actq_spill_bytes(d).
+template <int MODE>
+__device__ void rows_phase(const bf16* x, int64_t ldx, const bf16* normw, float eps, int d,
+                           bf16* xa, float* gx, int M, int kq, int a_blocks, uint8_t* smem,
+                           float* red) {
+  const int nb = min(a_blocks, (int)gridDim.x);
+  if ((int)blockIdx.x < nb)
+    actq_walk<MODE>(x, ldx, normw, xa, kq, gx, M, d, eps, blockIdx.x, nb,
+                    reinterpret_cast<uint4*>(smem), red);
 }
 
 // This block's share [g0, g1) of a row's groups (the same in C1 and C2).
@@ -219,7 +228,7 @@ struct GemmActqArgs {
   const bf16* normw;
   int mode;
   float eps;
-  int M, d;
+  int M, d, a_blocks;
   Gemm g;  // g.xa = the xa workspace, g.gs = gx
   bf16* xa;
   float* gx;
@@ -227,12 +236,16 @@ struct GemmActqArgs {
 };
 
 // Dynamic shared memory of each kernel: the GEMM's stages, which phase
-// A's row buffer (D bf16) reuses; launch() passes the larger size.
+// A's spill reuses; launch() passes the larger size.
 __global__ void __launch_bounds__(kThreads, 3) gemm_actq_kernel(GemmActqArgs a) {
   extern __shared__ __align__(128) uint8_t smem_raw[];
   __shared__ float red[32];
-  rows_phase(a.x, a.ldx, a.normw, a.mode, a.eps, a.d, a.xa, a.gx, a.M, a.g.Kq,
-             reinterpret_cast<bf16*>(smem_raw), red);
+  if (a.mode == kModeRmsnorm)
+    rows_phase<kModeRmsnorm>(a.x, a.ldx, a.normw, a.eps, a.d, a.xa, a.gx, a.M, a.g.Kq,
+                             a.a_blocks, smem_raw, red);
+  else
+    rows_phase<kModePlain>(a.x, a.ldx, a.normw, a.eps, a.d, a.xa, a.gx, a.M, a.g.Kq,
+                           a.a_blocks, smem_raw, red);
   grid_sync();
   gemm_phase(a.g, a.M, a.partial, smem_raw);
 }
@@ -262,7 +275,7 @@ struct MlpArgs {
   int64_t ldx;
   const bf16* normw;
   float eps;
-  int d;
+  int d, a_blocks;
   Gemm g1;  // gateup: g1.xa = xa1 (input or workspace), g1.out = gu
   Gemm g2;  // down: g2.xa = xa2, g2.gs = gx2
   int M, F;
@@ -280,8 +293,8 @@ __global__ void __launch_bounds__(kThreads, 3) mlp_w8_kernel(MlpArgs a) {
   __shared__ unsigned int smax[kMaxRows];
   if (blockIdx.x == 0 && threadIdx.x < kMaxRows) a.amax[threadIdx.x] = 0u;
   if (a.x != nullptr) {
-    rows_phase(a.x, a.ldx, a.normw, kModeRmsnorm, a.eps, a.d, a.xa1, a.gx1, a.M, a.g1.Kq,
-               reinterpret_cast<bf16*>(smem_raw), red);
+    rows_phase<kModeRmsnorm>(a.x, a.ldx, a.normw, a.eps, a.d, a.xa1, a.gx1, a.M, a.g1.Kq,
+                             a.a_blocks, smem_raw, red);
     grid_sync();
   }
   gemm_phase(a.g1, a.M, a.partial, smem_raw);
@@ -297,8 +310,8 @@ int items(const Gemm& g) { return (g.N + kBN - 1) / kBN * g.splits; }
 
 // Cooperative launch of `kernel` with as many resident blocks as the card
 // holds, at most `want`, and the larger of the GEMM's stages and
-// `row_bytes` of dynamic shared memory. Returns a cudaError_t value (0 =
-// launched).
+// `row_bytes` of dynamic shared memory (phase A's spill). Returns a
+// cudaError_t value (0 = launched).
 template <class Args>
 int launch(void (*kernel)(Args), Args args, int want, size_t row_bytes, void* stream) {
   const size_t smem = std::max(row_bytes, (size_t)GCfg::SMEM);
@@ -331,21 +344,22 @@ Gemm make_gemm(const void* xa, const void* codes, const void* scales, const void
 
 }  // namespace
 
-// x: [M, >= D] bf16 rows (stride ldx); normw: [D] bf16 (mode 1, rmsnorm)
-// or NULL (mode 0, plain); codes [Kq, N] int8, scales [Kq/16, N] uint8,
-// gw [N] f32, bias [N] bf16 or NULL; y [M, N] bf16 or f32 (y_f32); gx
-// [M] f32; workspaces xa [M, Kq] bf16 and, with splits > 1, partial
-// [splits, M, N] f32. Requires 1 <= M <= 16, D % 16 == 0, Kq % 32 == 0,
+// x: [M, >= D] bf16 rows (stride ldx % 8 == 0, 16-byte aligned); normw:
+// [D] bf16 (mode 1, rmsnorm, 16-byte aligned) or NULL (mode 0, plain);
+// codes [Kq, N] int8, scales [Kq/16, N] uint8, gw [N] f32, bias [N] bf16
+// or NULL; y [M, N] bf16 or f32 (y_f32); gx [M] f32; workspaces xa [M,
+// Kq] bf16 and, with splits > 1, partial [splits, M, N] f32; phase A on
+// a_blocks blocks. Requires 1 <= M <= 16, D % 16 == 0, Kq % 32 == 0,
 // Kq >= D.
 ARC_EXPORT int arc_gemm_actq(const void* x, int64_t ldx, const void* normw, int mode,
                              float eps, const void* codes, const void* scales, const void* gw,
                              const void* bias, void* y, int y_f32, void* gx, void* xa_ws,
                              void* partial_ws, int M, int N, int D, int Kq, int splits,
-                             int per, void* stream) {
-  GemmActqArgs a{(const bf16*)x, ldx, (const bf16*)normw, mode, eps, M, D,
+                             int per, int a_blocks, void* stream) {
+  GemmActqArgs a{(const bf16*)x, ldx, (const bf16*)normw, mode, eps, M, D, a_blocks,
                  make_gemm(xa_ws, codes, scales, gx, gw, bias, y, y_f32, N, Kq, splits, per),
                  (bf16*)xa_ws, (float*)gx, (float*)partial_ws};
-  return launch(gemm_actq_kernel, a, std::max(items(a.g), M), (size_t)D * sizeof(bf16),
+  return launch(gemm_actq_kernel, a, std::max(items(a.g), a_blocks), actq_spill_bytes(D),
                 stream);
 }
 
@@ -364,8 +378,9 @@ ARC_EXPORT int arc_gu_actq(const void* xa1, const void* gs1, const void* codes,
   return launch(gu_actq_kernel, a, items(a.g), 0, stream);
 }
 
-// Norm mode: x [M, >= d] bf16 (stride ldx) and normw [d] bf16, with the
-// workspaces xa1 [M, Kq1] bf16 and gx1 [M] f32; quantized mode: x and
+// Norm mode: x [M, >= d] bf16 (stride ldx) and normw [d] bf16, aligned
+// as arc_gemm_actq's, with the workspaces xa1 [M, Kq1] bf16 and gx1 [M]
+// f32, phase A on a_blocks blocks; quantized mode: x and
 // normw NULL, xa1_in [M, Kq1] bf16 and gs1_in [M] f32. Gateup codes1
 // [Kq1, 2F] (scales1, gw1 [2F], bias1), down codes2 [Kq2, N2] (scales2,
 // gw2 [N2], bias2); out [M, N2] bf16 and gu [M, 2F] bf16 (the activation
@@ -373,7 +388,7 @@ ARC_EXPORT int arc_gu_actq(const void* xa1, const void* gs1, const void* codes,
 // gx2 [M] f32; workspaces xa2 [M, Kq2] bf16, amax [16] u32 and, with
 // either GEMM split, partial [max splits * M * N] f32.
 ARC_EXPORT int arc_mlp_w8(const void* x, int64_t ldx, const void* normw, float eps, int d,
-                          const void* xa1_in, const void* gs1_in, const void* codes1,
+                          int a_blocks, const void* xa1_in, const void* gs1_in, const void* codes1,
                           const void* scales1, const void* gw1, const void* bias1,
                           const void* codes2, const void* scales2, const void* gw2,
                           const void* bias2, void* out, void* gu, void* gx2,
@@ -383,11 +398,12 @@ ARC_EXPORT int arc_mlp_w8(const void* x, int64_t ldx, const void* normw, float e
   const bool norm = x != nullptr;
   const void* xa1 = norm ? (const void*)xa1_ws : xa1_in;
   const void* gs1 = norm ? (const void*)gx1_ws : gs1_in;
-  MlpArgs a{(const bf16*)x, ldx, (const bf16*)normw, eps, d,
+  MlpArgs a{(const bf16*)x, ldx, (const bf16*)normw, eps, d, a_blocks,
             make_gemm(xa1, codes1, scales1, gs1, gw1, bias1, gu, 0, 2 * F, Kq1, splits1, per1),
             make_gemm(xa2_ws, codes2, scales2, gx2, gw2, bias2, out, 0, N2, Kq2, splits2, per2),
             M, F, (bf16*)xa1_ws, (float*)gx1_ws, (bf16*)xa2_ws, (float*)gx2,
             (unsigned int*)amax_ws, (float*)partial_ws};
-  return launch(mlp_w8_kernel, a, std::max(std::max(items(a.g1), items(a.g2)), M),
-                norm ? (size_t)d * sizeof(bf16) : 0, stream);
+  return launch(mlp_w8_kernel, a,
+                std::max(std::max(items(a.g1), items(a.g2)), norm ? a_blocks : 1),
+                norm ? actq_spill_bytes(d) : 0, stream);
 }

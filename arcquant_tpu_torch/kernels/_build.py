@@ -15,6 +15,7 @@ if that is not 0 and otherwise counts the launch.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import hashlib
@@ -105,15 +106,22 @@ class Kernel:
 
     ``launches`` is incremented once per successful call, that is once
     per launch of the kernel by its wrapper; nothing else touches it
-    except a caller resetting it to 0."""
+    except ``reset``. A wrapper that passes ``m`` (its row count) also
+    counts the launch under that M in ``by_m``."""
 
     def __init__(self, name: str, symbol: str, argtypes):
         self.name = name
         self.symbol = symbol
         self.argtypes = list(argtypes)
         self.launches = 0
+        self.by_m = collections.Counter()
 
-    def __call__(self, *args) -> None:
+    def reset(self) -> None:
+        """Set the counts to 0."""
+        self.launches = 0
+        self.by_m.clear()
+
+    def __call__(self, *args, m=None) -> None:
         fn = getattr(library(), self.symbol)
         fn.argtypes = self.argtypes + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -124,6 +132,8 @@ class Kernel:
                 f"CUDA kernel {self.symbol} failed to launch: "
                 f"cudaError {rc}")
         self.launches += 1
+        if m is not None:
+            self.by_m[m] += 1
 
 
 P = ctypes.c_void_p

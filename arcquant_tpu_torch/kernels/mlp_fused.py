@@ -57,11 +57,11 @@ _MAX_ROWS = 16
 P, I32, I64, F32 = _build.P, _build.I32, _build.I64, _build.F32
 GEMM_ACTQ = _build.Kernel("gemm_actq", "arc_gemm_actq", [
     P, I64, P, I32, F32, P, P, P, P, P, I32, P, P, P,
-    I32, I32, I32, I32, I32, I32])
+    I32, I32, I32, I32, I32, I32, I32])
 GU_ACTQ = _build.Kernel("gu_actq", "arc_gu_actq", [
     P, P, P, P, P, P, P, P, P, P, P, I32, I32, I32, I32, I32, I32])
 MLP_W8 = _build.Kernel("mlp_w8", "arc_mlp_w8", [
-    P, I64, P, F32, I32, P, P, P, P, P, P, P, P, P, P, P, P, P,
+    P, I64, P, F32, I32, I32, P, P, P, P, P, P, P, P, P, P, P, P, P,
     P, P, P, P, P, I32, I32, I32, I32, I32, I32, I32, I32, I32])
 
 
@@ -190,6 +190,20 @@ def _check_rows(name: str, x: torch.Tensor) -> None:
                          f"stride, got {x.dtype} {tuple(x.stride())}")
 
 
+def phase_a_blocks(m: int, d: int, mode: str) -> int:
+    """Blocks of a megakernel's grid that run its phase A ([rmsnorm +]
+    quantize of [m, d]): the actq kernel's own plan (quantize.actq_plan),
+    so phase A spreads a row over as many blocks as the chain's launch
+    does. The kernel takes the first min(this, grid) blocks."""
+    return qk.actq_plan(m, d, mode)
+
+
+def _phase_a_rows(x: torch.Tensor, d: int) -> torch.Tensor:
+    """x as phase A reads it (16-byte loads): copied when its rows do not
+    start on 16 bytes."""
+    return x if qk._aligned(x) else x[:, :d].contiguous()
+
+
 def _plan(m: int, pw: PackedWeightI8):
     """The chain's k split of this GEMM: (splits, k-tiles per split)."""
     _, splits, per = gk._split_plan(m, pw.n, pw.kq)
@@ -223,13 +237,16 @@ def _gemm_actq_cuda(x2, pw, d, out_dtype, norm_w, eps):
     xa = torch.empty((m, kq), dtype=torch.bfloat16, device=dev)
     splits, per = _plan(m, pw)
     ws = _ws(m, dev, (splits, n))
-    wc = norm_w.contiguous() if norm_w is not None else None
+    x2 = _phase_a_rows(x2, d)
+    wc = qk._aligned_weight(norm_w) if norm_w is not None else None
+    mode = "plain" if norm_w is None else "rmsnorm"
     gw = _gw(pw).reshape(-1).contiguous()
     GEMM_ACTQ(_build.ptr(x2), x2.stride(0), _build.ptr(wc),
               int(norm_w is not None), float(eps), _build.ptr(pw.codes),
               _build.ptr(pw.scales), _build.ptr(gw), _build.ptr(pw.bias),
               _build.ptr(y), int(out_dtype == torch.float32), _build.ptr(gx),
-              _build.ptr(xa), _build.ptr(ws), m, n, d, kq, splits, per)
+              _build.ptr(xa), _build.ptr(ws), m, n, d, kq, splits, per,
+              phase_a_blocks(m, d, mode))
     return y, gx
 
 
@@ -286,7 +303,8 @@ def _mlp_w8_cuda(xa1, gs1, pw_gu, pw_dn, f, out_dtype, norm_w, eps):
     xa2 = torch.empty((m, kq2), dtype=torch.bfloat16, device=dev)
     amax = torch.empty((_MAX_ROWS,), dtype=torch.int32, device=dev)
     if norm:
-        x, wc, xa_in, gs_in = xa1, norm_w.contiguous(), None, None
+        x, wc = _phase_a_rows(xa1, d), qk._aligned_weight(norm_w)
+        xa_in, gs_in = None, None
         xa1_ws = torch.empty((m, kq1), dtype=torch.bfloat16, device=dev)
         gx1_ws = torch.empty((m,), dtype=torch.float32, device=dev)
     else:
@@ -298,7 +316,8 @@ def _mlp_w8_cuda(xa1, gs1, pw_gu, pw_dn, f, out_dtype, norm_w, eps):
     gw1 = _gw(pw_gu).reshape(-1).contiguous()
     gw2 = _gw(pw_dn).reshape(-1).contiguous()
     p = _build.ptr
-    MLP_W8(p(x), x.stride(0) if norm else 0, p(wc), float(eps), d,
+    a_blocks = phase_a_blocks(m, d, "rmsnorm") if norm else 0
+    MLP_W8(p(x), x.stride(0) if norm else 0, p(wc), float(eps), d, a_blocks,
            p(xa_in), p(gs_in), p(pw_gu.codes), p(pw_gu.scales), p(gw1),
            p(pw_gu.bias), p(pw_dn.codes), p(pw_dn.scales), p(gw2),
            p(pw_dn.bias), p(out), p(gu), p(gx2), p(xa1_ws), p(gx1_ws),

@@ -7,7 +7,11 @@ Phases, each printed as it runs:
   2. the build of the CUDA kernels (csrc/*.cu, nvcc, sm_90a) and its time;
   3. each kernel against its plain PyTorch version at the Qwen2.5-7B
      shapes of the serving path, with the tolerance, the max error, the
-     median CUDA-event time of kernel and plain version, and at each
+     median CUDA-event time of kernel and plain version (actq at all
+     twelve of its shapes also with its bound, its plan's block count
+     and the launch floor: an empty kernel of that grid, timed alike;
+     its rmsnorm mode also bitwise against the emulation of its sum
+     order, quantize.actq_kernel_order), and at each
      kernel's representative shape its bound (the larger of its FLOPs
      over 989 TFLOP/s and its bytes over 3.35 TB/s, an H100 SXM's dense
      bf16 and HBM3 peaks) and the time of one PyTorch call computing the
@@ -42,7 +46,9 @@ Phases, each printed as it runs:
      tokens each, with each kernel's launch count over that run, then
      prefill ms, decode ms/step (each step counting one paged_decode
      call a layer), decode tok/s and peak device memory
-     while building the engine and while serving;
+     while building the engine and while serving (every path's launch
+     counts also split actq's by M, summed over the ten paths at the
+     end);
   5. the HTTP server (engine/server.py over the continuous batcher) on
      the same 28 packed layers with serve.py's defaults (W4A16 prefill,
      W4A4 decode, prefill_chunk 512, dynamic pages, prefix sharing):
@@ -281,7 +287,10 @@ def kernel_checks(cfg, timer, failures):
             failures.append(f"{kernel} {case}: max_abs_err {err}")
 
     h, f = cfg.hidden_size, cfg.intermediate_size
-    # actq: all three modes at K = hidden and K = intermediate
+    # actq: all three modes at K = hidden and K = intermediate, each shape
+    # with its time, plain time, bound and plan, beside the launch floor
+    # (an empty kernel of the plan's grid, timed alike); rmsnorm also
+    # bitwise against the emulation of the kernel's sum order
     for m in (4, 4096):
         for k in (h, f):
             kq = packing.pad_kq(k, int(round(SELECT_FRAC * k / 64)) * 64)
@@ -295,18 +304,39 @@ def kernel_checks(cfg, timer, failures):
                 pa, pg = qk.actq_plain(a, w, **args)
                 torch.cuda.synchronize()
                 err = float((xa.float() - pa.float()).abs().max())
-                if mode == "plain":
+                case = f"{mode} M={m} K={k} kq={kq}"
+                if mode != "rmsnorm":
                     ok, tol = torch.equal(xa, pa) and torch.equal(gx, pg), \
                         "bit-exact"
                 else:
-                    ok = one_step_bound(xa, pa) and bool(torch.allclose(
-                        gx, pg, rtol=1e-2))
-                    tol = "<=1 e2m1 step on <3% of elements"
-                record("actq", f"{mode} M={m} K={k} kq={kq}", err, ok,
-                       timer(lambda: qk._actq_cuda(a, w, **args)),
-                       timer(lambda: qk.actq_plain(a, w, **args)), tol,
-                       rep=(m == 4 and k == h and mode == "plain"),
-                       work=(0, nbytes(a, w, xa, gx)))
+                    ea, eg = qk.actq_kernel_order(a, w, **args)
+                    same = bitwise([xa, gx], [ea, eg])
+                    case += f" bitwise-vs-kernel-order={same}"
+                    ok = same and one_step_bound(xa, pa) and bool(
+                        torch.allclose(gx, pg, rtol=1e-2))
+                    tol = ("<=1 e2m1 step on <3% of elements; bitwise vs "
+                           "actq_kernel_order")
+                    del ea, eg
+                work = (0, nbytes(a, w, xa, gx))
+                t_k = timer(lambda: qk._actq_cuda(a, w, **args))
+                t_p = timer(lambda: qk.actq_plain(a, w, **args))
+                rep = m == 4 and k == h and mode == "plain"
+                record("actq", case, err, ok, t_k, t_p, tol, rep=rep,
+                       work=work)
+                blocks = qk.actq_plan(m, k, mode)
+                t_f = timer(lambda: qk.launch_floor(blocks))
+                b_ms, b_by = bound_ms(*work)
+                stats = summary["actq"]
+                stats.setdefault("shapes", {})[
+                    f"{mode} M={m} K={k} kq={kq}"] = dict(
+                        ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
+                        blocks=blocks, launch_floor_ms=t_f)
+                if rep:
+                    stats["launch_floor_ms"] = t_f
+                log(f"  {'':13s} {blocks} blocks, launch floor {t_f:.4f} "
+                    f"ms, bound {b_ms:.3g} ms ({b_by}, {work[1]:.4g} B), "
+                    f"{work[1] / t_k / 1e6:.1f} GB/s")
+                del a, w, xa, gx, pa, pg
 
     # w8 and w4 GEMMs at the five weights of the path, the w4 pack of the
     # same weight held bitwise against the w8 GEMM
@@ -1186,11 +1216,10 @@ def engine_run(cfg, card, failures):
     prompts = prompts_for(cfg)
 
     kernels = all_kernels()
-    for k in kernels:
-        k.launches = 0
+    reset_counts(kernels)
     out = eng.generate(prompts, NEW_TOKENS)
     torch.cuda.synchronize()
-    launches = {k.name: k.launches for k in kernels}
+    launches = launch_counts(kernels)
     log(f"  launches in generate(): {launches}")
     for name in GENERATE_KERNELS:
         if launches[name] <= 0:
@@ -1255,6 +1284,21 @@ def engine_run(cfg, card, failures):
     del eng, state, logits
     torch.cuda.empty_cache()
     return launches, qparams, calib
+
+
+def reset_counts(kernels) -> None:
+    """Set every kernel's launch counts to 0 (before a path's run)."""
+    for k in kernels:
+        k.reset()
+
+
+def launch_counts(kernels) -> dict:
+    """Each kernel's launches since reset_counts, by name, and actq's
+    split by M (rows a launch) under "actq_by_m"."""
+    from arcquant_tpu_torch.kernels import quantize as qk
+    counts = {k.name: k.launches for k in kernels}
+    counts["actq_by_m"] = dict(sorted(qk.ACTQ.by_m.items()))
+    return counts
 
 
 def all_kernels():
@@ -1328,11 +1372,10 @@ def w4_run(cfg, card, qparams8, calib, failures):
     torch.cuda.reset_peak_memory_stats()
     prompts = prompts_for(cfg)
     kernels = all_kernels()
-    for k in kernels:
-        k.launches = 0
+    reset_counts(kernels)
     out = eng.generate(prompts, NEW_TOKENS)
     torch.cuda.synchronize()
-    launches = {k.name: k.launches for k in kernels}
+    launches = launch_counts(kernels)
     log(f"  launches in generate(): {launches}")
     for name in W4_KERNELS:
         if launches[name] <= 0:
@@ -1475,11 +1518,10 @@ def free_run(cfg, card, failures):
     torch.cuda.reset_peak_memory_stats()
     prompts = prompts_for(cfg)
     kernels = all_kernels()
-    for k in kernels:
-        k.launches = 0
+    reset_counts(kernels)
     out = eng.generate(prompts, NEW_TOKENS)
     torch.cuda.synchronize()
-    launches = {k.name: k.launches for k in kernels}
+    launches = launch_counts(kernels)
     log(f"  launches in generate(): {launches}")
     for name in FREE_KERNELS:
         if launches[name] <= 0:
@@ -1580,12 +1622,11 @@ def lab_run(card, failures):
 
     lab = bl.Lab(log=log)
     kernels = all_kernels()
-    for k in kernels:
-        k.launches = 0
+    reset_counts(kernels)
     bl.exp_shapes(lab)
     rows = bl.best_by_site(lab)
     torch.cuda.synchronize()
-    launches = {k.name: k.launches for k in kernels}
+    launches = launch_counts(kernels)
     log(f"  launches in the lab: {launches}")
     for name in LAB_KERNELS:
         if launches[name] <= 0:
@@ -1635,12 +1676,11 @@ def bench_e2e_run(card, failures):
              "1024", "--decode_steps", str(NEW_TOKENS), "--warmup", "1",
              "--repeats", "3", "--quant", quant])
         kernels = all_kernels()
-        for k in kernels:
-            k.launches = 0
+        reset_counts(kernels)
         t0 = time.perf_counter()
         r = be.run(args)
         torch.cuda.synchronize()
-        launches = {k.name: k.launches for k in kernels}
+        launches = launch_counts(kernels)
         log(f"  benchmark_e2e --quant {quant} ({r['layers']} layers) in "
             f"{time.perf_counter() - t0:.1f} s:")
         for line in be.lines(r):
@@ -1675,11 +1715,10 @@ def _moe_generate(eng, cfg, fmt, card, failures):
     inner = eng.decode_step
     eng.decode_step = lambda *a: steps.append(1) or inner(*a)
     kernels = all_kernels()
-    for k in kernels:
-        k.launches = 0
+    reset_counts(kernels)
     out = eng.generate(prompts, NEW_TOKENS)
     torch.cuda.synchronize()
-    launches = {k.name: k.launches for k in kernels}
+    launches = launch_counts(kernels)
     del eng.decode_step
     log(f"  launches in generate(): {launches}")
     what = f"the MoE {fmt} generate()"
@@ -1936,8 +1975,7 @@ def moe_serve_run(card, failures):
     bodies = [dict(prompt=rng.integers(0, cfg.vocab_size, n).tolist(),
                    max_tokens=NEW_TOKENS) for n in (1500, 700, 40, 12)]
     kernels = all_kernels()
-    for k in kernels:
-        k.launches = 0
+    reset_counts(kernels)
     t0 = time.perf_counter()
     clients = [Client(srv.server_address[1], b) for b in bodies]
     for c in clients:
@@ -1946,7 +1984,7 @@ def moe_serve_run(card, failures):
         c.join(timeout=900)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k.name: k.launches for k in kernels}
+    launches = launch_counts(kernels)
     peak = torch.cuda.max_memory_allocated()
     health = _get_stats(srv.server_address[1])
     srv.shutdown()
@@ -2229,8 +2267,7 @@ def serving_run(cfg, qparams, calib, card, failures):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels = all_kernels()
-    for k in kernels:
-        k.launches = 0
+    reset_counts(kernels)
     t0 = time.perf_counter()
     clients = [Client(port, b) for b in wave1 + sharers[:1]]
     for c in clients:
@@ -2253,7 +2290,7 @@ def serving_run(cfg, qparams, calib, card, failures):
         c.join(timeout=900)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k.name: k.launches for k in kernels}
+    launches = launch_counts(kernels)
     peak = torch.cuda.max_memory_allocated()
     health = _get_stats(port)
     srv.shutdown()
@@ -2641,19 +2678,25 @@ def main() -> int:
     # launches: over the ten main paths, the ARC generate(), the HTTP
     # server, the w4 generate(), the select-free generate(), the MoE
     # model's w8 and w4 generate() and HTTP server, benchmark_e2e in NVFP4
-    # and BF16, and the GEMM lab
+    # and BF16, and the GEMM lab; actq's also by M
+    path_launches = dict(
+        generate=gen_launches, serve=serve_launches, generate_w4=w4_launches,
+        generate_select_free=free_launches,
+        generate_moe=moe_launches["w8"], generate_moe_w4=moe_launches["w4"],
+        serve_moe=moe_serve_launches, bench_e2e_nvfp4=e2e_launches["NVFP4"],
+        bench_e2e_bf16=e2e_launches["BF16"], gemm_lab=lab_launches)
+    actq_by_m = {p: c["actq_by_m"] for p, c in path_launches.items()}
+    by_m = {}
+    for c in actq_by_m.values():
+        for m, n in c.items():
+            by_m[m] = by_m.get(m, 0) + n
+    log(f"actq launches by M over the ten paths: "
+        f"{dict(sorted(by_m.items()))}; by path: {actq_by_m}")
+    summary["actq"]["launches_by_m"] = dict(sorted(by_m.items()))
     kernels = []
     for name, (src, replaces) in KERNEL_INFO.items():
         s = summary[name]
-        paths = dict(generate=gen_launches[name], serve=serve_launches[name],
-                     generate_w4=w4_launches[name],
-                     generate_select_free=free_launches[name],
-                     generate_moe=moe_launches["w8"][name],
-                     generate_moe_w4=moe_launches["w4"][name],
-                     serve_moe=moe_serve_launches[name],
-                     bench_e2e_nvfp4=e2e_launches["NVFP4"][name],
-                     bench_e2e_bf16=e2e_launches["BF16"][name],
-                     gemm_lab=lab_launches[name])
+        paths = {p: c[name] for p, c in path_launches.items()}
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=sum(paths.values()), launches_by_path=paths,
@@ -2661,7 +2704,8 @@ def main() -> int:
             plain_ms=s["plain_ms"], bound_ms=s["bound_ms"],
             bound_by=s["bound_by"], library_ms=s["library_ms"],
             **{k: s[k] for k in ("chain_ms", "w4_ms", "w4_bound_ms",
-                                 "w4_chain_ms", "large_m", "small_m")
+                                 "w4_chain_ms", "large_m", "small_m",
+                                 "shapes", "launch_floor_ms", "launches_by_m")
                  if k in s},
             shape=s["shape"], card=card))
     print(json.dumps({"kernels": kernels}))

@@ -45,23 +45,95 @@ def assert_one_e2m1_step(a, g, ga, gg):
     np.testing.assert_allclose(to_numpy(ga), to_numpy(gg), rtol=1e-2)
 
 
-@pytest.mark.parametrize("mode", ["plain", "rmsnorm", "silu_mul"])
-@pytest.mark.parametrize("m,k", [(4, 3584), (257, 512)])
-def test_actq(mode, m, k):
-    """Bit-exact for plain and silu_mul; rmsnorm within one e2m1 step."""
-    require_cuda()
-    rng = np.random.default_rng(30)
+def _actq_input(rng, m, k, mode, lda_pad=0):
+    """[m, k] rows (gate and up for silu_mul), in a buffer whose row
+    stride is lda_pad columns wider; the norm weight for rmsnorm."""
     width = 2 * k if mode == "silu_mul" else k
-    a = _bf16(outlier_x(rng, m, width, scale=4.0))
+    a = _bf16(outlier_x(rng, m, width + lda_pad, scale=4.0))[:, :width]
     w = _bf16(rng.standard_normal(k) * 0.1 + 1) if mode == "rmsnorm" else None
+    return a, w
+
+
+# M 1 to 4096 (the decode rows, one past a 256-row multiple, a prefill),
+# Qwen2.5-7B's hidden and intermediate widths (K 18944 runs past the
+# kept passes into shared memory) and K 512; rows with a stride wider
+# than their width at M 4 and 257
+ACTQ_SHAPES = [(1, 3584), (4, 3584), (16, 3584), (257, 512), (257, 3584),
+               (4096, 3584), (4, 18944), (16, 18944), (4096, 18944)]
+
+
+@pytest.mark.parametrize("mode", ["plain", "rmsnorm", "silu_mul"])
+@pytest.mark.parametrize("m,k", ACTQ_SHAPES)
+def test_actq(mode, m, k):
+    """Bit-exact for plain and silu_mul; rmsnorm within one e2m1 step of
+    the plain version (and bitwise the kernel-order emulation), with kq
+    past k (ARC padding) and, at M 4 and 257, a row stride past the
+    row."""
+    require_cuda()
+    rng = np.random.default_rng(30 + m + k)
+    a, w = _actq_input(rng, m, k, mode, lda_pad=64 if m in (4, 257) else 0)
     args = dict(mode=mode, k=k, kq=packing.pad_kq(k, 64), eps=1e-6)
     xa, gx = qk._actq_cuda(a, w, **args)
     pa, pg = qk.actq_plain(a, w, **args)
     torch.cuda.synchronize()
     if mode == "rmsnorm":
         assert_one_e2m1_step(xa, pa, gx, pg)
-    else:
-        assert torch.equal(xa, pa) and torch.equal(gx, pg)
+        pa, pg = qk.actq_kernel_order(a, w, **args)
+    assert torch.equal(xa, pa) and torch.equal(gx, pg)
+
+
+@pytest.mark.parametrize("mode", ["plain", "rmsnorm", "silu_mul"])
+def test_actq_copies_rows_it_cannot_load(mode):
+    """Rows that start off 16 bytes, with an odd row stride: the wrapper
+    copies them for the kernel's 16-byte loads, with the same bits; the
+    fused gemm_actq takes the same view bit for bit its chain."""
+    require_cuda()
+    rng = np.random.default_rng(90)
+    m, k = 5, 3584
+    width = 2 * k if mode == "silu_mul" else k
+    buf = _bf16(outlier_x(rng, m, width + 1, scale=4.0))
+    a = buf[:, 1:]
+    assert a.data_ptr() % 16 and a.stride(0) % 8
+    w = _bf16(rng.standard_normal(k) * 0.1 + 1) if mode == "rmsnorm" else None
+    args = dict(mode=mode, k=k, kq=k + 64, eps=1e-6)
+    got = qk._actq_cuda(a, w, **args)
+    want = qk.actq_kernel_order(a, w, **args)
+    torch.cuda.synchronize()
+    assert_bitwise(got, want)
+    if mode != "silu_mul":
+        pw = packing.pack_weight_arc(
+            _bf16(outlier_x(rng, 640, k) * k ** -0.5),
+            torch.arange(k).cuda(), 0, w_scale="channel")
+        fargs = (a, pw, k, torch.bfloat16, w, 1e-6)
+        got = mf._gemm_actq_cuda(*fargs)
+        want = mf.gemm_actq_chain(*fargs)
+        torch.cuda.synchronize()
+        assert_bitwise(got, want)
+
+
+@pytest.mark.parametrize("m,k", [(1, 512), (4, 3584), (16, 3584),
+                                 (300, 3584), (4, 18944), (2048, 4096)])
+def test_actq_rmsnorm_bits_equal_kernel_order(m, k):
+    """The card's rmsnorm output bit for bit the emulation of its sum
+    order (quantize.actq_kernel_order, tests/test_torch_actq_order.py),
+    run on the card: the order is a function of K alone, so no plan
+    moves a bit. Each shape at the wrapper's plan and at one block a
+    row."""
+    require_cuda()
+    rng = np.random.default_rng(50 + m)
+    a, w = _actq_input(rng, m, k, "rmsnorm")
+    args = dict(mode="rmsnorm", k=k, kq=k + 128, eps=1e-5)
+    want = qk.actq_kernel_order(a, w, **args)
+    got = qk._actq_cuda(a, w, **args)
+    plan = qk.actq_plan
+    try:
+        qk.actq_plan = lambda m_, k_, mode_: m_
+        one = qk._actq_cuda(a, w, **args)
+    finally:
+        qk.actq_plan = plan
+    torch.cuda.synchronize()
+    assert_bitwise(got, want)
+    assert_bitwise(one, want)
 
 
 def assert_summation_order_close(y, ref, out_f32):
@@ -470,6 +542,38 @@ def test_megakernels_plain_loads(m):
     torch.cuda.synchronize()
     assert got[0].shape == (m, d2)
     assert_bitwise(got, want)
+
+
+@pytest.mark.parametrize("m", [4, 8, 16])
+def test_megakernels_phase_a_spread(m, monkeypatch):
+    """Phase A over the grid at Qwen2.5-7B's hidden width (D 3584): the
+    wrapper's plan, one block, one a row and the whole grid all give
+    gemm_actq (rmsnorm and plain) and mlp_w8 (norm mode) bit for bit
+    their chain."""
+    require_cuda()
+    rng = np.random.default_rng(110 + m)
+    d, n, f = 3584, 1200, 1024
+    w = _bf16(outlier_x(rng, n, d) * d ** -0.5)
+    pw = packing.pack_weight_arc(w, torch.arange(d).cuda(), 0,
+                                 w_scale="channel")
+    pw_gu, pw_dn = _w8_pair(rng, d, f, bias=False)
+    x = _bf16(outlier_x(rng, m, d, scale=4.0))
+    nw = _bf16(rng.standard_normal(d) * 0.1 + 1)
+    for blocks in (None, 1, m, 396):
+        if blocks is not None:
+            monkeypatch.setattr(mf, "phase_a_blocks",
+                                lambda m_, d_, mode_, b=blocks: b)
+        for norm_w in (nw, None):
+            args = (x, pw, d, torch.bfloat16, norm_w, 1e-6)
+            got = mf._gemm_actq_cuda(*args)
+            want = mf.gemm_actq_chain(*args)
+            torch.cuda.synchronize()
+            assert_bitwise(got, want)
+        args = (x, None, pw_gu, pw_dn, f, torch.bfloat16, nw, 1e-6)
+        got = mf._mlp_w8_cuda(*args)
+        want = mf.mlp_w8_chain(*args)
+        torch.cuda.synchronize()
+        assert_bitwise(got, want)
 
 
 def test_fused_kernels_refuse_what_they_do_not_take():
