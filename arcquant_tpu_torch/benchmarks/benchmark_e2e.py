@@ -11,7 +11,9 @@ and throughput of the engine on a named model config with dummy weights.
 The JAX script's flags, defaults, QuantConfig and protocol: warm-up
 runs, then each repeat builds a fresh pool (``new_state``) outside the
 clock, prefills the batch and decodes ``decode_steps`` greedy steps with
-each step's token fed back (``decode_scan``). Each phase is timed on
+each step's token fed back (``decode_scan``: on the card, replays of
+the decode step's CUDA graph, which is captured for each pool outside
+the clock, as the JAX script's jit compiles in its warm-up). Each phase is timed on
 the host clock between ``torch.cuda.synchronize()`` calls: wall time,
 the port's counterpart of the JAX script's host fetch (no round trip is
 subtracted). Times are mean +- 1.96 sigma over the repeats, as there;
@@ -112,14 +114,20 @@ def run(args) -> dict:
     def decode(state):
         return eng.decode_scan(state, dec_toks, active, args.decode_steps)
 
+    def new_state():
+        """A fresh pool, with its decode graph captured (0 steps)."""
+        state = eng.new_state()
+        eng.decode_scan(state, dec_toks, active, 0)
+        return state
+
     for _ in range(args.warmup):
-        _, state = eng.prefill(eng.new_state(), toks, lens)
+        _, state = eng.prefill(new_state(), toks, lens)
         decode(state)
     sync()
     mem.reset_peak()
     prefill_ts, decode_ts, e2e_ts = [], [], []
     for _ in range(args.repeats):
-        state0 = eng.new_state()       # pool allocation: set-up, unclocked
+        state0 = new_state()           # set-up, unclocked
         sync()
         t0 = time.perf_counter()
         logits, state = eng.prefill(state0, toks, lens)

@@ -21,9 +21,20 @@
     BF16) keep the bf16 LM head, an f32-accumulated product with f32
     logits.
 
-PyTorch runs eagerly, so there is no jit. The pool is preallocated by
-``new_state`` and every step writes into it in place (the JAX engine's
-buffer donation); the returned state holds the same tensors.
+PyTorch runs eagerly: prefill runs op by op. The pool is preallocated
+by ``new_state`` and every step writes into it in place (the JAX
+engine's buffer donation); the returned state holds the same tensors.
+
+Decode is the JAX engine's jitted ``decode_step`` and on-device
+``decode_scan``: on the card, one decode step (the forward, the greedy
+or sampled next token, the eos update) is captured once as a CUDA graph
+over persistent buffers and replayed, ``decode_scan`` replaying it once
+a step with no host read between steps. The graphs are keyed by the
+state's tensors, the route and the sampling parameters (at most
+``GRAPH_CACHE`` kept); the seed, the eos id and the step count are
+device values or replay counts. ``cuda_graphs=False`` keeps the eager
+loop, the graphs' A/B reference; on the CPU the same body runs
+eagerly.
 
 Where the JAX engine's gates engage its decode megakernels
 (kernels/mlp_fused.py: W4A4 sites of 4 to 16 rows, per-row scales, w8
@@ -44,6 +55,10 @@ experts' gate/up, the batched GEMM for their down projections) up to
 
 from __future__ import annotations
 
+import collections
+import sys
+import time
+import traceback
 from dataclasses import dataclass
 from typing import List, Optional
 
@@ -52,7 +67,7 @@ import torch
 
 from ..cache import paged
 from ..config import KV_PAGE_SIZE, ModelConfig, QuantConfig
-from ..kernels import attention, gemm as gk
+from ..kernels import _build, attention, gemm as gk
 from ..kernels import mlp_fused as mf
 from ..kernels import paged_decode as pdk
 from ..kernels import quantize as qk
@@ -60,6 +75,15 @@ from ..models import llama, moe, quantized
 from ..quant import numerics as N
 from ..quant import packing
 from . import sampling as smp
+
+# Captured decode graphs an engine keeps (the least recently used goes
+# first): a batcher holds one state for its life, generate() makes one
+# per call, and the allocator often hands a new state the freed one's
+# addresses, which hit the cache.
+GRAPH_CACHE = 4
+# Steps of next tokens the decode body's out-buffer holds: decode_scan
+# copies it out (on the device) after every SCAN_CHUNK steps.
+SCAN_CHUNK = 64
 
 
 @dataclass(frozen=True)
@@ -247,6 +271,53 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+def _state_key(state) -> tuple:
+    """The addresses of a state's tensors (every layer's pool, the page
+    table, seq_lens): a graph captured on them is right for any state
+    at the same addresses."""
+    cache, pt, seq_lens = state
+    return tuple(t.data_ptr()
+                 for t in (*cache.codes, *cache.params, pt, seq_lens))
+
+
+@dataclass
+class _DecodeIO:
+    """The persistent buffers the decode body reads and writes in place."""
+    tokens: torch.Tensor            # [B] i32: fed in; the next tokens out
+    active: torch.Tensor            # [B] bool: eos retires a slot
+    eos: torch.Tensor               # [1] i32: the eos id, -1 for none
+    step: torch.Tensor              # [1] i64: the out column written next
+    out: torch.Tensor               # [B, SCAN_CHUNK] i32: next tokens
+    logits: Optional[torch.Tensor] = None   # [B, V] f32 of the last step
+
+    @classmethod
+    def new(cls, b: int, device) -> "_DecodeIO":
+        def z(*shape, dtype=torch.int32):
+            return torch.zeros(shape, dtype=dtype, device=device)
+        return cls(z(b), z(b, dtype=torch.bool),
+                   torch.full((1,), -1, dtype=torch.int32, device=device),
+                   z(1, dtype=torch.int64), z(b, SCAN_CHUNK))
+
+
+@dataclass
+class _DecodeGraph:
+    """One decode body: its buffers, its sampling and generator, and on
+    the card the captured graph with the launches it holds."""
+    io: _DecodeIO
+    sampling: Optional[smp.SamplingParams]
+    gen: Optional[torch.Generator]
+    graph: Optional["torch.cuda.CUDAGraph"] = None
+    launches: Optional[_build.GraphLaunches] = None
+
+
+def _failed_at(e: BaseException) -> str:
+    """The innermost frame of the error that broke a capture, as
+    file:line: source. A failed capture's end raises an error of its
+    own, whose context is the op's."""
+    f = traceback.extract_tb((e.__context__ or e).__traceback__)[-1]
+    return f"{f.filename}:{f.lineno}: {f.line}"
+
+
 class InferenceEngine:
     """Quantized decoder engine over a paged int4 KV cache.
 
@@ -264,14 +335,26 @@ class InferenceEngine:
 
     fused_decode=False keeps every site on the unfused chain (the A/B
     reference of the decode megakernels); by default the megakernels run
-    where the JAX engine's gates engage them."""
+    where the JAX engine's gates engage them.
+
+    cuda_graphs=False decodes with the eager loop (the A/B reference of
+    the captured step); by default a decode step on the card replays a
+    CUDA graph (module docstring). A capture or replay that fails
+    raises. ``drop_graphs()`` forgets the captured steps (after patching
+    a kernel entry point, say)."""
 
     def __init__(self, cfg: ModelConfig, params, calib, qcfg: QuantConfig,
                  ecfg: EngineConfig, device="cuda",
-                 quantize_params: bool = True, fused_decode: bool = True):
+                 quantize_params: bool = True, fused_decode: bool = True,
+                 cuda_graphs: bool = True):
         quantized.check_qcfg(qcfg, cfg)
         self.cfg, self.qcfg, self.ecfg = cfg, qcfg, ecfg
         self.fused_decode = fused_decode
+        self.cuda_graphs = cuda_graphs
+        self._graphs = collections.OrderedDict()
+        self._capture_stream = None
+        # one entry per capture: capture_ms, pool_bytes, launches
+        self.graph_captures: List[dict] = []
         # hybrid serving mode: the prefill forwards quantize with this,
         # decode with qcfg
         self.qcfg_prefill = (qcfg.replace(act_bits=qcfg.prefill_act_bits)
@@ -293,9 +376,10 @@ class InferenceEngine:
     @classmethod
     def dummy(cls, cfg: ModelConfig, calib, qcfg: QuantConfig,
               ecfg: EngineConfig, seed: int = 0, device="cuda",
-              dtype=torch.bfloat16) -> "InferenceEngine":
+              dtype=torch.bfloat16, **kw) -> "InferenceEngine":
         """Random ("dummy") weights from `seed`, packed layer by layer so
-        the full bf16 model never exists at once (BF16: bf16 layers)."""
+        the full bf16 model never exists at once (BF16: bf16 layers).
+        kw: the constructor's switches (fused_decode, cuda_graphs)."""
         device = resolve_device(device)
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
@@ -315,7 +399,7 @@ class InferenceEngine:
                                             device=device),
                    "layers": layers}
         return cls(cfg, qparams, calib, qcfg, ecfg, device=device,
-                   quantize_params=False)
+                   quantize_params=False, **kw)
 
     def _head_logits(self, x2d: torch.Tensor) -> torch.Tensor:
         """LM head, f32 logits: the W4A16 packed GEMM (x padded to kq,
@@ -475,19 +559,16 @@ class InferenceEngine:
                                                            lg, logits)
         return logits
 
-    @torch.no_grad()
-    def decode_step(self, state, tokens, active):
-        """One decode step for every active slot. tokens [B] i32, active
-        [B] bool. Returns (logits [B, V] f32, state)."""
-        cache, pt, seq_lens = state
-        tokens = torch.as_tensor(tokens, device=self.device).long()
-        active = torch.as_tensor(active, device=self.device).bool()
+    def _decode_forward(self, cache, pt, seq_lens, tokens, active):
+        """The decode forward of tokens [B] (device) for the active [B]
+        slots: returns logits [B, V] f32 and advances seq_lens in place.
+        Reads nothing back to the host."""
         positions = seq_lens.long()[:, None]                   # [B, 1]
         cos, sin = llama.rope_cos_sin(self.cfg, positions, self.inv_freq)
         append_pos = torch.where(active[:, None], positions,
                                  torch.full_like(positions, -1))
         new_lens = seq_lens + active.to(torch.int32)
-        x = self.qparams["embed"][tokens[:, None]]
+        x = self.qparams["embed"][tokens.long()[:, None]]
         x = self._layers(
             x, cos, sin, cache, pt, append_pos,
             lambda li, q, k, v: pdk.paged_decode(
@@ -495,7 +576,118 @@ class InferenceEngine:
             self.qcfg)
         logits = self._head_logits(x[:, 0])
         seq_lens.copy_(new_lens)
-        return logits, (cache, pt, seq_lens)
+        return logits
+
+    def _decode_body(self, state, io: _DecodeIO, sampling, gen) -> None:
+        """One decode step on the persistent buffers, in place: the
+        forward of io.tokens for io.active, then the eager loop's next
+        token (argmax, or a draw from gen under sampling; inactive slots
+        keep theirs), io.active cleared where it is io.eos, the next
+        tokens into io.tokens and into io.out at column io.step, which
+        advances (modulo SCAN_CHUNK). The logits stay in io.logits."""
+        cache, pt, seq_lens = state
+        io.logits = self._decode_forward(cache, pt, seq_lens, io.tokens,
+                                         io.active)
+        nxt = torch.where(io.active, self._sample(io.logits, sampling, gen),
+                          io.tokens)
+        io.active &= nxt != io.eos
+        io.tokens.copy_(nxt)
+        io.out.index_copy_(1, io.step, nxt[:, None])
+        io.step.add_(1).remainder_(SCAN_CHUNK)
+
+    def drop_graphs(self) -> None:
+        """Forget every captured decode step: the next one captures anew
+        (needed after patching a function the step calls)."""
+        self._graphs.clear()
+
+    def _decode_graph(self, state, sampling) -> _DecodeGraph:
+        """The decode body of (state, route, sampling), captured on first
+        use (the least recently used one dropped beyond GRAPH_CACHE)."""
+        key = (_state_key(state), self.fused_decode, sampling)
+        g = self._graphs.pop(key, None)
+        if g is None:
+            while len(self._graphs) >= GRAPH_CACHE:
+                self._graphs.popitem(last=False)
+            g = self._capture(state, sampling)
+        self._graphs[key] = g
+        return g
+
+    def _capture(self, state, sampling) -> _DecodeGraph:
+        """New buffers for the decode body and, on the card, its graph.
+
+        A warm-up step runs first on the capture stream with every slot
+        inactive (its appends go to the sink page, seq_lens stay): it
+        builds the kernels and runs every lazy initialisation (the
+        kernels' shared-memory attributes, cuBLAS's workspace, constant
+        tables) outside the capture. The capture is in the default
+        global mode; the generator of a sampled body is registered with
+        the graph, so each replay draws the next numbers."""
+        b = state[2].shape[0]
+        io = _DecodeIO.new(b, self.device)
+        gen = (None if sampling is None
+               else torch.Generator(device=self.device))
+        if self.device.type != "cuda":
+            return _DecodeGraph(io, sampling, gen)
+        if self._capture_stream is None:
+            self._capture_stream = torch.cuda.Stream(self.device)
+        stream = self._capture_stream
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(stream):
+            self._decode_body(state, io, sampling, gen)
+        torch.cuda.current_stream(self.device).wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        if gen is not None:
+            graph.register_generator_state(gen)
+        torch.cuda.synchronize(self.device)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(self.device)
+        launches = _build.GraphLaunches()
+        current = torch.cuda.current_stream(self.device)
+        t0 = time.perf_counter()
+        try:
+            with launches, torch.cuda.graph(graph, stream=stream):
+                self._decode_body(state, io, sampling, gen)
+        except Exception as e:
+            torch.cuda.set_stream(current)    # a failed capture keeps it
+            raise RuntimeError(
+                f"capturing the decode step as a CUDA graph failed at "
+                f"{_failed_at(e)}: {e}") from e
+        rec = dict(capture_ms=(time.perf_counter() - t0) * 1e3,
+                   pool_bytes=torch.cuda.memory_reserved(self.device)
+                   - reserved, launches=launches.total)
+        self.graph_captures.append(rec)
+        print(f"decode step captured as a CUDA graph in "
+              f"{rec['capture_ms']:.1f} ms: {rec['launches']} kernel "
+              f"launches, graph pool {rec['pool_bytes'] / 2 ** 20:.1f} MiB",
+              file=sys.stderr)
+        return _DecodeGraph(io, sampling, gen, graph, launches)
+
+    def _replay(self, g: _DecodeGraph, state) -> None:
+        """One decode step of g: its graph's replay (counting its kernel
+        launches), or on the CPU its body run eagerly."""
+        if g.graph is None:
+            self._decode_body(state, g.io, g.sampling, g.gen)
+            return
+        g.graph.replay()
+        g.launches.replayed()
+
+    @torch.no_grad()
+    def decode_step(self, state, tokens, active):
+        """One decode step for every active slot. tokens [B] i32, active
+        [B] bool. Returns (logits [B, V] f32, state); on the card a copy
+        of the graph's logits, which its next replay overwrites."""
+        if not self.cuda_graphs:
+            cache, pt, seq_lens = state
+            tokens = torch.as_tensor(tokens, device=self.device)
+            active = torch.as_tensor(active, device=self.device).bool()
+            return (self._decode_forward(cache, pt, seq_lens, tokens,
+                                         active), state)
+        g = self._decode_graph(state, None)
+        g.io.tokens.copy_(torch.as_tensor(tokens))
+        g.io.active.copy_(torch.as_tensor(active))
+        self._replay(g, state)
+        logits = g.io.logits
+        return (logits if g.graph is None else logits.clone()), state
 
     def _generator(self, seed: int) -> torch.Generator:
         g = torch.Generator(device=self.device)
@@ -509,27 +701,56 @@ class InferenceEngine:
             return logits.argmax(-1).to(torch.int32)
         return smp.sample_p(logits, gen, sampling)
 
+    @torch.no_grad()
     def decode_scan(self, state, first_tokens, active, num_steps: int,
                     eos_id: Optional[int] = None, sampling=None,
                     seed: int = 0):
-        """num_steps decode steps (a Python loop over decode_step), greedy
-        or sampled under `sampling` (an engine.sampling.SamplingParams)
-        with a generator seeded by `seed`. Slots that emit eos_id go
-        inactive. Returns (tokens [B, num_steps] i32, the token of each
-        step, repeating the last one after a slot retires; state)."""
-        toks = torch.as_tensor(first_tokens, device=self.device).to(
-            torch.int32)
-        act = torch.as_tensor(active, device=self.device).bool()
-        gen = self._generator(seed)
-        out = []
-        for _ in range(num_steps):
-            logits, state = self.decode_step(state, toks, act)
-            nxt = torch.where(act, self._sample(logits, sampling, gen), toks)
-            if eos_id is not None:
-                act = act & (nxt != eos_id)
-            toks = nxt
-            out.append(nxt)
-        return torch.stack(out, dim=1), state
+        """num_steps decode steps, greedy or sampled under `sampling` (an
+        engine.sampling.SamplingParams) with a generator seeded by
+        `seed`. Slots that emit eos_id go inactive. Returns (tokens
+        [B, num_steps] i32 on the device, the token of each step,
+        repeating the last one after a slot retires; state).
+
+        By default the decode body (sampling and the eos update inside)
+        replays num_steps times with no host read in between, and the
+        tokens are copied out on the device every SCAN_CHUNK steps (0
+        steps only captures the state's graph); cuda_graphs=False runs
+        the eager loop over decode_step."""
+        if not self.cuda_graphs:
+            toks = torch.as_tensor(first_tokens, device=self.device).to(
+                torch.int32)
+            act = torch.as_tensor(active, device=self.device).bool()
+            gen = self._generator(seed)
+            out = []
+            for _ in range(num_steps):
+                logits, state = self.decode_step(state, toks, act)
+                nxt = torch.where(act, self._sample(logits, sampling, gen),
+                                  toks)
+                if eos_id is not None:
+                    act = act & (nxt != eos_id)
+                toks = nxt
+                out.append(nxt)
+            if not out:
+                return toks[:, None][:, :0], state
+            return torch.stack(out, dim=1), state
+        if sampling is not None and sampling.is_greedy:
+            sampling = None
+        g = self._decode_graph(state, sampling)
+        io = g.io
+        io.tokens.copy_(torch.as_tensor(first_tokens))
+        io.active.copy_(torch.as_tensor(active))
+        io.eos.fill_(-1 if eos_id is None else eos_id)
+        io.step.zero_()
+        if g.gen is not None:
+            g.gen.manual_seed(seed)
+        parts = []
+        for i in range(num_steps):
+            self._replay(g, state)
+            if (i + 1) % SCAN_CHUNK == 0 or i + 1 == num_steps:
+                parts.append(io.out[:, :i % SCAN_CHUNK + 1].clone())
+        if not parts:
+            return io.out[:, :0].clone(), state
+        return torch.cat(parts, dim=1), state
 
     # -- convenience -------------------------------------------------------
 

@@ -16,6 +16,7 @@ Warp order matches HF transformers: temperature -> top-k -> top-p
 
 from __future__ import annotations
 
+import numbers
 from dataclasses import dataclass
 from typing import Sequence
 
@@ -38,8 +39,10 @@ class SamplingParams:
 
 
 def _per_row(v, b: int, device) -> torch.Tensor:
-    """A python float or a [B] tensor -> a [B] f32 tensor on `device`."""
-    if isinstance(v, (int, float)):
+    """A Python (or numpy) number or a [B] tensor -> a [B] f32 tensor on
+    `device`; a number is a fill there, never a host-to-device copy
+    (which a CUDA graph capture refuses)."""
+    if isinstance(v, numbers.Real):
         return torch.full((b,), float(v), dtype=torch.float32, device=device)
     return torch.as_tensor(v, dtype=torch.float32, device=device).expand(b)
 

@@ -180,7 +180,7 @@ class ContinuousBatcher:
         if spec_window or drafter is not None:
             raise NotImplementedError(
                 "spec_window > 0: speculative decoding (verify_step, "
-                "engine/spec.py) is not ported (ROADMAP queue 1 item 8, "
+                "engine/spec.py) is not ported (ROADMAP queue 1 item 3, "
                 "spec decoding)")
         self.engine = engine
         self.state = engine.new_state()

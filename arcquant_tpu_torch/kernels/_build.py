@@ -10,7 +10,8 @@ ever falls back to its plain PyTorch version on a CUDA tensor.
 
 Every C entry point launches on the stream it is given, allocates
 nothing, and returns ``cudaGetLastError()``; ``Kernel.__call__`` raises
-if that is not 0 and otherwise counts the launch.
+if that is not 0 and otherwise counts the launch (``GraphLaunches``
+keeps the counts right under CUDA graph capture and replay).
 """
 
 from __future__ import annotations
@@ -33,6 +34,9 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "arcquant_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+
+# Every Kernel, in the order the modules made them.
+KERNELS: list = []
 
 # Toolkit roots searched after PATH and CUDA_HOME.
 CUDA_ROOTS = ("/usr/local/cuda",)
@@ -105,9 +109,13 @@ class Kernel:
     """One C entry point of the library, with its launch count.
 
     ``launches`` is incremented once per successful call, that is once
-    per launch of the kernel by its wrapper; nothing else touches it
-    except ``reset``. A wrapper that passes ``m`` (its row count) also
-    counts the launch under that M in ``by_m``."""
+    per launch of the kernel by its wrapper. A wrapper that passes ``m``
+    (its row count) also counts the launch under that M in ``by_m``.
+    Two other things touch them: ``reset``, and ``GraphLaunches``. A call
+    made while a CUDA graph is captured enqueues the kernel into the
+    graph and launches nothing, so GraphLaunches takes that count back
+    out when the capture ends and adds it again at every replay of the
+    graph: the counts stay launches on the card."""
 
     def __init__(self, name: str, symbol: str, argtypes):
         self.name = name
@@ -115,6 +123,7 @@ class Kernel:
         self.argtypes = list(argtypes)
         self.launches = 0
         self.by_m = collections.Counter()
+        KERNELS.append(self)
 
     def reset(self) -> None:
         """Set the counts to 0."""
@@ -134,6 +143,46 @@ class Kernel:
         self.launches += 1
         if m is not None:
             self.by_m[m] += 1
+
+
+class GraphLaunches:
+    """The kernel launches that one captured CUDA graph holds.
+
+    Enter it around the capture: the counts the wrappers add there
+    (calls that only enqueue into the graph) are taken back out when it
+    exits and kept as the graph's launches; ``replayed(n)`` adds them n
+    times, once for each replay of the graph."""
+
+    def __init__(self):
+        self.delta = []              # (kernel, launches, by_m) per kernel
+
+    def __enter__(self) -> "GraphLaunches":
+        self._before = [(k, k.launches, collections.Counter(k.by_m))
+                        for k in KERNELS]
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.delta = []
+        for k, n, by_m in self._before:
+            d, dm = k.launches - n, k.by_m - by_m
+            if d:
+                self.delta.append((k, d, dm))
+            k.launches = n
+            k.by_m.clear()
+            k.by_m.update(by_m)
+        return False
+
+    @property
+    def total(self) -> int:
+        """Launches of one replay."""
+        return sum(d for _, d, _ in self.delta)
+
+    def replayed(self, times: int = 1) -> None:
+        """Count `times` replays of the graph."""
+        for k, d, dm in self.delta:
+            k.launches += d * times
+            for m, c in dm.items():
+                k.by_m[m] += c * times
 
 
 P = ctypes.c_void_p

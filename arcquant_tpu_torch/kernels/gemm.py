@@ -35,6 +35,7 @@ bits on the same weight.
 
 from __future__ import annotations
 
+import numbers
 from typing import Optional, Union
 
 import torch
@@ -441,7 +442,7 @@ def gemm_dequant(xa: torch.Tensor, pw: Packed, gx,
     if not isinstance(pw, (PackedWeight, PackedWeightI8)):
         raise TypeError(f"gemm_dequant: not a packed weight: {type(pw)}")
     m, n = xa.shape[0], pw.n
-    if isinstance(gx, (int, float)):     # a fill, no host-to-device copy
+    if isinstance(gx, numbers.Real):     # a fill, no host-to-device copy
         gs = torch.full((m, 1), float(gx), dtype=torch.float32,
                         device=xa.device)
     else:
@@ -472,7 +473,7 @@ def gemm_dequant_batched(xa: torch.Tensor, pw: Packed, gx,
         raise TypeError("gemm_dequant_batched: not a stacked packed weight")
     e, m, _ = xa.shape
     n = pw.n
-    if isinstance(gx, (int, float)):
+    if isinstance(gx, numbers.Real):     # a fill, as gemm_dequant's
         gs = torch.full((e, m, 1), float(gx), dtype=torch.float32,
                         device=xa.device)
     else:

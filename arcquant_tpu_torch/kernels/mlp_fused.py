@@ -40,6 +40,7 @@ variable (0 turns the routes off); the engine's own switch is
 
 from __future__ import annotations
 
+import numbers
 from typing import Optional
 
 import torch
@@ -101,7 +102,12 @@ def _gw(pw: PackedWeightI8) -> torch.Tensor:
 
 
 def _rows_f32(gs, m: int, device) -> torch.Tensor:
-    """A per-row (or scalar) activation scale as [M, 1] f32."""
+    """A per-row (or scalar) activation scale as [M, 1] f32; a Python
+    number becomes a fill on `device`, never a host-to-device copy (which
+    a CUDA graph capture refuses)."""
+    if isinstance(gs, numbers.Real):
+        return torch.full((m, 1), float(gs), dtype=torch.float32,
+                          device=device)
     gs = torch.as_tensor(gs, dtype=torch.float32, device=device)
     return gs.reshape(-1, 1).expand(m, 1)
 

@@ -86,7 +86,7 @@ def build_loop(args):
     if os.path.isdir(args.model):
         raise NotImplementedError(
             "serving a checkpoint directory needs the HF loader "
-            "(models/hf.py), not ported (ROADMAP queue 1 item 9); pass a "
+            "(models/hf.py), not ported (ROADMAP queue 1 item 6); pass a "
             "registry name for dummy weights")
     device = "cpu" if args.cpu else "cuda"
     qcfg = QuantConfig(quant_type="NVFP4", use_kernels=True,

@@ -48,7 +48,12 @@ Phases, each printed as it runs:
      call a layer), decode tok/s and peak device memory
      while building the engine and while serving (every path's launch
      counts also split actq's by M, summed over the ten paths at the
-     end);
+     end); then [graph]: the engine's decode step captured as a CUDA
+     graph against the eager loop (cuda_graphs=False, the same weights):
+     every step's logits bitwise fed the same tokens, decode_scan's
+     tokens, decode ms/step of decode_scan in turns (loop, graph, graph,
+     loop), the capture's time and graph pool, and the device idle share
+     over 8 steps of each from torch.profiler;
   5. the HTTP server (engine/server.py over the continuous batcher) on
      the same 28 packed layers with serve.py's defaults (W4A16 prefill,
      W4A4 decode, prefill_chunk 512, dynamic pages, prefix sharing):
@@ -68,7 +73,7 @@ Phases, each printed as it runs:
      attn_in and o_in, the whole MLP), with the launch counts, prefill
      ms, decode ms/step, tok/s and peak memory; then the same weights in
      an engine with fused_decode=False fed the same tokens, whose logits
-     must be bitwise equal at every step;
+     must be bitwise equal at every step; then [graph] on it, as in 4;
   8. [bench_e2e]: arcquant_tpu_torch/benchmarks/benchmark_e2e.py's run()
      at Qwen2.5-7B, 28 layers, bs 4, prefill 1024, 32 decode steps, in
      the north-star configuration (NVFP4 select-free w8) and with --quant
@@ -92,6 +97,10 @@ Phases, each printed as it runs:
      layer chunked and suffix prefill, and the MoE engine at 1 layer (see
      engine_check, serving_engine_check and moe_engine_check for the
      bars).
+Every decode runs the captured step (InferenceEngine's default) except
+the eager references: the [graph] loops, and in 11 the plain versions
+and the MoE check's spied forwards. Kernel launch counts stay launches
+on the card: a replay counts the launches its graph holds.
 The second-to-last line is the kernels' JSON summary, the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero before the
 last line; without a CUDA device it exits 1 at once.
@@ -1251,6 +1260,7 @@ def engine_run(cfg, card, failures):
     cur = logits.argmax(-1).to(torch.int32)
     active = torch.ones(len(PROMPT_LENS), dtype=torch.bool)
     step_counts = []    # paged_decode calls a step: one a layer
+    capture(eng, state)
     t0 = time.perf_counter()
     for _ in range(NEW_TOKENS):
         before = pdk.PAGED_DECODE.launches
@@ -1280,10 +1290,139 @@ def engine_run(cfg, card, failures):
         logits_finite=finite, card=card)
     log(f"  engine {MODEL} {cfg.num_layers} layers bs=4: "
         f"{json.dumps(metrics)}")
+    del state, logits
+    log(f"[graph] ARC (select_frac {SELECT_FRAC}), {MODEL} full width, "
+        f"{cfg.num_layers} layers: the captured decode step against the "
+        f"eager loop, on {card}")
+    graph_check(eng, "ARC", card, failures)
     qparams = eng.qparams
-    del eng, state, logits
+    del eng
     torch.cuda.empty_cache()
     return launches, qparams, calib
+
+
+def _device_busy_ms(prof) -> tuple:
+    """(ms, count): the union of the device's activity intervals (kernels,
+    copies, fills) in a torch.profiler profile, and how many there were."""
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e3, len(spans)
+
+
+def graph_check(eng, label, card, failures):
+    """The [graph] phase on a 28-layer engine: its decode step captured
+    as a CUDA graph (eng, cuda_graphs=True) against the eager loop (the
+    same weights, cuda_graphs=False). Each engine decodes one state of
+    its own (one capture). Bitwise: fed the loop's greedy tokens for
+    NEW_TOKENS steps, every step's logits (decode_step); then decode_scan
+    of NEW_TOKENS steps after the same prefill, timed in turns (loop,
+    graph, graph, loop), whose tokens must agree in all four runs. Then
+    the capture's time and graph pool, and the device idle share over 8
+    decode_scan steps of each from torch.profiler (1 - the union of the
+    device's activity over the host's wall time of the profiled steps).
+    Returns the phase's metrics."""
+    from arcquant_tpu_torch.engine import InferenceEngine
+
+    loop = InferenceEngine(eng.cfg, eng.qparams, eng.calib, eng.qcfg,
+                           eng.ecfg, device=eng.device, quantize_params=False,
+                           fused_decode=eng.fused_decode, cuda_graphs=False)
+    engines = {"graph": eng, "loop": loop}
+    states = {k: e.new_state() for k, e in engines.items()}
+    toks, lens, _ = eng._pad_prompts(prompts_for(eng.cfg))
+    active = torch.ones(len(PROMPT_LENS), dtype=torch.bool,
+                        device=eng.device)
+    n_cap = len(eng.graph_captures)
+
+    def prefill(name):
+        logits, states[name] = engines[name].prefill(states[name], toks,
+                                                     lens)
+        return logits
+
+    steps, feed = {}, None
+    for name in ("loop", "graph"):
+        logits = prefill(name)
+        out, fed = [logits.clone()], []
+        for i in range(NEW_TOKENS):
+            cur = (logits.argmax(-1).to(torch.int32) if feed is None
+                   else feed[i])
+            fed.append(cur)
+            logits, states[name] = engines[name].decode_step(
+                states[name], cur, active)
+            out.append(logits.clone())
+        steps[name], feed = out, fed
+    same = [bool(torch.equal(_bits(a), _bits(b)))
+            for a, b in zip(steps["loop"], steps["graph"])]
+    caps = eng.graph_captures[n_cap:]
+    runs = {"loop": [], "graph": []}
+    for name in ("loop", "graph", "graph", "loop"):
+        first = prefill(name).argmax(-1).to(torch.int32)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, states[name] = engines[name].decode_scan(
+            states[name], first, active, NEW_TOKENS)
+        torch.cuda.synchronize()
+        runs[name].append((out, (time.perf_counter() - t0) * 1e3
+                           / NEW_TOKENS))
+    outs = [o for r in runs.values() for o, _ in r]
+    tok_same = all(torch.equal(outs[0], o) for o in outs[1:])
+    idle = {}
+    for name in ("loop", "graph"):
+        first = prefill(name).argmax(-1).to(torch.int32)
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            engines[name].decode_scan(states[name], first, active, 8)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        busy, n = _device_busy_ms(prof)
+        idle[name] = dict(wall_ms_per_step=round(wall / 8, 3),
+                          device_busy_ms_per_step=round(busy / 8, 3),
+                          device_idle_share=round(1 - busy / wall, 4),
+                          device_activities_per_step=n / 8)
+    ok = all(same) and tok_same and len(caps) == 1
+    log(f"  {label}: graph vs loop, fed the same tokens: logits bitwise "
+        f"equal at {sum(same)} of {len(same)} steps (prefill + {NEW_TOKENS} "
+        f"decode); decode_scan tokens equal in all four runs: {tok_same}; "
+        f"captures in the phase: {len(caps)} (bar: all, all, 1) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"[graph] {label}: bitwise at {same}, scan tokens "
+                        f"equal {tok_same}, captures {len(caps)}")
+    ms = {k: [round(t, 3) for _, t in v] for k, v in runs.items()}
+    metrics = dict(
+        decode_ms_per_step_in_turns=ms,
+        decode_ms_per_step=dict(
+            loop=round(statistics.mean(ms["loop"]), 3),
+            graph=round(statistics.mean(ms["graph"]), 3)),
+        speedup=round(statistics.mean(ms["loop"])
+                      / statistics.mean(ms["graph"]), 3),
+        capture_ms=[round(c["capture_ms"], 1) for c in caps],
+        graph_pool_mib=[round(c["pool_bytes"] / 2 ** 20, 1) for c in caps],
+        kernel_launches_per_step=[c["launches"] for c in caps],
+        profiled_8_steps=idle, card=card)
+    log(f"  [graph] {label} {MODEL} {eng.cfg.num_layers} layers bs=4: "
+        f"{json.dumps(metrics)}")
+    del loop, engines, states, steps, runs, outs
+    torch.cuda.empty_cache()
+    return metrics
+
+
+def capture(eng, state) -> None:
+    """Capture eng's decode step for state (a decode_scan of 0 steps:
+    the capture's warm-up step leaves every slot inactive) before a
+    timed decode, so the time is the replays'."""
+    b = eng.ecfg.max_batch
+    eng.decode_scan(state, torch.zeros(b, dtype=torch.int32),
+                    torch.zeros(b, dtype=torch.bool), 0)
+    torch.cuda.synchronize()
 
 
 def reset_counts(kernels) -> None:
@@ -1398,6 +1537,7 @@ def w4_run(cfg, card, qparams8, calib, failures):
     logits, state = eng.prefill(state, toks, lens)
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
+    capture(eng, state)
     t0 = time.perf_counter()
     for _ in range(NEW_TOKENS):
         logits, state = eng.decode_step(
@@ -1428,6 +1568,7 @@ def w4_run(cfg, card, qparams8, calib, failures):
                        steps=[logits.clone()])
             if not route:         # the bitwise A/B: decode, fed the same
                 fed = []
+                capture(e, state)
                 t0 = time.perf_counter()
                 for i in range(NEW_TOKENS):
                     cur = (logits.argmax(-1).to(torch.int32) if feed is None
@@ -1556,6 +1697,7 @@ def free_run(cfg, card, failures):
         torch.cuda.synchronize()
         prefill_ms = (time.perf_counter() - t0) * 1e3
         steps, fed = [logits.clone()], []
+        capture(e, state)
         t0 = time.perf_counter()
         for i in range(NEW_TOKENS):
             cur = (logits.argmax(-1).to(torch.int32) if feed is None
@@ -1602,7 +1744,11 @@ def free_run(cfg, card, failures):
         logits_finite=finite, card=card)
     log(f"  select-free engine {MODEL} {cfg.num_layers} layers bs=4: "
         f"{json.dumps(metrics)}")
-    del eng, chain, runs, fused, others
+    del chain, runs, fused, others
+    log(f"[graph] select-free, {MODEL} full width, {cfg.num_layers} layers: "
+        f"the captured decode step against the eager loop, on {card}")
+    graph_check(eng, "select-free", card, failures)
+    del eng
     torch.cuda.empty_cache()
     return launches
 
@@ -1716,10 +1862,13 @@ def _moe_generate(eng, cfg, fmt, card, failures):
     eng.decode_step = lambda *a: steps.append(1) or inner(*a)
     kernels = all_kernels()
     reset_counts(kernels)
+    n_cap = len(eng.graph_captures)
     out = eng.generate(prompts, NEW_TOKENS)
     torch.cuda.synchronize()
     launches = launch_counts(kernels)
     del eng.decode_step
+    # a capture's warm-up step is a dense-mode forward too
+    forwards = len(steps) + len(eng.graph_captures) - n_cap
     log(f"  launches in generate(): {launches}")
     what = f"the MoE {fmt} generate()"
     for name in MOE_KERNELS[fmt]:
@@ -1728,10 +1877,11 @@ def _moe_generate(eng, cfg, fmt, card, failures):
     for name in MOE_IDLE_KERNELS[fmt]:
         if launches[name] != 0:
             failures.append(f"kernel {name} launched by {what}")
-    want = cfg.num_layers * len(steps)
+    want = cfg.num_layers * forwards
     log(f"  gemm_batched launches {launches['gemm_batched']} over "
-        f"{len(steps)} decode steps of {cfg.num_layers} layers (bar: "
-        f"exactly {want}, one a layer a dense-mode forward) "
+        f"{len(steps)} decode steps and {forwards - len(steps)} capture "
+        f"warm-up step(s) of {cfg.num_layers} layers (bar: exactly "
+        f"{want}, one a layer a dense-mode forward) "
         f"{'ok' if launches['gemm_batched'] == want else 'FAIL'}")
     if launches["gemm_batched"] != want:
         failures.append(f"{what}: gemm_batched launched "
@@ -1764,6 +1914,7 @@ def _moe_generate(eng, cfg, fmt, card, failures):
         f"it starts with "
         f"{(torch.cuda.max_memory_allocated() - held) / 2 ** 30:.3f} GiB")
     finite = bool(torch.isfinite(logits).all())
+    capture(eng, state)
     t0 = time.perf_counter()
     for _ in range(NEW_TOKENS):
         logits, state = eng.decode_step(
@@ -1798,10 +1949,11 @@ def _moe_ab(eng, toks, lens, fmt, failures):
         for name in ("batched", "loop", "loop", "batched"):
             gk._gemm_batched_cuda = (real if name == "batched"
                                      else gk.gemm_batched_chain)
+            eng.drop_graphs()      # capture the step with this launcher
             n0 = gk.GEMM_BATCHED.launches
             logits, state = eng.prefill(eng.new_state(), toks, lens)
             steps, fed = [logits.clone()], []
-            torch.cuda.synchronize()
+            capture(eng, state)
             t0 = time.perf_counter()
             for i in range(NEW_TOKENS):
                 cur = (logits.argmax(-1).to(torch.int32) if feed is None
@@ -1816,6 +1968,7 @@ def _moe_ab(eng, toks, lens, fmt, failures):
             del state, logits
     finally:
         gk._gemm_batched_cuda = real
+        eng.drop_graphs()
     ref = runs[0][1]
     same = [all(bool(torch.equal(_bits(x), _bits(r[1][i]))) for r in runs[1:])
             for i, x in enumerate(ref)]
@@ -2050,7 +2203,9 @@ def moe_engine_check(cfg, failures):
     experts, and a bf16 ulp of a row's largest element moves the row's
     global scale and so every element of it.
     Then dispatch against dense mode on the same engine (_moe_mode_check),
-    gated."""
+    gated. Both forwards decode eagerly (cuda_graphs=False): the spies on
+    the router and the quantizer see only the calls a forward makes, and
+    a graph's replay makes none."""
     from arcquant_tpu_torch.config import QuantConfig
     from arcquant_tpu_torch.engine import EngineConfig, InferenceEngine
     from arcquant_tpu_torch.kernels import gemm as gk
@@ -2065,7 +2220,7 @@ def moe_engine_check(cfg, failures):
                                   w_scale="channel", quantize_lm_head=True),
         EngineConfig(max_batch=len(PROMPT_LENS),
                      max_seq_len=max(PROMPT_LENS) + NEW_TOKENS + 8),
-        seed=1, device="cuda")
+        seed=1, device="cuda", cuda_graphs=False)
     toks, lens, _ = eng._pad_prompts(prompts_for(cfg_l, seed=1))
     active = torch.ones(len(PROMPT_LENS), dtype=torch.bool)
     # per forward, in call order: ("route", its top-k sets) and
@@ -2392,7 +2547,8 @@ def engine_check(cfg, failures):
     take the large-M route; BF16's linears are the same f32-accumulated
     library products on both sides) and 4 decode steps (fed the same
     tokens) with the kernels against the same forward with the plain
-    versions (the route's torch.mm is the same on both sides).
+    versions (the route's torch.mm is the same on both sides); the
+    kernels' decode replays the captured step, the plain one is eager.
 
     1 layer: logits cosine >= 0.999 and equal greedy tokens at every
     step. 2 layers: the forward of random dummy weights is chaotic at
@@ -2433,6 +2589,9 @@ def engine_check(cfg, failures):
             return outs, fed
 
         got, fed = run()
+        # the plain versions run eagerly: a capture would keep whatever
+        # the patched entry points were when it was made
+        eng.cuda_graphs = False
         with PlainKernels():
             want, _ = run(feed=fed)
             if layers == 2:
@@ -2566,8 +2725,10 @@ def serving_engine_check(cfg, failures):
     for prec in ("A4", "A16"):
         for case in ("chunked", "suffix"):
             eng = engines[prec]
+            eng.cuda_graphs = True
             got, fed = run(eng, case)
             floors = []
+            eng.cuda_graphs = False        # the plain versions: eager
             with PlainKernels():
                 want, _ = run(eng, case, feed=fed)
                 for seed in range(3):

@@ -3,7 +3,11 @@ PyTorch versions on the card, at small shapes with ragged edges; the
 decode megakernels also bitwise against the CUDA chain they fuse, the
 w4 GEMM against the w8 GEMM on the same weight, the GEMM lab's exact
 variants against the production GEMM, and the GEMMs and the large-M
-route against f64.
+route against f64. Then the engine's decode step captured as a CUDA
+graph (2 layers at full width) against the eager loop
+(cuda_graphs=False): logits and tokens bitwise in every decode
+configuration, sampled decode_scan, a second state, the launch counts,
+no host synchronisation, and a capture that fails raising.
 
 Every test is marked ``gpu`` and skips when torch sees no CUDA device.
 This file imports no JAX, so it also runs on a machine without it:
@@ -17,12 +21,16 @@ import pytest
 import torch
 
 from arcquant_tpu_torch.cache import paged
-from arcquant_tpu_torch.config import get_model_config
-from arcquant_tpu_torch.kernels import attention, gemm as gk
+from arcquant_tpu_torch.config import QuantConfig, get_model_config
+from arcquant_tpu_torch.engine import EngineConfig, InferenceEngine
+from arcquant_tpu_torch.engine import engine as engine_mod
+from arcquant_tpu_torch.engine.sampling import SamplingParams
+from arcquant_tpu_torch.kernels import _build, attention, gemm as gk
 from arcquant_tpu_torch.kernels import gemm_lab as gl
 from arcquant_tpu_torch.kernels import mlp_fused as mf
 from arcquant_tpu_torch.kernels import paged_decode as pdk
 from arcquant_tpu_torch.kernels import quantize as qk
+from arcquant_tpu_torch.models import llama, quantized
 from arcquant_tpu_torch.quant import numerics as N
 from arcquant_tpu_torch.quant import packing
 from arcquant_tpu_torch.testing import (gpu, outlier_x, require_cuda,
@@ -896,3 +904,187 @@ def test_lab_splits(splits):
     y = gl.lab_w4(xa, p4.codes, p4.scales, gs, gw, splits=splits)
     _lab_checks(y, gl.lab_w4_plain(xa, p4.codes, p4.scales, gs, gw), prod,
                 same)
+
+
+# -- the decode step as a CUDA graph -------------------------------------------
+
+_QKW = dict(quant_type="NVFP4", use_kernels=True, weight_fmt="w8",
+            act_scale="row", w_scale="channel", quantize_lm_head=True)
+# name: (model, select_frac, QuantConfig, fused_decode); every decode
+# configuration the engine serves on the card, 2 layers at full width
+GRAPH_CONFIGS = {
+    "w8-arc": ("qwen2.5-7b", 0.125, _QKW, True),
+    "select-free-fused": ("qwen2.5-7b", 0.0, _QKW, True),
+    "select-free-chain": ("qwen2.5-7b", 0.0, _QKW, False),
+    "w4-arc": ("qwen2.5-7b", 0.125, dict(_QKW, weight_fmt="w4"), True),
+    "moe-dense": ("qwen1.5-moe-a2.7b", 0.125, _QKW, True),
+    "bf16": ("qwen2.5-7b", 0.0, dict(quant_type="BF16"), True),
+    "bf16-packed-head": ("qwen2.5-7b", 0.0, dict(quant_type="BF16"), True),
+}
+_GRAPH_LENS = (100, 77, 31, 0)     # slot 3 inactive
+
+
+def _graph_pair(config):
+    """(graph engine, loop engine) on the same weights: 2 layers at the
+    model's width, dummy weights from seed 5, batch 4."""
+    model, sel, qkw, fused = GRAPH_CONFIGS[config]
+    cfg = get_model_config(model).replace(num_layers=2)
+    calib = quantized.identity_calib(cfg, sel, device="cuda")
+    qcfg = QuantConfig(**qkw)
+    ecfg = EngineConfig(max_batch=4, max_seq_len=256)
+    eng = InferenceEngine.dummy(cfg, calib, qcfg, ecfg, seed=5,
+                                device="cuda", fused_decode=fused)
+    qparams = eng.qparams
+    if config == "bf16-packed-head":
+        qparams = dict(qparams, lm_head_packed=engine_mod.pack_lm_head(
+            qparams["embed"], QuantConfig(**_QKW)))
+        eng = InferenceEngine(cfg, qparams, calib, qcfg, ecfg, device="cuda",
+                              quantize_params=False)
+    loop = InferenceEngine(cfg, qparams, calib, qcfg, ecfg, device="cuda",
+                           quantize_params=False, fused_decode=fused,
+                           cuda_graphs=False)
+    return eng, loop
+
+
+def _graph_prompts(cfg):
+    rng = np.random.default_rng(6)
+    return [rng.integers(0, cfg.vocab_size, n).tolist() for n in _GRAPH_LENS]
+
+
+def _prefill(eng, prompts):
+    toks, lens, _ = eng._pad_prompts(prompts)
+    logits, state = eng.prefill(eng.new_state(), toks, lens)
+    return logits, state, torch.as_tensor(lens > 0, device="cuda")
+
+
+@pytest.mark.parametrize("config", list(GRAPH_CONFIGS))
+def test_decode_graph_bitwise_equals_loop(config):
+    """decode_step replaying the captured step gives the loop's logits
+    bit for bit at every step (fed the loop's greedy tokens) and its
+    seq_lens; decode_scan's tokens (an eos id hit mid-run, an inactive
+    slot) equal the loop's; the step was captured, not run eagerly."""
+    require_cuda()
+    eng, loop = _graph_pair(config)
+    assert "lm_head_packed" in eng.qparams or config == "bf16"
+    prompts = _graph_prompts(eng.cfg)
+    (lg, sg, active), (ll, sl, _) = (_prefill(e, prompts) for e in (eng, loop))
+    assert _bits(lg).equal(_bits(ll))
+    for _ in range(8):
+        cur = ll.argmax(-1).to(torch.int32)
+        lg, sg = eng.decode_step(sg, cur, active)
+        ll, sl = loop.decode_step(sl, cur, active)
+        assert torch.equal(_bits(lg), _bits(ll))
+    assert torch.equal(sg[2], sl[2])
+    assert len(eng.graph_captures) == 1 and not loop.graph_captures
+    assert eng.graph_captures[0]["launches"] > 0 or config.startswith("bf16")
+
+    def scan(e, eos_id):
+        logits, state, active = _prefill(e, prompts)
+        first = logits.argmax(-1).to(torch.int32)
+        out, state = e.decode_scan(state, first, active, 6, eos_id=eos_id)
+        return out, state[2].clone()
+    eos = int(scan(loop, None)[0][0, 2])
+    (gout, glens), (lout, llens) = scan(eng, eos), scan(loop, eos)
+    assert torch.equal(gout, lout) and torch.equal(glens, llens)
+    assert int(gout[0, 5]) == eos and int(glens[3]) == 0
+
+
+def test_sampled_decode_scan_graph_bitwise_equals_loop():
+    """A sampled decode_scan (top-k and top-p, the generator registered
+    with the graph): the loop's tokens for the same seed, over two
+    calls; another seed gives others."""
+    require_cuda()
+    eng, loop = _graph_pair("select-free-fused")
+    prompts = _graph_prompts(eng.cfg)
+    sp = SamplingParams(temperature=0.8, top_k=50, top_p=0.9)
+
+    def scan(e, seed):
+        logits, state, active = _prefill(e, prompts)
+        first = logits.argmax(-1).to(torch.int32)
+        return e.decode_scan(state, first, active, 6, sampling=sp,
+                             seed=seed)[0]
+    for seed in (1, 1, 2):
+        assert torch.equal(scan(eng, seed), scan(loop, seed))
+    assert not torch.equal(scan(eng, 1), scan(eng, 2))
+
+
+def test_decode_graph_on_a_second_state():
+    """A second state alive beside the first gets its own graph; both,
+    and the first again after it, decode as the loop does."""
+    require_cuda()
+    eng, loop = _graph_pair("w8-arc")
+    prompts = _graph_prompts(eng.cfg)
+    runs = {}
+    for name in ("a", "b", "a2"):
+        for e in (eng, loop):
+            logits, state, active = _prefill(e, prompts)
+            first = logits.argmax(-1).to(torch.int32)
+            runs[name, e is eng] = (state, first, active)
+    for name in ("a", "b", "a2"):
+        for graph in (True, False):
+            state, first, active = runs[name, graph]
+            e = eng if graph else loop
+            out, _ = e.decode_scan(state, first, active, 4)
+            runs[name, graph] = out
+        assert torch.equal(runs[name, True], runs[name, False])
+    assert len(eng.graph_captures) == 3
+
+
+def test_decode_graph_launch_counts_equal_loop():
+    """Kernel.launches and by_m over a decode_scan replayed from the
+    graph equal the loop's over the same run."""
+    require_cuda()
+    eng, loop = _graph_pair("select-free-fused")
+    prompts = _graph_prompts(eng.cfg)
+    counts = []
+    for e in (eng, loop):
+        logits, state, active = _prefill(e, prompts)
+        first = logits.argmax(-1).to(torch.int32)
+        e.decode_scan(state, first, active, 0)         # the capture
+        for k in _build.KERNELS:
+            k.reset()
+        e.decode_scan(state, first, active, 5)
+        torch.cuda.synchronize()
+        counts.append({k.name: (k.launches, dict(k.by_m))
+                       for k in _build.KERNELS})
+    assert counts[0] == counts[1]
+    assert counts[0]["mlp_w8"][0] == 5 * 2 and counts[0]["gemm_actq"][0] == 20
+
+
+def test_decode_scan_makes_no_host_sync():
+    """decode_scan on device inputs, its graph captured, runs under
+    torch.cuda.set_sync_debug_mode("error")."""
+    require_cuda()
+    eng, _ = _graph_pair("w8-arc")
+    logits, state, active = _prefill(eng, _graph_prompts(eng.cfg))
+    first = logits.argmax(-1).to(torch.int32)
+    eng.decode_scan(state, first, active, 0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, state = eng.decode_scan(state, first, active, 5,
+                                     eos_id=int(eng.cfg.vocab_size - 1))
+        out2, state = eng.decode_scan(state, out[:, -1], active, 3,
+                                      sampling=SamplingParams(0.9, 20),
+                                      seed=3)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert out.shape == (4, 5) and out2.shape == (4, 3)
+
+
+def test_decode_graph_capture_failure_raises(monkeypatch):
+    """A host read inside the step fails its capture: decode_step raises
+    naming the line of the op, and does not fall back to the eager
+    loop."""
+    require_cuda()
+    eng, _ = _graph_pair("w8-arc")
+    logits, state, active = _prefill(eng, _graph_prompts(eng.cfg))
+    real = llama.rope_cos_sin
+
+    def reads_back(cfg, positions, inv_freq=None):
+        int(positions.max())
+        return real(cfg, positions, inv_freq)
+    monkeypatch.setattr(llama, "rope_cos_sin", reads_back)
+    with pytest.raises(RuntimeError, match=r"int\(positions.max\(\)\)"):
+        eng.decode_step(state, logits.argmax(-1).to(torch.int32), active)
+    assert not eng._graphs

@@ -254,7 +254,7 @@ def test_serve_entry_point():
         srv.shutdown()
         srv.server_close()
         loop.shutdown()
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
         serve.build_loop(ap.parse_args(["--model", ".", "--cpu"]))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
