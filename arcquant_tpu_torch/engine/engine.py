@@ -36,6 +36,11 @@ device values or replay counts. ``cuda_graphs=False`` keeps the eager
 loop, the graphs' A/B reference; on the CPU the same body runs
 eagerly.
 
+Speculative decoding's verify (``verify_step``, engine/spec.py) is the
+JAX engine's: the paged chunk forward of W tokens a row at the decode
+qcfg, every position's logits, seq_lens left to the caller; on the card
+it replays a graph of its own, keyed like the decode step's and by W.
+
 Where the JAX engine's gates engage its decode megakernels
 (kernels/mlp_fused.py: W4A4 sites of 4 to 16 rows, per-row scales, w8
 weights), the port takes its own, in JAX's order: quantize + GEMM in one
@@ -56,11 +61,13 @@ experts' gate/up, the batched GEMM for their down projections) up to
 from __future__ import annotations
 
 import collections
+import functools
 import sys
 import time
 import traceback
+import weakref
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
@@ -300,14 +307,47 @@ class _DecodeIO:
 
 
 @dataclass
-class _DecodeGraph:
-    """One decode body: its buffers, its sampling and generator, and on
-    the card the captured graph with the launches it holds."""
-    io: _DecodeIO
-    sampling: Optional[smp.SamplingParams]
-    gen: Optional[torch.Generator]
+class _VerifyIO:
+    """The persistent buffers the verify body reads and writes."""
+    tokens: torch.Tensor            # [B, W] i32: carried token + drafts
+    valid: torch.Tensor             # [B] i32: tokens of each row to append
+    logits: Optional[torch.Tensor] = None   # [B, W, V] f32
+
+    @classmethod
+    def new(cls, b: int, w: int, device) -> "_VerifyIO":
+        return cls(torch.zeros((b, w), dtype=torch.int32, device=device),
+                   torch.zeros((b,), dtype=torch.int32, device=device))
+
+
+@dataclass
+class _Graph:
+    """One step body over persistent buffers: `body(engine, state, io,
+    gen)` runs it eagerly, in place; on the card `graph` holds its
+    capture and `launches` the kernel launches one replay makes. `gen`
+    is the generator a sampled body draws from (registered with the
+    graph). The engine is held weakly: the engine caches its graphs, and
+    a cycle through it would leave both to the cyclic garbage collector,
+    which can free a graph's memory pool while another graph is being
+    captured (and so break that capture)."""
+    io: object
+    body: Callable
+    engine: "weakref.ref"
+    gen: Optional[torch.Generator] = None
     graph: Optional["torch.cuda.CUDAGraph"] = None
     launches: Optional[_build.GraphLaunches] = None
+
+    def run(self, state) -> None:
+        """The body, run eagerly."""
+        self.body(self.engine(), state, self.io, self.gen)
+
+    def replay(self, state) -> None:
+        """One step: the graph's replay (counting its kernel launches), or
+        on the CPU the body run eagerly."""
+        if self.graph is None:
+            self.run(state)
+            return
+        self.graph.replay()
+        self.launches.replayed()
 
 
 def _failed_at(e: BaseException) -> str:
@@ -423,17 +463,30 @@ class InferenceEngine:
         e = self.ecfg
         cache = paged.init_cache(self.cfg, e.total_pages(), e.page_size,
                                  self.device)
-        pps = e.pages_per_seq
-        if e.dynamic_pages:
-            pt = torch.zeros((e.max_batch, pps), dtype=torch.int32,
-                             device=self.device)
-        else:
-            pt = (1 + torch.arange(e.max_batch)[:, None] * pps
-                  + torch.arange(pps)[None, :]).to(torch.int32).to(
-                      self.device)
         seq_lens = torch.zeros((e.max_batch,), dtype=torch.int32,
                                device=self.device)
-        return cache, pt, seq_lens
+        return cache, self._page_table(), seq_lens
+
+    def _page_table(self) -> torch.Tensor:
+        """new_state's page table: the static layout, or all-sink."""
+        e = self.ecfg
+        pps = e.pages_per_seq
+        if e.dynamic_pages:
+            return torch.zeros((e.max_batch, pps), dtype=torch.int32,
+                               device=self.device)
+        return (1 + torch.arange(e.max_batch)[:, None] * pps
+                + torch.arange(pps)[None, :]).to(torch.int32).to(self.device)
+
+    def reset_state(self, state):
+        """Empty `state` in place for a new batch: seq_lens 0 and the page
+        table as new_state lays it out. The pool keeps its stale K/V,
+        which nothing reads (seq_lens masks every read), and the state
+        its addresses, so the graphs captured on it stay valid. Returns
+        the state."""
+        _, pt, seq_lens = state
+        seq_lens.zero_()
+        pt.copy_(self._page_table())
+        return state
 
     # -- forward pieces ----------------------------------------------------
 
@@ -469,14 +522,17 @@ class InferenceEngine:
         return self._head_logits(x[torch.arange(b, device=self.device),
                                    last])
 
-    def _prefill_chunk_forward(self, cache, pt, tokens, lens, start):
+    def _prefill_chunk_forward(self, cache, pt, tokens, lens, start,
+                               all_logits: bool = False, qcfg=None):
         """One prefill chunk with per-row origin `start` ([B] i32): appends
         the chunk's K/V into the pool and attends straight over the int4
         pool (prefix + this chunk) with the paged flash-prefill kernel.
         All K/V, this chunk's included, round-trip through the int4 pool,
         exactly what decode later reads. Returns the logits of each row's
         last valid token in this chunk (clamped into the chunk; the caller
-        keeps only rows whose last token is here)."""
+        keeps only rows whose last token is here), or with all_logits
+        those of every position, [B, T, V]. qcfg defaults to the prefill
+        phase's (qcfg_prefill)."""
         b, t = tokens.shape
         positions = start.long()[:, None] + torch.arange(
             t, device=self.device)[None]
@@ -490,7 +546,9 @@ class InferenceEngine:
             x, cos, sin, cache, pt, append_pos,
             lambda li, q, k, v: pdk.paged_prefill(q, cache, li, pt, start,
                                                   kv_lens),
-            self.qcfg_prefill)
+            self.qcfg_prefill if qcfg is None else qcfg)
+        if all_logits:
+            return self._head_logits(x.reshape(b * t, -1)).reshape(b, t, -1)
         local_last = (lens.long() - 1 - start.long()).clamp(0, t - 1)
         return self._head_logits(x[torch.arange(b, device=self.device),
                                    local_last])
@@ -578,7 +636,7 @@ class InferenceEngine:
         seq_lens.copy_(new_lens)
         return logits
 
-    def _decode_body(self, state, io: _DecodeIO, sampling, gen) -> None:
+    def _decode_body(self, state, io: _DecodeIO, gen, sampling) -> None:
         """One decode step on the persistent buffers, in place: the
         forward of io.tokens for io.active, then the eager loop's next
         token (argmax, or a draw from gen under sampling; inactive slots
@@ -595,49 +653,79 @@ class InferenceEngine:
         io.out.index_copy_(1, io.step, nxt[:, None])
         io.step.add_(1).remainder_(SCAN_CHUNK)
 
+    def _verify_forward(self, cache, pt, seq_lens, tokens, valid):
+        """The verify forward of tokens [B, W] (device), valid[b] of them
+        appended at positions seq_lens[b].. : the chunk forward from
+        origin seq_lens at the decode qcfg (a hybrid A16 prefill's qcfg
+        would give tokens other than decode's), logits [B, W, V] f32 of
+        every position. A row with valid 0 appends nothing (its K/V go to
+        the sink page). seq_lens is not changed; reads nothing back to
+        the host."""
+        return self._prefill_chunk_forward(
+            cache, pt, tokens.long(), seq_lens + valid, seq_lens,
+            all_logits=True, qcfg=self.qcfg)
+
+    def _verify_body(self, state, io: _VerifyIO, gen=None) -> None:
+        cache, pt, seq_lens = state
+        io.logits = self._verify_forward(cache, pt, seq_lens, io.tokens,
+                                         io.valid)
+
+    def _verify_graph(self, state, w: int) -> _Graph:
+        """The verify body of (state, route, W)."""
+        b = state[2].shape[0]
+        return self._graph(state, ("verify", w), "verify step",
+                           lambda: _VerifyIO.new(b, w, self.device),
+                           InferenceEngine._verify_body)
+
     def drop_graphs(self) -> None:
-        """Forget every captured decode step: the next one captures anew
-        (needed after patching a function the step calls)."""
+        """Forget every captured step: the next one captures anew (needed
+        after patching a function a step calls)."""
         self._graphs.clear()
 
-    def _decode_graph(self, state, sampling) -> _DecodeGraph:
-        """The decode body of (state, route, sampling), captured on first
-        use (the least recently used one dropped beyond GRAPH_CACHE)."""
-        key = (_state_key(state), self.fused_decode, sampling)
-        g = self._graphs.pop(key, None)
+    def _graph(self, state, key, what: str, new_io, body,
+               sampled: bool = False) -> _Graph:
+        """The step of (state, route, key): `body(engine, state, io, gen)`
+        (a function, not a bound method: _Graph's docstring says why)
+        over the buffers `new_io()` makes and, when sampled, a generator
+        of its own; captured on `state` on first use (the least recently
+        used one dropped beyond GRAPH_CACHE). The state enters the key by
+        its tensors' addresses: a graph captured on them is right for any
+        state at the same addresses."""
+        full = (_state_key(state), self.fused_decode, key)
+        g = self._graphs.pop(full, None)
         if g is None:
             while len(self._graphs) >= GRAPH_CACHE:
                 self._graphs.popitem(last=False)
-            g = self._capture(state, sampling)
-        self._graphs[key] = g
+            g = self._capture(what, state, _Graph(
+                new_io(), body, weakref.ref(self),
+                torch.Generator(device=self.device) if sampled else None))
+        self._graphs[full] = g
         return g
 
-    def _capture(self, state, sampling) -> _DecodeGraph:
-        """New buffers for the decode body and, on the card, its graph.
+    def _capture(self, what: str, state, g: _Graph) -> _Graph:
+        """A body over its new buffers and, on the card, its graph.
 
-        A warm-up step runs first on the capture stream with every slot
-        inactive (its appends go to the sink page, seq_lens stay): it
-        builds the kernels and runs every lazy initialisation (the
-        kernels' shared-memory attributes, cuBLAS's workspace, constant
-        tables) outside the capture. The capture is in the default
-        global mode; the generator of a sampled body is registered with
-        the graph, so each replay draws the next numbers."""
-        b = state[2].shape[0]
-        io = _DecodeIO.new(b, self.device)
-        gen = (None if sampling is None
-               else torch.Generator(device=self.device))
+        The body must change nothing but the sink page on new buffers
+        (every slot inactive, no token valid). A warm-up run of it goes
+        first on the capture stream: it builds the kernels and runs every
+        lazy initialisation (the kernels' shared-memory attributes,
+        cuBLAS's workspace, constant tables) outside the capture. The
+        capture is in the default global mode; the generator of a sampled
+        body is registered with the graph, so each replay draws the next
+        numbers. The body takes the state, so a cached graph holds no
+        state alive."""
         if self.device.type != "cuda":
-            return _DecodeGraph(io, sampling, gen)
+            return g
         if self._capture_stream is None:
             self._capture_stream = torch.cuda.Stream(self.device)
         stream = self._capture_stream
         stream.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(stream):
-            self._decode_body(state, io, sampling, gen)
+            g.run(state)
         torch.cuda.current_stream(self.device).wait_stream(stream)
         graph = torch.cuda.CUDAGraph()
-        if gen is not None:
-            graph.register_generator_state(gen)
+        if g.gen is not None:
+            graph.register_generator_state(g.gen)
         torch.cuda.synchronize(self.device)
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(self.device)
@@ -646,30 +734,32 @@ class InferenceEngine:
         t0 = time.perf_counter()
         try:
             with launches, torch.cuda.graph(graph, stream=stream):
-                self._decode_body(state, io, sampling, gen)
+                g.run(state)
         except Exception as e:
             torch.cuda.set_stream(current)    # a failed capture keeps it
             raise RuntimeError(
-                f"capturing the decode step as a CUDA graph failed at "
+                f"capturing the {what} as a CUDA graph failed at "
                 f"{_failed_at(e)}: {e}") from e
-        rec = dict(capture_ms=(time.perf_counter() - t0) * 1e3,
+        rec = dict(what=what, capture_ms=(time.perf_counter() - t0) * 1e3,
                    pool_bytes=torch.cuda.memory_reserved(self.device)
                    - reserved, launches=launches.total)
         self.graph_captures.append(rec)
-        print(f"decode step captured as a CUDA graph in "
+        print(f"{what} captured as a CUDA graph in "
               f"{rec['capture_ms']:.1f} ms: {rec['launches']} kernel "
               f"launches, graph pool {rec['pool_bytes'] / 2 ** 20:.1f} MiB",
               file=sys.stderr)
-        return _DecodeGraph(io, sampling, gen, graph, launches)
+        g.graph, g.launches = graph, launches
+        return g
 
-    def _replay(self, g: _DecodeGraph, state) -> None:
-        """One decode step of g: its graph's replay (counting its kernel
-        launches), or on the CPU its body run eagerly."""
-        if g.graph is None:
-            self._decode_body(state, g.io, g.sampling, g.gen)
-            return
-        g.graph.replay()
-        g.launches.replayed()
+    def _decode_graph(self, state, sampling) -> _Graph:
+        """The decode body of (state, route, sampling)."""
+        b = state[2].shape[0]
+        return self._graph(
+            state, sampling, "decode step",
+            lambda: _DecodeIO.new(b, self.device),
+            functools.partial(InferenceEngine._decode_body,
+                              sampling=sampling),
+            sampled=sampling is not None)
 
     @torch.no_grad()
     def decode_step(self, state, tokens, active):
@@ -685,7 +775,36 @@ class InferenceEngine:
         g = self._decode_graph(state, None)
         g.io.tokens.copy_(torch.as_tensor(tokens))
         g.io.active.copy_(torch.as_tensor(active))
-        self._replay(g, state)
+        g.replay(state)
+        logits = g.io.logits
+        return (logits if g.graph is None else logits.clone()), state
+
+    @torch.no_grad()
+    def verify_step(self, state, tokens, valid):
+        """Speculative decoding's verify, a multi-token decode step.
+
+        tokens [B, W]: per row the last committed token, then W - 1
+        drafts (right-padded); valid [B] in 0..W, how many are real (0:
+        the row appends nothing). Appends their K/V at absolute positions
+        seq_lens..seq_lens + valid - 1, attends over the int4 pool with
+        the paged prefill kernel and returns (logits [B, W, V] f32 of
+        every position, state) at the decode qcfg; on the card a copy of
+        the graph's logits.
+
+        seq_lens is unchanged: the caller commits the accepted length.
+        Stale K/V past the committed length is overwritten by later
+        appends and never attended (seq_lens masks every read), so a
+        rejected draft needs no rollback."""
+        tokens = torch.as_tensor(tokens, device=self.device).to(torch.int32)
+        valid = torch.as_tensor(valid, device=self.device).to(torch.int32)
+        if not self.cuda_graphs:
+            cache, pt, seq_lens = state
+            return self._verify_forward(cache, pt, seq_lens, tokens,
+                                        valid), state
+        g = self._verify_graph(state, tokens.shape[1])
+        g.io.tokens.copy_(tokens)
+        g.io.valid.copy_(valid)
+        g.replay(state)
         logits = g.io.logits
         return (logits if g.graph is None else logits.clone()), state
 
@@ -745,7 +864,7 @@ class InferenceEngine:
             g.gen.manual_seed(seed)
         parts = []
         for i in range(num_steps):
-            self._replay(g, state)
+            g.replay(state)
             if (i + 1) % SCAN_CHUNK == 0 or i + 1 == num_steps:
                 parts.append(io.out[:, :i % SCAN_CHUNK + 1].clone())
         if not parts:
@@ -775,10 +894,12 @@ class InferenceEngine:
         return toks, lens, b
 
     def _alloc_prompt_pages(self, state, lens, b: int,
-                            max_new_tokens: int):
+                            max_new_tokens: int, margin: int = 0):
         """Dynamic-page mode: map each row's worst-case page span up front
-        (prompt + generation), rows in order on consecutive pages after
-        the sink. No-op under the static layout."""
+        (prompt + generation + `margin` tokens of headroom: a speculative
+        verify writes up to window - 1 uncommitted tokens past the
+        committed length), rows in order on consecutive pages after the
+        sink. No-op under the static layout."""
         e = self.ecfg
         if not e.dynamic_pages:
             return state
@@ -786,13 +907,13 @@ class InferenceEngine:
         pt_np = np.zeros((e.max_batch, e.pages_per_seq), np.int32)
         nxt = 1
         for i in range(b):
-            total = int(lens[i]) + max_new_tokens
+            total = int(lens[i]) + max_new_tokens + margin
             need = -(-total // e.page_size)
             if need > e.pages_per_seq:
                 raise ValueError(
                     f"prompt {i}: {int(lens[i])} + {max_new_tokens} new "
-                    f"tokens exceed pages_per_seq={e.pages_per_seq} * "
-                    f"page_size={e.page_size}")
+                    f"+ margin {margin} tokens exceed pages_per_seq="
+                    f"{e.pages_per_seq} * page_size={e.page_size}")
             if nxt + need > e.total_pages():
                 raise ValueError(
                     f"page pool exhausted at row {i}: {e.total_pages() - 1}"

@@ -91,13 +91,19 @@ def _splitmix64(x: int) -> int:
     return x ^ (x >> 31)
 
 
+def mix_seed(seed: int, step: int) -> int:
+    """A generator seed from (seed, step) through splitmix64, so every bit
+    of both reaches the low 32 bits (the CPU generator reads only
+    those)."""
+    return _splitmix64(((seed & 0xFFFFFFFF) << 32)
+                       | (step & 0xFFFFFFFF)) >> 1
+
+
 def row_generator(seed: int, step: int, device) -> torch.Generator:
     """The generator of a seeded request at `step` (tokens generated so
-    far): its seed mixes (seed, step) through splitmix64, so every bit of
-    both reaches the low 32 bits (the CPU generator reads only those)."""
+    far), seeded with mix_seed(seed, step)."""
     g = torch.Generator(device=device)
-    g.manual_seed(_splitmix64(((seed & 0xFFFFFFFF) << 32)
-                              | (step & 0xFFFFFFFF)) >> 1)
+    g.manual_seed(mix_seed(seed, step))
     return g
 
 

@@ -18,7 +18,12 @@ all host-side logic around the engine's steps.
     sequence (growth). The page table is host numpy ([B, pps] i32); on
     change it is copied into the engine state's preallocated device
     tensor, never re-created.
-  - Speculative decoding (spec_window, engine/spec.py) is not ported.
+  - Speculative decoding (spec_window >= 2): each step is one verify
+    round (engine.verify_step) over the running slots, drafted on the
+    host by the drafter (engine/spec.py's NgramDrafter by default) and
+    accepted greedily or, for sampled requests, by spec.sample_verify;
+    a slot commits 1..W tokens a step. Logit bias, min_new_tokens,
+    repetition penalties and per-request seeds are refused there.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ import torch
 
 from . import sampling as smp
 from .engine import InferenceEngine
+from .spec import NgramDrafter, accept
 
 
 @dataclass
@@ -172,16 +178,27 @@ class ContinuousBatcher:
     ``engine.decode_scan`` when the queue is empty and every running
     request is greedy and bias-free; rows retiring mid-burst drop their
     tail tokens (their tail K/V is overwritten later, appends address
-    absolute positions)."""
+    absolute positions).
+
+    spec_window >= 2 decodes by speculative verify rounds (module
+    docstring); `drafter` needs a draft(seq, k) -> k tokens method, and
+    `spec_stats` counts {rounds, proposed, accepted}. It excludes
+    decode_burst."""
 
     def __init__(self, engine: InferenceEngine, top_k: int = 0,
                  seed: int = 0, spec_window: int = 0, drafter=None,
                  decode_burst: int = 0):
-        if spec_window or drafter is not None:
-            raise NotImplementedError(
-                "spec_window > 0: speculative decoding (verify_step, "
-                "engine/spec.py) is not ported (ROADMAP queue 1 item 3, "
-                "spec decoding)")
+        if spec_window:
+            if spec_window < 2:
+                raise ValueError("spec_window must be >= 2")
+            if decode_burst:
+                raise ValueError("decode_burst and spec_window are "
+                                 "exclusive decode strategies")
+            if drafter is None:
+                drafter = NgramDrafter()
+            self.spec_stats = {"rounds": 0, "proposed": 0, "accepted": 0}
+        self.spec_window = spec_window
+        self.drafter = drafter
         self.engine = engine
         self.state = engine.new_state()
         e = engine.ecfg
@@ -216,6 +233,16 @@ class ContinuousBatcher:
         v = self.engine.cfg.vocab_size
         if any(not 0 <= int(t) < v for t in req.prompt):
             raise ValueError(f"prompt token ids must lie in [0, {v})")
+        if self.spec_window and (req.logit_bias or req.min_new_tokens
+                                 or req.presence_penalty
+                                 or req.frequency_penalty
+                                 or req.seed is not None):
+            # sampled requests are verified by sample_verify; these would
+            # need per-position logit edits inside the verify window
+            raise ValueError(
+                "logit_bias / min_new_tokens / repetition penalties / "
+                "per-request seeds are not supported with speculative "
+                "batching (spec_window=0 supports them)")
         req.t_submit = time.perf_counter()
         self.queue.append(req)
 
@@ -510,21 +537,25 @@ class ContinuousBatcher:
         for i in active_slots:
             self._record_token(i, int(self.next_token[i]))
         # KV capacity guard: retire any sequence about to overflow its
-        # page range
+        # page range (spec mode: a whole verify window's appends,
+        # committed or not)
+        w = self.spec_window or 1
         lens_np = self._seq_lens()
         for i in range(len(self.slots)):
             if (self.slots[i] is not None
-                    and lens_np[i] >= self.engine.ecfg.max_seq_len - 1):
+                    and lens_np[i] >= self.engine.ecfg.max_seq_len - w):
                 self._retire(i)
-        bn = self._burst_size()
-        self._grow_pages(ahead=max(1, bn))
+        bn = 0 if self.spec_window else self._burst_size()
+        self._grow_pages(ahead=max(w, bn))
         if bn and self.queue:
             # growth preempted someone: admission first, burst later
             bn = 0
         active = np.asarray([s is not None for s in self.slots])
         if active.any():
             self._push_pt()
-            if bn:
+            if self.spec_window:
+                self._spec_round(active)
+            elif bn:
                 toks, self.state = self.engine.decode_scan(
                     self.state, torch.from_numpy(self.next_token),
                     torch.from_numpy(active), bn)
@@ -576,6 +607,52 @@ class ContinuousBatcher:
         if extra and extra > self.alloc.available():
             return 0
         return n if lens_np is not None else 0
+
+    def _spec_round(self, active: np.ndarray) -> None:
+        """One speculative verify round: spec_window - 1 drafts a running
+        slot from the drafter over its prompt + output, one multi-token
+        verify, the accepted prefix committed. The accepted drafts enter
+        each request's output now (with eos, stop and max-token
+        bookkeeping); the bonus token becomes the pending next_token,
+        recorded at the next step's start as in plain decode."""
+        w, k = self.spec_window, self.spec_window - 1
+        eng = self.engine
+        b = eng.ecfg.max_batch
+        drafts = np.zeros((b, k), np.int32)
+        for i, req in enumerate(self.slots):
+            if req is not None:
+                # step() recorded the pending token already, so the
+                # request's tokens end with next_token[i]
+                drafts[i] = self.drafter.draft(req.tokens_so_far(), k)
+        toksw = np.concatenate([self.next_token[:, None], drafts],
+                               axis=1).astype(np.int32)
+        logits, self.state = eng.verify_step(
+            self.state, toksw, np.where(active, w, 0).astype(np.int32))
+        temps = np.asarray([s.temperature if s else 0.0
+                            for s in self.slots], np.float32)
+        # per-request stochastic verify when a row samples (its
+        # temperature-0 rows take the greedy comparator exactly)
+        n_all, g = accept(
+            logits, toksw, self._gen, temperature=temps if temps.any()
+            else None, top_k=self.top_k,
+            top_p=np.asarray([s.top_p if s else 1.0 for s in self.slots],
+                             np.float32))
+        commit = np.zeros((b,), np.int32)
+        for i in range(b):
+            if self.slots[i] is None or not active[i]:
+                continue
+            n = int(n_all[i])
+            commit[i] = n + 1
+            self.spec_stats["proposed"] += k
+            self.spec_stats["accepted"] += n
+            # the accepted drafts are final; the bonus g[i, n] waits as
+            # the pending token
+            for j in range(n):
+                if not self._record_token(i, int(g[i, j])):
+                    break
+            self.next_token[i] = g[i, n]
+        self.spec_stats["rounds"] += 1
+        self.state[2].add_(torch.from_numpy(commit).to(eng.device))
 
     def run(self) -> List[Request]:
         """Drain queue + slots to completion."""

@@ -193,6 +193,8 @@ class ServingLoop:
             out["kv_pages"] = {"capacity": b.alloc.capacity,
                                "free": len(b.alloc.free),
                                "cached": len(b.alloc.cached)}
+        if b.spec_window:
+            out["spec"] = dict(b.spec_stats)
         return out
 
     def shutdown(self):

@@ -3,7 +3,8 @@ repository's ``serve.py``, same flags and defaults).
 
 Serve a W4A4-quantized model over HTTP (continuous batching, paged int4
 KV, chunked and prefix-shared prefill, W4A16 prefill with W4A4 decode,
-per-request sampling), on the card unless --cpu is given:
+per-request sampling, speculative decode with --spec_window), on the
+card unless --cpu is given:
 
   python -m arcquant_tpu_torch.serve --model qwen2.5-7b --port 8000
   python -m arcquant_tpu_torch.serve --model test-tiny --cpu
@@ -63,7 +64,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--num_pages", type=int, default=0)
     ap.add_argument("--prefix_sharing", action="store_true")
     ap.add_argument("--spec_window", type=int, default=0,
-                    help="speculative decoding; not ported, raises")
+                    help=">=2 enables speculative decode (prompt-lookup "
+                    "drafts, W-token verify rounds)")
     ap.add_argument("--decode_burst", type=int, default=0,
                     help=">=2 decodes N tokens per step when the queue "
                     "is empty and all requests are greedy")
@@ -118,7 +120,8 @@ def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     loop = build_loop(args)
     srv = make_server(loop, args.host, args.port)
-    mode = ("burst N=%d" % args.decode_burst if args.decode_burst
+    mode = ("spec W=%d" % args.spec_window if args.spec_window
+            else "burst N=%d" % args.decode_burst if args.decode_burst
             else "plain decode")
     print(f"serving {args.model} on http://{args.host}:"
           f"{srv.server_address[1]} (batch {args.max_batch}, seq "

@@ -8,7 +8,8 @@ Phases, each printed as it runs:
   3. each kernel against its plain PyTorch version at the Qwen2.5-7B
      shapes of the serving path, with the tolerance, the max error, the
      median CUDA-event time of kernel and plain version (actq at all
-     twelve of its shapes also with its bound, its plan's block count
+     24 of its shapes, M 4, 8, 16 and 4096, also with its bound, its
+     plan's block count
      and the launch floor: an empty kernel of that grid, timed alike;
      its rmsnorm mode also bitwise against the emulation of its sum
      order, quantize.actq_kernel_order), and at each
@@ -36,8 +37,12 @@ Phases, each printed as it runs:
      tile (M 4096) at the four prefill sites beside its bound and
      torch.matmul over the decoded bf16 weight (kept in the kernels line
      as each row's large_m), and their small-M tile (csrc/gemm_small_m.cuh)
-     at the four decode sites at M 4 and at gateup at M 16 and 64, alike
-     (each row's small_m). Kernel times are device times
+     at the four decode sites at M 4, 8, 16 and 32 (a speculative
+     verify's B * W at W 2, 4 and 8) and at gateup at M 64, alike (each
+     row's small_m); the paged prefill at Tq = W 2, 4 and 8, with the
+     share of its outputs apart from its plain version's and from the
+     paged decode kernel of the same queries (VERIFY_ULP_SHARE). Kernel
+     times are device times
      (benchmarks/common.py's Timer holds the stream while the host
      enqueues the call);
   4. the engine at Qwen2.5-7B full width, all 28 layers, dummy weights,
@@ -47,7 +52,7 @@ Phases, each printed as it runs:
      prefill ms, decode ms/step (each step counting one paged_decode
      call a layer), decode tok/s and peak device memory
      while building the engine and while serving (every path's launch
-     counts also split actq's by M, summed over the ten paths at the
+     counts also split actq's by M, summed over the eleven paths at the
      end); then [graph]: the engine's decode step captured as a CUDA
      graph against the eager loop (cuda_graphs=False, the same weights):
      every step's logits bitwise fed the same tokens, decode_scan's
@@ -78,29 +83,42 @@ Phases, each printed as it runs:
      at Qwen2.5-7B, 28 layers, bs 4, prefill 1024, 32 decode steps, in
      the north-star configuration (NVFP4 select-free w8) and with --quant
      BF16, with the script's lines, its JSON and the launch counts;
-  9. [lab]: the GEMM lab's script (benchmarks/gemm_lab.py) at the four
+  9. [spec]: speculative decoding at Qwen2.5-7B, 28 layers (spec_run):
+     benchmarks/bench_spec.py's verify ms at W 2, 4 and 8 against the
+     decode step, select-free and ARC; generate_ondevice (W 4, n-gram
+     drafts, 64 greedy tokens, ARC) replaying its captured round, bitwise
+     against the eager round loop, against plain decode_scan (the first
+     divergent step), with its rounds, acceptance, ms per committed token
+     and launch counts (the eleventh path), and the verify logits against
+     decode's on decode's own tokens against a floor of ulp-flipped
+     attention draws; then serve --spec_window 4 with four HTTP
+     requests and /health's spec stats;
+ 10. [lab]: the GEMM lab's script (benchmarks/gemm_lab.py) at the four
      decode sites at M 4: production against bf16 torch.matmul and the
      bound, every built lab variant in w8 and w4 (tiles, depths, k
      splits, the rings) timed and held to production (bitwise where it
      keeps production's k order), the fastest per site, then production,
      the fastest and the default tile re-timed in turns over five rounds;
- 10. the MoE model, qwen1.5-moe-a2.7b at full width, all 24 layers, in
+ 11. the MoE model, qwen1.5-moe-a2.7b at full width, all 24 layers, in
      w8 and then w4 (moe_run): generate() on the same 4 requests with the
      launch counts (gemm_batched once a layer a decode step), prefill ms,
      decode ms/step, weight GiB and peak memory, the decode logits with
      the batched GEMM bitwise against the per-expert loop, and (w8)
      dispatch against dense mode; then serve.py's build_loop on it with
      four HTTP requests (moe_serve_run);
- 11. the Qwen2.5-7B engine cut to 1 and to 2 layers, its prefill and 4
+ 12. the Qwen2.5-7B engine cut to 1 and to 2 layers, its prefill and 4
      decode steps against the same forward with the plain versions
      patched in, the 1-layer w4 and BF16 engines likewise, then at 1
-     layer chunked and suffix prefill, and the MoE engine at 1 layer (see
+     layer chunked and suffix prefill and a speculative verify, and the
+     MoE engine at 1 layer (see
      engine_check, serving_engine_check and moe_engine_check for the
      bars).
 Every decode runs the captured step (InferenceEngine's default) except
-the eager references: the [graph] loops, and in 11 the plain versions
-and the MoE check's spied forwards. Kernel launch counts stay launches
-on the card: a replay counts the launches its graph holds.
+the eager references: the [graph] loops, [spec]'s round loop and floor
+draws, and in 12 the plain versions, the verify's spied and isolating
+runs and the MoE check's spied forwards. Kernel launch
+counts stay launches on the card: a replay counts the launches its graph
+holds.
 The second-to-last line is the kernels' JSON summary, the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero before the
 last line; without a CUDA device it exits 1 at once.
@@ -128,6 +146,12 @@ SELECT_FRAC = 0.125
 PROMPT_LENS = (1024, 777, 301, 64)
 NEW_TOKENS = 32
 REPS = 7
+# The share of the paged prefill kernel's outputs at Tq = W an ulp or
+# more apart from its plain version ("plain") and from the paged decode
+# kernel of the same queries ("decode"), by W, measured in phase 3: the
+# noise floors of the verify checks (phases 9 and 12) flip that share
+# of their attention outputs.
+VERIFY_ULP_SHARE: dict = {}
 
 KERNEL_INFO = {
     "actq": ("arcquant_tpu_torch/csrc/actq.cu",
@@ -198,6 +222,13 @@ MOE_IDLE_KERNELS = {
     for fmt, other in (("w8", W4_ONLY), ("w4", ("gemm_w8", "dequant_w8")))}
 MOE_SERVE_KERNELS = MOE_COMMON[:2] + ("gemm_w8", "paged_prefill",
                                       "paged_decode")
+# The spec path (generate_ondevice on the ARC engine, W 4, batch 4): a
+# one-shot prefill, then verify rounds at M 16, whose attention is the
+# paged prefill kernel and whose MLP takes gu_actq; no decode step.
+SPEC_TOKENS = 64
+SPEC_KERNELS = ("actq", "gemm_w8", "dequant_w8", "flash_attn",
+                "paged_prefill", "gu_actq")
+SPEC_IDLE_KERNELS = ("paged_decode", "gemm_actq", "mlp_w8") + W4_ONLY
 # benchmark_e2e: NVFP4 select-free runs FREE_KERNELS; BF16 only the
 # attention kernels of the engine's path (its linears are library
 # products accumulated like f32)
@@ -299,8 +330,10 @@ def kernel_checks(cfg, timer, failures):
     # actq: all three modes at K = hidden and K = intermediate, each shape
     # with its time, plain time, bound and plan, beside the launch floor
     # (an empty kernel of the plan's grid, timed alike); rmsnorm also
-    # bitwise against the emulation of the kernel's sum order
-    for m in (4, 4096):
+    # bitwise against the emulation of the kernel's sum order; M 4 decode,
+    # M 8 and 16 a speculative verify's B * W (batch 4, W 2 and 4), 4096
+    # prefill
+    for m in (4, 8, 16, 4096):
         for k in (h, f):
             kq = packing.pad_kq(k, int(round(SELECT_FRAC * k / 64)) * 64)
             for mode in ("plain", "rmsnorm", "silu_mul"):
@@ -365,9 +398,13 @@ def kernel_checks(cfg, timer, failures):
         del w
         # the qkv site also at A16 (serve.py's prefill: bf16 activations,
         # unit scale), with both versions' error against f64
-        cases = [(m, "A4") for m in ((4,) if name == "head" else (4, 4096))]
+        # M 8, 16 and 32: a speculative verify's B * W (batch 4, W 2, 4
+        # and 8)
+        cases = [(m, "A4") for m in ((4, 8, 16) if name == "head"
+                                     else (4, 8, 16, 4096))]
         cases += [(4096, "A16")] if name == "qkv" else []
-        cases += [(16, "A4"), (64, "A4")] if name == "gateup" else []
+        cases += [(64, "A4")] if name == "gateup" else []
+        cases += [(32, "A4")] if name != "head" else []
         for m, act in cases:
             x = bf16_randn(gen, (m, k))
             if name == "head" or act == "A16":
@@ -465,6 +502,7 @@ def kernel_checks(cfg, timer, failures):
                 del wd
         del pw, pw4
     attention_checks(cfg, gen, timer, record)
+    verify_attention_checks(cfg, gen, timer, record, summary)
     fused_checks(cfg, gen, timer, record, summary)
     route_checks(cfg, gen, timer, record, failures)
     lab_kernel_checks(cfg, gen, timer, record, failures)
@@ -570,6 +608,88 @@ def attention_checks(cfg, gen, timer, record, rep=True):
                 f"{timer(lib):.4f} ms")
         del cache, kd, vd, po, pm, pl
     paged_prefill_check(cfg, gen, timer, record, rep)
+
+
+def verify_attention_checks(cfg, gen, timer, record, summary):
+    """Phase 3, the attention of a speculative verify: paged_prefill at Tq
+    = W 2, 4 and 8 over the decode shape's pool (batch 4, contexts of
+    1056, 809, 333 and 64 tokens, pages of 128) against its plain
+    version, beside paged_decode at Tq 1 over the same contexts; each
+    with its bound and SDPA over the pool dequantized to bf16. Kept in
+    the kernels line as paged_prefill's "verify"."""
+    from arcquant_tpu_torch.cache import paged
+    from arcquant_tpu_torch.kernels import paged_decode as pdk
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    ctx, page, bsz = (1056, 809, 333, 64), 128, 4
+    pps = -(-(max(ctx) + 8) // page)
+    cache = paged.init_cache(cfg.replace(num_layers=1), 1 + bsz * pps, page,
+                             "cuda")
+    pt = (1 + torch.arange(bsz)[:, None] * pps
+          + torch.arange(pps)[None]).to(torch.int32).cuda()
+    t = pps * page
+    pos = torch.arange(t, device="cuda")[None].expand(bsz, t)
+    full = torch.tensor(ctx, dtype=torch.int32, device="cuda") + 8
+    paged.append_kv(cache, 0, bf16_randn(gen, (bsz, t, hkv, dh), 2.0),
+                    bf16_randn(gen, (bsz, t, hkv, dh)), pt,
+                    torch.where(pos < full[:, None], pos, -1))
+    kd, vd = (x.to(torch.bfloat16).transpose(1, 2).contiguous()
+              for x in paged.gather_kv(cache, 0, pt, t))
+    kpos = torch.arange(t, device="cuda")
+    st = torch.tensor(ctx, dtype=torch.int32, device="cuda")
+    rows = summary.setdefault("paged_prefill", dict(max_abs_err=0.0))
+    out = rows.setdefault("verify", {})
+    for w in (1, 2, 4, 8):
+        sl = st + w
+        q = bf16_randn(gen, (bsz, w, hq, dh), 2.0)
+        keys = float(sum(c + w for c in ctx))
+        pairs = float(sum(sum(c + 1 + i for i in range(w)) for c in ctx))
+        work = (4.0 * pairs * hq * dh, keys * hkv * (dh + 16) + nbytes(q) * 2)
+        b_ms, b_by = bound_ms(*work)
+        qpos = st[:, None] + torch.arange(w, device="cuda")[None]
+        mask = ((kpos[None, None] <= qpos[:, :, None])
+                & (kpos[None, None] < sl[:, None, None]))[:, None]
+        qd = q.transpose(1, 2).contiguous()
+        lib_ms = timer(lambda: sdpa(qd, kd, vd, attn_mask=mask,
+                                    enable_gqa=True))
+        if w == 1:      # paged decode: the query at each row's end
+            args = (q[:, 0], cache.codes[0], cache.params[0], pt, sl)
+            ms = timer(lambda: pdk._paged_decode_cuda(*args))
+            out["decode Tq=1"] = dict(ms=ms, bound_ms=b_ms, bound_by=b_by,
+                                      library_ms=lib_ms)
+            log(f"  {'':13s} paged_decode B=4 ctx=1057,810,334,65 (the "
+                f"verify's decode step): kernel {ms:.4f} ms, bound "
+                f"{b_ms:.5f} ms ({b_by}), SDPA over the dequantized pool "
+                f"{lib_ms:.4f} ms")
+            continue
+        args = (q, cache.codes[0], cache.params[0], pt, st, sl)
+        o = pdk._paged_prefill_cuda(*args)
+        po = pdk.paged_prefill_plain(*args)
+        # decode's attention of the same queries: query j alone over the
+        # first ctx + j + 1 keys
+        dec = torch.stack([pdk._paged_decode_cuda(
+            q[:, j].contiguous(), cache.codes[0], cache.params[0], pt,
+            st + j + 1)[0] for j in range(w)], dim=1)
+        torch.cuda.synchronize()
+        differ = dict(plain=float((o != po).float().mean()),
+                      decode=float((o != dec).float().mean()))
+        VERIFY_ULP_SHARE[w] = differ
+        log(f"  {'':13s} outputs differing from plain: "
+            f"{differ['plain']:.4%}; from the paged decode kernel of the "
+            f"same queries: {differ['decode']:.4%} (max abs "
+            f"{float((o.float() - dec.float()).abs().max()):.4g})")
+        ms = timer(lambda: pdk._paged_prefill_cuda(*args))
+        record("paged_prefill", f"verify B=4 Tq={w} q_starts="
+               f"{','.join(map(str, ctx))} page=128 H={hq}/{hkv}",
+               float((o.float() - po.float()).abs().max()),
+               close_bound(o, po) and bool(torch.isfinite(o).all()), ms,
+               timer(lambda: pdk.paged_prefill_plain(*args)),
+               "1 bf16 ulp + 2e-3", rep=False)
+        out[f"Tq={w}"] = dict(ms=ms, bound_ms=b_ms, bound_by=b_by,
+                              library_ms=lib_ms, differing=differ)
+        log(f"  {'':13s} bound {b_ms:.5f} ms ({b_by}), SDPA over the "
+            f"dequantized pool {lib_ms:.4f} ms")
+    del cache, kd, vd
 
 
 def route_checks(cfg, gen, timer, record, failures):
@@ -1333,6 +1453,10 @@ def graph_check(eng, label, card, failures):
                            eng.ecfg, device=eng.device, quantize_params=False,
                            fused_decode=eng.fused_decode, cuda_graphs=False)
     engines = {"graph": eng, "loop": loop}
+    # a graph cached from an earlier phase is right for any state at its
+    # addresses, which the phase's new state may take: drop them, so that
+    # the phase captures its own
+    eng.drop_graphs()
     states = {k: e.new_state() for k, e in engines.items()}
     toks, lens, _ = eng._pad_prompts(prompts_for(eng.cfg))
     active = torch.ones(len(PROMPT_LENS), dtype=torch.bool,
@@ -1852,6 +1976,273 @@ def bench_e2e_run(card, failures):
     return paths
 
 
+def _halves(cfg, n, seed):
+    """Prompts of n tokens whose second half repeats their first (n-gram
+    drafts then match)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(len(PROMPT_LENS)):
+        half = rng.integers(0, cfg.vocab_size, n // 2).tolist()
+        out.append(half + half)
+    return out
+
+
+def spec_run(card, failures):
+    """The [spec] phase at Qwen2.5-7B full width, 28 layers, dummy weights
+    from seed 0, w8, pages of 128, batch 4:
+      1. benchmarks/bench_spec.py's run() after a 1024-token prefill, W 2,
+         4 and 8, select-free then ARC 0.125: decode ms/step, verify ms
+         (device time of one graph replay each) and speedup at alpha 0.5
+         and 1.0;
+      2. on the ARC engine, SpeculativeEngine.generate_ondevice (n-gram
+         drafts, W 4, SPEC_TOKENS greedy tokens) on prompts of 1024
+         tokens whose halves repeat: the run replaying the captured round
+         (its launches counted: the spec path) against the eager round
+         loop (cuda_graphs=False), tokens and stats bitwise; against
+         plain decode_scan (graph), the first divergent step of each row;
+         rounds, acceptance, ms per committed token beside decode's
+         ms/step (host wall times in turns spec, scan, prefill, scan,
+         spec, prefill, twice, each side on one state emptied in place,
+         no graph captured inside the clock; the means, each less the
+         prefill's); then the verify logits at every position of
+         decode's own greedy stream, fed W tokens a round, against
+         decode's logits at the same position: the median cosine over
+         the positions at or above the lowest of 4 draws' medians less
+         their spread, each draw the same decode with its attention
+         outputs an ulp apart on the share at which the paged prefill at
+         Tq = W differs from the paged decode (phase 3), beside the same
+         decode with the paged decode's plain version (for the record);
+      3. serve.py's build_loop with --spec_window 4 (its defaults: W4A16
+         chunked prefill, dynamic pages, ARC): four HTTP requests, each
+         status 200 with its tokens, and /health's spec stats.
+    Returns the launches over the spec path's run."""
+    from arcquant_tpu_torch import serve
+    from arcquant_tpu_torch.benchmarks import bench_spec as bs
+    from arcquant_tpu_torch.engine import NgramDrafter, SpeculativeEngine
+    from arcquant_tpu_torch.engine.server import make_server
+
+    eng = None
+    for sel in (0.0, SELECT_FRAC):
+        args = bs.build_parser().parse_args(
+            ["--model", MODEL, "--batch_size", "4", "--prefill_seq_len",
+             "1024", "--windows", "2,4,8", "--select_frac", str(sel)])
+        del eng
+        torch.cuda.empty_cache()
+        eng = bs.build_engine(args)
+        r = bs.run(args, eng)
+        for w, v in r["windows"].items():
+            log(f"  bench_spec select_frac {sel}: W={w} decode "
+                f"{r['decode_ms_per_step']:.4f} ms/step, verify "
+                f"{v['verify_ms']:.4f} ms ({v['vs_decode']:.3f}x), speedup "
+                f"alpha 0.5 {v['speedup']['alpha=0.5']}, alpha 1.0 "
+                f"{v['speedup']['alpha=1.0']}")
+        log(f"  {json.dumps(r)}")
+    cfg = eng.cfg
+    spec = SpeculativeEngine(eng, NgramDrafter(), window=4)
+    prompts = _halves(cfg, 1024, seed=4)
+    b = len(prompts)
+    toks, lens, _ = eng._pad_prompts(prompts)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    # plain decode runs on one state, emptied in place, as the spec
+    # engine's runs do: each graph is captured once
+    dstate = eng.new_state()
+
+    def prefill():
+        return eng.prefill(eng.reset_state(dstate), toks, lens)
+    spec.generate_ondevice(prompts, SPEC_TOKENS)          # the capture
+    kernels = all_kernels()
+    reset_counts(kernels)
+    got, spec_ms = timed(lambda: spec.generate_ondevice(prompts,
+                                                        SPEC_TOKENS))
+    launches = launch_counts(kernels)
+    stats = dict(spec.stats)
+    log(f"  launches in generate_ondevice: {launches}")
+    for name in SPEC_KERNELS:
+        if launches[name] <= 0:
+            failures.append(f"kernel {name} not launched by "
+                            "generate_ondevice")
+    for name in SPEC_IDLE_KERNELS:
+        if launches[name] != 0:
+            failures.append(f"kernel {name} launched by generate_ondevice")
+    eng.cuda_graphs = False
+    loop_got = spec.generate_ondevice(prompts, SPEC_TOKENS)
+    loop_stats = dict(spec.stats)
+    eng.cuda_graphs = True
+    same = got == loop_got and stats == loop_stats
+    ok = (same and [len(o) for o in got] == [SPEC_TOKENS] * b
+          and all(0 <= t < cfg.vocab_size for o in got for t in o))
+    log(f"  generate_ondevice graph vs eager round loop: tokens and stats "
+        f"equal {same} (bar: bitwise), {SPEC_TOKENS} tokens a row in the "
+        f"vocabulary {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"[spec] generate_ondevice graph vs loop: equal "
+                        f"{same}, stats {stats} vs {loop_stats}")
+
+    def scan():
+        logits, state = prefill()
+        first = logits.argmax(-1).to(torch.int32)
+        out, _ = eng.decode_scan(state, first, lens > 0, SPEC_TOKENS - 1)
+        return torch.cat([first[:, None], out], dim=1).tolist()
+    scan()                                                  # the capture
+    # host wall times in turns, four runs each; no run captures a graph
+    runs = {"spec": lambda: spec.generate_ondevice(prompts, SPEC_TOKENS),
+            "scan": scan, "prefill": prefill}
+    turns = {k: [] for k in runs}
+    n_cap = len(eng.graph_captures)
+    for name in ("spec", "scan", "prefill", "scan", "spec", "prefill") * 2:
+        out, ms = timed(runs[name])
+        turns[name].append(round(ms, 3))
+        if name == "scan":
+            plain = out
+    if len(eng.graph_captures) != n_cap:
+        failures.append(f"[spec] {len(eng.graph_captures) - n_cap} graph "
+                        "captures inside the timed runs")
+    spec_ms, scan_ms, prefill_ms = (statistics.mean(turns[k])
+                                    for k in ("spec", "scan", "prefill"))
+    diverge = [next((j for j, (a, c) in enumerate(zip(g, p)) if a != c),
+                    None) for g, p in zip(got, plain)]
+    rounds = stats["rounds"]
+    alpha = stats["accepted"] / max(stats["proposed"], 1)
+    spec_tok_ms = (spec_ms - prefill_ms) / SPEC_TOKENS
+    dec_ms = (scan_ms - prefill_ms) / (SPEC_TOKENS - 1)
+    log(f"  spec vs plain decode_scan: first divergent step per row "
+        f"{diverge} (None: equal over {SPEC_TOKENS} tokens)")
+
+    # verify logits against decode logits on decode's own token stream
+    logits, state = prefill()
+    cur = logits.argmax(-1).to(torch.int32)
+    active = torch.ones(b, dtype=torch.bool, device="cuda")
+    dec_logits, fed = [], []
+    for _ in range(SPEC_TOKENS):
+        fed.append(cur)
+        lg, state = eng.decode_step(state, cur, active)
+        dec_logits.append(lg.float().cpu())
+        cur = lg.argmax(-1).to(torch.int32)
+    _, state = prefill()
+    w = spec.window
+    ver_logits = []
+    for j in range(0, SPEC_TOKENS, w):
+        vt = torch.stack(fed[j:j + w], dim=1)
+        vlog, state = eng.verify_step(state, vt, torch.full((b,), w))
+        state[2].add_(w)
+        ver_logits += [vlog[:, i].float().cpu() for i in range(w)]
+    # the floor: the same decode (eager: a graph keeps its kernel) with
+    # the paged decode's outputs an ulp apart on the share at which the
+    # paged prefill at Tq = W and the paged decode of the same queries
+    # differ (phase 3), four draws; for the record, the same decode with
+    # another correct attention, the paged decode's plain version
+    from arcquant_tpu_torch.kernels import paged_decode as pdk
+    share = VERIFY_ULP_SHARE[w]["decode"]
+    eng.cuda_graphs = False
+    real = pdk._paged_decode_cuda
+
+    def decode_with(attention):
+        pdk._paged_decode_cuda = attention
+        try:
+            _, state = prefill()
+            out = []
+            for cur in fed:
+                lg, state = eng.decode_step(state, cur, active)
+                out.append(lg.float().cpu())
+            return out
+        finally:
+            pdk._paged_decode_cuda = real
+    try:
+        ref_logits = decode_with(pdk.paged_decode_state_plain)
+        draws = []
+        for seed in range(4):
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(20 + seed)
+            draws.append(decode_with(_flipped_attention(real, gen, share)))
+    finally:
+        eng.cuda_graphs = True
+    del state, vlog
+
+    def against_decode(outs):
+        cos = [_cosine(a, d) for a, d in zip(outs, dec_logits)]
+        same = sum(int(torch.equal(a.argmax(-1), d.argmax(-1)))
+                   for a, d in zip(outs, dec_logits))
+        return dict(first_round=[round(c, 6) for c in cos[:w]],
+                    min=round(min(cos), 6),
+                    median=round(statistics.median(cos), 6),
+                    argmax_equal=f"{same} of {len(cos)}")
+    ver = against_decode(ver_logits)
+    meds = [against_decode(d)["median"] for d in draws]
+    bar = min(meds) - (max(meds) - min(meds))
+    metrics = dict(
+        rounds=rounds, proposed=stats["proposed"],
+        accepted=stats["accepted"], acceptance=round(alpha, 4),
+        tokens_per_round=round(SPEC_TOKENS / max(rounds, 1), 3),
+        wall_ms_in_turns=turns,
+        spec_ms_per_token=round(spec_tok_ms, 3),
+        decode_ms_per_step=round(dec_ms, 3), first_divergent_step=diverge,
+        verify_vs_decode=ver, ulp_share=share,
+        ulp_flip_decode_vs_decode=[against_decode(d) for d in draws],
+        plain_attention_decode_vs_decode=against_decode(ref_logits),
+        card=card)
+    log(f"  generate_ondevice ARC W {w} {cfg.num_layers} layers bs=4: "
+        f"{json.dumps(metrics)}")
+    ok = ver["median"] >= bar
+    log(f"  verify vs decode logits over the {SPEC_TOKENS} positions: "
+        f"median cosine {ver['median']} (bar: >= {bar:.6f}, the lowest "
+        f"median of 4 draws of decode with {share:.4%} of its attention "
+        f"outputs an ulp apart, {sorted(meds)}, less their spread) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"[spec] verify vs decode median cosine "
+                        f"{ver['median']} < {bar}")
+    gc.collect()
+    del eng, spec
+    torch.cuda.empty_cache()
+
+    args = serve.build_parser().parse_args(
+        ["--model", MODEL, "--dynamic_pages", "--max_batch", "4",
+         "--spec_window", "4"])
+    loop = serve.build_loop(args)
+    srv = make_server(loop, "127.0.0.1", 0)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    bodies = [dict(prompt=p, max_tokens=NEW_TOKENS)
+              for p in _halves(cfg, 700, seed=5)]
+    kernels = all_kernels()
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    clients = [Client(srv.server_address[1], body) for body in bodies]
+    for c in clients:
+        c.start()
+    for c in clients:
+        c.join(timeout=900)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    serve_launches = launch_counts(kernels)
+    health = _get_stats(srv.server_address[1])
+    srv.shutdown()
+    srv.server_close()
+    loop.shutdown()
+    for c in clients:
+        o, tk = c.out, c.out["tokens"] or []
+        if (o["status"] != 200 or o["error"] or len(tk) != NEW_TOKENS
+                or not all(0 <= t < cfg.vocab_size for t in tk)):
+            failures.append(f"[spec] serve --spec_window 4: {o}")
+    sp = health.get("stats", {}).get("spec", {})
+    if not sp.get("rounds"):
+        failures.append(f"[spec] /health has no spec stats: {health}")
+    log(f"  serve --spec_window 4: statuses "
+        f"{[c.out['status'] for c in clients]}, {len(bodies)} requests of "
+        f"{NEW_TOKENS} tokens in {wall:.3f} s, /health spec {sp}, "
+        f"launches {serve_launches}")
+    del loop, srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _moe_generate(eng, cfg, fmt, card, failures):
     """generate() on the PROMPT_LENS prompts with each kernel's launches
     and the decode steps counted, then a timed prefill and NEW_TOKENS
@@ -2052,7 +2443,7 @@ def _moe_mode_check(eng, cfg, failures, gate=True):
 
 
 def moe_run(cfg, card, failures):
-    """Phase 10: qwen1.5-moe-a2.7b at full width, all 24 layers, dummy
+    """Phase 11: qwen1.5-moe-a2.7b at full width, all 24 layers, dummy
     weights from seed 0 (ARC select_frac 0.125, per-row activation and
     per-channel weight scales, W4A16 packed head), in w8 and then in w4
     (the same seed, so the same weights): each built, timed, driven
@@ -2107,7 +2498,7 @@ def moe_run(cfg, card, failures):
 
 
 def moe_serve_run(card, failures):
-    """Phase 10, continued: serve.py's build_loop with --model qwen1.5-moe-a2.7b
+    """Phase 11, continued: serve.py's build_loop with --model qwen1.5-moe-a2.7b
     and its defaults (w8, W4A16 prefill in chunks of 512, W4A4 decode,
     select_frac 0.125, dummy weights from seed 0), dynamic pages, batch
     4: four concurrent HTTP requests of NEW_TOKENS tokens, prompts of
@@ -2180,7 +2571,7 @@ def _noisy_batched(gen):
 
 
 def moe_engine_check(cfg, failures):
-    """Phase 11 for the MoE model: the engine cut to 1 layer (w8, ARC,
+    """Phase 12 for the MoE model: the engine cut to 1 layer (w8, ARC,
     full width), its prefill of the four prompts (dispatch mode) and 4
     decode steps (dense mode: gemm_batched) fed the same tokens, against
     the same forward with the plain versions (PlainKernels: gemm_batched
@@ -2542,7 +2933,7 @@ def _cosine(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def engine_check(cfg, failures):
-    """Phase 11: the engine cut to 1 and to 2 layers, and the w4 and BF16
+    """Phase 12: the engine cut to 1 and to 2 layers, and the w4 and BF16
     engines cut to 1 layer, each its prefill (4 x 1024: qkv and gateup
     take the large-M route; BF16's linears are the same f32-accumulated
     library products on both sides) and 4 decode steps (fed the same
@@ -2640,6 +3031,31 @@ def _noisy_attention(fn, gen, scale=2.0 ** -22):
     return f
 
 
+def _ulp_flips(y, gen, share):
+    """y (bf16) with one ulp added or taken, at random, on a `share` of
+    its finite non-zero elements."""
+    bits = y.contiguous().view(torch.int16)
+    mag = bits & 0x7FFF
+    pick = ((torch.rand(y.shape, generator=gen, device=y.device) < share)
+            & (mag > 0) & (mag < 0x7F7F))
+    step = torch.where(torch.rand(y.shape, generator=gen, device=y.device)
+                       < 0.5, 1, -1).to(torch.int16)
+    return torch.where(pick, bits + step, bits).view(torch.bfloat16)
+
+
+def _flipped_attention(fn, gen, share):
+    """A paged attention (query first, output first, bf16) whose output
+    has one ulp flipped on a `share` of its elements: the distance of the
+    paged prefill kernel from its plain version, or from the paged
+    decode kernel (VERIFY_ULP_SHARE)."""
+    def f(q, *a):
+        out = fn(q, *a)
+        first = out[0] if isinstance(out, tuple) else out
+        first = _ulp_flips(first, gen, share)
+        return (first, *out[1:]) if isinstance(out, tuple) else first
+    return f
+
+
 def _noisy_gemm(gen):
     """The w8 GEMM plain version with its f32 result perturbed before it
     is rounded to the output dtype."""
@@ -2659,14 +3075,96 @@ def _noisy_mm(gen):
     return f
 
 
+def _verify_floors(eng, run, fed, got, prec, failures):
+    """The 1-layer verify's extra runs (eager; serving_engine_check's
+    docstring): the kernels with the paged prefill spied (its share of
+    outputs apart from the plain version's, and the run bitwise against
+    the graph's `got`), the kernels with the paged prefill's plain
+    version, and 5 reference draws with that share of the attention
+    outputs flipped an ulp. Returns (that run's logits, the draws)."""
+    from arcquant_tpu_torch.kernels import gemm as gk
+    from arcquant_tpu_torch.kernels import paged_decode as pdk
+    real = pdk._paged_prefill_cuda
+    seen = [0, 0]
+
+    def spy(q, *a):
+        o = real(q, *a)
+        if q.shape[1] == 4:             # the verify's launches
+            seen[0] += int((o != pdk.paged_prefill_plain(q, *a)).sum())
+            seen[1] += o.numel()
+        return o
+    try:
+        pdk._paged_prefill_cuda = spy
+        eager, _ = run(eng, "verify", feed=fed)
+        pdk._paged_prefill_cuda = pdk.paged_prefill_plain
+        iso, _ = run(eng, "verify", feed=fed)
+    finally:
+        pdk._paged_prefill_cuda = real
+    share = seen[0] / max(seen[1], 1)
+    same = all(torch.equal(_bits(a), _bits(b)) for a, b in zip(eager, got))
+    log(f"  1-layer verify ({prec} prefill): the paged prefill's outputs "
+        f"differing from its plain version's in this verify: {share:.4%}; "
+        f"the eager kernel verify equals the graph's bit for bit: {same} "
+        f"{'ok' if same else 'FAIL'}")
+    if not same:
+        failures.append(f"1-layer verify ({prec} prefill): eager kernel "
+                        "verify differs from the graph's")
+    ulp = []
+    with PlainKernels():
+        for seed in range(5):
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(10 + seed)
+            gk._gemm_w8_cuda = _noisy_gemm(gen)
+            gk._mm_f32_cuda = _noisy_mm(gen)
+            pdk._paged_prefill_cuda = _flipped_attention(
+                pdk.paged_prefill_plain, gen, share)
+            pdk._paged_decode_cuda = _noisy_attention(
+                pdk.paged_decode_state_plain, gen)
+            ulp.append(run(eng, "verify", feed=fed)[0])
+    return iso, ulp
+
+
+def _verify_bar(got, want, draws) -> tuple:
+    """The verify's bar at one position (serving_engine_check's
+    docstring): (ok, its text)."""
+    c = [_cosine(want, f) for f in draws]
+    bar = min(0.999, min(c) - (max(c) - min(c)))
+    same = bool(torch.equal(got.argmax(-1), want.argmax(-1)))
+    noisy = any(not torch.equal(f.argmax(-1), want.argmax(-1))
+                for f in draws)
+    ok = _cosine(got, want) >= bar and (same or noisy)
+    return ok, (f"cosine >= {bar:.6f}, the lowest of the ulp-flip draws "
+                f"{[round(x, 6) for x in sorted(c)]} less their spread, at "
+                f"most 0.999; equal tokens unless a draw's differ "
+                f"({'some' if noisy else 'none'} do)")
+
+
 def serving_engine_check(cfg, failures):
-    """Phase 11, continued: the 1-layer engine with prefill_chunk 256,
+    """Phase 12, continued: the 1-layer engine with prefill_chunk 256,
     kernels against plain versions:
       chunked  the four prompts stream through the int4 pool in chunks;
       suffix   a prefix prefill of (512, 256, 128, 0) tokens, then the
                rest with those per-row starts;
     each followed by 4 decode steps fed the same tokens, with the A4
-    prefill of the engine check and with serve.py's W4A16 one.
+    prefill of the engine check and with serve.py's W4A16 one;
+      verify   after the chunked prefill, speculative decoding's
+               verify_step of the chunked case's 4 decode tokens in one
+               step (W 4), against the same verify with the plain
+               versions (and, for the record, against the plain decode
+               steps of those tokens beside the decode's floor). Its bar
+               at each position: equal tokens unless a floor draw's
+               differ, and a cosine at or above the lowest of 5 draws
+               less their spread (highest less lowest), at most 0.999,
+               each draw the reference forward with the 2^-22 noise
+               below and, in place of the paged prefill's, its plain
+               version's output with one ulp flipped on the share of
+               elements at which the kernel's output differs from the
+               plain version's in this verify (a spy measures it on the
+               eager kernel verify, which must equal the graph's bit for
+               bit). The same verify with every kernel but the paged
+               prefill (there its plain version) is held to the 2^-22
+               floor, so no other kernel at the verify's M = 16 hides
+               behind the paged prefill's ulps.
 
     The bar is equal greedy tokens and a logits cosine at or above the
     noise floor measured in the same run, at most 0.999: the reference
@@ -2714,6 +3212,12 @@ def serving_engine_check(cfg, failures):
         else:
             logits, state = eng.prefill(state, toks, lens)
         outs, fed = [logits.float().cpu()], []
+        if case == "verify":
+            # speculative decoding's verify of the 4 fed tokens in one
+            # step (the paged prefill at Tq 4 over the pool)
+            vlog, _ = eng.verify_step(state, torch.stack(feed, dim=1),
+                                      torch.full((len(feed[0]),), 4))
+            return outs + [vlog[:, i].float().cpu() for i in range(4)], feed
         for i in range(4):
             cur = (logits.argmax(-1).to(torch.int32) if feed is None
                    else feed[i])
@@ -2723,10 +3227,12 @@ def serving_engine_check(cfg, failures):
         return outs, fed
 
     for prec in ("A4", "A16"):
-        for case in ("chunked", "suffix"):
+        decode = {}
+        for case in ("chunked", "verify", "suffix"):
             eng = engines[prec]
             eng.cuda_graphs = True
-            got, fed = run(eng, case)
+            # the verify feeds the chunked case's decode tokens
+            got, fed = run(eng, case, feed=decode.get("fed"))
             floors = []
             eng.cuda_graphs = False        # the plain versions: eager
             with PlainKernels():
@@ -2741,6 +3247,9 @@ def serving_engine_check(cfg, failures):
                     pdk._paged_decode_cuda = _noisy_attention(
                         pdk.paged_decode_state_plain, gen)
                     floors.append(run(eng, case, feed=fed)[0])
+            if case == "verify":
+                iso, ulp = _verify_floors(eng, run, fed, got, prec,
+                                          failures)
             # tokens of the floor draws, for the log only
             noisy_same = [all(bool(torch.equal(f[i].argmax(-1),
                                                want[i].argmax(-1)))
@@ -2749,19 +3258,60 @@ def serving_engine_check(cfg, failures):
                 cos = _cosine(a, b)
                 same = bool(torch.equal(a.argmax(-1), b.argmax(-1)))
                 bar = min([0.999] + [_cosine(b, f[i]) for f in floors])
-                ok = cos >= bar and same
                 what = f"1-layer {case} ({prec} prefill) " + (
-                    "prefill" if i == 0 else f"decode {i}")
+                    "prefill" if i == 0 else f"position {i}" if
+                    case == "verify" else f"decode {i}")
+                if case == "verify" and i > 0:
+                    ok, text = _verify_bar(a, b, [f[i] for f in ulp])
+                else:
+                    ok = cos >= bar and same
+                    text = (f"equal tokens, cosine >= {bar:.6f}, the noise "
+                            "floor, at most 0.999")
                 log(f"  {what}: logits cosine {cos:.6f}, greedy tokens "
-                    f"{'equal' if same else 'differ'} (bar: equal tokens, "
-                    f"cosine >= {bar:.6f}, the noise floor, at most 0.999) "
-                    f"{'ok' if ok else 'FAIL'}")
+                    f"{'equal' if same else 'differ'} (bar: {text}) "
+                    + ("ok" if ok else "FAIL"))
                 if not ok:
                     failures.append(f"{what} engine vs plain: cos {cos}, "
                                     f"tokens equal {same}")
+                if case == "verify" and i > 0:
+                    # every kernel but the paged prefill, at the 2^-22
+                    # floor: equal tokens unless a floor draw's differ
+                    c = _cosine(iso[i], b)
+                    same = bool(torch.equal(iso[i].argmax(-1), b.argmax(-1)))
+                    noisy = any(not torch.equal(f[i].argmax(-1),
+                                                b.argmax(-1)) for f in floors)
+                    ok = c >= bar and (same or noisy)
+                    log(f"  {what}, every kernel but the paged prefill (its "
+                        f"plain version): logits cosine {c:.6f}, greedy "
+                        f"tokens {'equal' if same else 'differ'} (bar: "
+                        f"cosine >= {bar:.6f}, the 2^-22 noise floor, at "
+                        f"most 0.999; equal tokens unless a floor draw's "
+                        f"differ) {'ok' if ok else 'FAIL'}")
+                    if not ok:
+                        failures.append(f"{what} every kernel but the paged "
+                                        f"prefill vs plain: cos {c}, tokens "
+                                        f"equal {same}")
             log(f"  1-layer {case} ({prec} prefill): floor draws with tokens "
                 f"equal to the reference at every step: "
                 f"{sum(noisy_same)} of {len(noisy_same)}")
+            if case == "chunked":
+                decode = dict(fed=fed, want=want, floors=floors)
+            elif case == "verify":
+                # for the record: the verify (kernels, and plain) against
+                # the plain decode of the same tokens, beside the decode's
+                # floor; the paged prefill at Tq 4 and the paged decode
+                # round their f32 sums to bf16 apart
+                for i in range(1, 5):
+                    d = decode["want"][i]
+                    floor = min(_cosine(d, f[i]) for f in decode["floors"])
+                    same = [bool(torch.equal(v[i].argmax(-1), d.argmax(-1)))
+                            for v in (got, want)]
+                    log(f"  1-layer verify ({prec} prefill) position {i} "
+                        f"against the plain decode step: cosine kernels "
+                        f"{_cosine(got[i], d):.6f}, plain "
+                        f"{_cosine(want[i], d):.6f}; greedy tokens equal "
+                        f"{same[0]} / {same[1]} (the decode's noise floor "
+                        f"{floor:.6f})")
     del engines
 
 
@@ -2814,6 +3364,11 @@ def main() -> int:
         f"layers, NVFP4 select-free then BF16, on {card}")
     e2e_launches = bench_e2e_run(card, failures)
 
+    log(f"[spec] speculative decoding, {MODEL} full width, 28 layers, "
+        f"bench_spec (select-free, ARC), generate_ondevice (ARC, W 4) "
+        f"and serve --spec_window 4, on {card}")
+    spec_launches = spec_run(card, failures)
+
     log(f"[lab] the GEMM lab at {MODEL}'s decode sites, M 4, w8 and w4, "
         f"median of 7 CUDA-event runs, L2 flushed, on {card}")
     lab_launches = lab_run(card, failures)
@@ -2836,22 +3391,23 @@ def main() -> int:
         for f in failures:
             print(f"FAIL: {f}", file=sys.stderr)
         return 1
-    # launches: over the ten main paths, the ARC generate(), the HTTP
+    # launches: over the eleven main paths, the ARC generate(), the HTTP
     # server, the w4 generate(), the select-free generate(), the MoE
     # model's w8 and w4 generate() and HTTP server, benchmark_e2e in NVFP4
-    # and BF16, and the GEMM lab; actq's also by M
+    # and BF16, the GEMM lab and generate_ondevice; actq's also by M
     path_launches = dict(
         generate=gen_launches, serve=serve_launches, generate_w4=w4_launches,
         generate_select_free=free_launches,
         generate_moe=moe_launches["w8"], generate_moe_w4=moe_launches["w4"],
         serve_moe=moe_serve_launches, bench_e2e_nvfp4=e2e_launches["NVFP4"],
-        bench_e2e_bf16=e2e_launches["BF16"], gemm_lab=lab_launches)
+        bench_e2e_bf16=e2e_launches["BF16"], gemm_lab=lab_launches,
+        spec=spec_launches)
     actq_by_m = {p: c["actq_by_m"] for p, c in path_launches.items()}
     by_m = {}
     for c in actq_by_m.values():
         for m, n in c.items():
             by_m[m] = by_m.get(m, 0) + n
-    log(f"actq launches by M over the ten paths: "
+    log(f"actq launches by M over the eleven paths: "
         f"{dict(sorted(by_m.items()))}; by path: {actq_by_m}")
     summary["actq"]["launches_by_m"] = dict(sorted(by_m.items()))
     kernels = []
@@ -2866,7 +3422,8 @@ def main() -> int:
             bound_by=s["bound_by"], library_ms=s["library_ms"],
             **{k: s[k] for k in ("chain_ms", "w4_ms", "w4_bound_ms",
                                  "w4_chain_ms", "large_m", "small_m",
-                                 "shapes", "launch_floor_ms", "launches_by_m")
+                                 "shapes", "launch_floor_ms", "launches_by_m",
+                                 "verify")
                  if k in s},
             shape=s["shape"], card=card))
     print(json.dumps({"kernels": kernels}))

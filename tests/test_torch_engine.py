@@ -148,8 +148,11 @@ def test_outside_the_slice_raises():
     eng = InferenceEngine.dummy(cfg, calib, QuantConfig(**QKW),
                                 EngineConfig(**EKW), device="cpu")
     from arcquant_tpu_torch.engine import ContinuousBatcher
-    with pytest.raises(NotImplementedError, match="spec"):
-        ContinuousBatcher(eng, spec_window=3)
+    # speculative batching is ported: a window below 2 and one beside a
+    # decode burst are refused
+    for kw in (dict(spec_window=1), dict(spec_window=3, decode_burst=4)):
+        with pytest.raises(ValueError):
+            ContinuousBatcher(eng, **kw)
     if not torch.cuda.is_available():
         # the entry points default to the card and never fall back
         with pytest.raises(RuntimeError, match="CUDA"):

@@ -1088,3 +1088,112 @@ def test_decode_graph_capture_failure_raises(monkeypatch):
     with pytest.raises(RuntimeError, match=r"int\(positions.max\(\)\)"):
         eng.decode_step(state, logits.argmax(-1).to(torch.int32), active)
     assert not eng._graphs
+
+
+# -- speculative decoding: the verify step and the round as CUDA graphs -------
+
+SPEC_CONFIGS = ("w8-arc", "select-free-fused", "w4-arc", "moe-dense")
+
+
+def _halves_prompts(cfg, n=96):
+    """Prompts whose second half repeats the first (n-gram drafts match),
+    one slot idle."""
+    rng = np.random.default_rng(7)
+    out = []
+    for _ in range(3):
+        half = rng.integers(0, cfg.vocab_size, n // 2).tolist()
+        out.append(half + half)
+    return out
+
+
+@pytest.mark.parametrize("config", SPEC_CONFIGS)
+def test_verify_graph_bitwise_equals_eager(config):
+    """verify_step replaying its captured graph gives the eager
+    verify_step's logits bit for bit at W 2, 4 and 8 (M up to 32), with
+    ragged valid (a row of 1, an idle slot of 0), and seq_lens unchanged;
+    one capture per W."""
+    require_cuda()
+    eng, loop = _graph_pair(config)
+    prompts = _graph_prompts(eng.cfg)
+    (_, sg, _), (_, sl, _) = (_prefill(e, prompts) for e in (eng, loop))
+    lens0 = sl[2].clone()
+    rng = np.random.default_rng(8)
+    for w in (2, 4, 8):
+        toks = torch.as_tensor(rng.integers(0, eng.cfg.vocab_size, (4, w)),
+                               dtype=torch.int32, device="cuda")
+        valid = torch.tensor([w, 1, w, 0], dtype=torch.int32, device="cuda")
+        lg, sg = eng.verify_step(sg, toks, valid)
+        ll, sl = loop.verify_step(sl, toks, valid)
+        assert torch.equal(_bits(lg), _bits(ll)), w
+        assert torch.isfinite(lg[:3]).all()
+    assert torch.equal(sg[2], lens0) and torch.equal(sl[2], lens0)
+    assert [c["what"] for c in eng.graph_captures] == ["verify step"] * 3
+
+
+@pytest.mark.parametrize("config,sampled", [
+    ("w8-arc", False), ("select-free-fused", False), ("w8-arc", True),
+    ("w4-arc", False), ("moe-dense", False)])
+def test_spec_round_graph_bitwise_equals_loop(config, sampled):
+    """generate_ondevice replaying the captured round (draft, verify,
+    acceptance, commit, retirement) against the eager round loop on the
+    same weights: tokens and stats equal, greedy with an eos id and
+    sampled with a seed; drafts are accepted on the repeating prompts.
+    Both calls run on the engine's one spec state: the round is
+    captured once."""
+    require_cuda()
+    from arcquant_tpu_torch.engine import NgramDrafter, SpeculativeEngine
+    eng, loop = _graph_pair(config)
+    prompts = _halves_prompts(eng.cfg)
+    sp = SamplingParams(0.8, top_k=50, top_p=0.9) if sampled else None
+    runs = []
+    for e in (eng, loop):
+        spec = SpeculativeEngine(e, NgramDrafter(), window=4)
+        first = spec.generate_ondevice(prompts, 24, sampling=sp, seed=3)
+        eos = None if sampled else first[0][10]
+        out = spec.generate_ondevice(prompts, 24, eos_id=eos, sampling=sp,
+                                     seed=3)
+        runs.append((first, out, dict(spec.stats)))
+    assert runs[0] == runs[1]
+    assert [c["what"] for c in eng.graph_captures].count("spec round") == 1
+    if not sampled:
+        assert len(runs[0][1][0]) < 24          # the eos retired row 0
+
+
+@pytest.mark.parametrize("w", [2, 4, 8])
+def test_paged_prefill_at_verify_shapes_captured(w):
+    """The paged prefill kernel at Tq = W over a decode-sized pool (batch
+    4, contexts 300/77/31/0 tokens), captured in a CUDA graph after one
+    eager launch and replayed: equal to the eager launch bit for bit and
+    within 1 bf16 ulp + 2e-3 of paged_prefill_plain on live queries."""
+    require_cuda()
+    cfg = get_model_config("qwen2.5-7b").replace(num_layers=1)
+    hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    page, bsz, pps = 128, 4, 3
+    rng = np.random.default_rng(w)
+    cache = paged.init_cache(cfg, 1 + bsz * pps, page, "cuda")
+    pt = (1 + torch.arange(bsz)[:, None] * pps
+          + torch.arange(pps)[None]).to(torch.int32).cuda()
+    t = pps * page
+    st = torch.tensor([300, 77, 31, 0], dtype=torch.int32, device="cuda")
+    sl = st + torch.tensor([w, w, 1, 0], dtype=torch.int32, device="cuda")
+    pos = torch.arange(t, device="cuda")[None].expand(bsz, t)
+    paged.append_kv(cache, 0, _bf16(rng.standard_normal((bsz, t, hkv, dh))),
+                    _bf16(rng.standard_normal((bsz, t, hkv, dh))), pt,
+                    torch.where(pos < sl[:, None], pos, -1))
+    q = _bf16(rng.standard_normal((bsz, w, hq, dh)) * 2)
+    args = (q, cache.codes[0], cache.params[0], pt, st, sl)
+    eager = pdk._paged_prefill_cuda(*args)
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.graph(graph, stream=stream):
+        o = pdk._paged_prefill_cuda(*args)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(o, eager)
+    po = pdk.paged_prefill_plain(*args)
+    live = to_numpy(st[:, None] + torch.arange(w, device="cuda")[None]
+                    < sl[:, None])
+    np.testing.assert_allclose(to_numpy(o)[live], to_numpy(po)[live],
+                               rtol=2.0 ** -7, atol=2e-3)
+    assert (to_numpy(o)[3] == 0).all()
