@@ -9,6 +9,9 @@ tree)``, i.e. numpy arrays, by duck typing (no jax import): bf16 arrays
   packed_from_numpy  one packed weight, w8 or w4 (a layer's linear or the
                      head)
   qparams_from_numpy a packed engine tree (the JAX engine's ``qparams``)
+  fake_qparams_from_numpy  an accuracy-path tree (quantize_model_params):
+                     per-layer linears {"w_aug", "gs", "b"?}, packed ones
+                     or raw {"w", "b"?}
   calib_from_numpy   per-layer dicts of SiteCalib
 """
 
@@ -75,12 +78,20 @@ def _packed_tree(x, device):
 def qparams_from_numpy(qparams, device="cpu"):
     """A packed engine tree (embed, final_norm, layers of
     {attn_norm, mlp_norm, qkv, o, and gateup, down or an MoE layer's
-    "moe"}, lm_head_packed?)."""
+    "moe"}, lm_head_packed?), or any tree of arrays and packed weights
+    in nested dicts."""
     out = {k: _packed_tree(v, device) for k, v in qparams.items()
            if k != "layers"}
     out["layers"] = [_packed_tree(layer, device)
                      for layer in qparams["layers"]]
     return out
+
+
+# The accuracy path's trees (quantize_model_params: per-layer linears
+# {"w_aug" bf16, "gs" f32, "b"?}, packed weights, or raw {"w", "b"?}
+# beside the bf16 embed, norms and head) convert leaf by leaf like the
+# engine's.
+fake_qparams_from_numpy = qparams_from_numpy
 
 
 def calib_from_numpy(calib, device="cpu"):

@@ -13,7 +13,10 @@ selected columns into xa[:, k:k+KE].
 
 Routing follows the JAX package: the rmsnorm mode only when the site
 has no ARC residual (with ARC: rms_norm, then the plain mode, then the
-residual). ``silu_mul_quantize_gu`` takes the silu_mul mode at every M.
+residual). Per-tensor activation scales (per_row=False, the accuracy
+path's act_scale "tensor") take no kernel, as in the JAX package: one
+global scale, the group qdq and the residual in plain torch ops
+(``_quantize_x_tensor``). ``silu_mul_quantize_gu`` takes the silu_mul mode at every M.
 The JAX package rounds silu(g)*u to bf16 in XLA at M <= 16 instead
 (ARC_SILU_GU_DEFUSE_M); on the CPU the two routes give the same bits,
 and on the card the kernel's expf is the one the decode megakernels
@@ -228,11 +231,25 @@ def _arc_residual_into(x_cols: torch.Tensor, xa: torch.Tensor,
     return xa
 
 
-def _check_per_row(per_row: bool) -> None:
-    if not per_row:
-        raise NotImplementedError(
-            "act_scale='tensor' is not ported: the serving path uses "
-            "per-row activation scales (ROADMAP queue 1 item 5)")
+def _quantize_x_tensor(x: torch.Tensor, reorder_index: torch.Tensor,
+                       select_num: int, kq: int):
+    """act_scale "tensor": one global scale over the whole activation,
+    in plain torch ops (the JAX package runs this route in XLA, with no
+    Pallas kernel): the group qdq of x / gx, the ARC residual of the
+    top columns, zeros up to kq. Returns (xa bf16 [M, kq], gx f32
+    scalar)."""
+    m, k = x.shape
+    gx = N.nvfp4_global_scale(x)
+    qx = N.nvfp4_qdq_scaled(x.float() / gx)
+    parts = [qx]
+    if select_num:
+        idx = _top(reorder_index, select_num, x.device)
+        parts.append(N.nvfp4_qdq_scaled(x[:, idx].float() / gx
+                                        - qx[:, idx]))
+    if kq > k + select_num:
+        parts.append(torch.zeros((m, kq - k - select_num),
+                                 dtype=torch.float32, device=x.device))
+    return torch.cat(parts, dim=1).to(torch.bfloat16), gx
 
 
 def _top(reorder_index: torch.Tensor, select_num: int,
@@ -244,11 +261,14 @@ def quantize_x_arc(x: torch.Tensor, reorder_index: torch.Tensor,
                    select_num: int, kq: Optional[int] = None,
                    per_row: bool = True):
     """Quantize a [M, K] activation for the w8 GEMM. Returns (xa bf16
-    [M, kq] in scaled units, gx f32 [M, 1])."""
-    _check_per_row(per_row)
+    [M, kq] in scaled units, gx f32 [M, 1]); with per_row=False (the
+    accuracy path's act_scale "tensor") gx is one f32 scalar over the
+    tensor and no kernel runs (_quantize_x_tensor)."""
     m, k = x.shape
     if kq is None:
         kq = packing.pad_kq(k, select_num)
+    if not per_row:
+        return _quantize_x_tensor(x, reorder_index, select_num, kq)
     xa, gx = _actq(x, None, mode="plain", k=k, kq=kq)
     if select_num:
         idx = _top(reorder_index, select_num, x.device)
@@ -260,12 +280,12 @@ def rmsnorm_quantize_x(x: torch.Tensor, norm_w: torch.Tensor, eps: float,
                        reorder_index: torch.Tensor, select_num: int,
                        kq: Optional[int] = None, per_row: bool = True):
     """RMSNorm then quantize. The fused rmsnorm mode runs only for sites
-    without an ARC residual; otherwise rms_norm, then quantize_x_arc."""
-    _check_per_row(per_row)
+    without an ARC residual at per-row scales; otherwise rms_norm, then
+    quantize_x_arc."""
     m, k = x.shape
     if kq is None:
         kq = packing.pad_kq(k, select_num)
-    if select_num == 0:
+    if select_num == 0 and per_row:
         return _actq(x, norm_w, mode="rmsnorm", k=k, kq=kq, eps=eps)
     return quantize_x_arc(rms_norm(x, norm_w, eps), reorder_index,
                           select_num, kq, per_row)
@@ -276,11 +296,14 @@ def silu_mul_quantize_gu(gu: torch.Tensor, reorder_index: torch.Tensor,
                          per_row: bool = True):
     """silu(gu[:, :F]) * gu[:, F:] then quantize, over the unsliced
     [M, 2F] gate-up output. The product rounds to gu.dtype before the
-    quantize on every route."""
-    _check_per_row(per_row)
+    quantize on every route; at per-tensor scales (per_row=False) the
+    rounded product goes to quantize_x_arc's plain route."""
     k = gu.shape[1] // 2
     if kq is None:
         kq = packing.pad_kq(k, select_num)
+    if not per_row:
+        return quantize_x_arc(_silu_mul(gu[:, :k], gu[:, k:]),
+                              reorder_index, select_num, kq, per_row)
     xa, gx = _actq(gu, None, mode="silu_mul", k=k, kq=kq)
     if select_num:
         idx = _top(reorder_index, select_num, gu.device)

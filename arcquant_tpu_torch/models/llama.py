@@ -1,6 +1,8 @@
-"""Llama / Qwen2 (and Qwen-MoE / Mixtral) decoder building blocks
-(counterpart of ``arcquant_tpu/models/llama.py``): RMSNorm, RoPE, the
-bf16 linear and the dummy-weight initialiser the serving engine needs."""
+"""Llama / Qwen2 (and Qwen-MoE / Mixtral) decoder (counterpart of
+``arcquant_tpu/models/llama.py``): RMSNorm, RoPE, the bf16 linear, the
+dummy-weight initialisers, and the bf16 reference forward (plain
+attention, optional dense KV cache) that the accuracy path measures
+against."""
 
 from __future__ import annotations
 
@@ -54,6 +56,27 @@ def init_layer_params(cfg: ModelConfig, gen: torch.Generator,
     return p
 
 
+def init_params(cfg: ModelConfig, gen: torch.Generator,
+                dtype=torch.bfloat16, device="cpu") -> Params:
+    """Random ("dummy") weights of the whole model from `gen` (a
+    torch.Generator on `device`): embed N(0, 0.02^2), unit final norm,
+    the layers (init_layer_params), and an untied lm_head."""
+    def normal(shape, std):
+        return (torch.randn(shape, generator=gen, dtype=torch.float32,
+                            device=device) * std).to(dtype)
+
+    params: Params = {
+        "embed": normal((cfg.vocab_size, cfg.hidden_size), 0.02),
+        "final_norm": torch.ones((cfg.hidden_size,), dtype=dtype,
+                                 device=device),
+        "layers": [init_layer_params(cfg, gen, dtype, device)
+                   for _ in range(cfg.num_layers)],
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = normal((cfg.vocab_size, cfg.hidden_size), 0.02)
+    return params
+
+
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     """Normalise in f32, round to x.dtype, then multiply by w (in x's
     dtype), the JAX package's rounding chain."""
@@ -63,11 +86,12 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
 
 
 def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """x @ p["w"].T (+ p["b"]) of an unquantized linear: the product
-    accumulated like f32 (gemm.matmul_f32, the product JAX leaves to
-    XLA with preferred_element_type=f32), the bias added in f32, the
+    """x [..., K] @ p["w"].T (+ p["b"]) of an unquantized linear: the
+    product accumulated like f32 (gemm.matmul_f32, the product JAX leaves
+    to XLA with preferred_element_type=f32), the bias added in f32, the
     result cast back to x's dtype."""
-    y = gk.matmul_f32(x, p["w"].t())
+    y = gk.matmul_f32(x.reshape(-1, x.shape[-1]), p["w"].t()).reshape(
+        *x.shape[:-1], -1)
     if "b" in p:
         y = y + p["b"].float()
     return y.to(x.dtype)
@@ -123,3 +147,123 @@ def apply_rope(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor,
     q_out = qf * cos + _rotate_half(qf) * sin
     k_out = kf * cos + _rotate_half(kf) * sin
     return q_out.to(q.dtype), k_out.to(k.dtype)
+
+
+def repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """[B, T, Hkv, Dh] -> [B, T, Hkv * n_rep, Dh] (GQA head expansion)."""
+    if n_rep == 1:
+        return x
+    return x.repeat_interleave(n_rep, dim=2)
+
+
+def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True,
+                    mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain attention in f32. q: [B, Tq, H, Dh]; k/v: [B, Tk, H, Dh];
+    causal aligns q with the end of k; mask (broadcast to [B, H, Tq,
+    Tk]) keeps the True scores."""
+    tq, dh = q.shape[1], q.shape[3]
+    tk = k.shape[1]
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                          k.float()) * (1.0 / math.sqrt(dh))
+    neg_inf = torch.tensor(float("-inf"), device=q.device)
+    if causal:
+        qi = torch.arange(tq, device=q.device)[:, None] + (tk - tq)
+        ki = torch.arange(tk, device=q.device)[None, :]
+        logits = torch.where(qi >= ki, logits, neg_inf)
+    if mask is not None:
+        logits = torch.where(mask, logits, neg_inf)
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v.float()).to(q.dtype)
+
+
+def cache_update(kv_cache, k: torch.Tensor, v: torch.Tensor,
+                 cache_len: int):
+    """A dense cache (k_cache, v_cache) [B, Tmax, Hkv, Dh] with k and v
+    written at token cache_len (new tensors; the inputs stay as they
+    were), and the mask [1, 1, T, Tmax] of the T new queries: causal
+    over the cache filled up to cache_len + T."""
+    kc, vc = (c.clone() for c in kv_cache)
+    t = k.shape[1]
+    kc[:, cache_len:cache_len + t] = k.to(kc.dtype)
+    vc[:, cache_len:cache_len + t] = v.to(vc.dtype)
+    pos = torch.arange(kc.shape[1], device=k.device)
+    qi = torch.arange(t, device=k.device)[:, None] + cache_len
+    mask = (qi >= pos[None, :]) & (pos < cache_len + t)[None, :]
+    return (kc, vc), mask[None, None]
+
+
+def attention_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                    cos: torch.Tensor, sin: torch.Tensor,
+                    kv_cache=None, cache_len: int = 0):
+    """Self-attention, with an optional dense KV cache (k_cache,
+    v_cache) [B, Tmax, Hkv, Dh] holding cache_len tokens. Returns (out
+    [B, T, D], the new cache or None)."""
+    b, t, _ = x.shape
+    q = linear(p["q"], x).reshape(b, t, cfg.num_heads, cfg.head_dim)
+    k = linear(p["k"], x).reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
+    v = linear(p["v"], x).reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
+    q, k = apply_rope(q, k, cos, sin)
+    if kv_cache is not None:
+        new_cache, mask = cache_update(kv_cache, k, v, int(cache_len))
+        kk, vv = (c.to(q.dtype) for c in new_cache)
+        out = dense_attention(q, repeat_kv(kk, cfg.num_kv_groups),
+                              repeat_kv(vv, cfg.num_kv_groups),
+                              causal=False, mask=mask)
+    else:
+        new_cache = None
+        out = dense_attention(q, repeat_kv(k, cfg.num_kv_groups),
+                              repeat_kv(v, cfg.num_kv_groups), causal=True)
+    return linear(p["o"], out.reshape(b, t, cfg.q_size)), new_cache
+
+
+def mlp_block(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    """down(silu(gate(x)) * up(x)): silu in f32 rounded to x's dtype, then
+    the product in x's dtype."""
+    gate = torch.nn.functional.silu(linear(p["gate"], x).float()).to(x.dtype)
+    return linear(p["down"], gate * linear(p["up"], x))
+
+
+def layer_forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                  cos: torch.Tensor, sin: torch.Tensor, kv_cache=None,
+                  cache_len: int = 0):
+    """One bf16 decoder layer: (x + attention + MLP, the new cache). An
+    MoE layer's bf16 experts are not ported."""
+    if "moe" in p:
+        raise NotImplementedError(
+            "the bf16 forward of an MoE layer needs the experts' qdq "
+            "stacks (models/moe.py), not ported (ROADMAP queue 1 item 5)")
+    h = rms_norm(x, p["attn_norm"], cfg.rms_eps)
+    attn, new_cache = attention_block(cfg, p, h, cos, sin, kv_cache,
+                                      cache_len)
+    x = x + attn
+    h = rms_norm(x, p["mlp_norm"], cfg.rms_eps)
+    return x + mlp_block(cfg, p, h), new_cache
+
+
+def head_logits(params: Params, x: torch.Tensor) -> torch.Tensor:
+    """The bf16 head's f32 logits [..., V] of hidden states x [..., D]
+    (lm_head, or the tied embedding), accumulated like f32."""
+    head = params.get("lm_head", params["embed"])
+    y = gk.matmul_f32(x.reshape(-1, x.shape[-1]), head.t())
+    return y.reshape(*x.shape[:-1], head.shape[0])
+
+
+def positions_for(tokens: torch.Tensor) -> torch.Tensor:
+    """0..T-1 for each row of tokens [B, T]."""
+    b, t = tokens.shape
+    return torch.arange(t, device=tokens.device)[None, :].expand(b, t)
+
+
+def model_forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+                  positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The whole bf16 forward without a cache: tokens [B, T] -> f32
+    logits [B, T, V]."""
+    if positions is None:
+        positions = positions_for(tokens)
+    x = params["embed"][tokens.long()]
+    cos, sin = rope_cos_sin(cfg, positions)
+    for p in params["layers"]:
+        x, _ = layer_forward(cfg, p, x, cos, sin)
+    return head_logits(params, rms_norm(x, params["final_norm"],
+                                        cfg.rms_eps))

@@ -253,6 +253,7 @@ def quantize_moe_params_packed(p: Params, layer_calib,
     if "sgate" in p:
         for name, site in (("sgate", c_in), ("sup", c_in),
                            ("sdown", layer_calib["sdown_in"])):
-            out[name] = quantized._pack(p[name], site, "channel", fmt)
+            out[name] = quantized._quantize_linear_packed(p[name], site, fmt,
+                                                          "channel")
         out["shared_gate"] = p["shared_gate"]
     return out

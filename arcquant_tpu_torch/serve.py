@@ -19,26 +19,8 @@ weights made from a seed.
 from __future__ import annotations
 
 import argparse
-import json
 import os
 import sys
-
-
-def load_calibration(path: str, device):
-    """The calibration .npz the JAX package's calibrate.py writes:
-    per layer and site, a reorder index and its ARC select count."""
-    import numpy as np
-    import torch
-
-    from .models.quantized import SiteCalib
-    data = np.load(path)
-    select = json.loads(bytes(data["__select_nums__"]).decode())
-    calib = [{} for _ in range(int(data["__num_layers__"]))]
-    for lk, n in select.items():
-        layer_s, site = lk.split("/", 1)
-        calib[int(layer_s[len("layer"):])][site] = SiteCalib(
-            torch.from_numpy(data[f"{lk}/reorder_index"]).to(device), n)
-    return calib
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -80,6 +62,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def build_loop(args):
     """The engine, batcher and ServingLoop that ``args`` describe."""
+    from .calib import load_calibration
     from .config import QuantConfig, get_model_config
     from .engine import ContinuousBatcher, EngineConfig, InferenceEngine
     from .engine.server import ServingLoop

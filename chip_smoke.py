@@ -52,7 +52,7 @@ Phases, each printed as it runs:
      prefill ms, decode ms/step (each step counting one paged_decode
      call a layer), decode tok/s and peak device memory
      while building the engine and while serving (every path's launch
-     counts also split actq's by M, summed over the eleven paths at the
+     counts also split actq's by M, summed over the twelve paths at the
      end); then [graph]: the engine's decode step captured as a CUDA
      graph against the eager loop (cuda_graphs=False, the same weights):
      every step's logits bitwise fed the same tokens, decode_scan's
@@ -93,20 +93,31 @@ Phases, each printed as it runs:
      decode's on decode's own tokens against a floor of ulp-flipped
      attention draws; then serve --spec_window 4 with four HTTP
      requests and /health's spec stats;
- 10. [lab]: the GEMM lab's script (benchmarks/gemm_lab.py) at the four
+ 10. [eval]: the accuracy path, python -m arcquant_tpu_torch.evaluate's
+     main() at Qwen2.5-7B, 28 layers, the synthetic stream at seqlen 2048
+     over 2 windows, in a temporary directory (eval_run): BF16, NVFP4
+     fake (act_scale tensor, then row) and NVFP4 packed w8 (the twelfth
+     path: #1, #2, #6 at gate/up and #9 at T 2048), each with its PPL,
+     seconds to quantize, ms a window, peak memory and launch counts; the
+     packed PPL against the fake row route's, the two at 1 layer by
+     logits cosine, and #9 at B 1, T 2048 against its plain version;
+ 11. [generate]: python -m arcquant_tpu_torch.generate at Qwen2.5-7B as a
+     subprocess (three --tokens prompts, 8 new tokens), its printed
+     tokens against InferenceEngine.generate on the same dummy engine;
+ 12. [lab]: the GEMM lab's script (benchmarks/gemm_lab.py) at the four
      decode sites at M 4: production against bf16 torch.matmul and the
      bound, every built lab variant in w8 and w4 (tiles, depths, k
      splits, the rings) timed and held to production (bitwise where it
      keeps production's k order), the fastest per site, then production,
      the fastest and the default tile re-timed in turns over five rounds;
- 11. the MoE model, qwen1.5-moe-a2.7b at full width, all 24 layers, in
+ 13. the MoE model, qwen1.5-moe-a2.7b at full width, all 24 layers, in
      w8 and then w4 (moe_run): generate() on the same 4 requests with the
      launch counts (gemm_batched once a layer a decode step), prefill ms,
      decode ms/step, weight GiB and peak memory, the decode logits with
      the batched GEMM bitwise against the per-expert loop, and (w8)
      dispatch against dense mode; then serve.py's build_loop on it with
      four HTTP requests (moe_serve_run);
- 12. the Qwen2.5-7B engine cut to 1 and to 2 layers, its prefill and 4
+ 14. the Qwen2.5-7B engine cut to 1 and to 2 layers, its prefill and 4
      decode steps against the same forward with the plain versions
      patched in, the 1-layer w4 and BF16 engines likewise, then at 1
      layer chunked and suffix prefill and a speculative verify, and the
@@ -115,7 +126,7 @@ Phases, each printed as it runs:
      bars).
 Every decode runs the captured step (InferenceEngine's default) except
 the eager references: the [graph] loops, [spec]'s round loop and floor
-draws, and in 12 the plain versions, the verify's spied and isolating
+draws, and in 14 the plain versions, the verify's spied and isolating
 runs and the MoE check's spied forwards. Kernel launch
 counts stay launches on the card: a replay counts the launches its graph
 holds.
@@ -126,6 +137,7 @@ last line; without a CUDA device it exits 1 at once.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import http.client
 import json
@@ -149,7 +161,7 @@ REPS = 7
 # The share of the paged prefill kernel's outputs at Tq = W an ulp or
 # more apart from its plain version ("plain") and from the paged decode
 # kernel of the same queries ("decode"), by W, measured in phase 3: the
-# noise floors of the verify checks (phases 9 and 12) flip that share
+# noise floors of the verify checks (phases 9 and 14) flip that share
 # of their attention outputs.
 VERIFY_ULP_SHARE: dict = {}
 
@@ -1877,6 +1889,311 @@ def free_run(cfg, card, failures):
     return launches
 
 
+# The [eval] phase: the accuracy path (python -m arcquant_tpu_torch.evaluate)
+# on Qwen2.5-7B at full width and depth, 2 windows of 2048 synthetic tokens;
+# four routes, of which only the packed one launches kernels (#1 actq, #2
+# gemm_w8, #6 dequant_w8 at gate/up, #9 flash attention at T 2048).
+EVAL_SEQLEN = 2048
+EVAL_WINDOWS = 2
+EVAL_KERNELS = ("actq", "gemm_w8", "dequant_w8", "flash_attn")
+EVAL_ROUTES = (
+    ("BF16", ["--quant_type", "BF16"]),
+    ("NVFP4 fake, act_scale tensor (evaluate's defaults)", []),
+    ("NVFP4 fake, act_scale row", ["--act_scale", "row"]),
+    ("NVFP4 packed w8, act_scale row (--use_kernels)",
+     ["--use_kernels", "--act_scale", "row"]))
+# generate: prompt lengths whose longest is a power of two from 16, so the
+# batcher's prefill bucket and generate()'s padding give the same rows
+GEN_PROMPT_LENS = (32, 20, 7)
+GEN_NEW_TOKENS = 8
+
+
+def _ppl_rel(a: float, b: float) -> float:
+    return abs(a - b) / abs(b)
+
+
+@contextlib.contextmanager
+def _scratch_dir():
+    """Run inside a new temporary directory, then back in the caller's;
+    logging handlers added meanwhile (evaluate's log file) are closed."""
+    import logging
+    import os
+    import tempfile
+    root = logging.getLogger()
+    before, cwd = len(root.handlers), os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            yield
+        finally:
+            os.chdir(cwd)
+            for h in root.handlers[before:]:
+                root.removeHandler(h)
+                h.close()
+
+
+def eval_run(card, failures):
+    """[eval]: ``evaluate.main`` (the entry point of ``python -m
+    arcquant_tpu_torch.evaluate``) at Qwen2.5-7B, 28 layers, dummy weights
+    from seed 0, the synthetic stream at seqlen 2048 over 2 windows, run
+    in a temporary directory (its log lands there), in four routes: BF16,
+    NVFP4 fake with evaluate's defaults (act_scale tensor, select 0.125),
+    NVFP4 fake at act_scale row, NVFP4 packed (--use_kernels --act_scale
+    row, w8). Each route's PPL, seconds to quantize, ms a window, peak
+    device memory and launch counts; the fake routes and BF16 launch no
+    kernel, the packed one each of EVAL_KERNELS and no other. Gates: every
+    PPL finite and > 1; at 1 layer (one window, act_scale row) the packed
+    forward against the fake one by logits cosine, and at 28 layers the
+    packed PPL within 1% of the fake row route's, each against the floor
+    where that is lower: draws of the fake route with its GEMM and
+    attention outputs an ulp off on the shares at which the packed
+    route's differ from the fake formulas on the same inputs (the two
+    routes differ in epilogue order and attention, not in summation order
+    alone): at 1 layer the lowest of three draws' cosines less their
+    spread, at 28 layers the farthest of two draws' PPLs; #9 at B 1, T
+    2048 against flash_attention_plain (close_bound). Returns the packed route's launch counts."""
+    from arcquant_tpu_torch import evaluate
+    from arcquant_tpu_torch.config import QuantConfig, get_model_config
+    from arcquant_tpu_torch.evals import synthetic_stream
+    from arcquant_tpu_torch.kernels import attention, gemm as gk
+    from arcquant_tpu_torch.models import llama, quantized
+
+    t_phase = time.perf_counter()
+    cfg = get_model_config(MODEL)
+    kernels = all_kernels()
+    argv = ["--model", MODEL, "--eval_ppl", "--dataset", "synthetic",
+            "--seqlen", str(EVAL_SEQLEN), "--ntokens",
+            str(EVAL_SEQLEN * EVAL_WINDOWS)]
+    ppl, launches = {}, None
+    with _scratch_dir():
+        for i, (label, flags) in enumerate(EVAL_ROUTES):
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts(kernels)
+            t0 = time.perf_counter()
+            r = evaluate.main(argv + flags)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = launch_counts(kernels)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            ppl[i] = r["ppl"]
+            per_window = {k: counts[k] / r["windows"]
+                          for k in EVAL_KERNELS}
+            log(f"  route {i + 1}, {label}: PPL {r['ppl']!r}; "
+                f"quantize {r['quantize_s']!r} s; "
+                f"{1e3 * r['ppl_s'] / r['windows']:.1f} ms a window "
+                f"({r['windows']} windows); {wall:.1f} s in all; peak "
+                f"device memory {peak:.3f} GiB; launches a window "
+                f"{per_window}")
+            if not (np.isfinite(r["ppl"]) and r["ppl"] > 1):
+                failures.append(f"[eval] route {i + 1}: PPL {r['ppl']}")
+            if i < 3:
+                busy = {k: v for k, v in counts.items()
+                        if k != "actq_by_m" and v}
+                if busy:
+                    failures.append(f"[eval] route {i + 1} launched "
+                                    f"kernels: {busy}")
+            else:
+                launches = counts
+                log(f"  launches in the packed route: {counts}")
+                for name in KERNEL_INFO:
+                    if (name in EVAL_KERNELS) != (counts[name] > 0):
+                        failures.append(
+                            f"[eval] kernel {name} launched "
+                            f"{counts[name]} times by the packed route")
+            del r
+
+    # 1 layer, one window: the packed route against the fake row route.
+    # They differ by more than summation order (as the JAX package's two
+    # routes do): the epilogue's order ((y gx) gw against y (gx gs)) and
+    # the attention (#9 against f32 dense attention) round some bf16
+    # outputs an ulp apart, and the next quantize turns that into e2m1
+    # flips. The bar is the floor: draws of the fake forward with its
+    # GEMM and attention outputs an ulp off on the shares at which the
+    # packed forward's differ from the fake formulas on the same inputs,
+    # measured in the same forward.
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg1 = cfg.replace(num_layers=1)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = llama.init_params(cfg1, gen, device="cuda")
+    calib = quantized.identity_calib(cfg1, SELECT_FRAC, device="cuda")
+    toks = torch.from_numpy(synthetic_stream(
+        cfg.vocab_size, EVAL_SEQLEN, 0)).cuda()[None].long()
+    qcfgs = [QuantConfig(use_kernels=u, act_scale="row")
+             for u in (False, True)]
+    trees = [quantized.quantize_model_params(cfg1, params, calib, q)
+             for q in qcfgs]
+    del params
+
+    def forward(i):
+        with torch.inference_mode():
+            return quantized.quant_model_forward(
+                cfg1, trees[i], calib, qcfgs[i], toks).float()
+
+    flash, real_dense = attention.flash_attention, llama.dense_attention
+    real_q_linear = quantized._q_linear
+    shares = {"gemm": [], "attn": []}
+
+    def flash_beside_dense(q, k, v):
+        out = flash(q, k, v)
+        ref = real_dense(q, llama.repeat_kv(k, cfg.num_kv_groups),
+                         llama.repeat_kv(v, cfg.num_kv_groups), causal=True)
+        shares["attn"].append(float((out != ref).float().mean()))
+        return out
+
+    def q_linear_beside_fake(qp, xa, gx, out_dtype):
+        y = real_q_linear(qp, xa, gx, out_dtype)
+        ref = gk.matmul_f32(xa.to(torch.bfloat16), gk.dequant_weight(qp))
+        ref = ref * (gx * qp.global_scale.float().reshape(1, -1))
+        if qp.bias is not None:
+            ref = ref + qp.bias.float()
+        shares["gemm"].append(float((y != ref.to(out_dtype)).float().mean()))
+        return y
+
+    fake = forward(0)
+    try:
+        attention.flash_attention = flash_beside_dense
+        quantized._q_linear = q_linear_beside_fake
+        packed = forward(1)
+    finally:
+        attention.flash_attention = flash
+        quantized._q_linear = real_q_linear
+    share = {k: statistics.mean(v) for k, v in shares.items()}
+
+    def flipped_dense(*a, **kw):
+        return _ulp_flips(real_dense(*a, **kw), gen, share["attn"])
+
+    def flipped_q_linear(qp, xa, gx, out_dtype):
+        return _ulp_flips(real_q_linear(qp, xa, gx, out_dtype), gen,
+                          share["gemm"])
+
+    @contextlib.contextmanager
+    def flips():
+        llama.dense_attention = flipped_dense
+        quantized._q_linear = flipped_q_linear
+        try:
+            yield
+        finally:
+            llama.dense_attention = real_dense
+            quantized._q_linear = real_q_linear
+
+    gen.manual_seed(1)
+    with flips():
+        draws = [_cosine(fake, forward(0)) for _ in range(3)]
+    floor = min(draws) - (max(draws) - min(draws))
+    ok = _cosine(packed, fake) >= floor
+    bar = (f"cosine >= {floor:.7f}, the lowest of the flip draws "
+           f"{[round(c, 7) for c in sorted(draws)]} less their spread")
+    same = float((packed.argmax(-1) == fake.argmax(-1)).float().mean())
+    log(f"  1 layer, one window: packed vs fake row logits cosine "
+        f"{_cosine(packed, fake):.7f}, argmax equal at {same:.4%} of "
+        f"positions; the packed GEMMs' outputs an ulp or more from the fake "
+        f"formula on {share['gemm']:.4%}, #9's from dense attention on "
+        f"{share['attn']:.4%} (bar: {bar}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"[eval] 1-layer packed vs fake: "
+                        f"{_cosine(packed, fake)}, {bar}")
+    del trees, fake, packed, draws
+
+    # 28 layers: the packed PPL against the fake row route's; the floor,
+    # two draws of the fake route flipped alike
+    floors = []
+    with _scratch_dir(), flips():
+        for _ in range(2):
+            gc.collect()
+            torch.cuda.empty_cache()
+            floors.append(evaluate.main(argv + EVAL_ROUTES[2][1])["ppl"])
+    rel = _ppl_rel(ppl[3], ppl[2])
+    floor = max(_ppl_rel(d, ppl[2]) for d in floors)
+    bar = max(0.01, floor)
+    ok = rel <= bar
+    log(f"  28 layers: packed PPL {ppl[3]!r} against fake row {ppl[2]!r}: "
+        f"{rel:.4%} apart; the fake row route's floor draws {floors} are "
+        f"up to {floor:.4%} from it (bar: 1%, or the floor where higher, "
+        f"{bar:.4%}) {'ok' if ok else 'FAIL'}; BF16 {ppl[0]!r}, fake "
+        f"tensor {ppl[1]!r}")
+    if not ok:
+        failures.append(f"[eval] packed PPL {ppl[3]} vs fake row "
+                        f"{ppl[2]}: {rel:.4%} > {bar:.4%}")
+
+    # #9 at the evaluate shape: B 1, T 2048, causal
+    rng = np.random.default_rng(9)
+    q, k, v = (torch.from_numpy(rng.standard_normal(
+        (1, EVAL_SEQLEN, h, cfg.head_dim)).astype(np.float32)).to(
+            torch.bfloat16).cuda()
+        for h in (cfg.num_heads, cfg.num_kv_heads, cfg.num_kv_heads))
+    y = attention._flash_cuda(q, k, v)
+    ref = attention.flash_attention_plain(q, k, v)
+    ok = close_bound(y, ref)
+    timer = Timer(REPS)
+    ms = timer(lambda: attention._flash_cuda(q, k, v)).median
+    plain_ms = timer(lambda: attention.flash_attention_plain(q, k, v)).median
+    err = float((y.float() - ref.float()).abs().max())
+    log(f"  #9 flash attention at B 1, T 2048 (causal, 28/4 heads): max "
+        f"abs err {err:.3g} against flash_attention_plain (bar: 1 bf16 ulp "
+        f"+ 2e-3) {'ok' if ok else 'FAIL'}; {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms")
+    if not ok:
+        failures.append("[eval] flash attention at T 2048 against plain")
+    log(f"  [eval] took {time.perf_counter() - t_phase:.1f} s on {card}")
+    return launches
+
+
+def generate_run(card, failures):
+    """[generate]: ``python -m arcquant_tpu_torch.generate --model
+    qwen2.5-7b`` with three --tokens prompts (GEN_PROMPT_LENS) and
+    --max_new 8 as a subprocess; it must exit 0 and print, for each
+    prompt, the tokens that InferenceEngine.generate gives on the same
+    dummy engine (generate's seed, calibration and qcfg) here."""
+    import subprocess
+
+    from arcquant_tpu_torch import generate
+    from arcquant_tpu_torch.config import get_model_config
+    from arcquant_tpu_torch.engine import EngineConfig, InferenceEngine
+    from arcquant_tpu_torch.models import quantized
+
+    t_phase = time.perf_counter()
+    cfg = get_model_config(MODEL)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in GEN_PROMPT_LENS]
+    cmd = [sys.executable, "-m", "arcquant_tpu_torch.generate", "--model",
+           MODEL, "--max_new", str(GEN_NEW_TOKENS)]
+    for p in prompts:
+        cmd += ["--tokens", ",".join(map(str, p))]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    printed = [json.loads(ln.split("] ", 1)[1])
+               for ln in out.stdout.splitlines() if ln.startswith("[")]
+    log(f"  python -m arcquant_tpu_torch.generate (3 prompts of "
+        f"{GEN_PROMPT_LENS} tokens, 8 new): exit {out.returncode} in "
+        f"{wall:.1f} s; printed {printed}")
+    if out.returncode != 0:
+        failures.append(f"[generate] exit {out.returncode}: "
+                        f"{out.stderr[-2000:]}")
+        return
+    args = generate.build_parser().parse_args(["--model", MODEL])
+    eng = InferenceEngine.dummy(
+        cfg, quantized.identity_calib(cfg, args.select_frac, device="cuda"),
+        generate.qcfg_of(args), EngineConfig(max_batch=args.max_batch,
+                                             max_seq_len=args.max_seq_len),
+        seed=args.seed, device="cuda")
+    want = eng.generate(prompts, GEN_NEW_TOKENS)
+    ok = printed == want
+    log(f"  InferenceEngine.generate on the same engine: {want} "
+        f"{'equal' if ok else 'DIFFERENT'}")
+    if not ok:
+        failures.append(f"[generate] printed {printed} != engine {want}")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  [generate] took {time.perf_counter() - t_phase:.1f} s on {card}")
+
+
 def lab_run(card, failures):
     """The [lab] phase: the GEMM lab's script (benchmarks/gemm_lab.py) at
     Qwen2.5-7B's four decode sites at M 4, one process: exp_shapes
@@ -2571,7 +2888,7 @@ def _noisy_batched(gen):
 
 
 def moe_engine_check(cfg, failures):
-    """Phase 12 for the MoE model: the engine cut to 1 layer (w8, ARC,
+    """Phase 14 for the MoE model: the engine cut to 1 layer (w8, ARC,
     full width), its prefill of the four prompts (dispatch mode) and 4
     decode steps (dense mode: gemm_batched) fed the same tokens, against
     the same forward with the plain versions (PlainKernels: gemm_batched
@@ -2933,7 +3250,7 @@ def _cosine(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def engine_check(cfg, failures):
-    """Phase 12: the engine cut to 1 and to 2 layers, and the w4 and BF16
+    """Phase 14: the engine cut to 1 and to 2 layers, and the w4 and BF16
     engines cut to 1 layer, each its prefill (4 x 1024: qkv and gateup
     take the large-M route; BF16's linears are the same f32-accumulated
     library products on both sides) and 4 decode steps (fed the same
@@ -3140,7 +3457,7 @@ def _verify_bar(got, want, draws) -> tuple:
 
 
 def serving_engine_check(cfg, failures):
-    """Phase 12, continued: the 1-layer engine with prefill_chunk 256,
+    """Phase 14, continued: the 1-layer engine with prefill_chunk 256,
     kernels against plain versions:
       chunked  the four prompts stream through the int4 pool in chunks;
       suffix   a prefix prefill of (512, 256, 128, 0) tokens, then the
@@ -3369,6 +3686,16 @@ def main() -> int:
         f"and serve --spec_window 4, on {card}")
     spec_launches = spec_run(card, failures)
 
+    log(f"[eval] python -m arcquant_tpu_torch.evaluate, {MODEL} full width, "
+        f"28 layers, synthetic stream, seqlen {EVAL_SEQLEN}, {EVAL_WINDOWS} "
+        f"windows: BF16, NVFP4 fake (tensor, row), NVFP4 packed, on {card}")
+    eval_launches = eval_run(card, failures)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[generate] python -m arcquant_tpu_torch.generate, {MODEL} full "
+        f"width, 28 layers, against InferenceEngine.generate, on {card}")
+    generate_run(card, failures)
+
     log(f"[lab] the GEMM lab at {MODEL}'s decode sites, M 4, w8 and w4, "
         f"median of 7 CUDA-event runs, L2 flushed, on {card}")
     lab_launches = lab_run(card, failures)
@@ -3391,23 +3718,24 @@ def main() -> int:
         for f in failures:
             print(f"FAIL: {f}", file=sys.stderr)
         return 1
-    # launches: over the eleven main paths, the ARC generate(), the HTTP
+    # launches: over the twelve main paths, the ARC generate(), the HTTP
     # server, the w4 generate(), the select-free generate(), the MoE
     # model's w8 and w4 generate() and HTTP server, benchmark_e2e in NVFP4
-    # and BF16, the GEMM lab and generate_ondevice; actq's also by M
+    # and BF16, the GEMM lab, generate_ondevice and evaluate's packed
+    # route; actq's also by M
     path_launches = dict(
         generate=gen_launches, serve=serve_launches, generate_w4=w4_launches,
         generate_select_free=free_launches,
         generate_moe=moe_launches["w8"], generate_moe_w4=moe_launches["w4"],
         serve_moe=moe_serve_launches, bench_e2e_nvfp4=e2e_launches["NVFP4"],
         bench_e2e_bf16=e2e_launches["BF16"], gemm_lab=lab_launches,
-        spec=spec_launches)
+        spec=spec_launches, evaluate=eval_launches)
     actq_by_m = {p: c["actq_by_m"] for p, c in path_launches.items()}
     by_m = {}
     for c in actq_by_m.values():
         for m, n in c.items():
             by_m[m] = by_m.get(m, 0) + n
-    log(f"actq launches by M over the eleven paths: "
+    log(f"actq launches by M over the twelve paths: "
         f"{dict(sorted(by_m.items()))}; by path: {actq_by_m}")
     summary["actq"]["launches_by_m"] = dict(sorted(by_m.items()))
     kernels = []

@@ -1197,3 +1197,95 @@ def test_paged_prefill_at_verify_shapes_captured(w):
     np.testing.assert_allclose(to_numpy(o)[live], to_numpy(po)[live],
                                rtol=2.0 ** -7, atol=2e-3)
     assert (to_numpy(o)[3] == 0).all()
+
+
+# -- the accuracy path: the unfused packed forward and eval_ppl ---------------
+
+PLAIN_ENTRY_POINTS = (
+    (qk, "_actq_cuda", qk.actq_plain), (gk, "_gemm_w8_cuda", gk.gemm_w8_plain),
+    (gk, "_gemm_w4_cuda", gk.gemm_w4_plain),
+    (gk, "_dequant_w8_cuda", gk.dequant_w8_plain),
+    (gk, "_dequant_w4_cuda", gk.dequant_w4_plain),
+    (gk, "_pin_rowmajor_cuda", gk.pin_rowmajor_plain),
+    (attention, "_flash_cuda", attention.flash_attention_plain))
+
+
+def _cos(a, b):
+    a, b = to_numpy(a).astype(np.float64), to_numpy(b).astype(np.float64)
+    return float((a * b).sum() / np.sqrt((a * a).sum() * (b * b).sum()))
+
+
+@pytest.mark.parametrize("fmt", ["w8", "w4"])
+@pytest.mark.parametrize("act_scale", ["row", "tensor"])
+def test_packed_forward_layer_kernels_vs_plain(fmt, act_scale, monkeypatch):
+    """One test-tiny layer of quant_model_forward on packed weights (the
+    accuracy path's use_kernels route; B 2 x T 256, so gate/up take the
+    large-M route) with the CUDA kernels against the same forward with
+    their plain versions patched in. With every kernel but #9 (flash
+    attention, whose outputs sit an ulp from its plain version's on a
+    share of elements, enough to flip e2m1 codes downstream): logits
+    cosine >= 0.99999 and equal argmax everywhere; with #9 too: cosine
+    >= 0.999 and equal argmax at >= 99% of positions. Every kernel of the
+    route launches."""
+    require_cuda()
+    cfg = get_model_config("test-tiny").replace(num_layers=1)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = llama.init_params(cfg, gen, device="cuda")
+    calib = quantized.identity_calib(cfg, 0.125, device="cuda")
+    qcfg = QuantConfig(use_kernels=True, weight_fmt=fmt, act_scale=act_scale)
+    qparams = quantized.quantize_model_params(cfg, params, calib, qcfg)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 256))).cuda()
+
+    def forward():
+        return quantized.quant_model_forward(cfg, qparams, calib, qcfg, toks)
+    kernels = ([gk.GEMM_W8, gk.DEQUANT_W8] if fmt == "w8"
+               else [gk.GEMM_W4, gk.DEQUANT_W4, gk.PIN_ROWMAJOR])
+    kernels += [attention.FLASH] + ([qk.ACTQ] if act_scale == "row" else [])
+    for k in kernels:
+        k.reset()
+    got = forward()
+    torch.cuda.synchronize()
+    assert all(k.launches > 0 for k in kernels), [
+        (k.name, k.launches) for k in kernels]
+    monkeypatch.setattr(attention, "_flash_cuda",
+                        attention.flash_attention_plain)
+    isolated = forward()
+    for mod, name, plain in PLAIN_ENTRY_POINTS:
+        monkeypatch.setattr(mod, name, plain)
+    want = forward()
+    assert _cos(isolated, want) >= 0.99999, _cos(isolated, want)
+    np.testing.assert_array_equal(to_numpy(isolated).argmax(-1),
+                                  to_numpy(want).argmax(-1))
+    assert _cos(got, want) >= 0.999, _cos(got, want)
+    assert (to_numpy(got).argmax(-1) == to_numpy(want).argmax(-1)).mean() \
+        >= 0.99
+
+
+@pytest.mark.parametrize("setting,rtol", [
+    (dict(quant_type="BF16"), 1e-3), (dict(use_kernels=False), 1e-2),
+    (dict(use_kernels=True, act_scale="row"), 1e-2)])
+def test_eval_ppl_on_the_card_matches_the_cpu(setting, rtol):
+    """eval_ppl of test-tiny (2 layers, 4 windows of 64 tokens) on the card
+    against the same params and stream on the CPU: BF16, fake NVFP4 and
+    packed NVFP4 with the kernels."""
+    require_cuda()
+    from arcquant_tpu_torch.evals import eval_ppl, synthetic_stream
+    cfg = get_model_config("test-tiny")
+    params = llama.init_params(cfg, torch.Generator().manual_seed(0))
+    stream = synthetic_stream(cfg.vocab_size, 4 * 64, 0)
+    qcfg = QuantConfig(**setting)
+    out = []
+    for device in ("cpu", "cuda"):
+        p = {k: (v.to(device) if torch.is_tensor(v) else v)
+             for k, v in params.items() if k != "layers"}
+        p["layers"] = [{name: ({k: t.to(device) for k, t in v.items()}
+                               if isinstance(v, dict) else v.to(device))
+                        for name, v in layer.items()}
+                       for layer in params["layers"]]
+        calib = quantized.identity_calib(cfg, 0.125, device=device)
+        if qcfg.quant_type != "BF16":
+            p = quantized.quantize_model_params(cfg, p, calib, qcfg)
+        out.append(eval_ppl(cfg, p, stream, 64, qcfg, calib, batch=2))
+    assert np.isfinite(out[1]) and out[1] > 1
+    np.testing.assert_allclose(out[1], out[0], rtol=rtol)

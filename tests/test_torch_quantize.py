@@ -104,6 +104,12 @@ def test_zero_rows_and_tensor_scale():
                                torch.arange(256), 64)
     assert float(xa.abs().max()) == 0.0
     assert bool((gx == 1e-12).all())
-    with pytest.raises(NotImplementedError, match="tensor"):
-        qk.quantize_x_arc(torch.zeros((4, 256)), torch.arange(256), 0,
-                          per_row=False)
+    # act_scale "tensor" (per_row=False): one scalar scale, the floor
+    # 1e-12 on an all-zero tensor, as the JAX package's plain route
+    xa, gx = qk.quantize_x_arc(torch.zeros((4, 256)), torch.arange(256), 0,
+                               per_row=False)
+    jxa, jgx = jqk.quantize_x_arc(jnp.zeros((4, 256)),
+                                  jnp.arange(256, dtype=jnp.int32), 0,
+                                  per_row=False)
+    assert gx.dim() == 0 and float(gx) == float(jgx) == np.float32(1e-12)
+    np.testing.assert_array_equal(to_numpy(xa), np.asarray(jxa, np.float32))
