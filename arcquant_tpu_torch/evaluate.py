@@ -9,7 +9,9 @@ columns), then measure perplexity and the task suites against BF16.
       --dataset synthetic --seqlen 64 --ntokens 512 --tasks synthetic:16 \\
       --cpu
 
-A registry name runs dummy random weights made from --seed. Without
+A registry name runs dummy random weights made from --seed; a directory
+is a HuggingFace checkpoint (models/hf.py), its tokenizer read only for a
+text dataset or text tasks. Without
 --use_kernels the quantized linears are fake-quantized (qdq weights,
 plain torch products); with it (NVFP4 only) they are packed and run the
 CUDA kernels. Prints ``Result,{dataset},{ppl}`` and
@@ -30,8 +32,8 @@ import time
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m arcquant_tpu_torch.evaluate")
     ap.add_argument("--model", required=True,
-                    help="a registry name (dummy weights); checkpoint "
-                    "directories are not ported")
+                    help="HF checkpoint dir, or a registry name (dummy "
+                    "weights)")
     ap.add_argument("--calib", default=None,
                     help="calibration .npz from calibrate.py "
                     "(default: identity calibration, select 12.5%%)")
@@ -76,6 +78,19 @@ def _clock(device) -> float:
     return time.perf_counter()
 
 
+def _lazy_encode(model_dir: str):
+    """text -> token ids through the directory's tokenizer, loaded at the
+    first call (a synthetic run never needs transformers)."""
+    tok = []
+
+    def encode(text):
+        if not tok:
+            from .models import hf
+            tok.append(hf.load_tokenizer(model_dir))
+        return tok[0].encode(text)
+    return encode
+
+
 def main(argv=None) -> dict:
     """Run the evaluation; returns {"ppl", "tasks", "quantize_s", "ppl_s",
     "windows"} (ppl and the seconds None when not measured)."""
@@ -89,27 +104,32 @@ def main(argv=None) -> dict:
     from .evals import eval_ppl, get_token_stream
     from .models import llama, quantized
 
-    if os.path.isdir(args.model):
-        raise NotImplementedError(
-            "evaluating a checkpoint directory needs the HF loader "
-            "(models/hf.py), not ported (ROADMAP queue 1 item 6); pass a "
-            "registry name for dummy weights")
     if args.lm_eval:
         raise NotImplementedError(
             "--lm_eval needs the lm-eval adapter (evals/lm_eval_adapter.py)"
             ", not ported (ROADMAP queue 1 item 7); use --tasks for the "
             "built-in suite")
-    cfg = get_model_config(args.model)
+    device = resolve_device("cpu" if args.cpu else "cuda")
+    tok_fn = None
+    if os.path.isdir(args.model):
+        from .models import hf
+        cfg = hf.load_hf_config(args.model)
+        tok_fn = _lazy_encode(args.model)
+        name = os.path.basename(args.model.rstrip("/"))
+    else:
+        cfg = get_model_config(args.model)
+        name = args.model
     if cfg.num_experts:
         raise NotImplementedError(
-            f"{args.model} is an MoE config: its accuracy path needs the "
+            f"{name} is an MoE config: its accuracy path needs the "
             "experts' qdq stacks (models/moe.py quantize_moe_params), not "
             "ported (ROADMAP queue 1 item 5)")
-    device = resolve_device("cpu" if args.cpu else "cuda")
-    name = args.model
-    gen = torch.Generator(device=device)
-    gen.manual_seed(args.seed)
-    params = llama.init_params(cfg, gen, torch.bfloat16, device)
+    if tok_fn is not None:
+        cfg, params = hf.load_hf_params(args.model, cfg, device=device)
+    else:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(args.seed)
+        params = llama.init_params(cfg, gen, torch.bfloat16, device)
     calib = (load_calibration(args.calib, device) if args.calib
              else quantized.identity_calib(cfg, args.select_frac, device))
     qcfg = QuantConfig(
@@ -138,7 +158,7 @@ def main(argv=None) -> dict:
     del params
 
     if args.eval_ppl:
-        stream = get_token_stream(args.dataset, "test", None,
+        stream = get_token_stream(args.dataset, "test", tok_fn,
                                   vocab_size=cfg.vocab_size,
                                   n_tokens=args.ntokens, seed=args.seed)
         t0 = _clock(device)
@@ -154,7 +174,7 @@ def main(argv=None) -> dict:
     if args.tasks:
         from .evals.tasks import evaluate_tasks
         results = evaluate_tasks(
-            cfg, qparams, args.tasks.split(","), None, qcfg=eval_qcfg,
+            cfg, qparams, args.tasks.split(","), tok_fn, qcfg=eval_qcfg,
             calib=eval_calib, seed=args.seed, num_fewshot=args.num_fewshot)
         for task, acc in results.items():
             print(f"Task,{task},{acc:.4f},shots={args.num_fewshot}")

@@ -9,8 +9,14 @@ prompts of token ids through the continuous batcher over the W4A4 NVFP4
       --tokens 5,17,301 --max_new 8 --cpu
 
 A registry name runs dummy random weights made from --seed (the engine
-of ``InferenceEngine.dummy``). Prints ``[request id] [tokens]`` for each
-prompt. Runs on the card unless --cpu.
+of ``InferenceEngine.dummy``); a directory is a HuggingFace checkpoint
+(models/hf.py), whose tokenizer (transformers, local files) encodes
+--prompt texts, decodes the outputs and gives the eos id. Prints
+``[request id] [tokens]`` for each prompt, the text with a tokenizer.
+Runs on the card unless --cpu.
+
+  python -m arcquant_tpu_torch.generate --model /path/to/qwen2.5-7b \
+      --calib saved/q.npz --prompt "The capital of France is"
 """
 
 from __future__ import annotations
@@ -22,11 +28,10 @@ import os
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m arcquant_tpu_torch.generate")
     ap.add_argument("--model", required=True,
-                    help="a registry name (dummy weights); checkpoint "
-                    "directories are not ported")
+                    help="HF checkpoint dir, or a registry name (dummy "
+                    "weights)")
     ap.add_argument("--prompt", action="append", default=[],
-                    help="text prompt (repeatable): needs a tokenizer, "
-                    "not ported")
+                    help="text prompt (repeatable; needs an HF model dir)")
     ap.add_argument("--tokens", action="append", default=[],
                     help="comma-separated token ids (repeatable)")
     ap.add_argument("--max_new", type=int, default=64)
@@ -62,33 +67,47 @@ def main(argv=None) -> None:
     from .engine.engine import resolve_device
     from .models import quantized
 
-    if os.path.isdir(args.model) or args.prompt:
-        raise NotImplementedError(
-            "checkpoint directories and --prompt need the HF loader and "
-            "tokenizer (models/hf.py), not ported (ROADMAP queue 1 item 6); "
-            "pass a registry name and --tokens")
     if args.tp > 1:
         raise NotImplementedError(
             "--tp needs tensor parallelism (parallel/), not ported (ROADMAP "
             "queue 1 item 8)")
+    if args.prompt and not os.path.isdir(args.model):
+        raise ValueError("--prompt needs an HF model dir (its tokenizer); "
+                         "pass --tokens with a registry name")
     device = resolve_device("cpu" if args.cpu else "cuda")
-    cfg = get_model_config(args.model)
-    prompts = [[int(x) for x in t.split(",")] for t in args.tokens]
+    tokenizer, params = None, None
+    if os.path.isdir(args.model):
+        from .models import hf
+        cfg, params = hf.load_hf_params(args.model, device=device)
+        if args.prompt:
+            tokenizer = hf.load_tokenizer(args.model)
+    else:
+        cfg = get_model_config(args.model)
+    prompts = [tokenizer.encode(p) for p in args.prompt]
+    prompts += [[int(x) for x in t.split(",")] for t in args.tokens]
     if not prompts:
         prompts = [[1, 2, 3]]
     calib = (load_calibration(args.calib, device) if args.calib
              else quantized.identity_calib(cfg, args.select_frac, device))
     ecfg = EngineConfig(max_batch=args.max_batch,
                         max_seq_len=args.max_seq_len)
-    eng = InferenceEngine.dummy(cfg, calib, qcfg_of(args), ecfg,
-                                seed=args.seed, device=device)
+    if params is None:
+        eng = InferenceEngine.dummy(cfg, calib, qcfg_of(args), ecfg,
+                                    seed=args.seed, device=device)
+    else:
+        eng = InferenceEngine(cfg, params, calib, qcfg_of(args), ecfg,
+                              device=device)
+        del params
+    eos = tokenizer.eos_token_id if tokenizer is not None else None
     bat = ContinuousBatcher(eng)
-    reqs = [Request(prompt=p, max_new_tokens=args.max_new) for p in prompts]
+    reqs = [Request(prompt=p, max_new_tokens=args.max_new, eos_id=eos)
+            for p in prompts]
     for r in reqs:
         bat.submit(r)
     bat.run()
     for r in reqs:
-        print(f"[{r.request_id}] {r.output}")
+        out = r.output if tokenizer is None else tokenizer.decode(r.output)
+        print(f"[{r.request_id}] {out}")
 
 
 if __name__ == "__main__":

@@ -13,7 +13,12 @@ card unless --cpu is given:
       '{"prompt": [1,2,3], "max_tokens": 32, "temperature": 0.7}'
 
 A registry name (e.g. qwen2.5-7b, test-tiny) serves dummy random
-weights made from a seed.
+weights made from a seed; a directory is a HuggingFace checkpoint
+(models/hf.py), served with its tokenizer (text prompts) where
+transformers can read it, else with token-id prompts only:
+
+  python -m arcquant_tpu_torch.serve --model /path/to/qwen2.5-7b \
+      --calib saved/q.npz --port 8000
 """
 
 from __future__ import annotations
@@ -26,8 +31,8 @@ import sys
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m arcquant_tpu_torch.serve")
     ap.add_argument("--model", required=True,
-                    help="a registry name (dummy weights); checkpoint "
-                    "directories are not ported")
+                    help="HF checkpoint dir, or a registry name (dummy "
+                    "weights)")
     ap.add_argument("--calib", default=None,
                     help="calibration .npz (else identity calib)")
     ap.add_argument("--host", default="127.0.0.1")
@@ -68,11 +73,6 @@ def build_loop(args):
     from .engine.server import ServingLoop
     from .models import quantized
 
-    if os.path.isdir(args.model):
-        raise NotImplementedError(
-            "serving a checkpoint directory needs the HF loader "
-            "(models/hf.py), not ported (ROADMAP queue 1 item 6); pass a "
-            "registry name for dummy weights")
     device = "cpu" if args.cpu else "cuda"
     qcfg = QuantConfig(quant_type="NVFP4", use_kernels=True,
                        weight_fmt=args.weight_fmt, act_scale="row",
@@ -84,17 +84,41 @@ def build_loop(args):
         num_pages=args.num_pages, dynamic_pages=args.dynamic_pages,
         prefill_chunk=args.prefill_chunk,
         prefix_sharing=args.prefix_sharing)
-    cfg = get_model_config(args.model)
+    params = None
+    if os.path.isdir(args.model):
+        from .models import hf
+        cfg, params = hf.load_hf_params(args.model, device=device)
+    else:
+        cfg = get_model_config(args.model)
     calib = (load_calibration(args.calib, device) if args.calib
              else quantized.identity_calib(cfg, args.select_frac))
-    print(f"serving DUMMY weights for {args.model} ({cfg.num_layers} "
-          f"layers) on {device}", file=sys.stderr)
-    eng = InferenceEngine.dummy(cfg, calib, qcfg, ecfg, seed=args.seed,
-                                device=device)
+    print(f"serving {'DUMMY weights for ' if params is None else ''}"
+          f"{args.model} ({cfg.num_layers} layers) on {device}",
+          file=sys.stderr)
+    if params is None:
+        eng = InferenceEngine.dummy(cfg, calib, qcfg, ecfg, seed=args.seed,
+                                    device=device)
+    else:
+        eng = InferenceEngine(cfg, params, calib, qcfg, ecfg, device=device)
+        del params
     batcher = ContinuousBatcher(eng, top_k=args.top_k,
                                 spec_window=args.spec_window,
                                 decode_burst=args.decode_burst)
     return ServingLoop(batcher)
+
+
+def build_tokenizer(args):
+    """The checkpoint directory's tokenizer, or None: for a registry name,
+    or where transformers or the tokenizer files are missing (then the
+    server takes token-id prompts only, as the JAX entry point does)."""
+    if not os.path.isdir(args.model):
+        return None
+    from .models import hf
+    try:
+        return hf.load_tokenizer(args.model)
+    except (ImportError, OSError, ValueError) as e:
+        print(f"no tokenizer ({e}); token-id prompts only", file=sys.stderr)
+        return None
 
 
 def main(argv=None) -> None:
@@ -102,7 +126,7 @@ def main(argv=None) -> None:
 
     args = build_parser().parse_args(argv)
     loop = build_loop(args)
-    srv = make_server(loop, args.host, args.port)
+    srv = make_server(loop, args.host, args.port, build_tokenizer(args))
     mode = ("spec W=%d" % args.spec_window if args.spec_window
             else "burst N=%d" % args.decode_burst if args.decode_burst
             else "plain decode")

@@ -163,11 +163,15 @@ def test_outside_the_slice_raises():
 def test_port_runs_without_jax():
     """Importing arcquant_tpu_torch, generating with a tiny dummy engine,
     a select-free decode at batch 4 through the fused routes, generating
-    with a tiny MoE engine (in dispatch and dense mode) and serving two
-    HTTP requests through ServingLoop load neither jax nor the JAX
-    package."""
+    with a tiny MoE engine (in dispatch and dense mode), serving two
+    HTTP requests through ServingLoop, calibrating (python -m
+    arcquant_tpu_torch.calibrate --cpu), loading a checkpoint directory
+    and saving and loading a quantized checkpoint load neither jax nor
+    the JAX package, with safetensors and transformers blocked (the
+    card's machine has neither): load_tokenizer then raises ImportError."""
     code = (
         "import sys, torch\n"
+        "sys.modules['safetensors'] = sys.modules['transformers'] = None\n"
         "from arcquant_tpu_torch.config import QuantConfig, get_model_config\n"
         "from arcquant_tpu_torch.engine import EngineConfig, InferenceEngine\n"
         "from arcquant_tpu_torch.models import quantized\n"
@@ -231,6 +235,66 @@ def test_port_runs_without_jax():
         "     '8', '--decode_steps', '1', '--warmup', '0', '--repeats', '1',\n"
         "     '--quant', 'BF16', '--cpu']))\n"
         "assert r['_tokens_valid'], r\n"
+        "import contextlib, io, json, os, tempfile\n"
+        "quiet = contextlib.redirect_stdout(io.StringIO())\n"
+        "from arcquant_tpu_torch import calibrate, generate\n"
+        "from arcquant_tpu_torch.calib import load_calibration\n"
+        "from arcquant_tpu_torch.models import hf, llama\n"
+        "from arcquant_tpu_torch.utils import load_quantized, save_quantized\n"
+        "from arcquant_tpu_torch.utils.safetensors_io import write_safetensors\n"
+        "tmp = tempfile.mkdtemp()\n"
+        "with quiet:\n"
+        "    c = calibrate.main(['--model', 'test-qwen-tiny', '--samples',\n"
+        "                        '2', '--seqlen', '32', '--output', tmp,\n"
+        "                        '--cpu'])\n"
+        "calib = load_calibration(c['path'])\n"
+        "assert [l['down_in'].select_num for l in calib] == [\n"
+        "    l['down_in'].select_num for l in c['calib']]\n"
+        "g = torch.Generator(); g.manual_seed(0)\n"
+        "p = llama.init_params(cfg, g)\n"
+        "t = {'model.embed_tokens.weight': p['embed'],\n"
+        "     'model.norm.weight': p['final_norm'],\n"
+        "     'lm_head.weight': p['lm_head']}\n"
+        "names = {'attn_norm': 'input_layernorm',\n"
+        "         'mlp_norm': 'post_attention_layernorm'}\n"
+        "for k, v in p['layers'][0].items():\n"
+        "    pre = 'model.layers.0.' + names.get(k, ('self_attn.' if k in 'qkvo'\n"
+        "                                            else 'mlp.') + k + '_proj')\n"
+        "    if torch.is_tensor(v):\n"
+        "        t[pre + '.weight'] = v\n"
+        "    else:\n"
+        "        t.update({pre + ('.weight' if n == 'w' else '.bias'): w\n"
+        "                  for n, w in v.items()})\n"
+        "d = os.path.join(tmp, 'ckpt')\n"
+        "os.makedirs(d)\n"
+        "write_safetensors(os.path.join(d, 'model.safetensors'), t)\n"
+        "json.dump(dict(model_type='qwen2', vocab_size=cfg.vocab_size,\n"
+        "               hidden_size=cfg.hidden_size,\n"
+        "               intermediate_size=cfg.intermediate_size,\n"
+        "               num_hidden_layers=1, num_attention_heads=cfg.num_heads,\n"
+        "               num_key_value_heads=cfg.num_kv_heads,\n"
+        "               rope_theta=cfg.rope_theta, rms_norm_eps=cfg.rms_eps,\n"
+        "               max_position_embeddings=512),\n"
+        "          open(os.path.join(d, 'config.json'), 'w'))\n"
+        "hcfg, hp = hf.load_hf_params(d, device='cpu')\n"
+        "assert torch.equal(hp['layers'][0]['q']['b'], p['layers'][0]['q']['b'])\n"
+        "with contextlib.redirect_stdout(io.StringIO()) as out:\n"
+        "    generate.main(['--model', d, '--tokens', '1,2,3', '--max_new',\n"
+        "                   '2', '--calib', c['path'], '--cpu'])\n"
+        "assert len(json.loads(out.getvalue().split('] ')[1])) == 2\n"
+        "heng = InferenceEngine(hcfg, hp, calib[:1], QuantConfig(\n"
+        "    w_scale='channel', act_scale='row', quantize_lm_head=True),\n"
+        "    EngineConfig(max_batch=2, max_seq_len=32, page_size=16),\n"
+        "    device='cpu')\n"
+        "save_quantized(os.path.join(tmp, 'q.safetensors'), heng.qparams)\n"
+        "back = load_quantized(os.path.join(tmp, 'q.safetensors'), 'cpu')\n"
+        "assert torch.equal(back['layers'][0]['qkv'].codes,\n"
+        "                   heng.qparams['layers'][0]['qkv'].codes)\n"
+        "try:\n"
+        "    hf.load_tokenizer(d)\n"
+        "    raise AssertionError('load_tokenizer without transformers')\n"
+        "except ImportError as e:\n"
+        "    assert 'transformers' in str(e), e\n"
         "bad = [m for m in sys.modules\n"
         "       if m == 'jax' or m.startswith(('jax.', 'arcquant_tpu.'))\n"
         "       or m == 'arcquant_tpu']\n"

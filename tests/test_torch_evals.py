@@ -258,13 +258,15 @@ def test_entry_points_with_a_calibration(tmp_path, capsys, monkeypatch):
 
 
 def test_entry_points_raise_outside_the_slice(tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError, match="item 6"):
+    # a directory is a checkpoint (tests/test_torch_hf_loader.py): one
+    # without config.json is refused
+    with pytest.raises(FileNotFoundError, match="config.json"):
         evaluate.main(["--model", str(tmp_path), "--cpu"])
     with pytest.raises(NotImplementedError, match="item 7"):
         evaluate.main(["--model", NAME, "--lm_eval", "piqa", "--cpu"])
     with pytest.raises(NotImplementedError, match="item 5"):
         evaluate.main(["--model", "test-tiny-moe", "--cpu"])
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(ValueError, match="HF model dir"):
         generate.main(["--model", NAME, "--prompt", "hello", "--cpu"])
     with pytest.raises(NotImplementedError, match="item 8"):
         generate.main(["--model", NAME, "--tp", "2", "--cpu"])

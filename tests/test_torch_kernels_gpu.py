@@ -33,8 +33,8 @@ from arcquant_tpu_torch.kernels import quantize as qk
 from arcquant_tpu_torch.models import llama, quantized
 from arcquant_tpu_torch.quant import numerics as N
 from arcquant_tpu_torch.quant import packing
-from arcquant_tpu_torch.testing import (gpu, outlier_x, require_cuda,
-                                        to_numpy)
+from arcquant_tpu_torch.testing import (cosine, gpu, outlier_x,
+                                        require_cuda, to_numpy)
 
 pytestmark = gpu
 
@@ -1289,3 +1289,85 @@ def test_eval_ppl_on_the_card_matches_the_cpu(setting, rtol):
         out.append(eval_ppl(cfg, p, stream, 64, qcfg, calib, batch=2))
     assert np.isfinite(out[1]) and out[1] > 1
     np.testing.assert_allclose(out[1], out[0], rtol=rtol)
+
+
+# -- calibration's shapes and a calibrated engine ------------------------------
+
+def test_flash_attention_at_the_calibration_shape():
+    """#9 at calibration's chunk: 4 samples x 2048 tokens (8192), Qwen2.5-7B's
+    28/4 heads of 128, causal."""
+    require_cuda()
+    rng = np.random.default_rng(2048)
+    q = _bf16(rng.standard_normal((4, 2048, 28, 128)) * 2)
+    k = _bf16(rng.standard_normal((4, 2048, 4, 128)) * 2)
+    v = _bf16(rng.standard_normal((4, 2048, 4, 128)))
+    out = attention._flash_cuda(q, k, v)
+    ref = attention.flash_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(to_numpy(out), to_numpy(ref), rtol=2.0 ** -7,
+                               atol=2e-3)
+
+
+_STEP_PLAIN = PLAIN_ENTRY_POINTS + (
+    (pdk, "_paged_decode_cuda", pdk.paged_decode_state_plain),
+    (pdk, "_paged_prefill_cuda", pdk.paged_prefill_plain),
+    (mf, "_gemm_actq_cuda", mf.gemm_actq_chain),
+    (mf, "_gu_actq_cuda", mf.gu_actq_chain),
+    (mf, "_mlp_w8_cuda", mf.mlp_w8_chain))
+
+
+def test_decode_step_with_a_calibration_against_plain(monkeypatch):
+    """One decode step of a 2-layer Qwen2.5-7B engine on a calibration of
+    random channel permutations whose select counts differ by layer and
+    site (layer 0 select-free, so its step runs the megakernels; layer 1
+    with ARC columns at every site, so the chain and gu_actq), captured
+    as a CUDA graph, against the plain step from the same state (both
+    prefilled by the plain versions): logits at least as close to the
+    plain step as the plain step is to itself with its GEMM outputs
+    perturbed by 2^-22 N(0, 1) (the noise floor of the engine checks),
+    and the fused and unfused kernels each launched."""
+    require_cuda()
+    cfg = get_model_config("qwen2.5-7b").replace(num_layers=2)
+    rng = np.random.default_rng(8)
+    widths = {"attn_in": cfg.hidden_size, "o_in": cfg.q_size,
+              "mlp_in": cfg.hidden_size, "down_in": cfg.intermediate_size}
+    selects = ({"attn_in": 0, "o_in": 0, "mlp_in": 0, "down_in": 0},
+               {"attn_in": 128, "o_in": 64, "mlp_in": 192, "down_in": 256})
+    calib = [{s: quantized.SiteCalib(torch.from_numpy(rng.permutation(
+        k).astype(np.int32)).cuda(), sel[s]) for s, k in widths.items()}
+        for sel in selects]
+    eng = InferenceEngine.dummy(cfg, calib, QuantConfig(**_QKW),
+                                EngineConfig(max_batch=4, max_seq_len=256),
+                                seed=5, device="cuda")
+    prompts = _graph_prompts(cfg)
+    with monkeypatch.context() as m:
+        for mod, name, plain in _STEP_PLAIN:
+            m.setattr(mod, name, plain)
+        (logits, s_kernel, active), (_, s_plain, _), (_, s_noisy, _) = (
+            _prefill(eng, prompts) for _ in range(3))
+    cur = logits.argmax(-1).to(torch.int32)
+    launches = {k: k.launches for k in (mf.GEMM_ACTQ, mf.MLP_W8, mf.GU_ACTQ)}
+    got, _ = eng.decode_step(s_kernel, cur, active)
+    torch.cuda.synchronize()
+    assert len(eng.graph_captures) == 1
+    assert all(k.launches > n for k, n in launches.items()), [
+        (k.name, k.launches - n) for k, n in launches.items()]
+    eng.cuda_graphs = False
+    with monkeypatch.context() as m:
+        for mod, name, plain in _STEP_PLAIN:
+            m.setattr(mod, name, plain)
+        want, _ = eng.decode_step(s_plain, cur, active)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+
+        def noisy(xa, codes, scales, gs, gw, bias, out_dtype):
+            y = gk.gemm_w8_plain(xa, codes, scales, gs, gw, bias,
+                                 torch.float32)
+            return (y * (1 + 2.0 ** -22 * torch.randn(
+                y.shape, generator=gen, device=y.device))).to(out_dtype)
+        m.setattr(gk, "_gemm_w8_cuda", noisy)
+        floor, _ = eng.decode_step(s_noisy, cur, active)
+    live = active.cpu().numpy()
+    got, want, floor = (to_numpy(x)[live] for x in (got, want, floor))
+    assert np.isfinite(got).all()
+    assert cosine(got, want) >= cosine(floor, want), (cosine(got, want),
+                                                      cosine(floor, want))

@@ -233,8 +233,9 @@ def test_loop_thread_steps_in_inference_mode(eng):
 
 def test_serve_entry_point():
     """serve.py's flags and defaults; a registry name serves dummy
-    weights (here on the CPU); a checkpoint directory is not ported;
-    without --cpu the engine goes to the card and never falls back."""
+    weights (here on the CPU); a directory without a checkpoint is
+    refused (checkpoints: tests/test_torch_hf_loader.py); without --cpu
+    the engine goes to the card and never falls back."""
     ap = serve.build_parser()
     d = ap.parse_args(["--model", "test-tiny"])
     assert (d.prefill_chunk, d.prefill_act_bits, d.select_frac,
@@ -254,7 +255,7 @@ def test_serve_entry_point():
         srv.shutdown()
         srv.server_close()
         loop.shutdown()
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+    with pytest.raises(FileNotFoundError, match="config.json"):
         serve.build_loop(ap.parse_args(["--model", ".", "--cpu"]))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
