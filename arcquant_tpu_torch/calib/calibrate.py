@@ -2,8 +2,9 @@
 activation statistics -> channel reorder indices -> ARC outlier-channel
 counts.
 
-Each decoder layer forwards the calibration set with the four
-activation-quantization sites tapped (``site_activations``), and the
+Each decoder layer forwards the calibration set with its
+activation-quantization sites tapped (``site_activations``; an MoE layer
+taps its experts' down input and the shared expert's, five sites), and the
 per-site statistics are reduced chunk by chunk, so the raw activations
 of only one chunk exist at a time. The sample axis is streamed: a layer
 runs the samples in chunks of ``_CHUNK_TOKENS // T`` (8192 tokens), and
@@ -37,7 +38,7 @@ import torch
 from ..config import ModelConfig, OUTLIER_THRESHOLD, SELECT_NUM_MULTIPLE
 from ..engine.engine import resolve_device
 from ..kernels import attention
-from ..models import llama
+from ..models import llama, moe
 from ..models.quantized import SiteCalib, quant_sites
 from ..quant import numerics as N
 
@@ -48,20 +49,20 @@ METRICS = ("max", "hessian", "score")
 # transients (down_in is [chunk * T, intermediate]).
 _CHUNK_TOKENS = 8192
 
-_MOE = ("calibrating an MoE config needs moe_block's routing taps on raw "
-        "bf16 params, the experts' qdq stacks (models/moe.py), not ported "
-        "(ROADMAP queue 1 item 5)")
-
 
 def site_activations(cfg: ModelConfig, p, x: torch.Tensor, cos: torch.Tensor,
                      sin: torch.Tensor):
     """Forward one decoder layer (x [B, T, D]), also returning the
-    activation at each of the four quantization sites: (x out, {site:
-    [B, T, K]}). The ops are llama.layer_forward's with attention as
-    flash_attention (dense [B, H, T, T] scores do not fit at 128 x 2048);
-    silu(gate) * up in f32, cast to x's dtype."""
-    if "moe" in p:
-        raise NotImplementedError(_MOE)
+    activation at each quantization site: (x out, {site: [B, T, K]}). The
+    ops are llama.layer_forward's with attention as flash_attention
+    (dense [B, H, T, T] scores do not fit at 128 x 2048); silu(gate) * up
+    in f32, cast to x's dtype. An MoE layer runs moe.moe_block on its raw
+    bf16 experts with taps: down_in is the routing-masked [T, E, F]
+    intermediate (dense mode) or the [E, C, F] capacity slots (dispatch
+    mode; the tokens of the call set the mode and the capacity), sdown_in
+    the shared expert's; each is flattened to one row [1, N, F], so
+    score's L2 runs over the chunk rather than a sample, as in the JAX
+    package."""
     sites = {}
     b, t, _ = x.shape
     h = llama.rms_norm(x, p["attn_norm"], cfg.rms_eps)
@@ -75,6 +76,12 @@ def site_activations(cfg: ModelConfig, p, x: torch.Tensor, cos: torch.Tensor,
     x = x + llama.linear(p["o"], attn)
     h = llama.rms_norm(x, p["mlp_norm"], cfg.rms_eps)
     sites["mlp_in"] = h
+    if "moe" in p:
+        taps: Dict[str, torch.Tensor] = {}
+        y = moe.moe_block(cfg, p["moe"], h, taps=taps)
+        for name, v in taps.items():
+            sites[name] = v.reshape(1, -1, v.shape[-1])
+        return x + y, sites
     gate = llama.linear(p["gate"], h)
     up = llama.linear(p["up"], h)
     inter = (torch.nn.functional.silu(gate.float()) * up.float()).to(x.dtype)
@@ -135,8 +142,6 @@ def compute_calibration(cfg: ModelConfig, params, tokens, metric: str = "max",
     [K] f32}, avg_bits: 4.5 bits a channel, ARC columns included)."""
     if metric not in METRICS:
         raise ValueError(f"metric {metric!r} not in {METRICS}")
-    if cfg.num_experts:
-        raise NotImplementedError(_MOE)
     device = resolve_device(device)
     sites_cfg = quant_sites(cfg)
     tokens = (tokens.to(device, torch.long) if torch.is_tensor(tokens)

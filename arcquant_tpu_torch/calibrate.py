@@ -11,9 +11,9 @@ evaluate and generate reads (in either package).
 
 A registry name gets dummy weights from a torch.Generator seeded with
 --seed, in llama.init_params' draw order; above 16 x 4096 (layers x
-hidden) the layers are made one at a time as the pass reaches them. A
-directory is a HuggingFace checkpoint (models/hf.py), its tokenizer read
-only for a text dataset. Writes {name}_calib_{dataset}_{metric}.npz in
+hidden), and for an MoE config, the layers are made one at a time as the
+pass reaches them. A directory is a HuggingFace checkpoint
+(models/hf.py), its tokenizer read only for a text dataset. Writes {name}_calib_{dataset}_{metric}.npz in
 --output and prints ``average bits:`` and ``saved:``. Runs on the card
 unless --cpu.
 """
@@ -54,9 +54,11 @@ def build_parser() -> argparse.ArgumentParser:
 def dummy_params(cfg, seed: int, device, dtype=None):
     """llama.init_params' weights from a generator seeded with `seed` on
     `device`, drawn in its order (embed, then each layer). Above
-    _STREAM_ABOVE "layers" is a callable that draws layer li when the
-    pass reaches it (in order, once each) and there is no lm_head, which
-    calibration does not read."""
+    _STREAM_ABOVE, and for every MoE config (its expert stacks make a
+    layer many times a dense one of its width: 1.1 GB at
+    Qwen1.5-MoE-A2.7B), "layers" is a callable that draws layer li when
+    the pass reaches it (in order, once each) and there is no lm_head,
+    which calibration does not read."""
     import torch
 
     from .models import llama
@@ -64,7 +66,8 @@ def dummy_params(cfg, seed: int, device, dtype=None):
     dtype = dtype or torch.bfloat16
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    if cfg.num_layers * cfg.hidden_size <= _STREAM_ABOVE:
+    if (cfg.num_layers * cfg.hidden_size <= _STREAM_ABOVE
+            and not cfg.num_experts):
         return llama.init_params(cfg, gen, dtype, device)
     embed = (torch.randn((cfg.vocab_size, cfg.hidden_size), generator=gen,
                          dtype=torch.float32, device=device) * 0.02).to(dtype)

@@ -20,6 +20,17 @@
     W4A4 engine is measured against. ``quantize_lm_head=False`` (and
     BF16) keep the bf16 LM head, an f32-accumulated product with f32
     logits.
+  - the fake formats (MXFP4, MXFP6, INT4) and ``use_kernels=False``: the
+    same engine on fake-quantized linears (qdq weights, rms_norm then the
+    plain qdq quantize at every site, f32-accumulated products; an MoE
+    layer's experts as qdq stacks), as the JAX engine runs them; the
+    attention kernels and, for NVFP4 with quantize_lm_head, the packed
+    head still run.
+  - ``act_scale="tensor"`` on the packed route: one f32 scale over each
+    site's activation (``quantize._quantize_x_tensor``, plain torch
+    ops), a scalar tensor through the unfused chain; the megakernels
+    never engage, and the decode step still captures as a graph (the
+    scale stays on the device).
 
 PyTorch runs eagerly: prefill runs op by op. The pool is preallocated
 by ``new_state`` and every step writes into it in place (the JAX
@@ -136,11 +147,20 @@ class EngineConfig:
         return self.num_pages or self.max_batch * self.pages_per_seq + 1
 
 
+def _a4_kernels(qcfg) -> bool:
+    """NVFP4 W4A4 sites on the packed kernels (use_kernels), the JAX
+    engine's condition for its Pallas quantize routes."""
+    return (qcfg.quant_type == "NVFP4" and qcfg.use_kernels
+            and qcfg.act_bits == 4)
+
+
 def _norm_quantize(x2, norm_w, eps, site, qcfg):
-    """rmsnorm + activation quantize of one site: (xa, gx). NVFP4 W4A4
-    runs the actq kernel's rmsnorm route; W4A16 and BF16 apply rms_norm,
-    then the site's quantize (a pad, or nothing)."""
-    if qcfg.quant_type == "NVFP4" and qcfg.act_bits == 4:
+    """rmsnorm + activation quantize of one site: (xa, gx). NVFP4 W4A4 on
+    the kernels runs rmsnorm_quantize_x (the actq kernel's rmsnorm route
+    at per-row scales; at per-tensor scales rms_norm, then the plain
+    tensor quantize); every other setting (W4A16, BF16, the fake formats,
+    use_kernels=False) applies rms_norm, then the site's quantize."""
+    if _a4_kernels(qcfg):
         return qk.rmsnorm_quantize_x(x2, norm_w, eps, site.reorder_index,
                                      site.select_num,
                                      per_row=qcfg.act_scale == "row")
@@ -149,9 +169,10 @@ def _norm_quantize(x2, norm_w, eps, site, qcfg):
 
 
 def _fused_ok(qcfg, fused: bool) -> bool:
-    """The fused routes' common precondition: NVFP4 W4A4 sites (per-row
-    scales are the only ones ported), and the engine's switch."""
-    return fused and qcfg.quant_type == "NVFP4" and qcfg.act_bits == 4
+    """The fused routes' common precondition, the JAX engine's gates:
+    NVFP4 W4A4 sites on the kernels at per-row scales (a per-tensor scale
+    takes the unfused chain), and the engine's switch."""
+    return fused and _a4_kernels(qcfg) and qcfg.act_scale == "row"
 
 
 def _single_gemm_fused_ok(pw, site, m, d, qcfg, fused):
@@ -230,7 +251,7 @@ def _mlp(cfg, p, x, layer_calib, qcfg, norm_w, fused=False):
                               ia, gi, idx, f)
         return quantized._q_linear(down, ia, gi, x.dtype).reshape(b, t, d)
     gu = quantized._q_linear(gate_up, xa, gx, x.dtype)
-    if qcfg.quant_type == "NVFP4" and qcfg.act_bits == 4:
+    if _a4_kernels(qcfg):
         ia, gi = qk.silu_mul_quantize_gu(gu, c.reorder_index, c.select_num,
                                          per_row=qcfg.act_scale == "row")
     else:   # silu * up in f32, rounded to the activation dtype
@@ -387,7 +408,7 @@ class InferenceEngine:
                  ecfg: EngineConfig, device="cuda",
                  quantize_params: bool = True, fused_decode: bool = True,
                  cuda_graphs: bool = True):
-        quantized.check_qcfg(qcfg, cfg)
+        quantized.check_qcfg(qcfg)
         self.cfg, self.qcfg, self.ecfg = cfg, qcfg, ecfg
         self.fused_decode = fused_decode
         self.cuda_graphs = cuda_graphs
@@ -423,7 +444,7 @@ class InferenceEngine:
         device = resolve_device(device)
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
-        quantized.check_qcfg(qcfg, cfg)
+        quantized.check_qcfg(qcfg)
         calib = _to_device(calib, device)
         layers = []
         for i in range(cfg.num_layers):

@@ -119,11 +119,6 @@ def main(argv=None) -> dict:
     else:
         cfg = get_model_config(args.model)
         name = args.model
-    if cfg.num_experts:
-        raise NotImplementedError(
-            f"{name} is an MoE config: its accuracy path needs the "
-            "experts' qdq stacks (models/moe.py quantize_moe_params), not "
-            "ported (ROADMAP queue 1 item 5)")
     if tok_fn is not None:
         cfg, params = hf.load_hf_params(args.model, cfg, device=device)
     else:
@@ -150,7 +145,8 @@ def main(argv=None) -> dict:
     else:
         print("quantizing...", file=sys.stderr)
         t0 = _clock(device)
-        qparams = quantized.quantize_model_params(cfg, params, calib, qcfg)
+        qparams = quantized.quantize_model_params(cfg, params, calib, qcfg,
+                                                  consume=True)
         out["quantize_s"] = _clock(device) - t0
         print(f"quantized {cfg.num_layers} layers in "
               f"{out['quantize_s']:.2f} s", file=sys.stderr)

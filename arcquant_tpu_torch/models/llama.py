@@ -227,17 +227,16 @@ def mlp_block(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
 def layer_forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
                   cos: torch.Tensor, sin: torch.Tensor, kv_cache=None,
                   cache_len: int = 0):
-    """One bf16 decoder layer: (x + attention + MLP, the new cache). An
-    MoE layer's bf16 experts are not ported."""
-    if "moe" in p:
-        raise NotImplementedError(
-            "the bf16 forward of an MoE layer needs the experts' qdq "
-            "stacks (models/moe.py), not ported (ROADMAP queue 1 item 5)")
+    """One bf16 decoder layer: (x + attention + MLP, the new cache); an
+    MoE layer's MLP is moe.moe_block on its bf16 expert stacks."""
     h = rms_norm(x, p["attn_norm"], cfg.rms_eps)
     attn, new_cache = attention_block(cfg, p, h, cos, sin, kv_cache,
                                       cache_len)
     x = x + attn
     h = rms_norm(x, p["mlp_norm"], cfg.rms_eps)
+    if "moe" in p:
+        from . import moe
+        return x + moe.moe_block(cfg, p["moe"], h), new_cache
     return x + mlp_block(cfg, p, h), new_cache
 
 

@@ -5,10 +5,12 @@ quantize the weights:
 
 - the serving engine's (``quantize_layer_params_fused``): q/k/v and
   gate/up fused into packed GEMMs (and the packed experts of an MoE
-  layer); with quant_type "BF16" the same fused layers stay unquantized
-  bf16 linears (the engine's baseline);
+  layer); with the fake formats or use_kernels=False the same fused
+  linears fake-quantized (an MoE layer's experts as qdq stacks); with
+  quant_type "BF16" unquantized bf16 linears (the engine's baseline);
 - the accuracy path's (``quantize_model_params``): the seven linears of
-  a layer apart, packed (NVFP4 with use_kernels), fake-quantized
+  a layer apart (an MoE layer's four attention linears and its experts'
+  qdq stacks), packed (NVFP4 with use_kernels), fake-quantized
   ({"w_aug", "gs", "b"?}: the qdq weight with its ARC columns, in every
   format) or left bf16, run by the no-cache forward
   ``quant_model_forward`` (and its dense-KV-cache layer) that
@@ -24,7 +26,7 @@ from typing import Dict, List, NamedTuple, Optional
 
 import torch
 
-from ..config import ModelConfig, QuantConfig
+from ..config import QUANT_TYPES, ModelConfig, QuantConfig
 from ..kernels import gemm as gk
 from ..kernels import quantize as qk
 from ..quant import arc, numerics as N
@@ -74,40 +76,31 @@ def identity_calib(cfg: ModelConfig, select_frac: float = 0.0,
     return [dict(per_layer) for _ in range(cfg.num_layers)]
 
 
-def check_qcfg(qcfg: QuantConfig, cfg: Optional[ModelConfig] = None) -> None:
-    """Raise NotImplementedError for quantization settings outside the
-    ported serving path: NVFP4 with packed kernels (W4A4 or W4A16
-    activations, hybrid prefill_act_bits in {0, 4, 16}, w8 or w4 packed
-    weights, per-row activation scales, the packed or the bf16 head), or
-    BF16, whose linears stay unquantized and which ignores the other
-    fields, as the JAX engine does. BF16 on an MoE config (cfg) needs the
-    experts' qdq stacks, not ported."""
+def check_qcfg(qcfg: QuantConfig) -> None:
+    """Raise for quantization settings the JAX engine does not run
+    either: an unknown quant_type, weight_fmt or act_scale, act_bits
+    outside {4, 16} and prefill_act_bits outside {0, 4, 16}. Everything
+    else runs, as in the JAX engine: BF16 (unquantized linears, which
+    ignores the other fields; on an MoE config the bf16 expert stacks),
+    NVFP4 with packed kernels (w8 or w4, per-row or per-tensor
+    activation scales, the packed or the bf16 head) and the fake-quant
+    route (every format, or use_kernels=False: qdq weights, plain torch
+    quantizes and products; an MoE layer's experts as qdq stacks), on
+    every model config."""
+    if qcfg.quant_type not in QUANT_TYPES:
+        raise ValueError(f"unknown quant_type {qcfg.quant_type!r}")
     if qcfg.quant_type == "BF16":
-        if cfg is not None and cfg.num_experts:
-            raise NotImplementedError(
-                "quant_type='BF16' on an MoE config: the experts' bf16 "
-                "stacks (moe.quantize_moe_params) are not ported (ROADMAP "
-                "queue 1 item 5)")
         return
-    if qcfg.quant_type != "NVFP4" or not qcfg.use_kernels:
-        raise NotImplementedError(
-            f"quant_type={qcfg.quant_type!r} use_kernels="
-            f"{qcfg.use_kernels}: the engine serves the NVFP4 packed-kernel "
-            "path and BF16; the fake-quant formats run in "
-            "quant_model_forward (evaluate), not in the engine (ROADMAP "
-            "queue 1 item 5)")
     if qcfg.weight_fmt not in ("w4", "w8"):
         raise ValueError(f"unknown weight_fmt {qcfg.weight_fmt!r}")
+    if qcfg.act_scale not in ("row", "tensor"):
+        raise ValueError(f"unknown act_scale {qcfg.act_scale!r}")
     if qcfg.act_bits not in (4, 16) or qcfg.prefill_act_bits not in (0, 4,
                                                                      16):
         raise NotImplementedError(
             f"act_bits={qcfg.act_bits} prefill_act_bits="
-            f"{qcfg.prefill_act_bits}: only 4 and 16 are ported")
-    if qcfg.act_scale != "row":
-        raise NotImplementedError(
-            "act_scale='tensor' in the engine is not ported (ROADMAP queue "
-            "1 item 5, the engine's act_scale gate); quant_model_forward "
-            "(evaluate) takes it")
+            f"{qcfg.prefill_act_bits}: the engine runs 4 and 16, as the "
+            "JAX engine does")
 
 
 def _quantize_linear_packed(p: Params, calib: SiteCalib, fmt: str = "w8",
@@ -117,14 +110,22 @@ def _quantize_linear_packed(p: Params, calib: SiteCalib, fmt: str = "w8",
                                    fmt=fmt, w_scale=w_scale)
 
 
+def _packed_route(qcfg: QuantConfig) -> bool:
+    """NVFP4 with use_kernels: packed weights and the CUDA kernels."""
+    return qcfg.use_kernels and qcfg.quant_type == "NVFP4"
+
+
 def quantize_layer_params_fused(layer_p: Params,
                                 layer_calib: Dict[str, SiteCalib],
                                 qcfg: QuantConfig) -> Params:
-    """Pack one layer for the engine: q/k/v concatenate into one packed
-    GEMM ("qkv"), gate/up into "gateup"; multi-projection packs use
-    per-channel weight scales. An MoE layer packs qkv and o, and its
-    experts into "moe" (moe.quantize_moe_params_packed). BF16 keeps the
-    concatenated bf16 {"w", "b"?} linears."""
+    """Quantize one layer for the engine: q/k/v concatenate into one
+    linear ("qkv"), gate/up into "gateup"; multi-projection linears take
+    per-channel weight scales. Packed for NVFP4 with use_kernels,
+    fake-quantized ({"w_aug", "gs", "b"?}) otherwise, and for BF16 the
+    concatenated bf16 {"w", "b"?} linears. An MoE layer keeps qkv and o
+    and holds its experts in "moe": packed
+    (moe.quantize_moe_params_packed) on the packed route, else the qdq
+    stacks (moe.quantize_moe_params; at BF16 the bf16 stacks)."""
     def cat(names):
         w = torch.cat([layer_p[n]["w"] for n in names], dim=0)
         bs = [layer_p[n].get("b") for n in names]
@@ -139,34 +140,30 @@ def quantize_layer_params_fused(layer_p: Params,
              "gateup": (("gate", "up"), "mlp_in"),
              "o": (("o",), "o_in"),
              "down": (("down",), "down_in")}
-    bf16 = qcfg.quant_type == "BF16"
     if "moe" in layer_p:
-        if bf16:
-            raise NotImplementedError(
-                "quant_type='BF16' on an MoE layer (ROADMAP queue 1 item 5)")
         from . import moe
-        out["moe"] = moe.quantize_moe_params_packed(layer_p["moe"],
-                                                    layer_calib, qcfg)
+        quantize = (moe.quantize_moe_params_packed if _packed_route(qcfg)
+                    else moe.quantize_moe_params)
+        out["moe"] = quantize(layer_p["moe"], layer_calib, qcfg)
         specs = {k: v for k, v in specs.items() if k in ("qkv", "o")}
     for name, (projs, site) in specs.items():
         p = cat(projs) if len(projs) > 1 else layer_p[projs[0]]
-        if bf16:
-            out[name] = p
-            continue
         w_scale = "channel" if len(projs) > 1 else qcfg.w_scale
-        out[name] = _quantize_linear_packed(p, layer_calib[site],
-                                            qcfg.weight_fmt, w_scale)
+        if qcfg.quant_type == "BF16":
+            out[name] = p
+        elif _packed_route(qcfg):
+            out[name] = _quantize_linear_packed(p, layer_calib[site],
+                                                qcfg.weight_fmt, w_scale)
+        else:
+            out[name] = _quantize_linear_fake(
+                p, layer_calib[site], qcfg.quant_type,
+                per_channel=w_scale == "channel")
     return out
 
 
 _SITE_OF_PROJ = {"q": "attn_in", "k": "attn_in", "v": "attn_in",
                  "o": "o_in", "gate": "mlp_in", "up": "mlp_in",
                  "down": "down_in"}
-
-_MOE_QDQ = ("an MoE layer on the accuracy path needs the experts' qdq "
-            "stacks (models/moe.py quantize_moe_params), not ported "
-            "(ROADMAP queue 1 item 5)")
-
 
 def _quantize_linear_fake(p: Params, calib: SiteCalib, quant_type: str,
                           per_channel: bool = False) -> Params:
@@ -185,17 +182,23 @@ def _quantize_linear_fake(p: Params, calib: SiteCalib, quant_type: str,
 
 def quantize_layer_params(layer_p: Params, layer_calib: Dict[str, SiteCalib],
                           qcfg: QuantConfig) -> Params:
-    """Quantize one layer's seven linears apart (the accuracy path):
-    packed for NVFP4 with use_kernels, fake-quantized otherwise, left as
-    they are for BF16; the norms stay bf16."""
-    if "moe" in layer_p:
-        raise NotImplementedError(_MOE_QDQ)
+    """Quantize one layer's linears apart (the accuracy path): packed for
+    NVFP4 with use_kernels, fake-quantized otherwise, left as they are
+    for BF16; the norms stay bf16. An MoE layer's experts become the qdq
+    stacks at every setting (moe.quantize_moe_params), as in the JAX
+    package, beside its four attention linears."""
     out = {"attn_norm": layer_p["attn_norm"], "mlp_norm": layer_p["mlp_norm"]}
-    for proj, site in _SITE_OF_PROJ.items():
-        calib = layer_calib[site]
+    projs = tuple(_SITE_OF_PROJ)
+    if "moe" in layer_p:
+        from . import moe
+        out["moe"] = moe.quantize_moe_params(layer_p["moe"], layer_calib,
+                                             qcfg)
+        projs = ("q", "k", "v", "o")
+    for proj in projs:
+        calib = layer_calib[_SITE_OF_PROJ[proj]]
         if qcfg.quant_type == "BF16":
             out[proj] = layer_p[proj]
-        elif qcfg.use_kernels and qcfg.quant_type == "NVFP4":
+        elif _packed_route(qcfg):
             out[proj] = _quantize_linear_packed(
                 layer_p[proj], calib, qcfg.weight_fmt, qcfg.w_scale)
         else:
@@ -206,12 +209,22 @@ def quantize_layer_params(layer_p: Params, layer_calib: Dict[str, SiteCalib],
 
 
 def quantize_model_params(cfg: ModelConfig, params: Params, calib: list,
-                          qcfg: QuantConfig) -> Params:
+                          qcfg: QuantConfig, consume: bool = False) -> Params:
     """Quantize every decoder layer (quantize_layer_params); the
-    embedding, final norm and head stay bf16."""
+    embedding, final norm and head stay bf16.
+
+    consume: set each slot of params["layers"] to None once its layer is
+    quantized, so that a caller holding no other reference frees each raw
+    layer as it goes and the raw and the quantized model never coexist
+    (an MoE model's qdq stacks are as large as its raw ones)."""
+    layers = params["layers"]
     qparams = {k: v for k, v in params.items() if k != "layers"}
-    qparams["layers"] = [quantize_layer_params(lp, calib[i], qcfg)
-                         for i, lp in enumerate(params["layers"])]
+    qparams["layers"] = []
+    for i in range(len(layers)):
+        qparams["layers"].append(quantize_layer_params(layers[i], calib[i],
+                                                       qcfg))
+        if consume:
+            layers[i] = None
     return qparams
 
 
@@ -234,7 +247,7 @@ def _act_quantize(x2d: torch.Tensor, calib: SiteCalib, qcfg: QuantConfig):
                  else k + calib.select_num)
         return (torch.nn.functional.pad(x2d.to(torch.bfloat16),
                                         (0, width - k)), 1.0)
-    if qcfg.use_kernels and qcfg.quant_type == "NVFP4":
+    if _packed_route(qcfg):
         return qk.quantize_x_arc(x2d, calib.reorder_index, calib.select_num,
                                  per_row=per_row)
     return arc.arc_quantize_x_qdq(x2d, calib.reorder_index, calib.select_num,
@@ -326,14 +339,17 @@ def quant_layer_forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
                         qcfg: QuantConfig, kv_cache=None,
                         cache_len: int = 0):
     """One quantized decoder layer of quantize_layer_params' tree: (x +
-    attention + MLP, the new cache)."""
-    if "moe" in p:
-        raise NotImplementedError(_MOE_QDQ)
+    attention + MLP, the new cache); an MoE layer's MLP is
+    moe.moe_block on its qdq stacks."""
     h = llama.rms_norm(x, p["attn_norm"], cfg.rms_eps)
     attn, new_cache = quant_attention_block(
         cfg, p, h, cos, sin, layer_calib, qcfg, kv_cache, cache_len)
     x = x + attn
     h = llama.rms_norm(x, p["mlp_norm"], cfg.rms_eps)
+    if "moe" in p:
+        from . import moe
+        return x + moe.moe_block(cfg, p["moe"], h, layer_calib,
+                                 qcfg), new_cache
     return x + quant_mlp_block(cfg, p, h, layer_calib, qcfg), new_cache
 
 

@@ -128,7 +128,28 @@ Phases, each printed as it runs:
      the batched GEMM bitwise against the per-expert loop, and (w8)
      dispatch against dense mode; then serve.py's build_loop on it with
      four HTTP requests (moe_serve_run);
- 14. the Qwen2.5-7B engine cut to 1 and to 2 layers, its prefill and 4
+ 14. [moe_qdq] (moe_qdq_run): Qwen1.5-MoE-A2.7B at full width, moe_block
+     on the qdq stacks (use_kernels=False) against the packed experts at
+     1 layer (w8, w4; tensor and row scales; dense and dispatch mode;
+     packed dispatch against dense) against a floor of 2^-22 noise on the
+     stacks' products; then 24 layers in BF16 and in the NVFP4 fake format,
+     each built layer by layer, through generate() (no #1, no packed GEMM)
+     with prefill ms, decode ms/step, peak memory and [graph];
+     [moe_eval] (eval_run on the MoE model): evaluate.main on
+     qwen1.5-moe-a2.7b, 24 layers, 2 windows of 2048 (dispatch mode):
+     BF16, NVFP4 fake (tensor, row), NVFP4 packed w8 (the experts qdq
+     stacks), with [eval]'s gates and draws; [moe_calibrate]
+     (calibrate_run on the MoE model: 128 x 2048 tokens, 24 layers
+     streamed, only #9; the 2-layer cut's plain run fed the #9 run's
+     top-k sets) and [moe_calib_serve] (calib_serve_run on the MoE model:
+     its artifact in the packed MoE engine beside identity 0.125,
+     [graph], the 1- and 2-layer cuts against the plain versions, ARC's
+     MSE on planted outliers); [engine_tensor] (engine_tensor_run): the
+     28-layer Qwen2.5-7B w8 ARC engine at act_scale "tensor" (no #1, no
+     megakernel), [graph], timed in turns beside row scales, the 1-layer
+     cut against the plain versions, and the 1-layer logits of each
+     route and scale against BF16's;
+ 15. the Qwen2.5-7B engine cut to 1 and to 2 layers, its prefill and 4
      decode steps against the same forward with the plain versions
      patched in, the 1-layer w4 and BF16 engines likewise, then at 1
      layer chunked and suffix prefill and a speculative verify, and the
@@ -137,7 +158,7 @@ Phases, each printed as it runs:
      bars).
 Every decode runs the captured step (InferenceEngine's default) except
 the eager references: the [graph] loops, [spec]'s round loop and floor
-draws, and in 14 the plain versions, the verify's spied and isolating
+draws, and in 15 the plain versions, the verify's spied and isolating
 runs and the MoE check's spied forwards. Kernel launch
 counts stay launches on the card: a replay counts the launches its graph
 holds.
@@ -1556,8 +1577,8 @@ def graph_check(eng, label, card, failures):
         graph_pool_mib=[round(c["pool_bytes"] / 2 ** 20, 1) for c in caps],
         kernel_launches_per_step=[c["launches"] for c in caps],
         profiled_8_steps=idle, card=card)
-    log(f"  [graph] {label} {MODEL} {eng.cfg.num_layers} layers bs=4: "
-        f"{json.dumps(metrics)}")
+    log(f"  [graph] {label} {eng.cfg.name} {eng.cfg.num_layers} layers "
+        f"bs=4: {json.dumps(metrics)}")
     del loop, engines, states, steps, runs, outs
     torch.cuda.empty_cache()
     return metrics
@@ -1944,87 +1965,26 @@ def _scratch_dir():
                 h.close()
 
 
-def eval_run(card, failures):
-    """[eval]: ``evaluate.main`` (the entry point of ``python -m
-    arcquant_tpu_torch.evaluate``) at Qwen2.5-7B, 28 layers, dummy weights
-    from seed 0, the synthetic stream at seqlen 2048 over 2 windows, run
-    in a temporary directory (its log lands there), in four routes: BF16,
-    NVFP4 fake with evaluate's defaults (act_scale tensor, select 0.125),
-    NVFP4 fake at act_scale row, NVFP4 packed (--use_kernels --act_scale
-    row, w8). Each route's PPL, seconds to quantize, ms a window, peak
-    device memory and launch counts; the fake routes and BF16 launch no
-    kernel, the packed one each of EVAL_KERNELS and no other. Gates: every
-    PPL finite and > 1; at 1 layer (one window, act_scale row) the packed
-    forward against the fake one by logits cosine, and at 28 layers the
-    packed PPL within 1% of the fake row route's, each against the floor
-    where that is lower: draws of the fake route with its GEMM and
-    attention outputs an ulp off on the shares at which the packed
-    route's differ from the fake formulas on the same inputs (the two
-    routes differ in epilogue order and attention, not in summation order
-    alone): at 1 layer the lowest of three draws' cosines less their
-    spread, at 28 layers the farthest of two draws' PPLs; #9 at B 1, T
-    2048 against flash_attention_plain (close_bound). Returns the packed route's launch counts."""
-    from arcquant_tpu_torch import evaluate
-    from arcquant_tpu_torch.config import QuantConfig, get_model_config
+def _one_layer_packed_vs_fake(cfg, what, failures):
+    """The accuracy path's packed route (use_kernels, act_scale row)
+    against its fake row route on cfg cut to 1 layer (llama.init_params'
+    weights from seed 0, one window of the synthetic stream at
+    EVAL_SEQLEN), by logits cosine. They differ by more than summation
+    order (as the JAX package's two routes do): the epilogue's order ((y
+    gx) gw against y (gx gs)) and the attention (#9 against f32 dense
+    attention) round some bf16 outputs an ulp apart, and the next
+    quantize turns that into e2m1 flips. The bar is the floor: draws of
+    the fake forward with its GEMM and attention outputs an ulp off on
+    the shares at which the packed forward's differ from the fake
+    formulas on the same inputs, measured in the same forward (the
+    lowest of three draws' cosines less their spread). An MoE layer's
+    experts are qdq stacks on both routes. Returns a context manager
+    that applies those flips (the fake route's floor draws)."""
+    from arcquant_tpu_torch.config import QuantConfig
     from arcquant_tpu_torch.evals import synthetic_stream
     from arcquant_tpu_torch.kernels import attention, gemm as gk
     from arcquant_tpu_torch.models import llama, quantized
 
-    t_phase = time.perf_counter()
-    cfg = get_model_config(MODEL)
-    kernels = all_kernels()
-    argv = ["--model", MODEL, "--eval_ppl", "--dataset", "synthetic",
-            "--seqlen", str(EVAL_SEQLEN), "--ntokens",
-            str(EVAL_SEQLEN * EVAL_WINDOWS)]
-    ppl, launches = {}, None
-    with _scratch_dir():
-        for i, (label, flags) in enumerate(EVAL_ROUTES):
-            gc.collect()
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-            reset_counts(kernels)
-            t0 = time.perf_counter()
-            r = evaluate.main(argv + flags)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            counts = launch_counts(kernels)
-            peak = torch.cuda.max_memory_allocated() / 2 ** 30
-            ppl[i] = r["ppl"]
-            per_window = {k: counts[k] / r["windows"]
-                          for k in EVAL_KERNELS}
-            log(f"  route {i + 1}, {label}: PPL {r['ppl']!r}; "
-                f"quantize {r['quantize_s']!r} s; "
-                f"{1e3 * r['ppl_s'] / r['windows']:.1f} ms a window "
-                f"({r['windows']} windows); {wall:.1f} s in all; peak "
-                f"device memory {peak:.3f} GiB; launches a window "
-                f"{per_window}")
-            if not (np.isfinite(r["ppl"]) and r["ppl"] > 1):
-                failures.append(f"[eval] route {i + 1}: PPL {r['ppl']}")
-            if i < 3:
-                busy = {k: v for k, v in counts.items()
-                        if k != "actq_by_m" and v}
-                if busy:
-                    failures.append(f"[eval] route {i + 1} launched "
-                                    f"kernels: {busy}")
-            else:
-                launches = counts
-                log(f"  launches in the packed route: {counts}")
-                for name in KERNEL_INFO:
-                    if (name in EVAL_KERNELS) != (counts[name] > 0):
-                        failures.append(
-                            f"[eval] kernel {name} launched "
-                            f"{counts[name]} times by the packed route")
-            del r
-
-    # 1 layer, one window: the packed route against the fake row route.
-    # They differ by more than summation order (as the JAX package's two
-    # routes do): the epilogue's order ((y gx) gw against y (gx gs)) and
-    # the attention (#9 against f32 dense attention) round some bf16
-    # outputs an ulp apart, and the next quantize turns that into e2m1
-    # flips. The bar is the floor: draws of the fake forward with its
-    # GEMM and attention outputs an ulp off on the shares at which the
-    # packed forward's differ from the fake formulas on the same inputs,
-    # measured in the same forward.
     gc.collect()
     torch.cuda.empty_cache()
     cfg1 = cfg.replace(num_layers=1)
@@ -2058,6 +2018,8 @@ def eval_run(card, failures):
 
     def q_linear_beside_fake(qp, xa, gx, out_dtype):
         y = real_q_linear(qp, xa, gx, out_dtype)
+        if isinstance(qp, dict):        # an MoE shared expert's fake linear
+            return y
         ref = gk.matmul_f32(xa.to(torch.bfloat16), gk.dequant_weight(qp))
         ref = ref * (gx * qp.global_scale.float().reshape(1, -1))
         if qp.bias is not None:
@@ -2100,17 +2062,89 @@ def eval_run(card, failures):
     bar = (f"cosine >= {floor:.7f}, the lowest of the flip draws "
            f"{[round(c, 7) for c in sorted(draws)]} less their spread")
     same = float((packed.argmax(-1) == fake.argmax(-1)).float().mean())
-    log(f"  1 layer, one window: packed vs fake row logits cosine "
+    log(f"  {what} 1 layer, one window: packed vs fake row logits cosine "
         f"{_cosine(packed, fake):.7f}, argmax equal at {same:.4%} of "
         f"positions; the packed GEMMs' outputs an ulp or more from the fake "
         f"formula on {share['gemm']:.4%}, #9's from dense attention on "
         f"{share['attn']:.4%} (bar: {bar}) {'ok' if ok else 'FAIL'}")
     if not ok:
-        failures.append(f"[eval] 1-layer packed vs fake: "
+        failures.append(f"{what} 1-layer packed vs fake: "
                         f"{_cosine(packed, fake)}, {bar}")
     del trees, fake, packed, draws
+    return flips
 
-    # 28 layers: the packed PPL against the fake row route's; the floor,
+
+def eval_run(card, failures, model=MODEL, kernels=EVAL_KERNELS,
+             tag="[eval]"):
+    """[eval] (and [moe_eval]): ``evaluate.main`` (the entry point of
+    ``python -m arcquant_tpu_torch.evaluate``) on `model` at full width
+    and depth, dummy weights from seed 0, the synthetic stream at seqlen
+    2048 over 2 windows (B 1: an MoE layer's 2048 tokens take dispatch
+    mode), run in a temporary directory (its log lands there), in four
+    routes: BF16, NVFP4 fake with evaluate's defaults (act_scale tensor,
+    select 0.125), NVFP4 fake at act_scale row, NVFP4 packed
+    (--use_kernels --act_scale row, w8; an MoE model's experts stay qdq
+    stacks, as in the JAX package). Each route's PPL, seconds to quantize
+    (layer by layer, each raw layer freed), ms a window, peak device
+    memory and launch counts; the fake routes and BF16 launch no kernel,
+    the packed one each of `kernels` and no other. Gates: every PPL finite
+    and > 1; at 1 layer (one window, act_scale row) the packed forward
+    against the fake one by logits cosine, and at full depth the packed
+    PPL within 1% of the fake row route's, each against the floor where
+    that is lower: draws of the fake route with its GEMM and attention
+    outputs an ulp off on the shares at which the packed route's differ
+    from the fake formulas on the same inputs (the two routes differ in
+    epilogue order and attention, not in summation order alone): at 1
+    layer the lowest of three draws' cosines less their spread, at full
+    depth the farthest of two draws' PPLs; #9 at B 1, T 2048 against
+    flash_attention_plain (close_bound). Returns the packed route's launch
+    counts."""
+    from arcquant_tpu_torch import evaluate
+    from arcquant_tpu_torch.config import get_model_config
+    from arcquant_tpu_torch.kernels import attention, gemm as gk
+    from arcquant_tpu_torch.models import llama, quantized
+
+    t_phase = time.perf_counter()
+    cfg = get_model_config(model)
+    every = all_kernels()
+    argv = ["--model", model, "--eval_ppl", "--dataset", "synthetic",
+            "--seqlen", str(EVAL_SEQLEN), "--ntokens",
+            str(EVAL_SEQLEN * EVAL_WINDOWS)]
+    ppl, launches = {}, None
+    with _scratch_dir():
+        for i, (label, flags) in enumerate(EVAL_ROUTES):
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts(every)
+            t0 = time.perf_counter()
+            r = evaluate.main(argv + flags)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = launch_counts(every)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            ppl[i] = r["ppl"]
+            per_window = {k: counts[k] / r["windows"] for k in kernels}
+            log(f"  route {i + 1}, {label}: PPL {r['ppl']!r}; "
+                f"quantize {r['quantize_s']!r} s; "
+                f"{1e3 * r['ppl_s'] / r['windows']:.1f} ms a window "
+                f"({r['windows']} windows); {wall:.1f} s in all; peak "
+                f"device memory {peak:.3f} GiB; launches a window "
+                f"{per_window}")
+            if not (np.isfinite(r["ppl"]) and r["ppl"] > 1):
+                failures.append(f"{tag} route {i + 1}: PPL {r['ppl']}")
+            _check_path(counts, kernels if i == 3 else (), None,
+                        f"{tag} route {i + 1}", failures)
+            if i == 3:
+                launches = counts
+                log(f"  launches in the packed route: {counts}")
+            del r
+
+    flips = _one_layer_packed_vs_fake(cfg, tag, failures)
+    real_dense, real_q_linear = llama.dense_attention, quantized._q_linear
+    depth = f"{cfg.num_layers} layers"
+
+    # full depth: the packed PPL against the fake row route's; the floor,
     # two draws of the fake route flipped alike
     floors = []
     with _scratch_dir(), flips():
@@ -2122,13 +2156,13 @@ def eval_run(card, failures):
     floor = max(_ppl_rel(d, ppl[2]) for d in floors)
     bar = max(0.01, floor)
     ok = rel <= bar
-    log(f"  28 layers: packed PPL {ppl[3]!r} against fake row {ppl[2]!r}: "
+    log(f"  {depth}: packed PPL {ppl[3]!r} against fake row {ppl[2]!r}: "
         f"{rel:.4%} apart; the fake row route's floor draws {floors} are "
         f"up to {floor:.4%} from it (bar: 1%, or the floor where higher, "
         f"{bar:.4%}) {'ok' if ok else 'FAIL'}; BF16 {ppl[0]!r}, fake "
         f"tensor {ppl[1]!r}")
     if not ok:
-        failures.append(f"[eval] packed PPL {ppl[3]} vs fake row "
+        failures.append(f"{tag} packed PPL {ppl[3]} vs fake row "
                         f"{ppl[2]}: {rel:.4%} > {bar:.4%}")
 
     # the fake row route with the packed route's epilogue order, (y gx)
@@ -2151,7 +2185,7 @@ def eval_run(card, failures):
             ordered = evaluate.main(argv + EVAL_ROUTES[2][1])["ppl"]
     finally:
         quantized._q_linear = real_q_linear
-    log(f"  28 layers, the fake row route with the packed epilogue order (y "
+    log(f"  {depth}, the fake row route with the packed epilogue order (y "
         f"gx) gw: PPL {ordered!r}, {_ppl_rel(ordered, ppl[2]):.4%} from fake "
         f"row, {_ppl_rel(ordered, ppl[3]):.4%} from packed")
 
@@ -2178,7 +2212,7 @@ def eval_run(card, failures):
                     "ppl"]
         finally:
             setattr(mod, name, real)
-        log(f"  28 layers, the packed route with {what} in place of #9: PPL "
+        log(f"  {depth}, the packed route with {what} in place of #9: PPL "
             f"{packed_with[what]!r}, {_ppl_rel(packed_with[what], ppl[2]):.4%}"
             f" from fake row, {_ppl_rel(packed_with[what], ppl[3]):.4%} from "
             f"packed")
@@ -2196,13 +2230,14 @@ def eval_run(card, failures):
     ms = timer(lambda: attention._flash_cuda(q, k, v)).median
     plain_ms = timer(lambda: attention.flash_attention_plain(q, k, v)).median
     err = float((y.float() - ref.float()).abs().max())
-    log(f"  #9 flash attention at B 1, T 2048 (causal, 28/4 heads): max "
-        f"abs err {err:.3g} against flash_attention_plain (bar: 1 bf16 ulp "
-        f"+ 2e-3) {'ok' if ok else 'FAIL'}; {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms")
+    log(f"  #9 flash attention at B 1, T {EVAL_SEQLEN} (causal, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads): max abs err {err:.3g} "
+        f"against flash_attention_plain (bar: 1 bf16 ulp + 2e-3) "
+        f"{'ok' if ok else 'FAIL'}; {ms:.4f} ms, plain {plain_ms:.4f} ms")
     if not ok:
-        failures.append("[eval] flash attention at T 2048 against plain")
-    log(f"  [eval] took {time.perf_counter() - t_phase:.1f} s on {card}")
+        failures.append(f"{tag} flash attention at T {EVAL_SEQLEN} against "
+                        f"plain")
+    log(f"  {tag} took {time.perf_counter() - t_phase:.1f} s on {card}")
     return launches
 
 
@@ -2286,9 +2321,9 @@ def _valid_calib(cfg, calib, stats, what, failures):
                   and (st is None or (bool(torch.isfinite(st).all())
                                       and bool((st[1:] >= st[:-1]).all()))))
             if not ok:
-                failures.append(f"[calibrate] {what}: layer {li} {site} "
-                                f"select {sc.select_num}, not a valid "
-                                "ascending permutation")
+                failures.append(f"{what}: layer {li} {site} select "
+                                f"{sc.select_num}, not a valid ascending "
+                                "permutation")
 
 
 def _selects(layer) -> dict:
@@ -2313,21 +2348,28 @@ def _order_agrees(kc, ps) -> tuple:
     return out, float((hi - lo + 1).double().mean())
 
 
-def calibrate_run(card, workdir, failures):
-    """[calibrate]: ``python -m arcquant_tpu_torch.calibrate --model
-    qwen2.5-7b --dataset synthetic --act_sort_metric max`` (calibrate.main)
-    at the reference protocol, 128 samples x 2048 tokens, select_batch 32,
-    dummy weights from seed 0 streamed a layer at a time, writing its
-    .npz into workdir: the seconds, the peak device memory, #9's launches
-    (one a layer a chunk of 4 samples, no other kernel), the average
-    bits, the select counts of the first and last layers, and the
-    artifact's validity. Then #9 at that shape (B 4, T 2048) against its
-    plain version, timed beside its bound and SDPA. Then on a 2-layer cut
-    (the same weights' first layers): hessian and score, and max with #9
-    swapped for flash_attention_plain, whose select counts must equal
-    #9's and whose reorder index must equal #9's wherever the plain run's
-    adjacent sorted stats are more than CALIB_ORDER_RTOL apart. Returns
-    (calib, the .npz path, launch counts, #9's row)."""
+def calibrate_run(card, workdir, failures, model=MODEL, tag="[calibrate]"):
+    """[calibrate] (and [moe_calibrate]): ``python -m
+    arcquant_tpu_torch.calibrate --model <model> --dataset synthetic
+    --act_sort_metric max`` (calibrate.main) at the reference protocol,
+    128 samples x 2048 tokens, select_batch 32, dummy weights from seed 0
+    streamed a layer at a time, writing its .npz into workdir: the
+    seconds, the peak device memory, #9's launches (one a layer a chunk of
+    4 samples, no other kernel), the average bits, the select counts of
+    the first and last layers, and the artifact's validity (every site of
+    quant_sites: five a layer on an MoE model). Then #9 at that shape (B
+    4, T 2048) against its plain version, timed beside its bound and
+    SDPA. Then on a 2-layer cut (the same weights' first layers): hessian
+    and score, and max with #9 swapped for flash_attention_plain, whose
+    select counts must equal #9's and whose reorder index must equal #9's
+    wherever the plain run's adjacent sorted stats are more than
+    CALIB_ORDER_RTOL apart. On an MoE model the plain run's router is fed
+    the #9 run's top-k sets, as the engine checks feed the same tokens:
+    #9's ulps move some router logits across the k-th largest, and one
+    token routed elsewhere changes an expert's inputs, and so a channel's
+    max, by far more than the ulps do; the tokens whose set the plain
+    router would change are counted. Returns (calib, launch counts, #9's
+    row)."""
     from arcquant_tpu_torch import calibrate
     from arcquant_tpu_torch.calib import (compute_calibration,
                                           load_calibration,
@@ -2336,9 +2378,10 @@ def calibrate_run(card, workdir, failures):
     from arcquant_tpu_torch.config import get_model_config
     from arcquant_tpu_torch.evals import get_calib_samples
     from arcquant_tpu_torch.kernels import attention
+    from arcquant_tpu_torch.models import moe, quantized
 
     t_phase = time.perf_counter()
-    cfg = get_model_config(MODEL)
+    cfg = get_model_config(model)
     kernels = all_kernels()
     gc.collect()
     torch.cuda.empty_cache()
@@ -2346,7 +2389,7 @@ def calibrate_run(card, workdir, failures):
     reset_counts(kernels)
     t0 = time.perf_counter()
     r = calibrate.main([
-        "--model", MODEL, "--dataset", "synthetic", "--act_sort_metric",
+        "--model", model, "--dataset", "synthetic", "--act_sort_metric",
         "max", "--samples", str(CALIB_SAMPLES), "--seqlen",
         str(CALIB_SEQLEN), "--select_batch", str(CALIB_SELECT_BATCH),
         "--output", workdir])
@@ -2358,7 +2401,7 @@ def calibrate_run(card, workdir, failures):
     want9 = cfg.num_layers * chunks
     calib = load_calibration(r["path"], device="cuda")
     meta = load_calibration_meta(r["path"])
-    log(f"  python -m arcquant_tpu_torch.calibrate --model {MODEL} "
+    log(f"  python -m arcquant_tpu_torch.calibrate --model {model} "
         f"--dataset synthetic --act_sort_metric max --samples "
         f"{CALIB_SAMPLES} --seqlen {CALIB_SEQLEN} --select_batch "
         f"{CALIB_SELECT_BATCH}: calibration pass {r['seconds']:.2f} s "
@@ -2372,20 +2415,21 @@ def calibrate_run(card, workdir, failures):
     log(f"  select counts by layer: "
         f"{[list(_selects(l).values()) for l in calib]}")
     if counts["flash_attn"] != want9:
-        failures.append(f"[calibrate] #9 launched {counts['flash_attn']} "
+        failures.append(f"{tag} #9 launched {counts['flash_attn']} "
                         f"times, not {want9}")
-    busy = {k: v for k, v in counts.items()
-            if k not in ("flash_attn", "actq_by_m") and v}
-    if busy:
-        failures.append(f"[calibrate] other kernels launched: {busy}")
-    want_meta = {"model": MODEL, "dataset": "synthetic", "metric": "max",
+    _check_path(counts, ("flash_attn",), None, tag, failures)
+    want_meta = {"model": model, "dataset": "synthetic", "metric": "max",
                  "samples": CALIB_SAMPLES, "seqlen": CALIB_SEQLEN,
                  "average_bits": r["avg_bits"]}
+    sites = set(quantized.quant_sites(cfg))
     if (meta != want_meta or len(calib) != cfg.num_layers
+            or any(set(layer) != sites for layer in calib)
             or not 4.5 <= r["avg_bits"] < 9.0):
-        failures.append(f"[calibrate] artifact: meta {meta}, "
-                        f"{len(calib)} layers, {r['avg_bits']} bits")
-    _valid_calib(cfg, calib, r["stats"], "28 layers, max", failures)
+        failures.append(f"{tag} artifact: meta {meta}, {len(calib)} "
+                        f"layers, sites {set(calib[0])}, {r['avg_bits']} "
+                        f"bits")
+    _valid_calib(cfg, calib, r["stats"],
+                 f"{tag} {cfg.num_layers} layers, max", failures)
     del r
 
     # #9 at the calibration shape
@@ -2417,7 +2461,7 @@ def calibrate_run(card, workdir, failures):
         f"{plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, bound {bound:.4f} ms "
         f"({by})")
     if not ok:
-        failures.append("[calibrate] #9 at B 4, T 2048 against plain")
+        failures.append(f"{tag} #9 at B {b}, T {t} against plain")
     del q, k_, v, o, ref, qt, kt, vt
 
     # the 2-layer cut: hessian and score; max with #9 and with plain
@@ -2438,15 +2482,39 @@ def calibrate_run(card, workdir, failures):
         (c2, st2, bits2), sec = run(metric)
         log(f"  {CALIB_CUT}-layer cut, {metric}: {sec:.2f} s, average bits "
             f"{bits2:.4f}, select counts {[_selects(l) for l in c2]}")
-        _valid_calib(cfg2, c2, st2, f"{CALIB_CUT} layers, {metric}",
+        _valid_calib(cfg2, c2, st2, f"{tag} {CALIB_CUT} layers, {metric}",
                      failures)
-    (kc, ks, kbits), ksec = run("max")
+    # the #9 run's top-k sets in call order, replayed in the plain run
+    real_route, sets, moved = moe.route, [], [0]
+
+    def record(cfg_, w, x2):
+        cw = real_route(cfg_, w, x2)
+        sets.append(cw > 0)
+        return cw
+
+    def replay(cfg_, w, x2):
+        cw, chosen = real_route(cfg_, w, x2), sets.pop(0)
+        moved[0] += int(((cw > 0) != chosen).any(-1).sum())
+        probs = torch.softmax(x2.float() @ w.float().t(), dim=-1)
+        cw = torch.where(chosen, probs, torch.zeros_like(probs))
+        if cfg_.norm_topk_prob:
+            cw = cw / cw.sum(dim=-1, keepdim=True)
+        return cw
+
     flash = attention._flash_cuda
-    attention._flash_cuda = attention.flash_attention_plain
     try:
+        moe.route = record
+        (kc, ks, kbits), ksec = run("max")
+        moe.route = replay
+        attention._flash_cuda = attention.flash_attention_plain
         (pc, ps, pbits), psec = run("max")
     finally:
-        attention._flash_cuda = flash
+        attention._flash_cuda, moe.route = flash, real_route
+    if cfg.num_experts:
+        log(f"  {CALIB_CUT}-layer cut, max: tokens whose top-k set the "
+            f"plain run's router would choose otherwise (it is fed the #9 "
+            f"run's): {moved[0]}, over {CALIB_CUT} layers x "
+            f"{CALIB_SAMPLES * CALIB_SEQLEN} tokens")
     report, ok = [], kbits == pbits
     for li in range(CALIB_CUT):
         for site in kc[li]:
@@ -2468,8 +2536,8 @@ def calibrate_run(card, workdir, failures):
         f"stats more than {2 * CALIB_ORDER_RTOL:.4g} below its own and "
         f"before all more than that above) {'ok' if ok else 'FAIL'}")
     if not ok:
-        failures.append(f"[calibrate] #9 vs plain on the cut: {report}")
-    log(f"  [calibrate] took {time.perf_counter() - t_phase:.1f} s on {card}")
+        failures.append(f"{tag} #9 vs plain on the cut: {report}")
+    log(f"  {tag} took {time.perf_counter() - t_phase:.1f} s on {card}")
     return calib, counts, row9
 
 
@@ -2524,21 +2592,26 @@ def _serve_timing(eng, prompts):
     return prefill_ms, dec, finite
 
 
-def calib_serve_run(card, calib, failures):
-    """[calib_serve]: the [calibrate] artifact served by InferenceEngine at
-    Qwen2.5-7B width, 28 layers, on the weights it was calibrated on (w8,
-    per-row activation and per-channel weight scales, packed head): bs 4,
-    prompts of 1024 tokens, a one-shot prefill and NEW_TOKENS decode steps
-    on the graph, with the launch counts (the path), prefill ms and decode
-    ms/step beside the same engine on identity_calib(0.125) (the same
-    weights, in turns: calibrated, identity, calibrated, identity); then
-    [graph] on the calibrated engine (graph bitwise the eager loop); the
-    engine cut to 1 and 2 layers with the artifact's first layers against
-    the plain versions (engine_vs_plain with moe_engine_check's floor of
-    GEMM and paged decode noise, at most 0.999); and ARC's own claim: on a
-    2-layer cut with planted outlier channels (embedding columns 0::7 x
-    8), calibrated there (#9), the packed forward's logits MSE against
-    the bf16 forward below select 0's. Returns the path's launch counts."""
+def calib_serve_run(card, calib, failures, model=MODEL,
+                    busy=GENERATE_KERNELS, idle=ARC_IDLE_KERNELS,
+                    tag="[calib_serve]"):
+    """[calib_serve] (and [moe_calib_serve]): the calibrate_run artifact
+    served by InferenceEngine on `model` at full width and depth, on the
+    weights it was calibrated on (w8, per-row activation and per-channel
+    weight scales, packed head): bs 4, prompts of 1024 tokens, a one-shot
+    prefill and NEW_TOKENS decode steps on the graph, with the launch
+    counts (the path: each of `busy` launched, each of `idle` not),
+    prefill ms and decode ms/step beside the same engine on
+    identity_calib(0.125) (the same weights, in turns: calibrated,
+    identity, calibrated, identity); then [graph] on the calibrated
+    engine (graph bitwise the eager loop); the engine cut to 1 and 2
+    layers with the artifact's first layers against the plain versions
+    (engine_vs_plain with moe_engine_check's floor of GEMM and paged
+    decode noise, at most 0.999: the kernels at the Kq the artifact
+    gives); and ARC's own claim: on a 2-layer cut with planted outlier
+    channels (embedding columns 0::7 x 8), calibrated there (#9), the
+    packed forward's logits MSE against the bf16 forward below select
+    0's. Returns the path's launch counts."""
     from arcquant_tpu_torch.calib import compute_calibration
     from arcquant_tpu_torch.config import QuantConfig, get_model_config
     from arcquant_tpu_torch.engine import EngineConfig
@@ -2546,7 +2619,7 @@ def calib_serve_run(card, calib, failures):
     from arcquant_tpu_torch.models import llama, quantized
 
     t_phase = time.perf_counter()
-    cfg = get_model_config(MODEL)
+    cfg = get_model_config(model)
     qcfg = QuantConfig(quant_type="NVFP4", use_kernels=True,
                        weight_fmt="w8", act_scale="row", w_scale="channel",
                        quantize_lm_head=True)
@@ -2572,22 +2645,24 @@ def calib_serve_run(card, calib, failures):
     torch.cuda.synchronize()
     launches = launch_counts(kernels)
     log(f"  launches in the calibrated engine's generate() (4 x 1024, "
-        f"{NEW_TOKENS} tokens): {launches}")
-    for name in ("actq", "gemm_w8", "flash_attn", "paged_decode"):
-        if launches[name] <= 0:
-            failures.append(f"[calib_serve] kernel {name} not launched")
+        f"{NEW_TOKENS} tokens): {launches}; first tokens "
+        f"{[o[:6] for o in out]}")
+    _check_path(launches, busy, idle, f"{tag} the calibrated engine",
+                failures)
     if [len(o) for o in out] != [NEW_TOKENS] * 4:
-        failures.append(f"[calib_serve] generate lengths {out}")
+        failures.append(f"{tag} generate lengths {out}")
     for rnd in range(2):
         for name, eng in engines.items():
             eng.drop_graphs()
             pre, dec, fin = _serve_timing(eng, prompts)
             times[name].append((round(pre, 3), round(dec, 3)))
             if not fin:
-                failures.append(f"[calib_serve] {name}: non-finite logits")
+                failures.append(f"{tag} {name}: non-finite logits")
     log(f"  prefill ms and decode ms/step (bs 4, 1024-token prompts, "
         f"{NEW_TOKENS} steps on the graph), in turns, on {card}: {times}")
-    graph_check(engines["calibrated"], "calibrated ARC", card, failures)
+    graph = graph_check(engines["calibrated"], f"{tag} calibrated ARC", card,
+                        failures)
+    log(f"  {tag} {json.dumps(dict(times=times, graph=graph))}")
     del engines, out
     gc.collect()
     torch.cuda.empty_cache()
@@ -2631,11 +2706,9 @@ def calib_serve_run(card, calib, failures):
         f"against {mse0:.6g} with select 0 (bar: below) "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
-        failures.append(f"[calib_serve] ARC MSE {mse_arc} vs select 0 "
-                        f"{mse0}")
+        failures.append(f"{tag} ARC MSE {mse_arc} vs select 0 {mse0}")
     del params, ref
-    log(f"  [calib_serve] took {time.perf_counter() - t_phase:.1f} s on "
-        f"{card}")
+    log(f"  {tag} took {time.perf_counter() - t_phase:.1f} s on {card}")
     return launches
 
 
@@ -3548,7 +3621,7 @@ def _noisy_batched(gen):
 
 
 def moe_engine_check(cfg, failures):
-    """Phase 14 for the MoE model: the engine cut to 1 layer (w8, ARC,
+    """Phase 15 for the MoE model: the engine cut to 1 layer (w8, ARC,
     full width), its prefill of the four prompts (dispatch mode) and 4
     decode steps (dense mode: gemm_batched) fed the same tokens, against
     the same forward with the plain versions (PlainKernels: gemm_batched
@@ -3910,7 +3983,7 @@ def _cosine(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def engine_check(cfg, failures):
-    """Phase 14: the engine cut to 1 and to 2 layers, and the w4 and BF16
+    """Phase 15: the engine cut to 1 and to 2 layers, and the w4 and BF16
     engines cut to 1 layer, each its prefill (4 x 1024: qkv and gateup
     take the large-M route; BF16's linears are the same f32-accumulated
     library products on both sides) and 4 decode steps (fed the same
@@ -3954,13 +4027,14 @@ def engine_vs_plain(eng, label, failures, paged_floor=False):
     plain forward against itself with 2^-22 GEMM noise.
 
     paged_floor: moe_engine_check's floor at every depth instead: the
-    plain forward against itself with every GEMM's f32 result times (1 +
-    2^-22 N(0, 1)) and paged decode's times (1 + 2^-16 N(0, 1)), the
-    lowest of five draws, at most 0.999; equal tokens unless a draw's
-    differ too. Paged decode's outputs sit an ulp from its plain
-    version's on 0.4-0.6% of elements, and at 1 layer that alone moves a
-    decode step's logits to cosine 0.9985 on some weights (on an H100, at
-    identity 0.125 as well as a calibration)."""
+    plain forward against itself with every GEMM's f32 result (the
+    batched expert GEMM's of an MoE engine too) times (1 + 2^-22 N(0, 1))
+    and paged decode's times (1 + 2^-16 N(0, 1)), the lowest of five
+    draws, at most 0.999; equal tokens unless a draw's differ too.
+    Paged decode's outputs sit an ulp from its plain version's on 0.4-0.6%
+    of elements, and at 1 layer that alone moves a decode step's logits
+    to cosine 0.9985 on some weights (on an H100, at identity 0.125 as
+    well as a calibration, and at per-tensor scales)."""
     from arcquant_tpu_torch.kernels import gemm as gk
     from arcquant_tpu_torch.kernels import paged_decode as pdk
 
@@ -3992,6 +4066,7 @@ def engine_vs_plain(eng, label, failures, paged_floor=False):
             gk._gemm_w8_cuda = _noisy_gemm(gen)
             gk._mm_f32_cuda = _noisy_mm(gen)
             if paged_floor:
+                gk._gemm_batched_cuda = _noisy_batched(gen)
                 pdk._paged_decode_cuda = _noisy_attention(
                     pdk.paged_decode_state_plain, gen, 2.0 ** -16)
             floors.append(run(feed=fed)[0])
@@ -4151,7 +4226,7 @@ def _verify_bar(got, want, draws) -> tuple:
 
 
 def serving_engine_check(cfg, failures):
-    """Phase 14, continued: the 1-layer engine with prefill_chunk 256,
+    """Phase 15, continued: the 1-layer engine with prefill_chunk 256,
     kernels against plain versions:
       chunked  the four prompts stream through the int4 pool in chunks;
       suffix   a prefix prefill of (512, 256, 128, 0) tokens, then the
@@ -4326,6 +4401,311 @@ def serving_engine_check(cfg, failures):
     del engines
 
 
+# -- MoE's qdq and bf16 stacks, MoE eval and calibration, the tensor route ---
+
+# [moe_qdq]: the 1-layer block comparisons' tokens (dense mode), the
+# kernels the 24-layer BF16 and fake-format engines launch (attention
+# only: their linears are library products) and the ones they must not
+MOE_QDQ_TOKENS = 64
+MOE_QDQ_KERNELS = ("flash_attn", "paged_decode")
+# [moe_eval]: the packed route's kernels (the attention linears packed,
+# the experts qdq stacks); [engine_tensor]: the megakernels and actq stay
+# idle at per-tensor scales
+MOE_EVAL_KERNELS = ("actq", "gemm_w8", "flash_attn")
+TENSOR_KERNELS = ("gemm_w8", "dequant_w8", "flash_attn", "paged_decode")
+TENSOR_IDLE_KERNELS = ("actq", "mlp_w8", "gu_actq", "gemm_actq")
+
+
+def _tree_gib(tree) -> float:
+    """Device bytes of every tensor in a parameter tree, in GiB."""
+    from arcquant_tpu_torch.quant import packing
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size() / 2 ** 30
+    if isinstance(tree, (packing.PackedWeight, packing.PackedWeightI8)):
+        return nbytes(*tree) / 2 ** 30
+    if isinstance(tree, dict):
+        return sum(_tree_gib(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(_tree_gib(v) for v in tree)
+    return 0.0
+
+
+def _check_path(counts, busy, idle, what, failures):
+    """Every kernel in busy launched, every other one idle (idle=None: the
+    KERNEL_INFO kernels outside busy; else those named)."""
+    for name in busy:
+        if counts[name] <= 0:
+            failures.append(f"kernel {name} not launched by {what}")
+    for name in (idle if idle is not None
+                 else [k for k in KERNEL_INFO if k not in busy]):
+        if counts[name] != 0:
+            failures.append(f"kernel {name} launched {counts[name]} times "
+                            f"by {what}")
+
+
+def _moe_block_checks(cfg, failures):
+    """[moe_qdq], 1 layer at full width: moe_block on the qdq stacks
+    (moe.quantize_moe_params, use_kernels=False: the fake activation qdq
+    and the bf16 products) against the packed experts (w8 and w4: actq,
+    #2 and #15 in dense mode; #6/#7 in dispatch mode), at tensor and at
+    row activation scales (channel weight scales), on MOE_QDQ_TOKENS
+    tokens in dense mode and in dispatch mode (DENSE_MODE_MAX_T 0,
+    capacity T: no drop); the packed dense against the packed dispatch
+    too. Both routes run the same router on the same input, so they pick
+    the same experts; their f32 products sum in other orders, which can
+    round an intermediate to the next bf16 value and the next quantize to
+    the next e2m1 code. Bar: logits cosine >= the noise floor measured in
+    the same run, the qdq block against itself with every f32 product of
+    its stacks (gemm.matmul_f32) times (1 + 2^-22 N(0, 1)), lowest of
+    three draws, at most 0.999."""
+    from arcquant_tpu_torch.config import QuantConfig
+    from arcquant_tpu_torch.kernels import gemm as gk
+    from arcquant_tpu_torch.models import moe, quantized
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    raw = moe.init_moe_params(cfg, gen, device="cuda")
+    calib = quantized.identity_calib(cfg.replace(num_layers=1), SELECT_FRAC,
+                                     device="cuda")[0]
+    x = torch.randn((1, MOE_QDQ_TOKENS, cfg.hidden_size), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    t = MOE_QDQ_TOKENS
+    stacks = moe.quantize_moe_params(
+        raw, calib, QuantConfig(use_kernels=False, w_scale="channel"))
+    real_mm, saved = gk.matmul_f32, moe.DENSE_MODE_MAX_T
+
+    def block(p, qcfg, dense):
+        moe.DENSE_MODE_MAX_T = saved if dense else 0
+        try:
+            with torch.inference_mode():
+                return moe.moe_block(cfg, p, x, calib, qcfg,
+                                     capacity=None if dense else t).float()
+        finally:
+            moe.DENSE_MODE_MAX_T = saved
+
+    for fmt in ("w8", "w4"):
+        packed = moe.quantize_moe_params_packed(
+            raw, calib, QuantConfig(weight_fmt=fmt, w_scale="channel"))
+        for scale in ("tensor", "row"):
+            q_fake = QuantConfig(use_kernels=False, w_scale="channel",
+                                 act_scale=scale)
+            q_pk = QuantConfig(use_kernels=True, weight_fmt=fmt,
+                               w_scale="channel", act_scale=scale)
+            ys = {}
+            for mode in ("dense", "dispatch"):
+                dense = mode == "dense"
+                ys[mode] = block(packed, q_pk, dense)
+                y_q = block(stacks, q_fake, dense)
+                floors = []
+                try:
+                    for seed in range(3):
+                        g = torch.Generator(device="cuda")
+                        g.manual_seed(seed)
+                        gk.matmul_f32 = (lambda a, b, g=g:
+                                         _noise(real_mm(a, b), g))
+                        floors.append(_cosine(y_q,
+                                              block(stacks, q_fake, dense)))
+                finally:
+                    gk.matmul_f32 = real_mm
+                cos, bar = _cosine(ys[mode], y_q), min([0.999] + floors)
+                ok = cos >= bar and bool(torch.isfinite(ys[mode]).all())
+                log(f"  1-layer moe_block {fmt} {scale} scales {mode} mode "
+                    f"({t} tokens): packed vs qdq stacks cosine {cos:.7f}, "
+                    f"max abs diff "
+                    f"{float((ys[mode] - y_q).abs().max()):.4g} (bar: "
+                    f">= {bar:.7f}, the floor of 3 draws "
+                    f"{[round(f, 7) for f in floors]}, at most 0.999) "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    failures.append(f"[moe_qdq] {fmt} {scale} {mode}: "
+                                    f"packed vs qdq {cos} < {bar}")
+            cos = _cosine(ys["dispatch"], ys["dense"])
+            ok = cos >= min([0.999] + floors)
+            log(f"  1-layer moe_block {fmt} {scale} scales: packed dispatch "
+                f"(capacity {t}) vs packed dense cosine {cos:.7f} (bar: >= "
+                f"{min([0.999] + floors):.7f}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"[moe_qdq] {fmt} {scale}: dispatch vs "
+                                f"dense {cos}")
+        del packed
+    del raw, stacks
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _moe_engine_path(cfg, qcfg, label, card, failures):
+    """One 24-layer [moe_qdq] engine: built layer by layer from dummy
+    weights (seed 0; InferenceEngine.dummy quantizes each layer as it is
+    drawn, so raw and quantized stacks never coexist), generate() on the
+    PROMPT_LENS prompts with the launch counts (attention kernels only:
+    no actq, no packed GEMM), a timed prefill and NEW_TOKENS decode steps
+    on the graph, peak memory, then [graph] (bitwise the eager loop, ms
+    in turns, idle share). Returns (launches, metrics)."""
+    from arcquant_tpu_torch.engine import EngineConfig, InferenceEngine
+    from arcquant_tpu_torch.models import quantized
+
+    ecfg = EngineConfig(max_batch=len(PROMPT_LENS),
+                        max_seq_len=max(PROMPT_LENS) + NEW_TOKENS + 8)
+    calib = quantized.identity_calib(cfg, SELECT_FRAC, device="cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = InferenceEngine.dummy(cfg, calib, qcfg, ecfg, seed=0,
+                                device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    layers_gib = _tree_gib(eng.qparams["layers"])
+    kernels = all_kernels()
+    reset_counts(kernels)
+    out = eng.generate(prompts_for(cfg), NEW_TOKENS)
+    torch.cuda.synchronize()
+    launches = launch_counts(kernels)
+    log(f"  {label}: built in {build_s:.1f} s ({layers_gib:.3f} GiB of "
+        f"layers, build peak {build_peak:.3f} GiB); launches in generate(): "
+        f"{launches}; first tokens {[o[:6] for o in out]}")
+    _check_path(launches, MOE_QDQ_KERNELS, None, f"[moe_qdq] {label}",
+                failures)
+    if [len(o) for o in out] != [NEW_TOKENS] * len(PROMPT_LENS):
+        failures.append(f"[moe_qdq] {label}: generate lengths "
+                        f"{[len(o) for o in out]}")
+    torch.cuda.reset_peak_memory_stats()
+    prefill_ms, dec_ms, finite = _serve_timing(eng, prompts_for(cfg))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not finite:
+        failures.append(f"[moe_qdq] {label}: non-finite logits")
+    graph = graph_check(eng, f"[moe_qdq] {label}", card, failures)
+    metrics = dict(prefill_ms=round(prefill_ms, 3),
+                   decode_ms_per_step=round(dec_ms, 3),
+                   build_s=round(build_s, 1), layers_gib=round(layers_gib, 3),
+                   build_peak_memory_gib=round(build_peak, 3),
+                   serve_peak_memory_gib=round(peak, 3),
+                   graph=graph, card=card)
+    log(f"  [moe_qdq] {label} {cfg.name} {cfg.num_layers} layers bs=4: "
+        f"{json.dumps(metrics)}")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, metrics
+
+
+def moe_qdq_run(cfg, card, failures):
+    """[moe_qdq]: Qwen1.5-MoE-A2.7B at full width. The 1-layer block
+    checks (_moe_block_checks), then the 24-layer BF16 engine (the bf16
+    expert stacks) and the NVFP4 fake-format engine (use_kernels=False,
+    ARC 0.125, per-row activation and per-channel weight scales, the bf16
+    head; the experts as qdq stacks), each through _moe_engine_path.
+    Returns {"BF16": launches, "fake": launches}."""
+    from arcquant_tpu_torch.config import QuantConfig
+
+    t_phase = time.perf_counter()
+    _moe_block_checks(cfg, failures)
+    paths = {}
+    for label, qcfg in (
+            ("BF16", QuantConfig(quant_type="BF16")),
+            ("fake", QuantConfig(quant_type="NVFP4", use_kernels=False,
+                                 act_scale="row", w_scale="channel"))):
+        paths[label], _ = _moe_engine_path(cfg, qcfg, label, card, failures)
+    log(f"  [moe_qdq] took {time.perf_counter() - t_phase:.1f} s on {card}")
+    return paths
+
+
+def engine_tensor_run(card, failures):
+    """[engine_tensor]: the Qwen2.5-7B packed w8 engine (28 layers, dummy
+    weights from seed 0, ARC 0.125, packed head) at act_scale "tensor":
+    one f32 scale a site activation through the unfused chain (no actq,
+    no megakernel). generate() on the PROMPT_LENS prompts with its launch
+    counts (TENSOR_IDLE_KERNELS 0), then [graph] (the decode graph
+    bitwise the eager loop), then prefill ms and decode ms/step in turns
+    beside the same weights at row scales (tensor, row, tensor, row).
+    Then the engine cut to 1 layer (seed 1) against the plain versions
+    (engine_vs_plain at its prefill and 4 decode steps, held to the floor
+    of GEMM and paged decode noise: one scale a tensor ties every row's
+    e2m1 codes to the tensor's largest element, so paged decode's
+    one-ulp outputs can move a whole step, as at a calibration's Kq), and
+    where the tensor route's logits sit: the 1-layer
+    prefill logits of the packed and the fake (use_kernels=False) routes
+    at each scale on those weights, each against BF16's, and tensor
+    against row within each route, for the record. Returns the tensor
+    engine's generate() launches."""
+    from arcquant_tpu_torch.config import QuantConfig, get_model_config
+    from arcquant_tpu_torch.engine import EngineConfig, InferenceEngine
+    from arcquant_tpu_torch.models import quantized
+
+    t_phase = time.perf_counter()
+    cfg = get_model_config(MODEL)
+    row = QuantConfig(quant_type="NVFP4", use_kernels=True, weight_fmt="w8",
+                      act_scale="row", w_scale="channel",
+                      quantize_lm_head=True)
+    tensor = row.replace(act_scale="tensor")
+    ecfg = EngineConfig(max_batch=len(PROMPT_LENS),
+                        max_seq_len=max(PROMPT_LENS) + NEW_TOKENS + 8)
+    calib = quantized.identity_calib(cfg, SELECT_FRAC, device="cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng = {"tensor": InferenceEngine.dummy(cfg, calib, tensor, ecfg, seed=0,
+                                           device="cuda")}
+    kernels = all_kernels()
+    reset_counts(kernels)
+    out = eng["tensor"].generate(prompts_for(cfg), NEW_TOKENS)
+    torch.cuda.synchronize()
+    launches = launch_counts(kernels)
+    log(f"  tensor scales: launches in generate(): {launches}; tokens "
+        f"{[o[:8] for o in out]}; #12-#14 launches "
+        f"{[launches[k] for k in ('mlp_w8', 'gu_actq', 'gemm_actq')]} "
+        f"(bar: 0)")
+    _check_path(launches, TENSOR_KERNELS, TENSOR_IDLE_KERNELS,
+                "[engine_tensor]", failures)
+    graph = graph_check(eng["tensor"], "[engine_tensor] tensor scales", card,
+                        failures)
+    eng["row"] = InferenceEngine.dummy(cfg, calib, row, ecfg, seed=0,
+                                       device="cuda")
+    times = {"tensor": [], "row": []}
+    for name in ("tensor", "row") * 2:
+        p_ms, d_ms, finite = _serve_timing(eng[name], prompts_for(cfg))
+        times[name].append((round(p_ms, 3), round(d_ms, 3)))
+        if not finite:
+            failures.append(f"[engine_tensor] {name}: non-finite logits")
+    log(f"  (prefill ms, decode ms/step) in turns: {times}")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg1 = cfg.replace(num_layers=1)
+    calib1 = quantized.identity_calib(cfg1, SELECT_FRAC, device="cuda")
+    e = InferenceEngine.dummy(cfg1, calib1, tensor, ecfg, seed=1,
+                              device="cuda")
+    engine_vs_plain(e, "[engine_tensor] 1-layer w8 tensor scales", failures,
+                    paged_floor=True)
+    del e
+    fake = QuantConfig(quant_type="NVFP4", use_kernels=False,
+                       act_scale="row", w_scale="channel",
+                       quantize_lm_head=True)
+    logits = {}
+    for name, q in (("BF16", QuantConfig(quant_type="BF16")),
+                    ("packed row", row), ("packed tensor", tensor),
+                    ("fake row", fake),
+                    ("fake tensor", fake.replace(act_scale="tensor"))):
+        e = InferenceEngine.dummy(cfg1, calib1, q, ecfg, seed=1,
+                                  device="cuda")
+        toks, lens, _ = e._pad_prompts(prompts_for(cfg1, seed=1))
+        logits[name] = e.prefill(e.new_state(), toks, lens)[0].float()
+        del e
+    to_bf16 = {k: round(_cosine(v, logits["BF16"]), 6)
+               for k, v in logits.items() if k != "BF16"}
+    pairs = {f"{a} vs {b}": round(_cosine(logits[a], logits[b]), 6)
+             for a, b in (("packed tensor", "packed row"),
+                          ("fake tensor", "fake row"),
+                          ("packed tensor", "fake tensor"),
+                          ("packed row", "fake row"))}
+    log(f"  1 layer (seed 1), prefill logits cosine against BF16's: "
+        f"{to_bf16}; between routes: {pairs} (for the record)")
+    log(f"  [engine_tensor] {json.dumps(dict(times=times, graph=graph))}")
+    log(f"  [engine_tensor] took {time.perf_counter() - t_phase:.1f} s on "
+        f"{card}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -4419,6 +4799,39 @@ def main() -> int:
         f"{moe_cfg.num_layers} layers, on {card}")
     moe_serve_launches = moe_serve_run(card, failures)
 
+    log(f"[moe_qdq] {MOE_MODEL} full width: the qdq stacks against the "
+        f"packed experts at 1 layer, then {moe_cfg.num_layers} layers in BF16 "
+        f"and in the NVFP4 fake format (use_kernels=False), on {card}")
+    moe_qdq_launches = moe_qdq_run(moe_cfg, card, failures)
+    log(f"[moe_eval] python -m arcquant_tpu_torch.evaluate, {MOE_MODEL} full "
+        f"width, {moe_cfg.num_layers} layers, seqlen {EVAL_SEQLEN}, "
+        f"{EVAL_WINDOWS} windows: BF16, NVFP4 fake (tensor, row), NVFP4 "
+        f"packed, on {card}")
+    moe_eval_launches = eval_run(card, failures, MOE_MODEL, MOE_EVAL_KERNELS,
+                                 "[moe_eval]")
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as work:
+        log(f"[moe_calibrate] python -m arcquant_tpu_torch.calibrate, "
+            f"{MOE_MODEL} full width, {moe_cfg.num_layers} layers streamed, "
+            f"{CALIB_SAMPLES} x {CALIB_SEQLEN} synthetic tokens, max, on "
+            f"{card}")
+        calib, moe_cal_launches, row9 = calibrate_run(
+            card, work, failures, MOE_MODEL, "[moe_calibrate]")
+        summary["flash_attn"]["calibrate_moe"] = row9
+        log(f"[moe_calib_serve] the [moe_calibrate] artifact served by "
+            f"InferenceEngine, {MOE_MODEL} full width, "
+            f"{moe_cfg.num_layers} layers, on {card}")
+        moe_cal_serve_launches = calib_serve_run(
+            card, calib, failures, MOE_MODEL, MOE_KERNELS["w8"],
+            MOE_IDLE_KERNELS["w8"], "[moe_calib_serve]")
+        del calib
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"[engine_tensor] {MODEL} full width, 28 layers, w8, ARC, "
+        f"act_scale tensor against row, on {card}")
+    tensor_launches = engine_tensor_run(card, failures)
+
     log("[engine check] 1 and 2 layers (w8), 1 layer (w4), 1 layer (BF16), "
         "kernels vs plain versions; the MoE model at 1 layer")
     engine_check(cfg, failures)
@@ -4429,12 +4842,14 @@ def main() -> int:
         for f in failures:
             print(f"FAIL: {f}", file=sys.stderr)
         return 1
-    # launches: over the fifteen main paths, the ARC generate(), the HTTP
-    # server, the w4 generate(), the select-free generate(), the MoE
+    # launches: over the twenty-one main paths, the ARC generate(), the
+    # HTTP server, the w4 generate(), the select-free generate(), the MoE
     # model's w8 and w4 generate() and HTTP server, benchmark_e2e in NVFP4
     # and BF16, the GEMM lab, generate_ondevice, evaluate's packed route,
     # calibrate, the calibrated engine and the checkpoint directory's
-    # generate and evaluate; actq's also by M
+    # generate and evaluate; the MoE model's BF16 and fake-format
+    # generate(), evaluate's packed route, calibrate and its calibrated
+    # engine; the tensor-scale generate(); actq's also by M
     path_launches = dict(
         generate=gen_launches, serve=serve_launches, generate_w4=w4_launches,
         generate_select_free=free_launches,
@@ -4443,13 +4858,17 @@ def main() -> int:
         bench_e2e_bf16=e2e_launches["BF16"], gemm_lab=lab_launches,
         spec=spec_launches, evaluate=eval_launches,
         calibrate=calib_launches, calib_serve=calib_serve_launches,
-        ckpt=ckpt_launches)
+        ckpt=ckpt_launches, generate_moe_bf16=moe_qdq_launches["BF16"],
+        generate_moe_fake=moe_qdq_launches["fake"],
+        evaluate_moe=moe_eval_launches, calibrate_moe=moe_cal_launches,
+        calib_serve_moe=moe_cal_serve_launches,
+        generate_tensor=tensor_launches)
     actq_by_m = {p: c["actq_by_m"] for p, c in path_launches.items()}
     by_m = {}
     for c in actq_by_m.values():
         for m, n in c.items():
             by_m[m] = by_m.get(m, 0) + n
-    log(f"actq launches by M over the fifteen paths: "
+    log(f"actq launches by M over the {len(path_launches)} paths: "
         f"{dict(sorted(by_m.items()))}; by path: {actq_by_m}")
     summary["actq"]["launches_by_m"] = dict(sorted(by_m.items()))
     kernels = []
@@ -4465,7 +4884,7 @@ def main() -> int:
             **{k: s[k] for k in ("chain_ms", "w4_ms", "w4_bound_ms",
                                  "w4_chain_ms", "large_m", "small_m",
                                  "shapes", "launch_floor_ms", "launches_by_m",
-                                 "verify", "calibrate")
+                                 "verify", "calibrate", "calibrate_moe")
                  if k in s},
             shape=s["shape"], card=card))
     print(json.dumps({"kernels": kernels}))

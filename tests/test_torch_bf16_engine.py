@@ -136,11 +136,29 @@ def test_linear_matches_jax():
 
 
 def test_bf16_on_moe_raises():
+    """BF16 on an MoE config, once refused, runs: the engine holds the
+    bf16 expert stacks (moe.quantize_moe_params at BF16 is the tree as
+    it is) and its prefill logits are the bf16 reference forward's
+    (llama.model_forward, f32 params) at each row's last token, within
+    the engine-level bar (its attention is flash's plain version, the
+    reference's dense f32)."""
     cfg = get_model_config("test-tiny-moe")
     calib = quantized.identity_calib(cfg)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        InferenceEngine.dummy(cfg, calib, QuantConfig(quant_type="BF16"),
-                              EngineConfig(**EKW), device="cpu")
+    params = llama.init_params(cfg, torch.Generator().manual_seed(0),
+                               torch.float32)
+    eng = InferenceEngine(cfg, params, calib, QuantConfig(quant_type="BF16"),
+                          EngineConfig(**EKW), device="cpu")
+    layer = eng.qparams["layers"][0]
+    assert layer["moe"]["gate"]["w"] is params["layers"][0]["moe"]["gate"][
+        "w"]
+    prompts = [[5, 17, 301, 42, 8], [100, 200, 7]]
+    toks, lens, _ = eng._pad_prompts(prompts)
+    logits, _ = eng.prefill(eng.new_state(), toks, lens)
+    for i, p in enumerate(prompts):
+        want = llama.model_forward(cfg, params, torch.tensor([p]))[0, -1]
+        assert cosine(to_numpy(logits[i]), to_numpy(want)) >= 0.999
+        assert int(logits[i].argmax()) == int(want.argmax())
+    assert [len(o) for o in eng.generate(prompts, 4)] == [4, 4]
 
 
 @pytest.mark.parametrize("quant,head", [("BF16", True), ("NVFP4", True),

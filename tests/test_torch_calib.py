@@ -20,7 +20,8 @@ f32), 4 samples of 64 tokens.
 - a valid ascending permutation; zero rows left out of the outlier share;
 - streamed (callable) layers equal to the list; dummy weights drawn in
   llama.init_params' order, streamed or not;
-- MoE calibration raises, naming ROADMAP queue 1 item 5;
+- MoE calibration runs, five sites a layer (its parity:
+  tests/test_torch_moe_calib.py);
 - the .npz artifact across both packages, in both directions;
 - ARC's own claim: calibrated ARC lowers the logits error of NVFP4
   against bf16 below select 0, on planted outlier channels;
@@ -113,9 +114,9 @@ def _flipped_channels(setup):
     return flips, norms
 
 
-def _groups_in_order(jstat, porder, skip=()):
+def _groups_in_order(jstat, porder, skip=(), rtol=RTOL):
     """Whether the port's order sorts JAX's stat ascending, up to groups of
-    channels whose stats chain within RTOL of each other (skip: channels
+    channels whose stats chain within rtol of each other (skip: channels
     left out); returns (ok, channels in groups of more than one)."""
     k = jstat.shape[0]
     rank = np.empty(k, np.int64)
@@ -123,7 +124,7 @@ def _groups_in_order(jstat, porder, skip=()):
     keep = np.array([c for c in range(k) if c not in skip])
     order = keep[np.argsort(jstat[keep], kind="stable")]
     s = jstat[order]
-    new = np.concatenate([[True], s[1:] > s[:-1] * (1 + RTOL) + 1e-30])
+    new = np.concatenate([[True], s[1:] > s[:-1] * (1 + rtol) + 1e-30])
     gid = np.cumsum(new) - 1
     lo = np.full(gid[-1] + 1, k)
     hi = np.full(gid[-1] + 1, -1)
@@ -264,13 +265,25 @@ def test_dummy_weights_streamed_or_not(monkeypatch):
 
 
 def test_moe_calibration_raises_item_5():
+    """MoE calibration, once refused, runs (its parity with the JAX
+    package is tests/test_torch_moe_calib.py's): five sites a layer,
+    down_in as wide as an expert's intermediate, sdown_in as the shared
+    expert's, valid permutations."""
     cfg = get_model_config("test-tiny-moe")
     gen = torch.Generator()
     gen.manual_seed(0)
     params = llama.init_params(cfg, gen, torch.float32)
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        compute_calibration(cfg, params, np.zeros((1, 8), np.int32),
-                            device="cpu")
+    calib, stats, bits = compute_calibration(
+        cfg, params, np.zeros((1, 8), np.int32), device="cpu")
+    widths = {"attn_in": cfg.hidden_size, "o_in": cfg.q_size,
+              "mlp_in": cfg.hidden_size, "down_in": cfg.moe_intermediate_size,
+              "sdown_in": cfg.shared_expert_size}
+    assert len(calib) == cfg.num_layers and 4.5 <= bits < 9.0
+    for layer in calib:
+        assert set(layer) == set(widths)
+        for site, k in widths.items():
+            np.testing.assert_array_equal(
+                np.sort(layer[site].reorder_index.numpy()), np.arange(k))
 
 
 def test_artifacts_load_across_packages(tmp_path, both):

@@ -135,15 +135,28 @@ def test_generate_and_decode_scan_match_jax(jax_run):
 
 
 def test_outside_the_slice_raises():
+    """The settings the engine once refused now run (use_kernels=False,
+    act_scale "tensor", BF16 on an MoE config: their parity is
+    tests/test_torch_engine_fake.py's); what the JAX engine lacks too
+    still raises, and so do the batcher's bad windows and a CUDA device
+    where there is none."""
     cfg = get_model_config("test-tiny")
     calib = quantized.identity_calib(cfg)
     moe = get_model_config("test-tiny-moe")
-    for c, bad in ((cfg, dict(use_kernels=False)),
-                   (cfg, dict(act_scale="tensor")),
-                   (moe, dict(quant_type="BF16"))):
-        with pytest.raises(NotImplementedError):
-            InferenceEngine.dummy(c, quantized.identity_calib(c),
-                                  QuantConfig(**{**QKW, **bad}),
+    for c, ok in ((cfg, dict(use_kernels=False)),
+                  (cfg, dict(act_scale="tensor")),
+                  (moe, dict(quant_type="BF16"))):
+        eng = InferenceEngine.dummy(c, quantized.identity_calib(c),
+                                    QuantConfig(**{**QKW, **ok}),
+                                    EngineConfig(**EKW), device="cpu")
+        out = eng.generate([[5, 17, 301], [7]], 3)
+        assert [len(o) for o in out] == [3, 3]
+    for bad, err in ((dict(weight_fmt="w2"), ValueError),
+                     (dict(act_scale="group"), ValueError),
+                     (dict(quant_type="FP8"), ValueError),
+                     (dict(act_bits=8), NotImplementedError)):
+        with pytest.raises(err):
+            InferenceEngine.dummy(cfg, calib, QuantConfig(**{**QKW, **bad}),
                                   EngineConfig(**EKW), device="cpu")
     eng = InferenceEngine.dummy(cfg, calib, QuantConfig(**QKW),
                                 EngineConfig(**EKW), device="cpu")

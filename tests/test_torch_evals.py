@@ -264,8 +264,11 @@ def test_entry_points_raise_outside_the_slice(tmp_path, monkeypatch):
         evaluate.main(["--model", str(tmp_path), "--cpu"])
     with pytest.raises(NotImplementedError, match="item 7"):
         evaluate.main(["--model", NAME, "--lm_eval", "piqa", "--cpu"])
-    with pytest.raises(NotImplementedError, match="item 5"):
-        evaluate.main(["--model", "test-tiny-moe", "--cpu"])
+    # an MoE config, once refused, evaluates (the experts as qdq stacks)
+    monkeypatch.chdir(tmp_path)
+    moe_out = evaluate.main(["--model", "test-tiny-moe", "--eval_ppl",
+                             "--seqlen", "32", "--ntokens", "64", "--cpu"])
+    assert moe_out["windows"] == 2 and np.isfinite(moe_out["ppl"])
     with pytest.raises(ValueError, match="HF model dir"):
         generate.main(["--model", NAME, "--prompt", "hello", "--cpu"])
     with pytest.raises(NotImplementedError, match="item 8"):

@@ -920,7 +920,20 @@ GRAPH_CONFIGS = {
     "moe-dense": ("qwen1.5-moe-a2.7b", 0.125, _QKW, True),
     "bf16": ("qwen2.5-7b", 0.0, dict(quant_type="BF16"), True),
     "bf16-packed-head": ("qwen2.5-7b", 0.0, dict(quant_type="BF16"), True),
+    # per-tensor activation scales: a scalar scale on the device through
+    # the unfused chain (select-free, where row scales take the
+    # megakernels)
+    "w8-tensor": ("qwen2.5-7b", 0.0, dict(_QKW, act_scale="tensor"), True),
+    "moe-tensor": ("qwen1.5-moe-a2.7b", 0.125,
+                   dict(_QKW, act_scale="tensor"), True),
+    # the fake-format engine (qdq stacks, no packed kernel) and BF16 on MoE
+    "moe-fake": ("qwen1.5-moe-a2.7b", 0.125,
+                 dict(quant_type="NVFP4", use_kernels=False, act_scale="row",
+                      w_scale="channel"), True),
+    "moe-bf16": ("qwen1.5-moe-a2.7b", 0.0, dict(quant_type="BF16"), True),
 }
+# configs whose head stays bf16
+_BF16_HEAD = ("bf16", "moe-fake", "moe-bf16")
 _GRAPH_LENS = (100, 77, 31, 0)     # slot 3 inactive
 
 
@@ -965,7 +978,7 @@ def test_decode_graph_bitwise_equals_loop(config):
     slot) equal the loop's; the step was captured, not run eagerly."""
     require_cuda()
     eng, loop = _graph_pair(config)
-    assert "lm_head_packed" in eng.qparams or config == "bf16"
+    assert ("lm_head_packed" in eng.qparams) != (config in _BF16_HEAD)
     prompts = _graph_prompts(eng.cfg)
     (lg, sg, active), (ll, sl, _) = (_prefill(e, prompts) for e in (eng, loop))
     assert _bits(lg).equal(_bits(ll))
@@ -977,6 +990,9 @@ def test_decode_graph_bitwise_equals_loop(config):
     assert torch.equal(sg[2], sl[2])
     assert len(eng.graph_captures) == 1 and not loop.graph_captures
     assert eng.graph_captures[0]["launches"] > 0 or config.startswith("bf16")
+    if config in ("moe-fake", "moe-bf16"):
+        # attention only: the linears are library products
+        assert eng.graph_captures[0]["launches"] == 2
 
     def scan(e, eos_id):
         logits, state, active = _prefill(e, prompts)
@@ -987,6 +1003,90 @@ def test_decode_graph_bitwise_equals_loop(config):
     (gout, glens), (lout, llens) = scan(eng, eos), scan(loop, eos)
     assert torch.equal(gout, lout) and torch.equal(glens, llens)
     assert int(gout[0, 5]) == eos and int(glens[3]) == 0
+
+
+def test_tensor_scale_decode_launches_no_megakernel_or_actq():
+    """At act_scale "tensor" the select-free decode, which at row scales
+    runs the megakernels, takes the unfused chain with the plain tensor
+    quantize: over a decode_scan replayed from the graph, #1 and #12-#14
+    launch 0 times and the GEMM and paged decode once a site a step; the
+    scan makes no host synchronisation."""
+    require_cuda()
+    eng, _ = _graph_pair("w8-tensor")
+    logits, state, active = _prefill(eng, _graph_prompts(eng.cfg))
+    first = logits.argmax(-1).to(torch.int32)
+    eng.decode_scan(state, first, active, 0)
+    torch.cuda.synchronize()
+    for k in _build.KERNELS:
+        k.reset()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng.decode_scan(state, first, active, 5)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    counts = {k.name: k.launches for k in _build.KERNELS}
+    assert counts["actq"] == counts["mlp_w8"] == counts["gemm_actq"] == 0
+    assert counts["gu_actq"] == 0
+    # qkv, o, gateup, down a layer and the head, a step
+    assert counts["gemm_w8"] == 5 * (4 * 2 + 1)
+    assert counts["paged_decode"] == 5 * 2
+
+
+def _perturbed(y, gen):
+    """y (f32) times (1 + 2^-22 N(0, 1)): another f32 summation order."""
+    return y * (1 + 2.0 ** -22 * torch.randn(y.shape, generator=gen,
+                                             device=y.device))
+
+
+@pytest.mark.parametrize("fmt", ["w8", "w4"])
+@pytest.mark.parametrize("scale", ["tensor", "row"])
+def test_moe_block_qdq_stacks_match_packed(fmt, scale):
+    """moe_block at Qwen1.5-MoE-A2.7B width, 1 layer, ARC 0.125, 16
+    tokens: on the qdq stacks (use_kernels=False: the fake activation qdq
+    and the bf16 products) against the packed experts (actq, gemm_w8 or
+    gemm_w4 and gemm_batched in dense mode; the decoded stacks in dispatch
+    mode, DENSE_MODE_MAX_T 0, capacity 16), the same router on the same
+    input in both. Bar: cosine >= the qdq block against itself with its
+    f32 products times (1 + 2^-22 N(0, 1)), lowest of two draws, at most
+    0.999 (the JAX package's tests/test_moe.py::test_packed_moe_matches_qdq
+    on the card)."""
+    require_cuda()
+    from arcquant_tpu_torch.models import moe
+    cfg = get_model_config("qwen1.5-moe-a2.7b")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    raw = moe.init_moe_params(cfg, gen, device="cuda")
+    calib = quantized.identity_calib(cfg.replace(num_layers=1), 0.125,
+                                     device="cuda")[0]
+    x = torch.randn((1, 16, cfg.hidden_size), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    q_fake = QuantConfig(use_kernels=False, w_scale="channel",
+                         act_scale=scale)
+    q_pk = QuantConfig(weight_fmt=fmt, w_scale="channel", act_scale=scale)
+    stacks = moe.quantize_moe_params(raw, calib, q_fake)
+    packed = moe.quantize_moe_params_packed(raw, calib, q_pk)
+    real_mm, saved = gk.matmul_f32, moe.DENSE_MODE_MAX_T
+    for dense in (True, False):
+        moe.DENSE_MODE_MAX_T = saved if dense else 0
+        try:
+            cap = None if dense else 16
+            y_p = moe.moe_block(cfg, packed, x, calib, q_pk, capacity=cap)
+            y_q = moe.moe_block(cfg, stacks, x, calib, q_fake, capacity=cap)
+            floors = []
+            for seed in range(2):
+                g = torch.Generator(device="cuda")
+                g.manual_seed(seed)
+                gk.matmul_f32 = (lambda a, b, g=g: _perturbed(real_mm(a, b),
+                                                              g))
+                floors.append(cosine(to_numpy(y_q), to_numpy(
+                    moe.moe_block(cfg, stacks, x, calib, q_fake,
+                                  capacity=cap))))
+        finally:
+            gk.matmul_f32, moe.DENSE_MODE_MAX_T = real_mm, saved
+        c = cosine(to_numpy(y_p), to_numpy(y_q))
+        assert torch.isfinite(y_p).all() and y_p.shape == x.shape
+        assert c >= min([0.999] + floors), (dense, c, floors)
 
 
 def test_sampled_decode_scan_graph_bitwise_equals_loop():

@@ -317,15 +317,27 @@ def test_kv_cache_decode_matches_full(tiny, mode):
 
 
 def test_moe_layers_raise():
+    """MoE layers, once refused, run on the accuracy path (their parity
+    is tests/test_torch_moe_qdq.py's): quantize_model_params holds the
+    experts' qdq stacks beside the attention linears, and both forwards
+    give finite logits of the right shape."""
     cfg = get_model_config("test-tiny-moe")
     gen = torch.Generator().manual_seed(0)
     params = llama.init_params(cfg, gen)
     calib = quantized.identity_calib(cfg, SELECT)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        quantized.quantize_model_params(cfg, params, calib,
-                                        QuantConfig(use_kernels=False))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        llama.model_forward(cfg, params, torch.zeros((1, 4), dtype=torch.long))
+    qcfg = QuantConfig(use_kernels=False)
+    tree = quantized.quantize_model_params(cfg, params, calib, qcfg)
+    layer = tree["layers"][0]
+    assert sorted(layer) == ["attn_norm", "k", "mlp_norm", "moe", "o", "q",
+                             "v"]
+    assert layer["moe"]["gate"]["w_aug"].shape == (
+        cfg.num_experts, cfg.moe_intermediate_size,
+        cfg.hidden_size + calib[0]["mlp_in"].select_num)
+    toks = torch.zeros((1, 4), dtype=torch.long)
+    for out in (quantized.quant_model_forward(cfg, tree, calib, qcfg, toks),
+                llama.model_forward(cfg, params, toks)):
+        assert out.shape == (1, 4, cfg.vocab_size)
+        assert bool(torch.isfinite(out).all())
 
 
 def test_init_params_shapes_and_seed():
