@@ -288,6 +288,18 @@ def _to_device(tree, device):
     return tree
 
 
+def dummy_tree(cfg: ModelConfig, gen: torch.Generator, dtype, device,
+               layers: list) -> dict:
+    """A dummy engine's tree around its layers (drawn first from gen): the
+    embedding, drawn next, and a unit final norm."""
+    embed = (torch.randn((cfg.vocab_size, cfg.hidden_size), generator=gen,
+                         dtype=torch.float32, device=device) * 0.02).to(dtype)
+    return {"embed": embed,
+            "final_norm": torch.ones((cfg.hidden_size,), dtype=dtype,
+                                     device=device),
+            "layers": layers}
+
+
 def resolve_device(device) -> torch.device:
     """The engine's device. A CUDA device without a CUDA build or card
     raises: an entry point runs on the CPU only when asked to."""
@@ -452,15 +464,8 @@ class InferenceEngine:
             layers.append(quantized.quantize_layer_params_fused(
                 lp, calib[i], qcfg))
             del lp
-        embed = (torch.randn((cfg.vocab_size, cfg.hidden_size),
-                             generator=gen, dtype=torch.float32,
-                             device=device) * 0.02).to(dtype)
-        qparams = {"embed": embed,
-                   "final_norm": torch.ones((cfg.hidden_size,), dtype=dtype,
-                                            device=device),
-                   "layers": layers}
-        return cls(cfg, qparams, calib, qcfg, ecfg, device=device,
-                   quantize_params=False, **kw)
+        return cls(cfg, dummy_tree(cfg, gen, dtype, device, layers), calib,
+                   qcfg, ecfg, device=device, quantize_params=False, **kw)
 
     def _head_logits(self, x2d: torch.Tensor) -> torch.Tensor:
         """LM head, f32 logits: the W4A16 packed GEMM (x padded to kq,

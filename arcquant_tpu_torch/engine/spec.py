@@ -505,6 +505,11 @@ class SpeculativeEngine:
         eng, w = self.eng, self.window
         if sampling is not None and sampling.is_greedy:
             sampling = None
+        if getattr(eng, "mesh", None) is not None:
+            raise ValueError(
+                "generate_ondevice runs the base single-chip forward as one "
+                "round body; sharded engines (TP) use the host verify loop "
+                "(SpeculativeEngine.generate)")
         toks, lens, b, logits, state = self._prefill(prompts,
                                                      max_new_tokens)
         cur = eng._sample(logits, sampling, eng._generator(seed))

@@ -14,9 +14,14 @@ is a HuggingFace checkpoint (models/hf.py), its tokenizer read only for a
 text dataset or text tasks. Without
 --use_kernels the quantized linears are fake-quantized (qdq weights,
 plain torch products); with it (NVFP4 only) they are packed and run the
-CUDA kernels. Prints ``Result,{dataset},{ppl}`` and
-``Task,{task},{acc},shots={n}`` lines and appends them to
-./results/log_{model}_{time}.log. Runs on the card unless --cpu.
+CUDA kernels. Prints ``Result,{dataset},{ppl}``,
+``LmEval,{task},{metrics}`` and ``Task,{task},{acc},shots={n}`` lines and
+appends them to ./results/log_{model}_{time}.log. Runs on the card unless
+--cpu.
+
+--lm_eval runs lm-eval-harness tasks by name through
+evals/lm_eval_adapter.py; it needs the `lm_eval` package and an HF model
+directory (its tokenizer).
 """
 
 from __future__ import annotations
@@ -63,7 +68,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--select_frac", type=float, default=0.125,
                     help="ARC fraction when no --calib given")
     ap.add_argument("--lm_eval", default="",
-                    help="lm-eval-harness tasks: not ported")
+                    help="comma-separated lm-eval-harness tasks (needs the "
+                    "lm_eval package and an HF model dir)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (testing)")
@@ -92,8 +98,9 @@ def _lazy_encode(model_dir: str):
 
 
 def main(argv=None) -> dict:
-    """Run the evaluation; returns {"ppl", "tasks", "quantize_s", "ppl_s",
-    "windows"} (ppl and the seconds None when not measured)."""
+    """Run the evaluation; returns {"ppl", "tasks", "lm_eval",
+    "quantize_s", "ppl_s", "windows"} (ppl and the seconds None when not
+    measured)."""
     args = build_parser().parse_args(argv)
 
     import torch
@@ -105,10 +112,14 @@ def main(argv=None) -> dict:
     from .models import llama, quantized
 
     if args.lm_eval:
-        raise NotImplementedError(
-            "--lm_eval needs the lm-eval adapter (evals/lm_eval_adapter.py)"
-            ", not ported (ROADMAP queue 1 item 7); use --tasks for the "
-            "built-in suite")
+        try:
+            import lm_eval
+        except ImportError:
+            sys.exit("--lm_eval needs the lm_eval package (not in this "
+                     "environment); use --tasks for the built-in suite")
+        if not os.path.isdir(args.model):
+            sys.exit("--lm_eval needs an HF model directory (its "
+                     "tokenizer)")
     device = resolve_device("cpu" if args.cpu else "cuda")
     tok_fn = None
     if os.path.isdir(args.model):
@@ -139,7 +150,8 @@ def main(argv=None) -> dict:
                         level=logging.INFO, format="%(message)s")
     logging.info("args: %s", vars(args))
 
-    out = dict(ppl=None, tasks={}, quantize_s=None, ppl_s=None, windows=0)
+    out = dict(ppl=None, tasks={}, lm_eval={}, quantize_s=None, ppl_s=None,
+               windows=0)
     if args.quant_type == "BF16":
         qparams, eval_qcfg, eval_calib = params, None, None
     else:
@@ -166,6 +178,17 @@ def main(argv=None) -> dict:
               f"tokens in {out['ppl_s']:.2f} s", file=sys.stderr)
         print(f"Result,{args.dataset},{ppl}")
         logging.info("Result,%s,%s", args.dataset, ppl)
+
+    if args.lm_eval:
+        from .evals.lm_eval_adapter import make_lm
+        lm = make_lm(cfg, qparams, eval_calib, eval_qcfg,
+                     hf.load_tokenizer(args.model), max_len=args.seqlen)
+        res = lm_eval.simple_evaluate(model=lm,
+                                      tasks=args.lm_eval.split(","))
+        for task, metrics in res["results"].items():
+            print(f"LmEval,{task},{metrics}")
+            logging.info("LmEval,%s,%s", task, metrics)
+        out["lm_eval"] = res["results"]
 
     if args.tasks:
         from .evals.tasks import evaluate_tasks

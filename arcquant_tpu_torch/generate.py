@@ -17,6 +17,20 @@ Runs on the card unless --cpu.
 
   python -m arcquant_tpu_torch.generate --model /path/to/qwen2.5-7b \
       --calib saved/q.npz --prompt "The capital of France is"
+
+--tp N serves the same requests with tensor parallelism
+(parallel/tp_engine.py): N ranks (processes, parallel/mesh.py's launcher)
+each build the TPInferenceEngine on its shard and run an identical
+ContinuousBatcher; rank 0 prints. --dist_backend nccl puts rank r on
+cuda:r (one card a rank), gloo every rank on cuda:0 (or the CPU with
+--cpu). --check_ranks records every step on every rank, gathers the
+records on every rank (spawned or under torchrun) and fails unless the
+ranks' logits are bitwise equal at every step and their tokens equal.
+--quant_head serves the lm head as a packed W4A16 GEMM (as serve does);
+by default it stays bf16, as in the repository's demo.
+
+  python -m arcquant_tpu_torch.generate --model qwen2.5-7b --tp 2 \
+      --dist_backend gloo --tokens 5,17,301 --max_new 32
 """
 
 from __future__ import annotations
@@ -41,7 +55,18 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--max_batch", type=int, default=4)
     ap.add_argument("--max_seq_len", type=int, default=2048)
     ap.add_argument("--tp", type=int, default=1,
-                    help="tensor parallelism: not ported")
+                    help="tensor-parallel ranks, one process and one shard "
+                    "each")
+    ap.add_argument("--dist_backend", default="nccl",
+                    choices=["nccl", "gloo"],
+                    help="--tp's collectives: nccl (rank r on cuda:r) or "
+                    "gloo (every rank on cuda:0, or the CPU with --cpu)")
+    ap.add_argument("--check_ranks", action="store_true",
+                    help="with --tp: record every step on every rank and "
+                    "fail unless their logits are bitwise equal")
+    ap.add_argument("--quant_head", action="store_true",
+                    help="the lm head as a packed W4A16 GEMM (default: "
+                    "bf16)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (testing)")
@@ -50,31 +75,20 @@ def build_parser() -> argparse.ArgumentParser:
 
 def qcfg_of(args):
     """The demo's quantization: NVFP4 W4A4 + ARC on packed weights,
-    per-row activation and per-channel weight scales."""
+    per-row activation and per-channel weight scales; the head packed
+    with --quant_head."""
     from .config import QuantConfig
     return QuantConfig(quant_type="NVFP4", use_kernels=True,
                        weight_fmt=args.weight_fmt, act_scale="row",
-                       w_scale="channel")
+                       w_scale="channel", quantize_lm_head=args.quant_head)
 
 
-def main(argv=None) -> None:
-    args = build_parser().parse_args(argv)
-
+def _setup(args, device):
+    """(cfg, raw params or None, tokenizer or None, prompts, calib)."""
     from .calib import load_calibration
     from .config import get_model_config
-    from .engine import (ContinuousBatcher, EngineConfig, InferenceEngine,
-                         Request)
-    from .engine.engine import resolve_device
     from .models import quantized
 
-    if args.tp > 1:
-        raise NotImplementedError(
-            "--tp needs tensor parallelism (parallel/), not ported (ROADMAP "
-            "queue 1 item 8)")
-    if args.prompt and not os.path.isdir(args.model):
-        raise ValueError("--prompt needs an HF model dir (its tokenizer); "
-                         "pass --tokens with a registry name")
-    device = resolve_device("cpu" if args.cpu else "cuda")
     tokenizer, params = None, None
     if os.path.isdir(args.model):
         from .models import hf
@@ -89,6 +103,96 @@ def main(argv=None) -> None:
         prompts = [[1, 2, 3]]
     calib = (load_calibration(args.calib, device) if args.calib
              else quantized.identity_calib(cfg, args.select_frac, device))
+    return cfg, params, tokenizer, prompts, calib
+
+
+def _serve(eng, prompts, tokenizer, max_new: int, show: bool) -> list:
+    """The prompts through a ContinuousBatcher over eng: their outputs,
+    printed when `show`."""
+    from .engine import ContinuousBatcher, Request
+    eos = tokenizer.eos_token_id if tokenizer is not None else None
+    bat = ContinuousBatcher(eng)
+    reqs = [Request(prompt=p, max_new_tokens=max_new, eos_id=eos)
+            for p in prompts]
+    for r in reqs:
+        bat.submit(r)
+    bat.run()
+    for r in reqs:
+        out = r.output if tokenizer is None else tokenizer.decode(r.output)
+        if show:
+            print(f"[{r.request_id}] {out}", flush=True)
+    return [r.output for r in reqs]
+
+
+def _tp_rank(mesh, args) -> dict:
+    """One rank of --tp: its TPInferenceEngine and batcher; rank 0
+    prints. Returns the outputs, and the rank's kernel launches, peak
+    device memory and (--check_ranks) step records."""
+    import torch
+
+    from .engine import EngineConfig
+    from .kernels import _build
+    from .kernels import quantize as qk
+    from .parallel import TPInferenceEngine
+
+    cfg, params, tokenizer, prompts, calib = _setup(args, mesh.device)
+    ecfg = EngineConfig(max_batch=args.max_batch,
+                        max_seq_len=args.max_seq_len)
+    if params is None:
+        eng = TPInferenceEngine.dummy(cfg, calib, qcfg_of(args), ecfg, mesh,
+                                      seed=args.seed)
+    else:
+        eng = TPInferenceEngine(cfg, params, calib, qcfg_of(args), ecfg,
+                                mesh)
+        del params
+    if args.check_ranks:
+        eng.record_steps()
+    cuda = mesh.device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(mesh.device)
+    for k in _build.KERNELS:
+        k.reset()
+    outputs = _serve(eng, prompts, tokenizer, args.max_new,
+                     show=mesh.rank == 0)
+    if args.check_ranks:
+        _check_ranks(mesh, eng.steps, outputs)
+    return dict(
+        outputs=outputs, steps=eng.steps,
+        launches={k.name: k.launches for k in _build.KERNELS},
+        actq_by_m=dict(qk.ACTQ.by_m),
+        peak_bytes=(torch.cuda.max_memory_allocated(mesh.device) if cuda
+                    else None))
+
+
+def _check_ranks(mesh, steps, outputs) -> None:
+    """Raise unless every rank's step digests and outputs equal this
+    rank's (gathered over the TP group)."""
+    import torch.distributed as dist
+
+    mine = ([s["digest"] for s in steps], outputs)
+    ranks = [None] * mesh.tp
+    dist.all_gather_object(ranks, mine, group=mesh.group)
+    for r, theirs in enumerate(ranks):
+        if theirs != mine:
+            raise RuntimeError(f"rank {r}'s logits or tokens differ from "
+                               f"rank {mesh.rank}'s")
+
+
+def main(argv=None):
+    """Print each prompt's output. With --tp > 1 returns the ranks'
+    results (_tp_rank's dicts, in rank order)."""
+    args = build_parser().parse_args(argv)
+
+    from .engine import EngineConfig, InferenceEngine
+    from .engine.engine import resolve_device
+
+    if args.prompt and not os.path.isdir(args.model):
+        raise ValueError("--prompt needs an HF model dir (its tokenizer); "
+                         "pass --tokens with a registry name")
+    if args.tp > 1:
+        return _main_tp(args)
+    device = resolve_device("cpu" if args.cpu else "cuda")
+    cfg, params, tokenizer, prompts, calib = _setup(args, device)
     ecfg = EngineConfig(max_batch=args.max_batch,
                         max_seq_len=args.max_seq_len)
     if params is None:
@@ -98,16 +202,23 @@ def main(argv=None) -> None:
         eng = InferenceEngine(cfg, params, calib, qcfg_of(args), ecfg,
                               device=device)
         del params
-    eos = tokenizer.eos_token_id if tokenizer is not None else None
-    bat = ContinuousBatcher(eng)
-    reqs = [Request(prompt=p, max_new_tokens=args.max_new, eos_id=eos)
-            for p in prompts]
-    for r in reqs:
-        bat.submit(r)
-    bat.run()
-    for r in reqs:
-        out = r.output if tokenizer is None else tokenizer.decode(r.output)
-        print(f"[{r.request_id}] {out}")
+    _serve(eng, prompts, tokenizer, args.max_new, show=True)
+
+
+def _main_tp(args) -> list:
+    from .config import get_model_config
+    from .parallel import launch
+    from .parallel.tp_engine import check_tp
+
+    if not os.path.isdir(args.model):
+        # a config the TP engine refuses raises here, before any rank
+        check_tp(get_model_config(args.model), qcfg_of(args), args.tp)
+    results = launch(_tp_rank, args.tp, args.dist_backend, cpu=args.cpu,
+                     args=(args,))
+    if args.check_ranks:         # each rank checked them all (_check_ranks)
+        print(f"ranks agree: {len(results[0]['steps'])} steps' logits "
+              f"bitwise equal on {args.tp} ranks", flush=True)
+    return results
 
 
 if __name__ == "__main__":

@@ -153,17 +153,22 @@ def pack_weight_arc(w: torch.Tensor, reorder_index: Optional[torch.Tensor],
                     pad_multiple: int = K_PAD_MULTIPLE,
                     fmt: str = "w8",
                     global_scale: Optional[torch.Tensor] = None,
-                    w_scale: str = "tensor"):
+                    w_scale: str = "tensor",
+                    aug_cols: Optional[torch.Tensor] = None):
     """Quantize and pack an [N, K] weight with ARC column duplication:
     the last `select_num` entries of reorder_index are re-quantized
     duplicates appended after the K plain columns.
 
     fmt "w8" gives a PackedWeightI8, "w4" a PackedWeight. global_scale
     overrides the tensor scale; w_scale="channel" gives one global scale
-    per output channel ([N])."""
+    per output channel ([N]). aug_cols [N, KE] gives the duplicated
+    columns' values (unscaled) instead of the index (exact-ARC tensor
+    parallelism: a shard duplicates channels another shard owns)."""
     if fmt not in ("w4", "w8"):
         raise ValueError(f"unknown weight format {fmt!r}")
     n, k = w.shape
+    if aug_cols is not None:
+        select_num = aug_cols.shape[1]
     if global_scale is not None:
         gs = torch.as_tensor(global_scale, dtype=torch.float32,
                              device=w.device)
@@ -171,8 +176,11 @@ def pack_weight_arc(w: torch.Tensor, reorder_index: Optional[torch.Tensor],
         gs = N.nvfp4_global_scale(w, per_row=True)[:, 0]
     else:
         gs = N.nvfp4_global_scale(w)
-    ws = w.float() / (gs[:, None] if gs.ndim else gs)
-    if select_num:
+    gsc = gs[:, None] if gs.ndim else gs
+    ws = w.float() / gsc
+    if aug_cols is not None:
+        ws = torch.cat([ws, aug_cols.float() / gsc], dim=1)
+    elif select_num:
         idx = reorder_index[-select_num:].long().to(w.device)
         ws = torch.cat([ws, ws[:, idx]], dim=1)
     kq = pad_kq(k, select_num, pad_multiple)

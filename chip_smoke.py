@@ -149,7 +149,28 @@ Phases, each printed as it runs:
      megakernel), [graph], timed in turns beside row scales, the 1-layer
      cut against the plain versions, and the 1-layer logits of each
      route and scale against BF16's;
- 15. the Qwen2.5-7B engine cut to 1 and to 2 layers, its prefill and 4
+ 15. [tp] (tp_run): tensor parallelism at Qwen2.5-7B full width, two
+     ranks (parallel/mesh.py's launcher) both on this card, the
+     collectives over gloo through the host: python -m
+     arcquant_tpu_torch.generate --tp 2 --dist_backend gloo --check_ranks
+     --quant_head (28 layers, ARC 0.125, the packed W4A16 head, the four
+     prompts of 4, 32 greedy tokens) with each rank's prefill ms, decode
+     ms/step, all_reduces a decode step and their ms, peak memory and
+     launch counts (the path generate_tp; the ranks time-share the card,
+     so the times are no TP speed figure), every step's logits bitwise
+     equal across the ranks; then at 1 layer the select-free TP engine
+     against the single-device engine, the ARC TP engine (weights of two
+     seeds) against itself on the plain versions, with every kernel of
+     its step held to its plain version call by call at the rank's
+     shapes, and exact ARC's sharded quantize at the o and down sites
+     bitwise quantize_x_arc; [lm_eval] (lm_eval_run):
+     evals/lm_eval_adapter.py's LM at Qwen2.5-7B width cut to 2 layers,
+     packed w8, through a stub lm_eval: loglikelihood against tasks.py's
+     scorer, loglikelihood_rolling against its windows, generate_until's
+     stop, the launch counts, then every kernel call of the three against
+     its plain version and the scores against the plain versions' within
+     twice the farthest of three draws carrying the kernels' departures;
+ 16. the Qwen2.5-7B engine cut to 1 and to 2 layers, its prefill and 4
      decode steps against the same forward with the plain versions
      patched in, the 1-layer w4 and BF16 engines likewise, then at 1
      layer chunked and suffix prefill and a speculative verify, and the
@@ -158,8 +179,9 @@ Phases, each printed as it runs:
      bars).
 Every decode runs the captured step (InferenceEngine's default) except
 the eager references: the [graph] loops, [spec]'s round loop and floor
-draws, and in 15 the plain versions, the verify's spied and isolating
-runs and the MoE check's spied forwards. Kernel launch
+draws, in 16 the plain versions, the verify's spied and isolating runs
+and the MoE check's spied forwards, and the TP engine of 15, which
+decodes eagerly (gloo's collectives cannot be captured). Kernel launch
 counts stay launches on the card: a replay counts the launches its graph
 holds.
 The second-to-last line is the kernels' JSON summary, the last line
@@ -197,6 +219,8 @@ REPS = 7
 # noise floors of the verify checks (phases 9 and 14) flip that share
 # of their attention outputs.
 VERIFY_ULP_SHARE: dict = {}
+# Set in a [tp] rank other than 0, whose log() prints nothing.
+_QUIET = False
 
 KERNEL_INFO = {
     "actq": ("arcquant_tpu_torch/csrc/actq.cu",
@@ -287,7 +311,8 @@ SHARED_PREFIX, SUFFIX, SAMPLED_LEN, SHORT_LEN = 1024, 100, 200, 16
 
 
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    if not _QUIET:
+        print(msg, flush=True)
 
 
 def one_step_bound(a: torch.Tensor, g: torch.Tensor) -> bool:
@@ -3940,33 +3965,41 @@ class PlainKernels:
     PyTorch versions (the engine-level reference): the megakernels to the
     chain of the same function, whose actq and GEMM entry points are then
     the plain versions (or, for a noise floor, the noisy GEMM); the
-    large-M route's dequant and pin passes to theirs."""
+    large-M route's dequant and pin passes to theirs. `keep`: names of
+    kernels (KERNEL_INFO's) left on the card."""
+
+    def __init__(self, keep=()):
+        self.keep = set(keep)
 
     def __enter__(self):
         from arcquant_tpu_torch.kernels import attention, gemm as gk
         from arcquant_tpu_torch.kernels import mlp_fused as mf
         from arcquant_tpu_torch.kernels import paged_decode as pdk
         from arcquant_tpu_torch.kernels import quantize as qk
-        self.saved = [(qk, "_actq_cuda", qk.actq_plain),
-                      (gk, "_gemm_w8_cuda", gk.gemm_w8_plain),
-                      (attention, "_flash_cuda",
-                       attention.flash_attention_plain),
-                      (pdk, "_paged_decode_cuda",
-                       pdk.paged_decode_state_plain),
-                      (pdk, "_paged_prefill_cuda", pdk.paged_prefill_plain),
-                      (mf, "_gemm_actq_cuda", mf.gemm_actq_chain),
-                      (mf, "_gu_actq_cuda", mf.gu_actq_chain),
-                      (mf, "_mlp_w8_cuda", mf.mlp_w8_chain),
-                      (gk, "_gemm_w4_cuda", gk.gemm_w4_plain),
-                      (gk, "_dequant_w8_cuda", gk.dequant_w8_plain),
-                      (gk, "_dequant_w4_cuda", gk.dequant_w4_plain),
-                      (gk, "_pin_rowmajor_cuda", gk.pin_rowmajor_plain),
-                      (gk, "_gemm_batched_cuda", gk.gemm_batched_plain),
-                      # the route's product stays torch.mm (a noise
-                      # floor patches it); saved so that it is restored
-                      (gk, "_mm_f32_cuda", gk._mm_f32_cuda)]
-        self.saved = [(mod, name, getattr(mod, name), plain)
-                      for mod, name, plain in self.saved]
+        table = [("actq", qk, "_actq_cuda", qk.actq_plain),
+                 ("gemm_w8", gk, "_gemm_w8_cuda", gk.gemm_w8_plain),
+                 ("flash_attn", attention, "_flash_cuda",
+                  attention.flash_attention_plain),
+                 ("paged_decode", pdk, "_paged_decode_cuda",
+                  pdk.paged_decode_state_plain),
+                 ("paged_prefill", pdk, "_paged_prefill_cuda",
+                  pdk.paged_prefill_plain),
+                 ("gemm_actq", mf, "_gemm_actq_cuda", mf.gemm_actq_chain),
+                 ("gu_actq", mf, "_gu_actq_cuda", mf.gu_actq_chain),
+                 ("mlp_w8", mf, "_mlp_w8_cuda", mf.mlp_w8_chain),
+                 ("gemm_w4", gk, "_gemm_w4_cuda", gk.gemm_w4_plain),
+                 ("dequant_w8", gk, "_dequant_w8_cuda", gk.dequant_w8_plain),
+                 ("dequant_w4", gk, "_dequant_w4_cuda", gk.dequant_w4_plain),
+                 ("pin_rowmajor", gk, "_pin_rowmajor_cuda",
+                  gk.pin_rowmajor_plain),
+                 ("gemm_batched", gk, "_gemm_batched_cuda",
+                  gk.gemm_batched_plain),
+                 # the route's product stays torch.mm (a noise floor
+                 # patches it); saved so that it is restored
+                 (None, gk, "_mm_f32_cuda", gk._mm_f32_cuda)]
+        self.saved = [(mod, name, getattr(mod, name),
+                       getattr(mod, name) if kernel in self.keep else plain)
+                      for kernel, mod, name, plain in table]
         for mod, name, _, plain in self.saved:
             setattr(mod, name, plain)
         return self
@@ -3975,6 +4008,126 @@ class PlainKernels:
         for mod, name, orig, _ in self.saved:
             setattr(mod, name, orig)
         return False
+
+
+# kernel_checks' bar of each kernel's outputs against its plain version's
+# on the same inputs (beside_plain)
+PLAIN_BARS = {
+    "actq": "bit-exact in plain and silu_mul mode; in rmsnorm mode bitwise "
+            "actq_kernel_order, <= 1 e2m1 step on < 3% of elements, gx "
+            "within 1e-2",
+    "gemm_w8": "f32 sum order, + 1 bf16 ulp for bf16 outputs",
+    "dequant_w8": "bit-exact",
+    "flash_attn": "1 bf16 ulp + 2e-3",
+    "paged_decode": "1 bf16 ulp + 2e-3, m within 1e-5, l within 1e-4, "
+                    "empty rows 0"}
+
+
+def _held_to_plain(kernel, out, ref, a, kw) -> bool:
+    """One call of `kernel` against its plain version: PLAIN_BARS."""
+    from arcquant_tpu_torch.kernels import quantize as qk
+    if kernel == "actq":
+        if kw["mode"] != "rmsnorm":
+            return bitwise(out, ref)
+        return (bitwise(out, qk.actq_kernel_order(*a, **kw))
+                and one_step_bound(out[0], ref[0])
+                and bool(torch.allclose(out[1], ref[1], rtol=1e-2)))
+    if kernel == "gemm_w8":
+        return sum_order_bound(out, ref, a[6] == torch.float32)
+    if kernel == "dequant_w8":
+        return bitwise([out], [ref])
+    if kernel == "flash_attn":
+        return close_bound(out, ref)
+    (o, m, l), (po, pm, pl), sl = out, ref, a[4]
+    return (close_bound(o, po)
+            and bool(torch.allclose(m, pm, rtol=1e-5, atol=1e-5))
+            and bool(torch.allclose(l, pl, rtol=1e-4))
+            and bool((o[sl == 0] == 0).all()))
+
+
+@contextlib.contextmanager
+def beside_plain(kernels):
+    """Every call of each of `kernels` (actq, gemm_w8, dequant_w8,
+    flash_attn, paged_decode) also runs the kernel's plain version on the
+    same inputs and holds the outputs to PLAIN_BARS: the kernels against
+    their plain versions at the shapes and on the data of the path being
+    driven. Yields {kernel: dict(calls, shapes, err, off, n, ok, share)}:
+    the calls, their distinct shapes, the largest absolute error of the
+    first output, how many of its n elements differ, whether every call
+    met the bar, and the share of elements that differ in the calls that
+    met it (what a floor may take as the kernel's own departure). Launch
+    counts are not for reading in such a run."""
+    from arcquant_tpu_torch.kernels import attention, gemm as gk
+    from arcquant_tpu_torch.kernels import paged_decode as pdk
+    from arcquant_tpu_torch.kernels import quantize as qk
+    table = {
+        "actq": (qk, "_actq_cuda", qk.actq_plain, lambda a, kw:
+                 f"{kw['mode']} M={a[0].shape[0]} K={kw['k']}"),
+        "gemm_w8": (gk, "_gemm_w8_cuda", gk.gemm_w8_plain, lambda a, kw:
+                    f"M={a[0].shape[0]} Kq={a[1].shape[0]} "
+                    f"N={a[1].shape[1]}"),
+        "dequant_w8": (gk, "_dequant_w8_cuda", gk.dequant_w8_plain,
+                       lambda a, kw: f"Kq={a[0].shape[-2]} "
+                       f"N={a[0].shape[-1]}"),
+        "flash_attn": (attention, "_flash_cuda",
+                       attention.flash_attention_plain, lambda a, kw:
+                       f"B={a[0].shape[0]} Tq={a[0].shape[1]} "
+                       f"Tk={a[1].shape[1]} H={a[0].shape[2]}/"
+                       f"{a[1].shape[2]}"),
+        "paged_decode": (pdk, "_paged_decode_cuda",
+                         pdk.paged_decode_state_plain, lambda a, kw:
+                         f"B={a[0].shape[0]} H={a[0].shape[1]}/"
+                         f"{a[1].shape[2]} seq_lens {a[4].tolist()}")}
+    seen = {k: dict(calls=0, shapes=set(), err=0.0, off=0, n=0, ok=True,
+                    share=0.0, _within=[0, 0]) for k in kernels}
+
+    def spy(kernel, real, plain, shape):
+        def f(*a, **kw):
+            out = real(*a, **kw)
+            ref = plain(*a, **kw)
+            o, r = (out[0], ref[0]) if isinstance(out, tuple) else (out, ref)
+            st = seen[kernel]
+            st["calls"] += 1
+            st["shapes"].add(shape(a, kw))
+            st["err"] = max(st["err"],
+                            float((o.float() - r.float()).abs().max()))
+            off = int((o != r).sum())
+            st["off"] += off
+            st["n"] += o.numel()
+            if _held_to_plain(kernel, out, ref, a, kw):
+                w = st["_within"]
+                w[0] += off
+                w[1] += o.numel()
+                st["share"] = w[0] / w[1]
+            else:
+                st["ok"] = False
+            return out
+        return f
+
+    saved = []
+    for k in kernels:
+        mod, name, plain, shape = table[k]
+        saved.append((mod, name, getattr(mod, name)))
+        setattr(mod, name, spy(k, saved[-1][2], plain, shape))
+    try:
+        yield seen
+    finally:
+        for mod, name, real in saved:
+            setattr(mod, name, real)
+
+
+def plain_gate(seen, what, failures) -> None:
+    """beside_plain's result: each kernel called at least once, every
+    call within its bar."""
+    for k, st in seen.items():
+        ok = st["ok"] and st["calls"] > 0
+        log(f"  {what} {k} against its plain version on the path's own "
+            f"inputs: {st['calls']} calls at {sorted(st['shapes'])}; max "
+            f"abs err {st['err']:.4g}, {st['off'] / max(st['n'], 1):.4%} of "
+            f"outputs apart (bar: {PLAIN_BARS[k]}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"{what} {k} against its plain version: "
+                            f"{st['calls']} calls, max abs err {st['err']}")
 
 
 def _cosine(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -4018,13 +4171,36 @@ def engine_check(cfg, failures):
         del eng
 
 
-def engine_vs_plain(eng, label, failures, paged_floor=False):
+def engine_steps(eng, feed=None):
+    """An engine's prefill of the PROMPT_LENS prompts from seed 1 and 4
+    decode steps, fed `feed` (else its greedy tokens): ([f32 logits on
+    the host], the tokens fed)."""
+    toks, lens, _ = eng._pad_prompts(prompts_for(eng.cfg, seed=1))
+    active = torch.ones(len(PROMPT_LENS), dtype=torch.bool)
+    logits, state = eng.prefill(eng.new_state(), toks, lens)
+    outs, fed = [logits.float().cpu()], []
+    for i in range(4):
+        cur = (logits.argmax(-1).to(torch.int32) if feed is None
+               else feed[i])
+        fed.append(cur)
+        logits, state = eng.decode_step(state, cur, active)
+        outs.append(logits.float().cpu())
+    return outs, fed
+
+
+def engine_vs_plain(eng, label, failures, paged_floor=False, ref=None,
+                    real=()):
     """engine_check's comparison on one engine of 1 or 2 layers: its
-    prefill (PROMPT_LENS from seed 1) and 4 decode steps with the kernels
-    (the decode replaying the captured step) against the same forward
-    with the plain versions (eager), fed the same tokens; at 1 layer
-    cosine >= 0.999 and equal greedy tokens, at 2 the noise floor of the
-    plain forward against itself with 2^-22 GEMM noise.
+    engine_steps with the kernels (the decode replaying the captured
+    step) against the same forward with the plain versions (eager), fed
+    the same tokens; at 1 layer cosine >= 0.999 and equal greedy tokens,
+    at 2 the noise floor of the plain forward against itself with 2^-22
+    GEMM noise.
+
+    ref: the engine whose forward is the reference (default eng), on the
+    same weights; real: kernels (KERNEL_INFO's names) left on the card in
+    the reference run. The floors are always the reference engine on the
+    plain versions against itself with noise.
 
     paged_floor: moe_engine_check's floor at every depth instead: the
     plain forward against itself with every GEMM's f32 result (the
@@ -4038,28 +4214,17 @@ def engine_vs_plain(eng, label, failures, paged_floor=False):
     from arcquant_tpu_torch.kernels import gemm as gk
     from arcquant_tpu_torch.kernels import paged_decode as pdk
 
-    layers = eng.cfg.num_layers
-    toks, lens, _ = eng._pad_prompts(prompts_for(eng.cfg, seed=1))
-    active = torch.ones(len(PROMPT_LENS), dtype=torch.bool)
-
-    def run(feed=None):
-        logits, state = eng.prefill(eng.new_state(), toks, lens)
-        outs, fed = [logits.float().cpu()], []
-        for i in range(4):
-            cur = (logits.argmax(-1).to(torch.int32) if feed is None
-                   else feed[i])
-            fed.append(cur)
-            logits, state = eng.decode_step(state, cur, active)
-            outs.append(logits.float().cpu())
-        return outs, fed
-
-    got, fed = run()
+    ref = eng if ref is None else ref
+    layers = ref.cfg.num_layers
+    got, fed = engine_steps(eng)
     # the plain versions run eagerly: a capture would keep whatever the
     # patched entry points were when it was made
-    graphs, eng.cuda_graphs = eng.cuda_graphs, False
+    graphs, ref.cuda_graphs = ref.cuda_graphs, False
     floors = []
+    with PlainKernels(keep=real):
+        want, _ = engine_steps(ref, fed)
     with PlainKernels():
-        want, _ = run(feed=fed)
+        plain = engine_steps(ref, fed)[0] if real else want
         for seed in range(5 if paged_floor else int(layers == 2)):
             gen = torch.Generator(device="cuda")
             gen.manual_seed(seed)
@@ -4069,15 +4234,15 @@ def engine_vs_plain(eng, label, failures, paged_floor=False):
                 gk._gemm_batched_cuda = _noisy_batched(gen)
                 pdk._paged_decode_cuda = _noisy_attention(
                     pdk.paged_decode_state_plain, gen, 2.0 ** -16)
-            floors.append(run(feed=fed)[0])
-    eng.cuda_graphs = graphs
+            floors.append(engine_steps(ref, fed)[0])
+    ref.cuda_graphs = graphs
     for i, (a, b) in enumerate(zip(got, want)):
         cos = _cosine(a, b)
         same = bool(torch.equal(a.argmax(-1), b.argmax(-1)))
         what = f"{label} " + ("prefill" if i == 0 else f"decode {i}")
         if paged_floor:
-            floor = min([0.999] + [_cosine(b, f[i]) for f in floors])
-            noisy = any(not torch.equal(f[i].argmax(-1), b.argmax(-1))
+            floor = min([0.999] + [_cosine(plain[i], f[i]) for f in floors])
+            noisy = any(not torch.equal(f[i].argmax(-1), plain[i].argmax(-1))
                         for f in floors)
             ok = cos >= floor and (same or noisy)
             bar = (f"cosine >= {floor:.6f}, the floor of GEMM and paged "
@@ -4087,7 +4252,7 @@ def engine_vs_plain(eng, label, failures, paged_floor=False):
             ok = cos >= 0.999 and same
             bar = "cosine >= 0.999 and equal tokens"
         else:
-            bar_cos = _cosine(b, floors[0][i])
+            bar_cos = _cosine(plain[i], floors[0][i])
             ok = cos >= bar_cos
             bar = (f"cosine >= {bar_cos:.6f}, the plain forward vs "
                    "itself with 2^-22 GEMM noise")
@@ -4706,6 +4871,495 @@ def engine_tensor_run(card, failures):
     return launches
 
 
+# -- [tp] and [lm_eval] --------------------------------------------------------
+
+# [tp]: Qwen2.5-7B at tp 2, both ranks on cuda:0, the collectives over gloo.
+TP_RANKS = 2
+# generate --tp 2's kernels: actq at the column sites (the row sites'
+# quantize is plain torch, as in the JAX package), the GEMMs at every
+# site, the large-M route's dequant_w8 at o and gate-up (N >= Kq) in the
+# prefill, flash attention in the prefill and paged decode; the TP layer
+# fuses nothing and runs no chunked prefill.
+TP_KERNELS = ("actq", "gemm_w8", "dequant_w8", "flash_attn", "paged_decode")
+# Exact ARC's sites: (name, K, select at 0.125 rounded up to 16 x tp), the
+# rows quantized.
+TP_EXACT_ROWS = (4, 1024)
+# The weight seeds of the ARC TP cut against the plain versions.
+TP_ARC_SEEDS = (1, 2)
+# [lm_eval]: make_lm at Qwen2.5-7B width cut to 2 layers, packed w8 at row
+# scales; eight requests, a stream of rolling windows.
+LM_EVAL_LAYERS = 2
+LM_EVAL_MAX_LEN = 2048
+LM_EVAL_STREAM = 3000
+LM_EVAL_KERNELS = ("actq", "gemm_w8", "dequant_w8", "flash_attn")
+
+
+def _tp_exact_sites(ctx, cfg):
+    """[tp] check 4 on one rank: exact ARC (tp_exact_arc) at Qwen2.5-7B's
+    o and down sites, select 0.125 rounded up to 16 x tp: the rank's
+    shard of a random weight and its quantize of outlier activations at
+    TP_EXACT_ROWS rows (every rank draws the same tensors). Returns
+    {(site, m): (xa, gx)} on the host, and on rank 0 also the inputs
+    under (site, m, "x") and (site, "calib")."""
+    from arcquant_tpu_torch.models import quantized
+    from arcquant_tpu_torch.parallel import tp as tpm
+
+    tp, rank = ctx.tp, ctx.rank
+    base = quantized.identity_calib(cfg.replace(num_layers=1), SELECT_FRAC)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    out = {}
+    for site, calib_site, k in (("o", "o_in", cfg.q_size),
+                                ("down", "down_in", cfg.intermediate_size)):
+        sel = base[0][calib_site].select_num
+        ke = -(-sel // (16 * tp)) * (16 * tp)
+        ridx = torch.randperm(k, generator=gen, device="cuda").to(torch.int32)
+        w = bf16_randn(gen, (cfg.hidden_size, k), k ** -0.5)
+        calib = quantized.SiteCalib(ridx, ke)
+        _, idx, pos, kc, _ = tpm.shard_linear_row(
+            w, None, calib, tp, "w8", rank, "channel", exact=True)
+        ks = k // tp
+        if rank == 0:
+            out[(site, "calib")] = (ridx.cpu(), ke)
+        for m in TP_EXACT_ROWS:
+            x = bf16_randn(gen, (m, k))
+            cols = torch.randperm(k, generator=gen, device="cuda")[:k // 32]
+            x[:, cols] *= 25
+            xa, gx = tpm._quantize_x_rowshard_exact(
+                x[:, rank * ks:(rank + 1) * ks], idx, pos, kc, ke, ks + kc,
+                ctx, per_row=True)
+            out[(site, m)] = (xa.cpu(), gx.cpu())
+            if rank == 0:
+                out[(site, m, "x")] = x.cpu()
+        del w
+    return out
+
+
+def _tp_checks(ctx):
+    """[tp] checks 2-4 on one rank (rank 0 logs; every rank returns its
+    failures), each engine at 1 layer:
+
+    2. the select-free TP engine (seed 1) against the single-device
+       InferenceEngine on the same weights (rank 0 runs it; the other
+       ranks join the TP run's collectives): engine_vs_plain with the
+       single-device engine as the reference, its kernels kept, held to
+       0.999 or the floor of GEMM and paged-decode noise where lower;
+    3. for each weight seed of TP_ARC_SEEDS, the ARC 0.125 TP engine with
+       the kernels against itself on the plain versions (engine_vs_plain,
+       held to that floor), then against the plain versions with paged
+       decode kept on the card (the flat 1-layer bar: every other
+       kernel), then once more with every kernel of the step held to its
+       plain version call by call at the rank's shapes (beside_plain:
+       #10 at 14/2 heads and the [tp] sequence lengths among them);
+    4. exact ARC's sharded quantize (returned for _tp_exact_gate)."""
+    from arcquant_tpu_torch.config import QuantConfig, get_model_config
+    from arcquant_tpu_torch.engine import EngineConfig, InferenceEngine
+    from arcquant_tpu_torch.models import quantized
+    from arcquant_tpu_torch.parallel import TPInferenceEngine
+
+    global _QUIET
+    _QUIET = ctx.rank != 0
+    torch.backends.cuda.matmul.allow_tf32 = False
+    failures = []
+    cfg = get_model_config(MODEL)
+    cfg1 = cfg.replace(num_layers=1)
+    qcfg = QuantConfig(quant_type="NVFP4", use_kernels=True, weight_fmt="w8",
+                       act_scale="row", w_scale="channel",
+                       quantize_lm_head=True)
+    ecfg = EngineConfig(max_batch=len(PROMPT_LENS),
+                        max_seq_len=max(PROMPT_LENS) + NEW_TOKENS + 8)
+    calib = quantized.identity_calib(cfg1, 0.0, device=ctx.device)
+    eng = TPInferenceEngine.dummy(cfg1, calib, qcfg, ecfg, ctx, seed=1)
+    if ctx.rank == 0:
+        single = InferenceEngine.dummy(cfg1, calib, qcfg, ecfg, seed=1,
+                                       device=ctx.device)
+        engine_vs_plain(eng, "[tp] 1-layer select-free TP vs single-device",
+                        failures, paged_floor=True, ref=single,
+                        real=tuple(KERNEL_INFO))
+        del single
+    else:
+        engine_steps(eng)            # rank 0's TP run, its collectives
+    calib = quantized.identity_calib(cfg1, SELECT_FRAC, device=ctx.device)
+    for seed in TP_ARC_SEEDS:
+        del eng
+        eng = TPInferenceEngine.dummy(cfg1, calib, qcfg, ecfg, ctx,
+                                      seed=seed)
+        what = f"[tp] 1-layer ARC 0.125 TP, weights of seed {seed},"
+        engine_vs_plain(eng, f"{what} kernels vs plain", failures,
+                        paged_floor=True)
+        engine_vs_plain(eng, f"{what} kernels vs plain but paged decode",
+                        failures, real=("paged_decode",))
+        with beside_plain(TP_KERNELS) as seen:
+            engine_steps(eng)
+        plain_gate(seen, what, failures)
+    del eng
+    return dict(failures=failures, exact=_tp_exact_sites(ctx, cfg))
+
+
+def _tp_exact_gate(exact, tp, failures):
+    """[tp] check 4's gate: the ranks' exact-ARC quantize re-assembled
+    (plain columns, then residual chunks, in rank order) equals
+    quantize_x_arc's xa and gx bit for bit (actq on the card)."""
+    from arcquant_tpu_torch.kernels import quantize as qk
+
+    r0 = exact[0]
+    for site in ("o", "down"):
+        ridx, ke = r0[(site, "calib")]
+        for m in TP_EXACT_ROWS:
+            x = r0[(site, m, "x")].cuda()
+            k = x.shape[1]
+            ks, kc = k // tp, ke // tp
+            xa_ref, gx_ref = qk.quantize_x_arc(x, ridx.cuda(), ke)
+            parts = [e[(site, m)] for e in exact]
+            plain = torch.cat([xa[:, :ks] for xa, _ in parts], dim=1)
+            res = torch.cat([xa[:, ks:ks + kc] for xa, _ in parts], dim=1)
+            ok = (bitwise(plain, xa_ref[:, :k].cpu())
+                  and bitwise(res, xa_ref[:, k:k + ke].cpu())
+                  and all(bitwise(gx, gx_ref.cpu()) for _, gx in parts))
+            log(f"  exact ARC at {site} (K {k}, select {ke}, {kc} residual "
+                f"columns a rank), M {m}: the ranks' quantize re-assembled "
+                f"{'bitwise equal to' if ok else 'DIFFERS from'} "
+                f"quantize_x_arc (xa and gx) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"[tp] exact ARC {site} M {m} differs from "
+                                "quantize_x_arc")
+
+
+def tp_run(card, failures):
+    """[tp]: tensor parallelism at Qwen2.5-7B full width over two ranks on
+    the one card (gloo, parallel/mesh.py's launcher). 1. ``python -m
+    arcquant_tpu_torch.generate --tp 2 --dist_backend gloo --check_ranks
+    --quant_head`` through its main(): 28 layers, ARC 0.125, generate's
+    qcfg (w8, row and channel scales) with the packed W4A16 head, the four
+    [engine] prompts, 32 greedy tokens; each rank's prefill ms, decode ms/step,
+    all_reduces a decode step and their ms, peak memory and launch counts
+    (the path generate_tp); gates: the ranks' tokens and every step's
+    logits bitwise equal (main raises otherwise), 2 SUM and 2 MAX
+    all_reduces a layer a decode step, the path's kernels launched and no
+    other. 2-4 in one more launch (_tp_checks) on 1-layer cuts, also
+    with the packed head. Returns rank 0's launch counts."""
+    from arcquant_tpu_torch import generate
+    from arcquant_tpu_torch.config import get_model_config
+    from arcquant_tpu_torch.parallel import launch
+
+    t_phase = time.perf_counter()
+    cfg = get_model_config(MODEL)
+    argv = ["--model", MODEL, "--tp", str(TP_RANKS), "--dist_backend",
+            "gloo", "--max_new", str(NEW_TOKENS), "--check_ranks",
+            "--quant_head"]
+    for p in prompts_for(cfg):
+        argv += ["--tokens", ",".join(map(str, p))]
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    try:
+        ranks = generate.main(argv)
+    except Exception as e:       # a rank's failure, or ranks that disagree
+        failures.append(f"[tp] generate --tp {TP_RANKS}: "
+                        f"{type(e).__name__}: {e}")
+        return None
+    log(f"  python -m arcquant_tpu_torch.generate --tp {TP_RANKS} "
+        f"--dist_backend gloo --quant_head (4 prompts of {PROMPT_LENS} tokens, "
+        f"{NEW_TOKENS} new, 28 layers): {time.perf_counter() - t0:.1f} s "
+        f"wall, the ranks' spawn and engine builds included; every step's "
+        f"logits bitwise equal across the {TP_RANKS} ranks "
+        f"({len(ranks[0]['steps'])} steps) ok")
+    log(f"  (both ranks time-share one card and meet through the host "
+        f"over gloo: these times are not tensor-parallel speed figures; "
+        f"{card})")
+    layers = cfg.num_layers
+    for r, res in enumerate(ranks):
+        pre = [s for s in res["steps"] if s["kind"] == "prefill"]
+        dec = [s for s in res["steps"] if s["kind"] == "decode"]
+        ms = [s["ms"] for s in dec]
+        comm = [s["comm_ms"] for s in dec]
+        pre_ms = ", ".join(f"{s['ms']:.2f}" for s in pre)
+        log(f"  rank {r}: prefill {pre_ms} ms; decode {statistics.median(ms):.2f} ms/step (min "
+            f"{min(ms):.2f}, max {max(ms):.2f}, {len(ms)} steps); a decode "
+            f"step's all_reduces {dec[0]['comm']} in "
+            f"{statistics.median(comm):.2f} ms (median, host clock, device "
+            f"synchronized around each); peak device memory "
+            f"{res['peak_bytes'] / 2 ** 30:.2f} GiB")
+        bad = [s["comm"] for s in dec
+               if s["comm"] != {"sum": 2 * layers, "max": 2 * layers}]
+        if bad:
+            failures.append(f"[tp] rank {r}: a decode step's all_reduces "
+                            f"{bad[0]} != 2 SUM + 2 MAX a layer")
+    counts = [dict({n: res["launches"].get(n, 0) for n in KERNEL_INFO},
+                   actq_by_m=dict(sorted(res["actq_by_m"].items())))
+              for res in ranks]
+    log(f"  launches per rank (generate_tp): "
+        f"{ {k: v for k, v in counts[0].items() if v} }")
+    if any(c != counts[0] for c in counts[1:]):
+        failures.append(f"[tp] the ranks' launch counts differ: {counts}")
+    log(f"  the rank 0 outputs' first tokens: "
+        f"{[o[:8] for o in ranks[0]['outputs']]}")
+    _check_path(counts[0], TP_KERNELS, None, "[tp] generate --tp 2",
+                failures)
+
+    log(f"  [tp] 1-layer checks: select-free against the single device, "
+        f"ARC 0.125 kernels against the plain versions, exact ARC, on "
+        f"{TP_RANKS} ranks over gloo")
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        checks = launch(_tp_checks, TP_RANKS, "gloo")
+    except Exception as e:
+        failures.append(f"[tp] checks: {type(e).__name__}: {e}")
+        return counts[0]
+    for r, res in enumerate(checks):
+        failures.extend(f"rank {r}: {f}" for f in res["failures"])
+    _tp_exact_gate([res["exact"] for res in checks], TP_RANKS, failures)
+    log(f"  [tp] took {time.perf_counter() - t_phase:.1f} s on {card}")
+    return counts[0]
+
+
+class _WordTok:
+    """A toy word tokenizer for [lm_eval] (the card has no transformers):
+    the word w<i> is id i, any other word a hash of it; decode writes
+    w<i> words."""
+    bos_token_id = 1
+
+    def __init__(self, vocab_size):
+        self.vocab = vocab_size
+
+    def encode(self, text):
+        import zlib
+        return [int(w[1:]) if w[:1] == "w" and w[1:].isdigit()
+                and int(w[1:]) < self.vocab
+                else 2 + zlib.crc32(w.encode()) % (self.vocab - 2)
+                for w in text.split()]
+
+    def decode(self, ids):
+        return " ".join(f"w{i}" for i in ids)
+
+
+class _Req:
+    def __init__(self, *args):
+        self.args = args
+
+
+@contextlib.contextmanager
+def _stub_lm_eval():
+    """A minimal lm_eval package (api.model.LM) in sys.modules, as the
+    port's test builds it: the card has no lm_eval."""
+    import types
+    pkg = types.ModuleType("lm_eval")
+    api = types.ModuleType("lm_eval.api")
+    mdl = types.ModuleType("lm_eval.api.model")
+
+    class LM:
+        def __init__(self):
+            pass
+
+    mdl.LM, api.model, pkg.api = LM, mdl, api
+    saved = {k: sys.modules.get(k) for k in
+             ("lm_eval", "lm_eval.api", "lm_eval.api.model")}
+    sys.modules.update({"lm_eval": pkg, "lm_eval.api": api,
+                        "lm_eval.api.model": mdl})
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                sys.modules.pop(k, None)
+            else:
+                sys.modules[k] = v
+
+
+def lm_eval_run(card, failures):
+    """[lm_eval]: evals/lm_eval_adapter.py's make_lm at Qwen2.5-7B width
+    cut to LM_EVAL_LAYERS layers, dummy weights from seed 0, packed w8 at
+    row scales with ARC 0.125 (#1, #2, #6 at gate/up, #9), through a stub
+    lm_eval and a toy word tokenizer: loglikelihood of 8 requests (one
+    batch of 8), loglikelihood_rolling of a LM_EVAL_STREAM-token stream in
+    windows of LM_EVAL_MAX_LEN, generate_until; each timed, with the
+    launch counts of the three calls. Gates: each loglikelihood equals
+    evals/tasks.py's scorer on the same token sequences in the same padded
+    batch within 1e-3 (the JAX adapter test's bar); the rolling value
+    equals the sum of its windows, each scored by that scorer alone,
+    within 1e-3 a window; generate_until stops at its string (and without
+    one runs its max_gen_toks). Then the kernels against their plain
+    versions on this path: the three calls again with every call of the
+    path's kernels held to its plain version on the same inputs
+    (beside_plain: actq at M 256, 8192 and 16384, the GEMMs and #6 at M
+    8192 and 16384, #9 at B 8, T 1024 and 2048), and the nine scores
+    (eight logliks, the rolling one) on the plain versions: the kernels'
+    RMS distance from them (each in nats over the square root of the
+    tokens it sums) at most twice the farthest of three draws of the plain versions carrying the kernels' own
+    departures (actq_kernel_order, which is actq's bits; the w8 GEMM's and
+    #9's bf16 outputs an ulp off on the shares at which the kernels'
+    calls within their bars differ from the plain versions in the spied
+    run, so a wrong call cannot widen the floor). Returns the launch
+    counts."""
+    from arcquant_tpu_torch.config import QuantConfig, get_model_config
+    from arcquant_tpu_torch.evals import lm_eval_adapter as A
+    from arcquant_tpu_torch.evals import tasks as T
+    from arcquant_tpu_torch.kernels import attention, gemm as gk
+    from arcquant_tpu_torch.kernels import quantize as qk
+    from arcquant_tpu_torch.models import llama, quantized
+
+    t_phase = time.perf_counter()
+    cfg = get_model_config(MODEL).replace(num_layers=LM_EVAL_LAYERS)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = llama.init_params(cfg, gen, torch.bfloat16, "cuda")
+    calib = quantized.identity_calib(cfg, SELECT_FRAC, device="cuda")
+    qcfg = QuantConfig(quant_type="NVFP4", use_kernels=True, weight_fmt="w8",
+                       act_scale="row")
+    qp = quantized.quantize_model_params(cfg, params, calib, qcfg,
+                                         consume=True)
+    del params
+    tok = _WordTok(cfg.vocab_size)
+    rng = np.random.default_rng(11)
+
+    def words(n):
+        return " ".join(f"w{i}" for i in rng.integers(2, cfg.vocab_size, n))
+
+    reqs = [(words(n), " " + words(c)) for n, c in
+            ((12, 3), (40, 1), (100, 8), (5, 20), (300, 4), (700, 2),
+             (64, 64), (1, 1))]
+    stream = words(LM_EVAL_STREAM)
+    prompts = (words(30), words(30))
+    every = all_kernels()
+    with _stub_lm_eval():
+        lm = A.make_lm(cfg, qp, calib, qcfg, tok, batch_size=8,
+                       max_len=LM_EVAL_MAX_LEN)
+
+    def calls(timed=None):
+        """The three calls: (logliks, the rolling loglik, generations)."""
+        t0 = time.perf_counter()
+        lls = lm.loglikelihood([_Req(*r) for r in reqs])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        rolled, = lm.loglikelihood_rolling([_Req(stream)])
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        outs = lm.generate_until([_Req(prompts[0], {"until": [" "],
+                                                    "max_gen_toks": 3}),
+                                  _Req(prompts[1], {"max_gen_toks": 3})])
+        torch.cuda.synchronize()
+        if timed is not None:
+            timed.update(loglikelihood=t1 - t0,
+                         loglikelihood_rolling=t2 - t1,
+                         generate_until=time.perf_counter() - t2)
+        return lls, rolled, outs
+
+    torch.cuda.synchronize()
+    reset_counts(every)
+    times = {}
+    lls, rolled, outs = calls(times)
+    counts = launch_counts(every)
+    log(f"  make_lm at {MODEL} width, {LM_EVAL_LAYERS} layers, packed w8 "
+        f"row, ARC {SELECT_FRAC}: loglikelihood of {len(reqs)} requests "
+        f"{times['loglikelihood'] * 1e3:.1f} ms, loglikelihood_rolling of "
+        f"{LM_EVAL_STREAM} tokens in windows of {LM_EVAL_MAX_LEN} "
+        f"{times['loglikelihood_rolling'] * 1e3:.1f} ms, generate_until of "
+        f"2 requests {times['generate_until'] * 1e3:.1f} ms (host clock, "
+        f"{card})")
+    log(f"  launches (lm_eval): { {k: v for k, v in counts.items() if v} }")
+    _check_path(counts, LM_EVAL_KERNELS, None, "[lm_eval]", failures)
+
+    scorer = A._Scorer(cfg, qp, calib, qcfg, batch_size=8,
+                       max_len=LM_EVAL_MAX_LEN)
+    ll_fn = T.make_loglikelihood_fn(cfg, qp, qcfg, calib)
+    rows = []
+    for ctx, cont in reqs:
+        ctx_t = tok.encode(ctx)
+        rows.append((ctx_t + tok.encode(ctx + cont)[len(ctx_t):],
+                     len(ctx_t)))
+    order = sorted(range(len(rows)), key=lambda i: len(rows[i][0]))
+    want = ll_fn(*scorer._pad_batch([rows[i] for i in order])).float().cpu()
+    diff = max(abs(lls[i][0] - float(want[j])) for j, i in enumerate(order))
+    ok = diff <= 1e-3 and all(np.isfinite(ll) and ll < 0 for ll, _ in lls)
+    log(f"  loglikelihood against tasks.py's scorer on the same sequences "
+        f"and batch: max |diff| {diff:.3g} (bar 1e-3; values "
+        f"{[round(ll, 2) for ll, _ in lls]}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"[lm_eval] loglikelihood off the scorer by {diff}")
+    # the rolling windows, each scored alone: [bos] + the first
+    # max_len - 1 tokens, then max_len - 1 more after one token of context
+    toks = tok.encode(stream)
+    windows, start = [], 0
+    while start < len(toks):
+        win = toks[max(0, start - 1):start + LM_EVAL_MAX_LEN - 1]
+        if start == 0:
+            win = [tok.bos_token_id] + win
+        windows.append(win)
+        start += len(win) - 1
+    parts = [float(ll_fn(*scorer._pad_batch([(w, 1)] + [([0, 0], 1)] * 7))
+                   [0]) for w in windows]
+    diff = abs(rolled - sum(parts))
+    ok = diff <= 1e-3 * len(windows) and np.isfinite(rolled)
+    log(f"  loglikelihood_rolling {rolled:.3f} against the sum of its "
+        f"{len(windows)} windows {sum(parts):.3f}: |diff| {diff:.3g} (bar "
+        f"1e-3 a window) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"[lm_eval] rolling {rolled} != windows "
+                        f"{sum(parts)}")
+    ok = len(outs[0].split()) == 1 and len(outs[1].split()) == 3
+    log(f"  generate_until: {outs} (the first stops at its string \" \" "
+        f"after one token, the second, with none, runs its 3: "
+        f"{'ok' if ok else 'FAIL'})")
+    if not ok:
+        failures.append(f"[lm_eval] generate_until kept its stop string: "
+                        f"{outs}")
+
+    # the kernels against their plain versions on this path's inputs
+    with beside_plain(LM_EVAL_KERNELS) as seen:
+        calls()
+    plain_gate(seen, "[lm_eval]", failures)
+    share = {k: seen[k]["share"] for k in ("gemm_w8", "flash_attn")}
+
+    def scores():
+        lls_, rolled_, _ = calls()
+        return [ll for ll, _ in lls_] + [rolled_]
+
+    def flipped_gemm(*a):
+        y = gk.gemm_w8_plain(*a)
+        return (_ulp_flips(y, gen, share["gemm_w8"])
+                if y.dtype == torch.bfloat16 else y)
+
+    got = [ll for ll, _ in lls] + [rolled]
+    draws = []
+    with PlainKernels():
+        plain = scores()
+        for seed in range(3):
+            gen.manual_seed(20 + seed)
+            qk._actq_cuda = qk.actq_kernel_order
+            gk._gemm_w8_cuda = flipped_gemm
+            attention._flash_cuda = _flipped_attention(
+                attention.flash_attention_plain, gen, share["flash_attn"])
+            draws.append(scores())
+
+    # tokens each score sums: the continuations' words, the whole stream
+    ntok = [len(cont.split()) for _, cont in reqs] + [LM_EVAL_STREAM]
+
+    def dist(vals):
+        """RMS over the scores of |score - plain's| / sqrt(tokens scored):
+        per-token departures add up as a random walk."""
+        return float(np.sqrt(np.mean([(v - p) ** 2 / n for v, p, n in
+                                      zip(vals, plain, ntok)])))
+
+    far = [dist(d) for d in draws]
+    bar = 2 * max(far)
+    ok = dist(got) <= bar
+    log(f"  the 9 scores (8 logliks, the rolling one) against the plain "
+        f"versions': RMS distance {dist(got):.4g} nats over sqrt(tokens); "
+        f"the draws carrying the kernels' departures (actq_kernel_order, "
+        f"the w8 GEMM's outputs an ulp off on {share['gemm_w8']:.4%}, #9's "
+        f"on {share['flash_attn']:.4%}) {[float(f'{x:.4g}') for x in far]} "
+        f"(bar: twice the farthest, {bar:.4g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"[lm_eval] scores {dist(got)} from the plain "
+                        f"versions', bar {bar}")
+    del qp, lm, scorer
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  [lm_eval] took {time.perf_counter() - t_phase:.1f} s on {card}")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -4832,6 +5486,14 @@ def main() -> int:
         f"act_scale tensor against row, on {card}")
     tensor_launches = engine_tensor_run(card, failures)
 
+    log(f"[tp] tensor parallelism, {MODEL} full width, tp {TP_RANKS}: "
+        f"generate --tp {TP_RANKS} (28 layers) and 1-layer checks, both ranks "
+        f"on cuda:0 over gloo, on {card}")
+    tp_launches = tp_run(card, failures)
+    log(f"[lm_eval] the lm-eval adapter, {MODEL} width, {LM_EVAL_LAYERS} "
+        f"layers, packed w8, on {card}")
+    lm_eval_launches = lm_eval_run(card, failures)
+
     log("[engine check] 1 and 2 layers (w8), 1 layer (w4), 1 layer (BF16), "
         "kernels vs plain versions; the MoE model at 1 layer")
     engine_check(cfg, failures)
@@ -4842,14 +5504,15 @@ def main() -> int:
         for f in failures:
             print(f"FAIL: {f}", file=sys.stderr)
         return 1
-    # launches: over the twenty-one main paths, the ARC generate(), the
+    # launches: over the twenty-three main paths, the ARC generate(), the
     # HTTP server, the w4 generate(), the select-free generate(), the MoE
     # model's w8 and w4 generate() and HTTP server, benchmark_e2e in NVFP4
     # and BF16, the GEMM lab, generate_ondevice, evaluate's packed route,
     # calibrate, the calibrated engine and the checkpoint directory's
     # generate and evaluate; the MoE model's BF16 and fake-format
     # generate(), evaluate's packed route, calibrate and its calibrated
-    # engine; the tensor-scale generate(); actq's also by M
+    # engine; the tensor-scale generate(); rank 0 of generate --tp 2; the
+    # lm-eval adapter; actq's also by M
     path_launches = dict(
         generate=gen_launches, serve=serve_launches, generate_w4=w4_launches,
         generate_select_free=free_launches,
@@ -4862,7 +5525,8 @@ def main() -> int:
         generate_moe_fake=moe_qdq_launches["fake"],
         evaluate_moe=moe_eval_launches, calibrate_moe=moe_cal_launches,
         calib_serve_moe=moe_cal_serve_launches,
-        generate_tensor=tensor_launches)
+        generate_tensor=tensor_launches, generate_tp=tp_launches,
+        lm_eval=lm_eval_launches)
     actq_by_m = {p: c["actq_by_m"] for p, c in path_launches.items()}
     by_m = {}
     for c in actq_by_m.values():

@@ -229,6 +229,29 @@ def test_generate_entry_point_matches_engine(tmp_path):
     assert [len(o) for o in outs] == [8, 8]
 
 
+def test_generate_quant_head_matches_engine(capsys):
+    """--quant_head serves the lm head packed (W4A16), as InferenceEngine
+    does with quantize_lm_head=True; the default head stays bf16."""
+    prompts = [[5, 17, 301], [9, 8, 7, 6, 5]]
+    argv = ["--model", NAME, "--max_new", "6", "--cpu"]
+    assert not generate.qcfg_of(
+        generate.build_parser().parse_args(argv)).quantize_lm_head
+    args = generate.build_parser().parse_args(argv + ["--quant_head"])
+    qcfg = generate.qcfg_of(args)
+    assert qcfg.quantize_lm_head
+    generate.main(argv + ["--quant_head", "--tokens", "5,17,301",
+                          "--tokens", "9,8,7,6,5"])
+    outs = [json.loads(ln.split("] ", 1)[1]) for ln in
+            capsys.readouterr().out.splitlines() if ln.startswith("[")]
+    cfg = get_model_config(NAME)
+    eng = InferenceEngine.dummy(
+        cfg, quantized.identity_calib(cfg, args.select_frac), qcfg,
+        EngineConfig(max_batch=args.max_batch, max_seq_len=args.max_seq_len),
+        seed=args.seed, device="cpu")
+    assert "lm_head_packed" in eng.qparams
+    assert outs == eng.generate(prompts, 6)
+
+
 def test_entry_points_with_a_calibration(tmp_path, capsys, monkeypatch):
     """--calib reads the JAX package's calibration .npz (calib/artifacts.py
     load_calibration, which serve.py imports too)."""
@@ -262,7 +285,10 @@ def test_entry_points_raise_outside_the_slice(tmp_path, monkeypatch):
     # without config.json is refused
     with pytest.raises(FileNotFoundError, match="config.json"):
         evaluate.main(["--model", str(tmp_path), "--cpu"])
-    with pytest.raises(NotImplementedError, match="item 7"):
+    # --lm_eval runs the adapter (tests/test_torch_lm_eval_adapter.py);
+    # without the lm_eval package it exits naming it
+    monkeypatch.setitem(sys.modules, "lm_eval", None)
+    with pytest.raises(SystemExit, match="lm_eval package"):
         evaluate.main(["--model", NAME, "--lm_eval", "piqa", "--cpu"])
     # an MoE config, once refused, evaluates (the experts as qdq stacks)
     monkeypatch.chdir(tmp_path)
@@ -271,8 +297,11 @@ def test_entry_points_raise_outside_the_slice(tmp_path, monkeypatch):
     assert moe_out["windows"] == 2 and np.isfinite(moe_out["ppl"])
     with pytest.raises(ValueError, match="HF model dir"):
         generate.main(["--model", NAME, "--prompt", "hello", "--cpu"])
+    # --tp runs the TP engine (tests/test_torch_tp_engine.py); an MoE
+    # config under TP is still refused
     with pytest.raises(NotImplementedError, match="item 8"):
-        generate.main(["--model", NAME, "--tp", "2", "--cpu"])
+        generate.main(["--model", "test-tiny-moe", "--tp", "2",
+                       "--dist_backend", "gloo", "--cpu"])
     d = evaluate.build_parser().parse_args(["--model", NAME])
     assert (d.quant_type, d.act_scale, d.select_frac, d.seqlen, d.ntokens,
             d.weight_fmt, d.kv_group_size, d.cpu) == (

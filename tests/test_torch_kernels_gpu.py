@@ -396,6 +396,98 @@ def test_paged_prefill(heads, page, tq, starts, seq_lens):
     assert (to_numpy(o)[np.asarray(seq_lens) == 0] == 0).all()
 
 
+# -- the kernels at the tensor-parallel engine's shapes -----------------------
+# Qwen2.5-7B at tp 2 (parallel/tp_engine.py), a rank's sites with identity
+# ARC 0.125: (N, K, select); the column sites keep the global selection,
+# the row sites re-balance it to (KE / 2) // 64 * 64.
+TP2_SITES = {"qkv": (2304, 3584, 448), "o": (3584, 1792, 192),
+             "gateup": (18944, 3584, 448), "down": (3584, 9472, 1152)}
+
+
+@pytest.mark.parametrize("site", list(TP2_SITES))
+@pytest.mark.parametrize("m", [4, 4096])
+def test_gemm_w8_at_tp2_shards(site, m):
+    """#2 at a tp-2 rank's four sites, decode (the small-M tile) and
+    prefill (the large-M tile) rows, against its plain version."""
+    require_cuda()
+    n, k, select = TP2_SITES[site]
+    rng = np.random.default_rng(m + n + k)
+    w = _bf16(outlier_x(rng, n, k) * 0.05)
+    ridx = torch.from_numpy(rng.permutation(k)).cuda()
+    pw = packing.pack_weight_arc(w, ridx, select, w_scale="channel")
+    xa, gx = qk.quantize_x_arc(_bf16(outlier_x(rng, m, k)), ridx, select,
+                               kq=pw.kq)
+    gs, gw = gx.reshape(-1, 1), pw.global_scale.reshape(1, -1)
+    for dt in (torch.float32, torch.bfloat16):
+        y = gk._gemm_w8_cuda(xa, pw.codes, pw.scales, gs, gw, None, dt)
+        ref = gk.gemm_w8_plain(xa, pw.codes, pw.scales, gs, gw, None, dt)
+        torch.cuda.synchronize()
+        assert_summation_order_close(y, ref, dt == torch.float32)
+
+
+@pytest.mark.parametrize("site", ["o", "gateup"])
+def test_dequant_w8_at_tp2_shards(site):
+    """#6 at the tp-2 sites whose prefill takes the large-M route (N >=
+    Kq), bit for bit its plain version."""
+    require_cuda()
+    n, k, select = TP2_SITES[site]
+    rng = np.random.default_rng(n)
+    w = _bf16(outlier_x(rng, n, k) * k ** -0.5)
+    pw = packing.pack_weight_arc(w, torch.from_numpy(rng.permutation(k))
+                                 .cuda(), select, w_scale="channel")
+    assert n >= pw.kq
+    gw = pw.global_scale.reshape(-1)
+    assert_bitwise([gk._dequant_w8_cuda(pw.codes, pw.scales, gw)],
+                   [gk.dequant_w8_plain(pw.codes, pw.scales, gw)])
+
+
+def _tp2_pool(rng, seq_lens, page=128):
+    """A rank's pool at Qwen2.5-7B tp 2 (2 kv heads of 128) with rows of
+    seq_lens tokens on pages of `page`."""
+    cfg = get_model_config("test-tiny").replace(
+        num_heads=14, num_kv_heads=2, head_dim=128, num_layers=1)
+    bsz, pps = len(seq_lens), -(-max(seq_lens) // page)
+    cache = paged.init_cache(cfg, 1 + bsz * pps, page, "cuda")
+    pt = (1 + torch.arange(bsz)[:, None] * pps
+          + torch.arange(pps)[None]).to(torch.int32).cuda()
+    t = pps * page
+    kv = [_bf16(rng.standard_normal((bsz, t, 2, 128))) for _ in range(2)]
+    pos = torch.arange(t)[None].expand(bsz, t).cuda()
+    sl = torch.tensor(seq_lens, dtype=torch.int32, device="cuda")
+    paged.append_kv(cache, 0, kv[0], kv[1], pt,
+                    torch.where(pos < sl[:, None], pos, -1))
+    return cache, pt, sl
+
+
+def test_paged_kernels_at_tp2_heads():
+    """#10 and #11 at a tp-2 rank's 14 query and 2 kv heads on pages of
+    128: decode at the [tp] smoke's lengths after 32 tokens (its split
+    plan at 2 kv heads), and a 512-token prefill chunk at ragged starts,
+    each against its plain version."""
+    require_cuda()
+    rng = np.random.default_rng(14)
+    cache, pt, sl = _tp2_pool(rng, [1056, 809, 333, 96])
+    assert pdk.decode_split_plan(4, 2, pt.shape[1])[0] > 1
+    q = _bf16(rng.standard_normal((4, 14, 128)) * 2)
+    args = (q, cache.codes[0], cache.params[0], pt, sl)
+    o, m, l = pdk._paged_decode_cuda(*args)
+    po, pm, pl = pdk.paged_decode_state_plain(*args)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(to_numpy(o), to_numpy(po), rtol=2.0 ** -7,
+                               atol=1e-3)
+    np.testing.assert_allclose(to_numpy(l), to_numpy(pl), rtol=1e-4)
+    st = torch.tensor([512, 297, 0, 0], dtype=torch.int32, device="cuda")
+    q = _bf16(rng.standard_normal((4, 512, 14, 128)) * 2)
+    args = (q, cache.codes[0], cache.params[0], pt, st, sl)
+    o = pdk._paged_prefill_cuda(*args)
+    po = pdk.paged_prefill_plain(*args)
+    torch.cuda.synchronize()
+    live = to_numpy(st[:, None] + torch.arange(512, device="cuda")[None]
+                    < sl[:, None])
+    np.testing.assert_allclose(to_numpy(o)[live], to_numpy(po)[live],
+                               rtol=2.0 ** -7, atol=2e-3)
+
+
 # -- decode megakernels (kernels/mlp_fused.py) --------------------------------
 
 def _bits(t):
