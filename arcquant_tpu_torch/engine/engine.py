@@ -481,6 +481,13 @@ class InferenceEngine:
 
     # -- state ------------------------------------------------------------
 
+    def page_groups(self):
+        """(n_groups, pages_per_group, slots_per_group) for the batcher's
+        PageAllocators: the single-device engine has one page pool; the
+        data-parallel TP engine one pool a dp group (page ids local to
+        it), its slots in consecutive runs."""
+        return (1, self.ecfg.total_pages(), self.ecfg.max_batch)
+
     def new_state(self):
         """(cache, page_table, seq_lens) on the engine's device. Static
         layout: slot i gets pages [1 + i*pps, 1 + (i+1)*pps); page 0 is
@@ -517,6 +524,14 @@ class InferenceEngine:
     # -- forward pieces ----------------------------------------------------
 
     def _layers(self, x, cos, sin, cache, pt, append_pos, attend, qcfg):
+        """The decoder layers, then the final norm."""
+        x = self._layer_stack(x, cos, sin, cache, pt, append_pos, attend,
+                              qcfg)
+        return llama.rms_norm(x, self.qparams["final_norm"], self.cfg.rms_eps)
+
+    def _layer_stack(self, x, cos, sin, cache, pt, append_pos, attend, qcfg):
+        """The engine's layers on x [B, T, D], layer li appending into the
+        pool's layer li and attending through attend(li, q, k, v)."""
         cfg, fused = self.cfg, self.fused_decode
         b, t, _ = x.shape
         for li, p in enumerate(self.qparams["layers"]):
@@ -529,7 +544,7 @@ class InferenceEngine:
             x = x + _o_proj(cfg, p, attn, lc, qcfg, b, t, fused=fused)
             x = x + _mlp(cfg, p, x, lc, qcfg, norm_w=p["mlp_norm"],
                          fused=fused)
-        return llama.rms_norm(x, self.qparams["final_norm"], cfg.rms_eps)
+        return x
 
     def _prefill_forward(self, cache, pt, tokens, lens):
         """One-shot prefill of tokens [B, T] (right-padded), flash
@@ -925,14 +940,17 @@ class InferenceEngine:
         (prompt + generation + `margin` tokens of headroom: a speculative
         verify writes up to window - 1 uncommitted tokens past the
         committed length), rows in order on consecutive pages after the
-        sink. No-op under the static layout."""
+        sink, numbered in the pool of the row's page group
+        (page_groups()). No-op under the static layout."""
         e = self.ecfg
         if not e.dynamic_pages:
             return state
         cache, pt, sl = state
+        _, pages_per_group, spg = self.page_groups()
         pt_np = np.zeros((e.max_batch, e.pages_per_seq), np.int32)
-        nxt = 1
         for i in range(b):
+            if i % spg == 0:
+                nxt = 1
             total = int(lens[i]) + max_new_tokens + margin
             need = -(-total // e.page_size)
             if need > e.pages_per_seq:
@@ -940,9 +958,9 @@ class InferenceEngine:
                     f"prompt {i}: {int(lens[i])} + {max_new_tokens} new "
                     f"+ margin {margin} tokens exceed pages_per_seq="
                     f"{e.pages_per_seq} * page_size={e.page_size}")
-            if nxt + need > e.total_pages():
+            if nxt + need > pages_per_group:
                 raise ValueError(
-                    f"page pool exhausted at row {i}: {e.total_pages() - 1}"
+                    f"page pool exhausted at row {i}: {pages_per_group - 1}"
                     " usable pages; raise num_pages or use "
                     "ContinuousBatcher")
             pt_np[i, :need] = np.arange(nxt, nxt + need)

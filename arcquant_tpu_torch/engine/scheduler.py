@@ -17,7 +17,10 @@ all host-side logic around the engine's steps.
     pool is exhausted (admission) or preempt the youngest running
     sequence (growth). The page table is host numpy ([B, pps] i32); on
     change it is copied into the engine state's preallocated device
-    tensor, never re-created.
+    tensor, never re-created. An engine with page groups
+    (``engine.page_groups()``: the data-parallel TP engine's pool a dp
+    group) gets one allocator a group, a slot's pages coming from its
+    group's pool (ids local to it).
   - Speculative decoding (spec_window >= 2): each step is one verify
     round (engine.verify_step) over the running slots, drafted on the
     host by the drafter (engine/spec.py's NgramDrafter by default) and
@@ -212,14 +215,31 @@ class ContinuousBatcher:
         self._gen.manual_seed(seed)
         self._pen_counts: List[Optional[dict]] = [None] * b
         self.decode_burst = decode_burst
-        # dynamic pages: the engine's one page pool, owned here
-        self.alloc: Optional[PageAllocator] = None
+        # dynamic pages: one PageAllocator a page group of the engine
+        # (engine.page_groups(): one pool on a single device, one a dp
+        # group under data parallelism, page ids local to the group; a
+        # slot's pages come from its group's pool)
+        self.allocs: Optional[List[PageAllocator]] = None
         self._stamp = itertools.count()     # admission order
         self._admitted_at: dict = {}        # slot -> stamp
         if e.dynamic_pages:
-            self.alloc = PageAllocator(e.total_pages())
+            ngroups, pages_per_group, self._slots_per_group = \
+                engine.page_groups()
+            self.allocs = [PageAllocator(pages_per_group)
+                           for _ in range(ngroups)]
             self._pt = np.zeros((b, e.pages_per_seq), np.int32)
             self._pt_dirty = False
+
+    @property
+    def alloc(self) -> Optional[PageAllocator]:
+        """The allocator of a one-group engine; None in grouped mode and
+        with static pages."""
+        if self.allocs is not None and len(self.allocs) == 1:
+            return self.allocs[0]
+        return None
+
+    def _galloc(self, slot: int) -> PageAllocator:
+        return self.allocs[slot // self._slots_per_group]
 
     def _seq_lens(self) -> np.ndarray:
         return self.state[2].cpu().numpy()
@@ -331,7 +351,7 @@ class ContinuousBatcher:
 
     def _push_pt(self) -> None:
         """Copy the host page table into the state's device table."""
-        if self.alloc is not None and self._pt_dirty:
+        if self.allocs is not None and self._pt_dirty:
             self.state[1].copy_(torch.from_numpy(self._pt))
             self._pt_dirty = False
 
@@ -350,8 +370,8 @@ class ContinuousBatcher:
             # a preempted request replays prompt + prior output
             nprefill = len(req.tokens_so_far())
             need = -(-(nprefill + 1) // ps)
-            if nprefill > cap or (self.alloc is not None
-                                  and need > self.alloc.capacity):
+            if nprefill > cap or (self.allocs is not None
+                                  and need > self.allocs[0].capacity):
                 req.done = True
                 req.error = (f"prompt length {nprefill} exceeds "
                              f"KV capacity")
@@ -359,26 +379,34 @@ class ContinuousBatcher:
                 continue
             slot = free[0]
             start = 0
-            if self.alloc is not None:
-                # prompt pages + the first decode token's page; with
-                # prefix_sharing, reuse cached prefix pages (refcount++)
-                # and allocate only the suffix + growth pages
-                a = self.alloc
+            if self.allocs is not None:
+                # prompt pages + the first decode token's page, from the
+                # slot's group's pool; a full pool tries the other free
+                # slots (other groups) before giving up. With
+                # prefix_sharing, reuse the group's cached prefix pages
+                # (refcount++) and allocate only the suffix + growth pages
                 keys = (self._chain_keys(req.tokens_so_far(), ps)
                         if self.engine.ecfg.prefix_sharing else [])
-                nshared = 0
-                for key in keys[:(nprefill - 1) // ps]:
-                    pg = a.lookup_shared(key)
-                    if pg is None:
-                        break
-                    a.share(slot, pg)        # protects from eviction
-                    nshared += 1
-                if a.alloc(slot, need - nshared) is None:
-                    a.release(slot)          # undo the shares
-                    self.queue.insert(0, req)    # pool exhausted: FIFO
+                placed = False
+                for cand in free:
+                    a = self._galloc(cand)
+                    nshared = 0
+                    for key in keys[:(nprefill - 1) // ps]:
+                        pg = a.lookup_shared(key)
+                        if pg is None:
+                            break
+                        a.share(cand, pg)    # protects from eviction
+                        nshared += 1
+                    if a.alloc(cand, need - nshared) is None:
+                        a.release(cand)      # undo the shares
+                        continue
+                    slot, start, placed = cand, nshared * ps, True
+                    self._set_pages(slot, a.owned[slot])
                     break
-                start = nshared * ps
-                self._set_pages(slot, a.owned[slot])
+                if not placed:
+                    # every group's pool exhausted: requeue, stop (FIFO)
+                    self.queue.insert(0, req)
+                    break
             free.remove(slot)
             self.slots[slot] = req
             self._admitted_at[slot] = next(self._stamp)
@@ -423,14 +451,15 @@ class ContinuousBatcher:
                 # (decode appends land at >= nprefill, never in them)
                 p = req.tokens_so_far()
                 keys = self._chain_keys(p, ps)
+                a = self._galloc(slot)
                 for j in range(start // ps, len(p) // ps):
-                    self.alloc.register(keys[j], int(self._pt[slot, j]))
+                    a.register(keys[j], int(self._pt[slot, j]))
 
     # -- stepping -----------------------------------------------------------
 
     def _release_slot(self, slot: int) -> None:
-        if self.alloc is not None:
-            self.alloc.release(slot)
+        if self.allocs is not None:
+            self._galloc(slot).release(slot)
             self._pt[slot] = 0
             self._pt_dirty = True
         self.slots[slot] = None
@@ -483,17 +512,19 @@ class ContinuousBatcher:
         self._release_slot(slot)
         self.queue.insert(0, req)
 
-    def _youngest(self) -> int:
-        """Running slot admitted most recently: the preemption victim
-        (least re-prefill work wasted)."""
-        return max(self._admitted_at, key=self._admitted_at.get)
+    def _youngest(self, group: int) -> int:
+        """Running slot of page group `group` admitted most recently: the
+        preemption victim (least re-prefill work wasted)."""
+        pool = {s: t for s, t in self._admitted_at.items()
+                if s // self._slots_per_group == group}
+        return max(pool, key=pool.get)
 
     def _grow_pages(self, ahead: int = 1) -> None:
         """Dynamic mode: before a decode step, every active slot must have
         pages mapped for append positions seq_len .. seq_len + ahead - 1;
         allocate on demand, preempting the youngest running sequence on
         pool exhaustion."""
-        if self.alloc is None:
+        if self.allocs is None:
             return
         ps = self.engine.ecfg.page_size
         pps = self.engine.ecfg.pages_per_seq
@@ -504,12 +535,12 @@ class ContinuousBatcher:
             have = int(np.count_nonzero(self._pt[i]))
             need = min((int(lens_np[i]) + ahead - 1) // ps + 1, pps)
             while have < need and self.slots[i] is not None:
-                pages = self.alloc.alloc(i, 1)
+                pages = self._galloc(i).alloc(i, 1)
                 if pages is not None:
                     self._map_pages(i, pages)
                     have += 1
                     continue
-                victim = self._youngest()
+                victim = self._youngest(i // self._slots_per_group)
                 self._preempt(victim)
                 if victim == i:
                     break           # evicted the requester itself
@@ -590,7 +621,7 @@ class ContinuousBatcher:
             return 0
         lens_np = None
         ps = self.engine.ecfg.page_size
-        extra = 0
+        extra: dict = {}        # page group -> pages the burst maps
         for i, s in enumerate(self.slots):
             if s is None:
                 continue
@@ -601,10 +632,13 @@ class ContinuousBatcher:
                 lens_np = self._seq_lens()
             if lens_np[i] + n + 1 > self.engine.ecfg.max_seq_len:
                 return 0
-            if self.alloc is not None:
+            if self.allocs is not None:
                 have = int(np.count_nonzero(self._pt[i]))
-                extra += max(0, (int(lens_np[i]) + n - 1) // ps + 1 - have)
-        if extra and extra > self.alloc.available():
+                need = (int(lens_np[i]) + n - 1) // ps + 1 - have
+                if need > 0:
+                    g = i // self._slots_per_group
+                    extra[g] = extra.get(g, 0) + need
+        if any(e > self.allocs[g].available() for g, e in extra.items()):
             return 0
         return n if lens_np is not None else 0
 

@@ -508,8 +508,8 @@ class SpeculativeEngine:
         if getattr(eng, "mesh", None) is not None:
             raise ValueError(
                 "generate_ondevice runs the base single-chip forward as one "
-                "round body; sharded engines (TP) use the host verify loop "
-                "(SpeculativeEngine.generate)")
+                "round body; sharded engines (TP, PP) use the host verify "
+                "loop (SpeculativeEngine.generate)")
         toks, lens, b, logits, state = self._prefill(prompts,
                                                      max_new_tokens)
         cur = eng._sample(logits, sampling, eng._generator(seed))

@@ -137,26 +137,31 @@ def _a16_pad(x: torch.Tensor, select_num: int):
                                    (0, select_num)), 1.0
 
 
-def _qdq_x(x2: torch.Tensor, calib, qcfg: QuantConfig):
+def _qdq_x(x2: torch.Tensor, calib, qcfg: QuantConfig, gs_reduce=None):
     """The qdq stacks' quantize of a [M, K] activation: the fake ARC qdq
     at qcfg's format and scale (whatever use_kernels says), or at act_bits
-    16 the exact bf16 pad. Returns (xa, gx)."""
+    16 the exact bf16 pad. Returns (xa, gx). gs_reduce maps a per-tensor
+    global scale to the one sharded callers agree on."""
     if qcfg.act_bits == 16:
         return _a16_pad(x2, calib.select_num)
+    per_row = qcfg.act_scale == "row"
     return arc.arc_quantize_x_qdq(x2, calib.reorder_index, calib.select_num,
-                                  qcfg.quant_type,
-                                  per_row=qcfg.act_scale == "row")
+                                  qcfg.quant_type, per_row=per_row,
+                                  gs_reduce=None if per_row else gs_reduce)
 
 
 def _quantize_inter(inter: torch.Tensor, calib,
-                    qcfg: Optional[QuantConfig]):
+                    qcfg: Optional[QuantConfig], gs_reduce=None):
     """Re-quantize the silu(g) * up intermediate [..., F] at down_in for
     the qdq stacks: (ia, gi), gi [..., 1] per row. BF16 (qcfg None) passes
-    it through with a unit scale."""
+    it through with a unit scale. gs_reduce: the cross-shard reduction of
+    a TENSOR scale (expert-parallel shards see only their experts'
+    intermediates); per-row scales are shard-local and never reduced."""
     if qcfg is None or qcfg.quant_type == "BF16":
         return inter, 1.0
     lead = inter.shape[:-1]
-    ia, gi = _qdq_x(inter.reshape(-1, inter.shape[-1]), calib, qcfg)
+    ia, gi = _qdq_x(inter.reshape(-1, inter.shape[-1]), calib, qcfg,
+                    gs_reduce)
     if isinstance(gi, torch.Tensor) and gi.dim() == 2:
         gi = gi.reshape(*lead, 1)
     return ia.reshape(*lead, ia.shape[-1]), gi
@@ -164,9 +169,11 @@ def _quantize_inter(inter: torch.Tensor, calib,
 
 def _ffn_dense(p: Params, xa: torch.Tensor, gx, cw: torch.Tensor,
                calib_down=None, qcfg: Optional[QuantConfig] = None,
-               taps=None) -> torch.Tensor:
+               taps=None, gs_reduce=None,
+               out_dtype=torch.bfloat16) -> torch.Tensor:
     """Dense mode over the stacks: every expert on every token xa [T, K],
-    combined with cw [T, E]."""
+    combined with cw [T, E], the f32 sum rounded to out_dtype (gs_reduce:
+    _quantize_inter's)."""
     gate = _stacked_linear(p["gate"], xa, gx)                # [E, T, F]
     up = _stacked_linear(p["up"], xa, gx)
     inter = qk._silu_mul(gate, up).to(torch.bfloat16)
@@ -174,24 +181,32 @@ def _ffn_dense(p: Params, xa: torch.Tensor, gx, cw: torch.Tensor,
         # calibration: only routed (token, expert) rows count at down_in
         taps["down_in"] = (inter.transpose(0, 1)
                            * (cw > 0)[:, :, None].to(inter.dtype))
-    ia, gi = _quantize_inter(inter, calib_down, qcfg)
+    ia, gi = _quantize_inter(inter, calib_down, qcfg, gs_reduce)
     y = _stacked_linear(p["down"], ia, gi)                   # [E, T, D]
-    return (y.float() * cw.t()[:, :, None]).sum(dim=0).to(torch.bfloat16)
+    return (y.float() * cw.t()[:, :, None]).sum(dim=0).to(out_dtype)
 
 
 def _slots(cw: torch.Tensor, k: int, capacity: int):
     """The JAX package's slot assignment: k assignments a token, taken
     token-major, then in top-k order (descending weight, ties to the
-    lower expert, as lax.top_k). Each ranks by the earlier assignments to
-    its expert and is kept below `capacity` with a nonzero weight.
-    Returns [T, k] slots (e * capacity + rank, or the sink e * capacity
-    where dropped) and weights (0 where dropped)."""
+    lower expert, as lax.top_k). Each ranks by the earlier assignments
+    with a nonzero weight to its expert and is kept below `capacity`
+    with a nonzero weight. Returns [T, k] slots (e * capacity + rank, or
+    the sink e * capacity where dropped) and weights (0 where dropped).
+
+    A zero-weight assignment takes no rank: on one device every top-k
+    weight is nonzero, so this is the JAX package's rule, but an
+    expert-parallel rank's combine matrix holds only its own experts, and
+    a token routed to fewer than k of them fills its k with zero-weight
+    ones; JAX's ep_moe_block counts those against the capacity and so
+    drops tokens the single device keeps (ROADMAP queue 3)."""
     t, e = cw.shape
     k = min(e, k)
     w_l, a_l = torch.sort(cw, dim=-1, descending=True, stable=True)
     e_flat = a_l[:, :k].reshape(-1)
     w_flat = w_l[:, :k].reshape(-1).float()
-    onehot = torch.nn.functional.one_hot(e_flat, e)
+    onehot = (torch.nn.functional.one_hot(e_flat, e)
+              * (w_flat > 0)[:, None])
     rank = (onehot.cumsum(0) - onehot).gather(1, e_flat[:, None])[:, 0]
     keep = (rank < capacity) & (w_flat > 0)
     slot = torch.where(keep, e_flat * capacity + rank,
@@ -210,22 +225,24 @@ def _dispatch_rows(rows: torch.Tensor, slot: torch.Tensor, e: int,
     return out[:-1].reshape(e, capacity, -1)
 
 
-def _combine(y: torch.Tensor, slot: torch.Tensor,
-             w: torch.Tensor) -> torch.Tensor:
+def _combine(y: torch.Tensor, slot: torch.Tensor, w: torch.Tensor,
+             out_dtype=torch.bfloat16) -> torch.Tensor:
     """Each token's k slots of y [E * C, D] (the zero sink where dropped),
-    weighted by w [T, k] and summed in f32, in a fixed order: [T, D]
-    bf16."""
+    weighted by w [T, k] and summed in f32, in a fixed order: [T, D] in
+    out_dtype."""
     y = torch.cat([y, y.new_zeros((1, y.shape[1]))])
-    return (y[slot].float() * w[:, :, None]).sum(dim=1).to(torch.bfloat16)
+    return (y[slot].float() * w[:, :, None]).sum(dim=1).to(out_dtype)
 
 
 def _ffn_dispatch(p: Params, xa: torch.Tensor, gx, cw: torch.Tensor,
                   capacity: int, k: int, calib_down=None,
                   qcfg: Optional[QuantConfig] = None,
-                  taps=None) -> torch.Tensor:
+                  taps=None, gs_reduce=None,
+                  out_dtype=torch.bfloat16) -> torch.Tensor:
     """Dispatch mode over the stacks: xa [T, K] (rounded to bf16, as the
     JAX package's one-hot dispatch product) and its per-row scales copied
-    into expert slots, the stacked products at [E, C, *], the combine."""
+    into expert slots, the stacked products at [E, C, *], the combine in
+    out_dtype (gs_reduce: _quantize_inter's)."""
     e = cw.shape[1]
     slot, w = _slots(cw, k, capacity)
     xin = _dispatch_rows(xa.to(torch.bfloat16), slot, e, capacity)
@@ -238,9 +255,9 @@ def _ffn_dispatch(p: Params, xa: torch.Tensor, gx, cw: torch.Tensor,
     if taps is not None:
         # unrouted capacity slots are zero rows: neutral for the stats
         taps["down_in"] = inter
-    ia, gi = _quantize_inter(inter, calib_down, qcfg)
+    ia, gi = _quantize_inter(inter, calib_down, qcfg, gs_reduce)
     y = _stacked_linear(p["down"], ia, gi)                   # [E, C, D]
-    return _combine(y.reshape(e * capacity, -1), slot, w)
+    return _combine(y.reshape(e * capacity, -1), slot, w, out_dtype)
 
 
 # -- packed experts ------------------------------------------------------------

@@ -31,12 +31,10 @@ JAX's bit for bit.
 
 from __future__ import annotations
 
-import time
 from typing import Any, Dict
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from ..config import ModelConfig, QuantConfig
 from ..engine.engine import _to_device
@@ -51,26 +49,9 @@ from .mesh import TPContext
 Params = Dict[str, Any]
 
 
-def _sync(t: torch.Tensor) -> None:
-    if t.is_cuda:
-        torch.cuda.synchronize(t.device)
-
-
 def _all_reduce(t: torch.Tensor, op: str, ctx: TPContext) -> torch.Tensor:
     """all_reduce(op) of t over the TP group, in place (none at tp 1)."""
-    if ctx.tp == 1:
-        return t
-    comm = ctx.comm
-    comm.calls[op] += 1
-    if comm.timed:
-        _sync(t)
-        t0 = time.perf_counter()
-    dist.all_reduce(t, op=dist.ReduceOp.SUM if op == "sum"
-                    else dist.ReduceOp.MAX, group=ctx.group)
-    if comm.timed:
-        _sync(t)
-        comm.seconds += time.perf_counter() - t0
-    return t
+    return ctx.tp_comm().all_reduce(t, op)
 
 
 # ---------------------------------------------------------------------------

@@ -170,7 +170,34 @@ Phases, each printed as it runs:
      stop, the launch counts, then every kernel call of the three against
      its plain version and the scores against the plain versions' within
      twice the farthest of three draws carrying the kernels' departures;
- 16. the Qwen2.5-7B engine cut to 1 and to 2 layers, its prefill and 4
+ 16. [pp] (pp_run): pipeline parallelism, two stages on this card over
+     gloo: PPInferenceEngine.generate at Qwen2.5-7B, 28 layers (14 and
+     their pool a stage), ARC 0.125, the packed head, the four prompts
+     of 4, 32 greedy tokens, every step's logits bitwise the
+     single-device eager engine's fed the same tokens (step digests) and
+     verify_step at W 4 bitwise, each stage's prefill ms, decode ms/step,
+     relay bytes and ms a step and peak memory (the path generate_pp,
+     the stages' launches summed); then Qwen1.5-MoE-A2.7B cut to 2
+     layers, packed experts, bitwise likewise (moe_pp); [dp] (dp_run):
+     dp 2 x tp 2, four ranks, Qwen2.5-7B width cut to 2 layers, max_batch
+     8, dynamic pages (a pool a dp group), chunked prefill 512: twelve
+     requests through ContinuousBatcher, every request finished, both
+     groups admitting and one requeue, no slot holding another group's
+     page, a decode step's 2 SUM + 2 MAX a layer and one all_gather, and
+     every call's logits against the dp 1 TP engine fed the same (cosine
+     >= 0.999 or its noise floor, equal greedy tokens) (dp_tp, rank 0's);
+     [ep] (ep_run): expert parallelism under TP at Qwen1.5-MoE-A2.7B full
+     width, tp 2: generate --tp 2 --check_ranks at 24 layers (ranks
+     bitwise at every step, decode ms/step, peak memory; ep_tp), then 1-
+     and 2-layer cuts at row and tensor scales against the single-device
+     engine on qdq stacks, with the MoE block's collectives; [sp]
+     (sp_run): paged decode's state form at Qwen2.5-7B's attention shapes
+     over two shards' pools split by token range (each shard's out, m
+     and l against the plain version, the merged sp_paged_decode against
+     paged_decode over the whole pool; sp_decode), then ring attention at
+     T 4096 against plain f32 causal attention. The ranks time-share the
+     card: their times are no speed figure of the mode;
+ 17. the Qwen2.5-7B engine cut to 1 and to 2 layers, its prefill and 4
      decode steps against the same forward with the plain versions
      patched in, the 1-layer w4 and BF16 engines likewise, then at 1
      layer chunked and suffix prefill and a speculative verify, and the
@@ -179,9 +206,9 @@ Phases, each printed as it runs:
      bars).
 Every decode runs the captured step (InferenceEngine's default) except
 the eager references: the [graph] loops, [spec]'s round loop and floor
-draws, in 16 the plain versions, the verify's spied and isolating runs
-and the MoE check's spied forwards, and the TP engine of 15, which
-decodes eagerly (gloo's collectives cannot be captured). Kernel launch
+draws, in 17 the plain versions, the verify's spied and isolating runs
+and the MoE check's spied forwards, and the sharded engines of 15 and
+16, which decode eagerly (gloo's collectives cannot be captured). Kernel launch
 counts stay launches on the card: a replay counts the launches its graph
 holds.
 The second-to-last line is the kernels' JSON summary, the last line
@@ -3674,8 +3701,6 @@ def moe_engine_check(cfg, failures):
     a graph's replay makes none."""
     from arcquant_tpu_torch.config import QuantConfig
     from arcquant_tpu_torch.engine import EngineConfig, InferenceEngine
-    from arcquant_tpu_torch.kernels import gemm as gk
-    from arcquant_tpu_torch.kernels import paged_decode as pdk
     from arcquant_tpu_torch.models import moe, quantized
 
     cfg_l = cfg.replace(num_layers=1)
@@ -3723,18 +3748,9 @@ def moe_engine_check(cfg, failures):
     moe.route, quantized._act_quantize = route, quantize
     try:
         got, fed, s_got = run()
-        floors = []
         with PlainKernels():
             want, _, s_want = run(feed=fed)
-            for seed in range(5):
-                gen = torch.Generator(device="cuda")
-                gen.manual_seed(seed)
-                gk._gemm_w8_cuda = _noisy_gemm(gen)
-                gk._mm_f32_cuda = _noisy_mm(gen)
-                gk._gemm_batched_cuda = _noisy_batched(gen)
-                pdk._paged_decode_cuda = _noisy_attention(
-                    pdk.paged_decode_state_plain, gen, 2.0 ** -16)
-                floors.append(run(feed=fed)[0])
+        floors = noise_draws(lambda: run(feed=fed)[0], 5)
     finally:
         moe.route, quantized._act_quantize = real_route, real_q
     for i, (a, b) in enumerate(zip(got, want)):
@@ -3743,16 +3759,12 @@ def moe_engine_check(cfg, failures):
             diff[kind] += int(((x != y).any(-1) if kind == "route"
                                else x != y).sum())
         flips, moved = diff["route"], diff["quantize"]
-        cos = _cosine(a, b)
-        same = bool(torch.equal(a.argmax(-1), b.argmax(-1)))
+        ok, cos, floor, same, noisy = floor_gate(a, b, b,
+                                                 [f[i] for f in floors])
         what = "1-layer MoE " + ("prefill" if i == 0 else f"decode {i}")
         if flips == 0 and moved == 0:
             ok, bar = cos >= 0.999 and same, "cosine >= 0.999, equal tokens"
         else:
-            floor = min([0.999] + [_cosine(b, f[i]) for f in floors])
-            noisy = any(not torch.equal(f[i].argmax(-1), b.argmax(-1))
-                        for f in floors)
-            ok = cos >= floor and (same or noisy)
             bar = (f"cosine >= {floor:.6f}, the noise floor, at most 0.999; "
                    "equal tokens unless a floor draw's differ too: "
                    f"{'they do' if noisy else 'they do not'}")
@@ -4171,15 +4183,15 @@ def engine_check(cfg, failures):
         del eng
 
 
-def engine_steps(eng, feed=None):
-    """An engine's prefill of the PROMPT_LENS prompts from seed 1 and 4
-    decode steps, fed `feed` (else its greedy tokens): ([f32 logits on
-    the host], the tokens fed)."""
+def engine_steps(eng, feed=None, decodes=4):
+    """An engine's prefill of the PROMPT_LENS prompts from seed 1 and
+    `decodes` decode steps, fed `feed` (else its greedy tokens): ([f32
+    logits on the host], the tokens fed)."""
     toks, lens, _ = eng._pad_prompts(prompts_for(eng.cfg, seed=1))
     active = torch.ones(len(PROMPT_LENS), dtype=torch.bool)
     logits, state = eng.prefill(eng.new_state(), toks, lens)
     outs, fed = [logits.float().cpu()], []
-    for i in range(4):
+    for i in range(decodes):
         cur = (logits.argmax(-1).to(torch.int32) if feed is None
                else feed[i])
         fed.append(cur)
@@ -4189,62 +4201,53 @@ def engine_steps(eng, feed=None):
 
 
 def engine_vs_plain(eng, label, failures, paged_floor=False, ref=None,
-                    real=()):
+                    real=(), steps=engine_steps, draws=5):
     """engine_check's comparison on one engine of 1 or 2 layers: its
-    engine_steps with the kernels (the decode replaying the captured
-    step) against the same forward with the plain versions (eager), fed
-    the same tokens; at 1 layer cosine >= 0.999 and equal greedy tokens,
-    at 2 the noise floor of the plain forward against itself with 2^-22
-    GEMM noise.
+    steps (engine_steps: the prefill and 4 decode steps) with the kernels
+    (the decode replaying the captured step) against the same forward
+    with the plain versions (eager), fed the same tokens; at 1 layer
+    cosine >= 0.999 and equal greedy tokens, at 2 the noise floor of the
+    plain forward against itself with 2^-22 GEMM noise. Returns (the
+    engine's logits of each step, the tokens fed).
 
     ref: the engine whose forward is the reference (default eng), on the
     same weights; real: kernels (KERNEL_INFO's names) left on the card in
     the reference run. The floors are always the reference engine on the
-    plain versions against itself with noise.
+    plain versions against itself with noise. steps(engine, feed=None):
+    the run of an engine (the other engine's tokens fed when given).
 
-    paged_floor: moe_engine_check's floor at every depth instead: the
-    plain forward against itself with every GEMM's f32 result (the
-    batched expert GEMM's of an MoE engine too) times (1 + 2^-22 N(0, 1))
-    and paged decode's times (1 + 2^-16 N(0, 1)), the lowest of five
-    draws, at most 0.999; equal tokens unless a draw's differ too.
-    Paged decode's outputs sit an ulp from its plain version's on 0.4-0.6%
-    of elements, and at 1 layer that alone moves a decode step's logits
-    to cosine 0.9985 on some weights (on an H100, at identity 0.125 as
-    well as a calibration, and at per-tensor scales)."""
-    from arcquant_tpu_torch.kernels import gemm as gk
-    from arcquant_tpu_torch.kernels import paged_decode as pdk
-
+    paged_floor: moe_engine_check's floor at every depth instead
+    (noise_draws, floor_gate): the plain forward against itself with
+    every GEMM's f32 result (the batched expert GEMM's of an MoE engine
+    too) times (1 + 2^-22 N(0, 1)) and paged decode's times
+    (1 + 2^-16 N(0, 1)), the lowest of `draws` draws, at most 0.999;
+    equal tokens unless a draw's differ too. Paged decode's outputs sit
+    an ulp from its plain version's on 0.4-0.6% of elements, and at 1
+    layer that alone moves a decode step's logits to cosine 0.9985 on
+    some weights (on an H100, at identity 0.125 as well as a calibration,
+    and at per-tensor scales)."""
     ref = eng if ref is None else ref
     layers = ref.cfg.num_layers
-    got, fed = engine_steps(eng)
+    got, fed = steps(eng)
     # the plain versions run eagerly: a capture would keep whatever the
     # patched entry points were when it was made
     graphs, ref.cuda_graphs = ref.cuda_graphs, False
-    floors = []
     with PlainKernels(keep=real):
-        want, _ = engine_steps(ref, fed)
-    with PlainKernels():
-        plain = engine_steps(ref, fed)[0] if real else want
-        for seed in range(5 if paged_floor else int(layers == 2)):
-            gen = torch.Generator(device="cuda")
-            gen.manual_seed(seed)
-            gk._gemm_w8_cuda = _noisy_gemm(gen)
-            gk._mm_f32_cuda = _noisy_mm(gen)
-            if paged_floor:
-                gk._gemm_batched_cuda = _noisy_batched(gen)
-                pdk._paged_decode_cuda = _noisy_attention(
-                    pdk.paged_decode_state_plain, gen, 2.0 ** -16)
-            floors.append(engine_steps(ref, fed)[0])
+        want, _ = steps(ref, fed)
+    if real:
+        with PlainKernels():
+            plain = steps(ref, fed)[0]
+    else:
+        plain = want
+    floors = noise_draws(lambda: steps(ref, fed)[0],
+                         draws if paged_floor else int(layers == 2),
+                         paged=paged_floor)
     ref.cuda_graphs = graphs
     for i, (a, b) in enumerate(zip(got, want)):
-        cos = _cosine(a, b)
-        same = bool(torch.equal(a.argmax(-1), b.argmax(-1)))
+        ok, cos, floor, same, noisy = floor_gate(a, b, plain[i],
+                                                 [f[i] for f in floors])
         what = f"{label} " + ("prefill" if i == 0 else f"decode {i}")
         if paged_floor:
-            floor = min([0.999] + [_cosine(plain[i], f[i]) for f in floors])
-            noisy = any(not torch.equal(f[i].argmax(-1), plain[i].argmax(-1))
-                        for f in floors)
-            ok = cos >= floor and (same or noisy)
             bar = (f"cosine >= {floor:.6f}, the floor of GEMM and paged "
                    "decode noise, at most 0.999; equal tokens unless a "
                    f"draw's differ: {'they do' if noisy else 'they do not'}")
@@ -4262,6 +4265,44 @@ def engine_vs_plain(eng, label, failures, paged_floor=False, ref=None,
         if not ok:
             failures.append(f"{what} engine vs plain: cos {cos}, "
                             f"tokens equal {same}")
+    return got, fed
+
+
+def noise_draws(run, draws, paged=True):
+    """`draws` runs of run() on the plain versions with every GEMM's f32
+    result (the w8 GEMM's and the large-M route's product) times
+    (1 + 2^-22 N(0, 1)) before its rounding, draw d from seed d; with
+    `paged` also the batched expert GEMM's, and paged decode's times
+    (1 + 2^-16 N(0, 1)). The noise floors' runs."""
+    from arcquant_tpu_torch.kernels import gemm as gk
+    from arcquant_tpu_torch.kernels import paged_decode as pdk
+    floors = []
+    with PlainKernels():
+        for seed in range(draws):
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(seed)
+            gk._gemm_w8_cuda = _noisy_gemm(gen)
+            gk._mm_f32_cuda = _noisy_mm(gen)
+            if paged:
+                gk._gemm_batched_cuda = _noisy_batched(gen)
+                pdk._paged_decode_cuda = _noisy_attention(
+                    pdk.paged_decode_state_plain, gen, 2.0 ** -16)
+            floors.append(run())
+    return floors
+
+
+def floor_gate(got, want, plain, floors) -> tuple:
+    """The noise-floor bar at one step (moe_engine_check's rule): got's
+    logits cosine to want's at least the floor, the lowest cosine of the
+    noisy draws `floors` to the plain run's logits (at most 0.999), and
+    equal greedy tokens unless a draw's differ from the plain run's too.
+    Returns (ok, cosine, floor, tokens equal, a draw's tokens differ)."""
+    cos = _cosine(got, want)
+    same = bool(torch.equal(got.argmax(-1), want.argmax(-1)))
+    floor = min([0.999] + [_cosine(plain, f) for f in floors])
+    noisy = any(not torch.equal(f.argmax(-1), plain.argmax(-1))
+                for f in floors)
+    return cos >= floor and (same or noisy), cos, floor, same, noisy
 
 
 def _noise(y, gen, scale=2.0 ** -22):
@@ -5360,6 +5401,881 @@ def lm_eval_run(card, failures):
     return counts
 
 
+# -- [pp], [dp], [ep] and [sp] ------------------------------------------------
+
+# [pp]: Qwen2.5-7B at pp 2 (14 layers and their pool a rank), then the MoE
+# model cut to MOE_PP_LAYERS layers (packed experts); both stages on cuda:0
+# over gloo. The 28-layer path runs generate's kernels (GENERATE_KERNELS),
+# its verify the paged prefill.
+PP_RANKS = 2
+MOE_PP_LAYERS = 2
+MOE_PP_NEW = 3
+# The verify's drafts after each row's greedy token (W 4).
+PP_VERIFY_DRAFTS = (11, 12, 13)
+# [dp]: Qwen2.5-7B width cut to DP_LAYERS, dp 2 x tp 2 (4 ranks),
+# max_batch 8 (4 slots a dp group), dynamic pages (DP_PAGES split over the
+# groups: 24 pages of 128 tokens a group), chunked prefill 512; the twelve
+# requests' prompt lengths fill both groups' pools, so the seventh request
+# finds no group with pages for it and requeues.
+DP, DP_TP, DP_LAYERS = 2, 2, 2
+DP_MAX_BATCH, DP_CHUNK, DP_PAGES = 8, 512, 48
+DP_PROMPTS = (1500, 1200, 900, 700, 500, 300, 200, 100, 1500, 800, 64, 1000)
+DP_NEW = 12
+DP_DRAWS = 2
+# The batcher's prefills: chunked (paged_prefill) whenever an admission
+# holds a prompt over 512 tokens, one-shot (flash_attn) otherwise, so
+# flash_attn may or may not run; the TP layer fuses nothing.
+DP_KERNELS = ("actq", "gemm_w8", "dequant_w8", "paged_prefill",
+              "paged_decode")
+DP_IDLE_KERNELS = tuple(k for k in KERNEL_INFO
+                        if k not in DP_KERNELS + ("flash_attn",))
+# [ep]: Qwen1.5-MoE-A2.7B at tp 2 (30 experts and 8 of 16 heads a rank, the
+# experts as qdq stacks): generate --tp 2 at 24 layers, then the cuts of
+# EP_CUTS (activation scale, layers, weight seed) against the
+# single-device engine on qdq stacks, each noise floor the lowest of
+# EP_DRAWS draws. The 2-layer cut at tensor scales runs at a second weight
+# seed: at seed 1 its decode 3 sits near its floor.
+EP_RANKS, EP_DRAWS = 2, 3
+EP_CUTS = (("row", 1, 1), ("row", 2, 1), ("tensor", 1, 1), ("tensor", 2, 1),
+           ("tensor", 2, 2))
+EP_KERNELS = TP_KERNELS
+# [sp]: paged decode's state form at Qwen2.5-7B's attention shapes over sp 2
+# (rank r owns tokens [r * SP_BOUND, (r + 1) * SP_BOUND) of each row; the
+# 64- and 1056-token rows have none on rank 1), then ring attention.
+SP_RANKS, SP_BOUND = 2, 4096
+SP_LENS = (8192, 5000, 1056, 64)
+SP_RING_T = 4096
+
+
+def _arc_qcfg():
+    from arcquant_tpu_torch.config import QuantConfig
+    return QuantConfig(quant_type="NVFP4", use_kernels=True, weight_fmt="w8",
+                       act_scale="row", w_scale="channel",
+                       quantize_lm_head=True)
+
+
+def _digest(logits) -> str:
+    import hashlib
+    return hashlib.sha256(logits.float().cpu().numpy().tobytes()).hexdigest()
+
+
+def _digested(eng) -> list:
+    """Wrap eng's prefill and decode_step (on the instance) to append a
+    digest of each step's logits to the returned list."""
+    out = []
+    for name in ("prefill", "decode_step"):
+        real = getattr(eng, name)
+
+        def f(*a, real=real, **kw):
+            logits, state = real(*a, **kw)
+            out.append(_digest(logits))
+            return logits, state
+        setattr(eng, name, f)
+    return out
+
+
+def _peak(device) -> int:
+    return torch.cuda.max_memory_allocated(device)
+
+
+def _pp_rank(ctx, model, layers, new_tokens, verify):
+    """[pp] on one stage: PPInferenceEngine.dummy (seed 0, ARC 0.125, the
+    packed head) through generate() on the [engine] prompts, each step
+    recorded (ms, relay traffic, a digest of its logits); with `verify`
+    a verify_step at W 4 after a fresh prefill."""
+    from arcquant_tpu_torch.config import get_model_config
+    from arcquant_tpu_torch.engine import EngineConfig
+    from arcquant_tpu_torch.models import quantized
+    from arcquant_tpu_torch.parallel import PPInferenceEngine, make_pp
+
+    global _QUIET
+    _QUIET = ctx.rank != 0
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pctx = make_pp()
+    cfg = get_model_config(model)
+    if layers:
+        cfg = cfg.replace(num_layers=layers)
+    ecfg = EngineConfig(max_batch=len(PROMPT_LENS),
+                        max_seq_len=max(PROMPT_LENS) + NEW_TOKENS + 8)
+    calib = quantized.identity_calib(cfg, SELECT_FRAC, device=pctx.device)
+    torch.cuda.reset_peak_memory_stats(pctx.device)
+    t0 = time.perf_counter()
+    eng = PPInferenceEngine.dummy(cfg, calib, _arc_qcfg(), ecfg, pctx, seed=0)
+    build_s = time.perf_counter() - t0
+    eng.record_steps()
+    kernels = all_kernels()
+    reset_counts(kernels)
+    outputs = eng.generate(prompts_for(cfg), new_tokens)
+    launches = launch_counts(kernels)
+    out = dict(outputs=outputs, steps=eng.steps, launches=launches,
+               peak_bytes=_peak(pctx.device), build_s=build_s)
+    eng.steps = None
+    if verify:
+        toks, lens, _ = eng._pad_prompts(prompts_for(cfg))
+        logits, state = eng.prefill(eng.new_state(), toks, lens)
+        vt = torch.cat([logits.argmax(-1).to(torch.int32)[:, None].cpu(),
+                        torch.tensor([PP_VERIFY_DRAFTS] * len(PROMPT_LENS),
+                                     dtype=torch.int32)], dim=1)
+        vv = torch.full((len(PROMPT_LENS),), vt.shape[1], dtype=torch.int32)
+        out["verify"] = eng.verify_step(state, vt, vv)[0].cpu()
+        out["verify_in"] = (vt, vv)
+    return out
+
+
+def _pp_single(cfg, new_tokens, verify_in):
+    """The single-device eager engine on [pp]'s weights (seed 0): the
+    digests of generate()'s steps, its outputs and the verify's logits."""
+    from arcquant_tpu_torch.engine import EngineConfig, InferenceEngine
+    from arcquant_tpu_torch.models import quantized
+
+    ecfg = EngineConfig(max_batch=len(PROMPT_LENS),
+                        max_seq_len=max(PROMPT_LENS) + NEW_TOKENS + 8)
+    calib = quantized.identity_calib(cfg, SELECT_FRAC, device="cuda")
+    eng = InferenceEngine.dummy(cfg, calib, _arc_qcfg(), ecfg, seed=0,
+                                device="cuda", cuda_graphs=False)
+    digests = _digested(eng)
+    outputs = eng.generate(prompts_for(cfg), new_tokens)
+    digests = list(digests)          # generate's steps only
+    verify = None
+    if verify_in is not None:
+        toks, lens, _ = eng._pad_prompts(prompts_for(cfg))
+        _, state = eng.prefill(eng.new_state(), toks, lens)
+        verify = eng.verify_step(state, *verify_in)[0].cpu()
+    del eng
+    return digests, outputs, verify
+
+
+def _pp_gate(ranks, single, what, failures) -> None:
+    """[pp]'s gates: both stages' outputs and digests equal, and every
+    step's logits bitwise the single-device eager engine's (digests)."""
+    digests, outputs, _ = single
+    got = [[s["digest"] for s in r["steps"]] for r in ranks]
+    same_ranks = all(g == got[0] for g in got) and all(
+        r["outputs"] == ranks[0]["outputs"] for r in ranks)
+    n_eq = sum(a == b for a, b in zip(got[0], digests))
+    ok = (same_ranks and len(got[0]) == len(digests)
+          and n_eq == len(digests) and ranks[0]["outputs"] == outputs)
+    log(f"  {what}: {n_eq} of {len(digests)} steps' logits bitwise equal to "
+        f"the single-device eager engine fed the same tokens, the stages' "
+        f"logits and tokens {'equal' if same_ranks else 'DIFFER'} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"{what}: PP logits differ from the single-device "
+                        f"engine ({n_eq} of {len(digests)} steps equal, "
+                        f"stages agree {same_ranks})")
+
+
+def _rank_times(ranks, what) -> None:
+    for r, res in enumerate(ranks):
+        pre = [s for s in res["steps"] if s["kind"] == "prefill"]
+        dec = [s for s in res["steps"] if s["kind"] == "decode"]
+        ms = [s["ms"] for s in dec]
+        log(f"  {what} rank {r}: prefill {pre[0]['ms']:.2f} ms (relay "
+            f"{pre[0]['comm_bytes'] / 2 ** 20:.2f} MiB in "
+            f"{pre[0]['comm_ms']:.2f} ms); decode "
+            f"{statistics.median(ms):.2f} ms/step (min {min(ms):.2f}, "
+            f"{len(ms)} steps), a step's collectives {dec[0]['comm']}, "
+            f"{dec[0]['comm_bytes']} bytes in "
+            f"{statistics.median(s['comm_ms'] for s in dec):.3f} ms "
+            f"(median, host clock, device synchronized around each); peak "
+            f"device memory {res['peak_bytes'] / 2 ** 30:.2f} GiB")
+
+
+def _summed(ranks) -> dict:
+    """The stages' launch counts summed (actq's by M too)."""
+    out = {n: sum(r["launches"][n] for r in ranks) for n in KERNEL_INFO}
+    by_m = {}
+    for r in ranks:
+        for m, n in r["launches"]["actq_by_m"].items():
+            by_m[m] = by_m.get(m, 0) + n
+    out["actq_by_m"] = dict(sorted(by_m.items()))
+    return out
+
+
+def pp_run(card, failures):
+    """[pp]: pipeline parallelism over PP_RANKS stages on the one card
+    (gloo, the relay's payloads through the host). 1. Qwen2.5-7B, 28
+    layers (14 and their pool a stage), ARC 0.125, row scales, channel
+    weight scales, the packed W4A16 head: the four [engine] prompts and
+    32 greedy tokens through PPInferenceEngine.generate, each stage's
+    prefill ms, decode ms/step, relay bytes and ms a step and peak
+    memory; gates: every step's logits bitwise the single-device eager
+    engine's on the same weights fed the same tokens, then verify_step at
+    W 4 likewise; the path generate_pp (the stages' launches summed).
+    2. Qwen1.5-MoE-A2.7B cut to MOE_PP_LAYERS, packed experts (#15):
+    prefill and MOE_PP_NEW decode steps bitwise the single-device engine
+    (moe_pp). Returns both paths' launch counts."""
+    from arcquant_tpu_torch.config import get_model_config
+    from arcquant_tpu_torch.parallel import launch
+
+    t_phase = time.perf_counter()
+    cfg = get_model_config(MODEL)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    try:
+        ranks = launch(_pp_rank, PP_RANKS, "gloo",
+                       args=(MODEL, 0, NEW_TOKENS, True))
+    except Exception as e:
+        failures.append(f"[pp] {MODEL}: {type(e).__name__}: {e}")
+        return None, None
+    log(f"  PPInferenceEngine.generate, {MODEL} 28 layers over {PP_RANKS} "
+        f"stages, 4 prompts of {PROMPT_LENS} tokens, {NEW_TOKENS} new: "
+        f"{time.perf_counter() - t0:.1f} s wall (spawn and builds "
+        f"{', '.join(f'{r['build_s']:.1f}' for r in ranks)} s included)")
+    log(f"  (the stages time-share one card and relay through the host "
+        f"over gloo: these times are no pipeline-parallel speed figures; "
+        f"{card})")
+    _rank_times(ranks, "[pp]")
+    single = _pp_single(cfg, NEW_TOKENS, ranks[0]["verify_in"])
+    _pp_gate(ranks, single, f"[pp] {MODEL} 28 layers", failures)
+    vok = all(bitwise(r["verify"], single[2]) for r in ranks)
+    log(f"  [pp] verify_step at W {ranks[0]['verify_in'][0].shape[1]}: "
+        f"logits {'bitwise equal to' if vok else 'DIFFER from'} the "
+        f"single-device engine's {'ok' if vok else 'FAIL'}")
+    if not vok:
+        failures.append("[pp] verify_step differs from the single-device "
+                        "engine")
+    pp_counts = _summed(ranks)
+    log(f"  launches, the stages summed (generate_pp): "
+        f"{ {k: v for k, v in pp_counts.items() if v} }")
+    _check_path(pp_counts, GENERATE_KERNELS, ARC_IDLE_KERNELS,
+                "[pp] generate", failures)
+    del ranks, single
+
+    moe_cfg = get_model_config(MOE_MODEL).replace(num_layers=MOE_PP_LAYERS)
+    try:
+        ranks = launch(_pp_rank, PP_RANKS, "gloo",
+                       args=(MOE_MODEL, MOE_PP_LAYERS, MOE_PP_NEW, False))
+    except Exception as e:
+        failures.append(f"[pp] {MOE_MODEL}: {type(e).__name__}: {e}")
+        return pp_counts, None
+    _rank_times(ranks, f"[pp] {MOE_MODEL} {MOE_PP_LAYERS} layers")
+    _pp_gate(ranks, _pp_single(moe_cfg, MOE_PP_NEW, None),
+             f"[pp] {MOE_MODEL} {MOE_PP_LAYERS} layers, packed experts",
+             failures)
+    moe_counts = _summed(ranks)
+    log(f"  launches, the stages summed (moe_pp): "
+        f"{ {k: v for k, v in moe_counts.items() if v} }")
+    _check_path(moe_counts, MOE_KERNELS["w8"], MOE_IDLE_KERNELS["w8"],
+                "[pp] MoE generate", failures)
+    log(f"  [pp] took {time.perf_counter() - t_phase:.1f} s on {card}")
+    return pp_counts, moe_counts
+
+
+class _Calls:
+    """A dp engine's prefill and decode_step calls in order, each with its
+    inputs and the page table it ran on (host copies) and its logits."""
+
+    def __init__(self, eng):
+        self.calls = []
+        for name in ("prefill", "decode_step"):
+            real = getattr(eng, name)
+
+            def f(state, *a, real=real, name=name, **kw):
+                pt = state[1].cpu().clone()
+                logits, state = real(state, *a, **kw)
+                self.calls.append((name, pt, [None if x is None else
+                                              torch.as_tensor(x).cpu()
+                                              for x in a],
+                                   logits.float().cpu()))
+                return logits, state
+            setattr(eng, name, f)
+
+
+def _replay(eng, calls, pages_local):
+    """Feed a dp 1 engine the recorded calls, each on its page table with
+    group g's local page p as global page g * pages_local + p (0 stays the
+    sink): the logits of each call."""
+    state = eng.new_state()
+    spg = eng.ecfg.max_batch // DP
+    group = (torch.arange(eng.ecfg.max_batch) // spg)[:, None]
+    outs = []
+    for name, pt, args, _ in calls:
+        state[1].copy_(torch.where(pt > 0, pt + group * pages_local, pt))
+        logits, state = getattr(eng, name)(state, *args)
+        outs.append(logits.float().cpu())
+    return outs
+
+
+def _dp_rank(ctx):
+    """[dp] on one rank of the dp 2 x tp 2 mesh: the TP engine (seed 0,
+    ARC 0.125) under ContinuousBatcher with the twelve requests, then its
+    calls replayed on the dp 1 TP engine of the same weights (this rank's
+    tp group, the batch replicated over the dp groups): with the kernels,
+    on the plain versions, and DP_DRAWS noise_draws; each call's live
+    rows through floor_gate (the gate adds equal greedy tokens)."""
+    import dataclasses
+
+    from arcquant_tpu_torch.config import get_model_config
+    from arcquant_tpu_torch.engine import (ContinuousBatcher, EngineConfig,
+                                           Request)
+    from arcquant_tpu_torch.models import quantized
+    from arcquant_tpu_torch.parallel import TPInferenceEngine, make_mesh
+
+    global _QUIET
+    _QUIET = ctx.rank != 0
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(dp=DP, tp=DP_TP)
+    cfg = get_model_config(MODEL).replace(num_layers=DP_LAYERS)
+    calib = quantized.identity_calib(cfg, SELECT_FRAC, device=mesh.device)
+    ecfg = EngineConfig(max_batch=DP_MAX_BATCH, max_seq_len=2048,
+                        dynamic_pages=True, prefill_chunk=DP_CHUNK,
+                        num_pages=DP_PAGES)
+    torch.cuda.reset_peak_memory_stats(mesh.device)
+    eng = TPInferenceEngine.dummy(cfg, calib, _arc_qcfg(), ecfg, mesh, seed=0)
+    eng.record_steps()
+    calls = _Calls(eng)
+    bt = ContinuousBatcher(eng)
+    spg = bt._slots_per_group
+    admit, step = bt._admit, bt.step
+    seen = dict(requeued=0, groups=set(), foreign=0)
+
+    def admit_spy():
+        admit()
+        if bt.queue and any(s is None for s in bt.slots):
+            seen["requeued"] += 1
+        seen["groups"].update(s // spg for s, r in enumerate(bt.slots)
+                              if r is not None)
+
+    def step_spy():
+        done = step()
+        for s, r in enumerate(bt.slots):
+            if r is None:
+                continue
+            mine = sorted(int(x) for x in bt._pt[s] if x)
+            if mine != sorted(bt.allocs[s // spg].owned.get(s, [])) or any(
+                    s in a.owned for g, a in enumerate(bt.allocs)
+                    if g != s // spg):
+                seen["foreign"] += 1
+        return done
+
+    bt._admit, bt.step = admit_spy, step_spy
+    rng = np.random.default_rng(5)
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, n).tolist(),
+                    max_new_tokens=DP_NEW) for n in DP_PROMPTS]
+    kernels = all_kernels()
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    for r in reqs:
+        bt.submit(r)
+    bt.run()
+    wall = time.perf_counter() - t0
+    launches = launch_counts(kernels)
+    out = dict(wall=wall, launches=launches, peak_bytes=_peak(mesh.device),
+               errors=[r.error for r in reqs],
+               lens=[len(r.output) for r in reqs],
+               preempts=sum(r.preempts for r in reqs), seen=seen,
+               steps=[{k: s[k] for k in ("kind", "ms", "comm", "comm_ms",
+                                          "comm_bytes")} for s in eng.steps],
+               freed=all(a.available() == a.capacity and not a.owned
+                         for a in bt.allocs))
+    pages_local = eng.page_groups()[1]
+    eng.steps = None
+    del bt
+    ref = TPInferenceEngine.dummy(cfg, calib, _arc_qcfg(), dataclasses.replace(
+        ecfg, num_pages=DP * pages_local), dataclasses.replace(mesh, dp=1),
+        seed=0)
+    clean = _replay(ref, calls.calls, pages_local)
+    with PlainKernels():
+        plain = _replay(ref, calls.calls, pages_local)
+    floors = noise_draws(lambda: _replay(ref, calls.calls, pages_local),
+                         DP_DRAWS)
+    rows = []
+    for i, (name, _, args, got) in enumerate(calls.calls):
+        live = (args[1] > 0) if name == "prefill" else args[1].bool()
+        _, cos, floor, same, _ = floor_gate(
+            got[live], clean[i][live], plain[i][live],
+            [f[i][live] for f in floors])
+        rows.append((name, cos, floor, same))
+    out["rows"] = rows
+    return out
+
+
+def dp_run(card, failures):
+    """[dp]: data parallelism, Qwen2.5-7B width cut to DP_LAYERS, dp 2 x tp
+    2 (4 ranks on the one card over gloo), max_batch 8, dynamic pages,
+    chunked prefill 512: twelve requests through ContinuousBatcher (the
+    path dp_tp, rank 0's launches). Gates: every request finishes; the
+    admissions use both groups and one requeues; no slot holds a page of
+    another group's pool; a decode step's collectives are 2 SUM and 2 MAX
+    a layer plus one all_gather; every call's logits against the dp 1 TP
+    engine fed the same (cosine >= 0.999 or the noise floor of the same
+    run, whichever is lower, and equal greedy tokens)."""
+    from arcquant_tpu_torch.parallel import launch
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        ranks = launch(_dp_rank, DP * DP_TP, "gloo")
+    except Exception as e:
+        failures.append(f"[dp] {type(e).__name__}: {e}")
+        return None
+    r0 = ranks[0]
+    log(f"  ContinuousBatcher over the dp {DP} x tp {DP_TP} TP engine, "
+        f"{len(DP_PROMPTS)} requests of {DP_PROMPTS} tokens, {DP_NEW} new "
+        f"each: {r0['wall']:.1f} s (rank 0's host clock; four ranks "
+        f"time-share one card over gloo, no data-parallel speed figure; "
+        f"{card}); preemptions {r0['preempts']}; peak device memory a rank "
+        f"{', '.join(f'{r['peak_bytes'] / 2 ** 30:.2f}' for r in ranks)} GiB")
+    ok = (all(e is None for e in r0["errors"])
+          and all(n == DP_NEW for n in r0["lens"]) and r0["freed"])
+    log(f"  every request finished with {DP_NEW} tokens and the pools freed "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"[dp] requests {r0['errors']} {r0['lens']}")
+    s = r0["seen"]
+    ok = s["requeued"] > 0 and s["groups"] == set(range(DP))
+    log(f"  admissions used groups {sorted(s['groups'])}, requeued with a "
+        f"free slot {s['requeued']} times {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"[dp] admissions {s}")
+    if s["foreign"]:
+        failures.append(f"[dp] {s['foreign']} slot-steps hold a page "
+                        "outside their group's allocator")
+    log(f"  no slot holds a page of another group's pool "
+        f"{'FAIL' if s['foreign'] else 'ok'}")
+    dec = [st for st in r0["steps"] if st["kind"] == "decode"]
+    want = {"sum": 2 * DP_LAYERS, "max": 2 * DP_LAYERS, "all_gather": 1}
+    comm = {k: v for k, v in dec[0]["comm"].items() if v}
+    ok = all({k: v for k, v in st["comm"].items() if v} == want
+             for st in dec)
+    log(f"  a decode step's collectives {comm} (want {want}), "
+        f"{dec[0]['comm_bytes']} bytes gathered; decode "
+        f"{statistics.median(st['ms'] for st in dec):.2f} ms/step, "
+        f"collectives {statistics.median(st['comm_ms'] for st in dec):.3f} "
+        f"ms (median, {len(dec)} steps) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"[dp] decode collectives {comm} != {want}")
+    bad = []
+    for i, (name, cos, floor, same) in enumerate(r0["rows"]):
+        if not (cos >= floor and same):
+            bad.append((i, name, cos, floor, same))
+    cmin = min(c for _, c, _, _ in r0["rows"])
+    fmin = min(f for _, _, f, _ in r0["rows"])
+    log(f"  {len(r0['rows'])} calls against the dp 1 TP engine fed the "
+        f"same: min cosine {cmin:.6f} (bar: 0.999 or the call's noise "
+        f"floor, lowest {fmin:.6f}), greedy tokens equal in "
+        f"{sum(r[3] for r in r0['rows'])} {'ok' if not bad else 'FAIL'}")
+    if bad:
+        failures.append(f"[dp] calls off the dp 1 engine: {bad[:4]}")
+    if any(r["rows"] != r0["rows"] for r in ranks[1:]):
+        failures.append("[dp] the ranks' rows against the dp 1 engine "
+                        "disagree")
+    counts = dict({n: r0["launches"].get(n, 0) for n in KERNEL_INFO},
+                  actq_by_m=r0["launches"]["actq_by_m"])
+    log(f"  launches per rank (dp_tp): "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    _check_path(counts, DP_KERNELS, DP_IDLE_KERNELS, "[dp] batcher",
+                failures)
+    log(f"  [dp] took {time.perf_counter() - t_phase:.1f} s on {card}")
+    return counts
+
+
+@contextlib.contextmanager
+def _spied(*targets):
+    """Record each call of each (module, name, list[, arg]) target's
+    function while the block runs: a clone of its output, or with `arg`
+    (output, positional argument arg) clones, in call order."""
+    saved = []
+    for mod, name, store, *arg in targets:
+        real = getattr(mod, name)
+
+        def f(*a, real=real, store=store, arg=arg, **kw):
+            y = real(*a, **kw)
+            store.append((y.detach().clone(), a[arg[0]].detach().clone())
+                         if arg else y.detach().clone())
+            return y
+        saved.append((mod, name, real))
+        setattr(mod, name, f)
+    try:
+        yield
+    finally:
+        for mod, name, real in reversed(saved):
+            setattr(mod, name, real)
+
+
+def _moe_rows(tp_io, single_io) -> dict:
+    """The MoE block of the TP engine (ep_moe_block) against the single
+    device's (moe_block) call by call: the rows whose block inputs are
+    bitwise equal, and on them the largest |difference| of the outputs
+    over the row's largest output (one bf16 ulp of it is 2^-8)."""
+    rows = total = 0
+    worst = 0.0
+    for (ya, xa), (yb, xb) in zip(tp_io, single_io):
+        xa, xb = xa.reshape(-1, xa.shape[-1]), xb.reshape(-1, xb.shape[-1])
+        ya = ya.reshape(xa.shape[0], -1).float()
+        yb = yb.reshape(xa.shape[0], -1).float()
+        same = (xa == xb).all(dim=-1)
+        rows += int(same.sum())
+        total += same.numel()
+        if same.any():
+            d = ((ya - yb).abs().amax(-1)
+                 / yb.abs().amax(-1).clamp(min=1e-30))[same]
+            worst = max(worst, float(d.max()))
+    return dict(rows=rows, total=total, worst=worst)
+
+
+def _ep_checks(ctx):
+    """[ep]'s cuts on one rank (EP_CUTS: activation scale, layers, weight
+    seed; select 0): the MoE TP engine's prefill and 3 decode steps and
+    each decode step's collectives. Rank 0 holds them against the
+    single-device engine on qdq stacks of the same weights
+    (testing.qdq_moe_engine on the dummy tree) through engine_vs_plain
+    (its kernels kept; the floor of GEMM and paged decode noise, EP_DRAWS
+    draws); at 1 layer it also holds the MoE block of every step against
+    the single device's on the rows whose inputs are equal (spies on
+    ep.ep_moe_block and moe.moe_block). Then, a witness of where a gap
+    comes from, the TP engine on the plain versions against the single
+    engine on the plain versions, fed the same tokens. Returns {cut:
+    dict(comm, got[, failures, witness, moe_rows])}."""
+    import functools
+
+    from arcquant_tpu_torch import testing
+    from arcquant_tpu_torch.config import get_model_config
+    from arcquant_tpu_torch.engine import EngineConfig
+    from arcquant_tpu_torch.engine.engine import dummy_tree
+    from arcquant_tpu_torch.models import llama, moe, quantized
+    from arcquant_tpu_torch.parallel import TPInferenceEngine
+    from arcquant_tpu_torch.parallel import ep as epm
+
+    global _QUIET
+    _QUIET = ctx.rank != 0
+    torch.backends.cuda.matmul.allow_tf32 = False
+    base = get_model_config(MOE_MODEL)
+    ecfg = EngineConfig(max_batch=len(PROMPT_LENS),
+                        max_seq_len=max(PROMPT_LENS) + NEW_TOKENS + 8)
+    steps = functools.partial(engine_steps, decodes=3)
+    out = {}
+    for scale, layers, seed in EP_CUTS:
+        cfg = base.replace(num_layers=layers)
+        qcfg = _arc_qcfg().replace(act_scale=scale)
+        calib = quantized.identity_calib(cfg, 0.0, device=ctx.device)
+        eng = TPInferenceEngine.dummy(cfg, calib, qcfg, ecfg, ctx, seed=seed)
+        eng.record_steps()
+        res = {}
+        if ctx.rank == 0:
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(seed)
+            raw = [llama.init_layer_params(cfg, gen, torch.bfloat16, "cuda")
+                   for _ in range(layers)]
+            single = testing.qdq_moe_engine(
+                cfg, dummy_tree(cfg, gen, torch.bfloat16, "cuda", raw),
+                calib, qcfg, ecfg, device="cuda")
+            single.cuda_graphs = False
+            del raw
+            spy_tp, spy_single = [], []
+            spies = ([(epm, "ep_moe_block", spy_tp, 2),
+                      (moe, "moe_block", spy_single, 2)] if layers == 1
+                     else [])
+            res["failures"] = []
+            with _spied(*spies):
+                res["got"], fed = engine_vs_plain(
+                    eng, f"[ep] {layers}-layer cut at {scale} scales, "
+                    f"weights of seed {seed}: TP vs the single-device qdq "
+                    "engine,", res["failures"], paged_floor=True, ref=single,
+                    real=tuple(KERNEL_INFO), steps=steps, draws=EP_DRAWS)
+            if layers == 1:
+                # the single engine's first run is the one with the kernels
+                res["moe_rows"] = _moe_rows(spy_tp, spy_single)
+            del spy_tp, spy_single
+        else:
+            res["got"], fed = steps(eng)
+        res["comm"] = [s["comm"] for s in eng.steps if s["kind"] == "decode"]
+        eng.steps = None
+        with PlainKernels():
+            tp_plain = steps(eng, fed)[0]
+            if ctx.rank == 0:
+                res["witness"] = [_cosine(a, b) for a, b in zip(
+                    tp_plain, steps(single, fed)[0])]
+        del eng
+        if ctx.rank == 0:
+            del single
+        out[(scale, layers, seed)] = res
+    return out
+
+
+def ep_run(card, failures):
+    """[ep]: expert parallelism under TP, Qwen1.5-MoE-A2.7B at full width
+    over EP_RANKS ranks on the one card (gloo): 1. python -m
+    arcquant_tpu_torch.generate --model qwen1.5-moe-a2.7b --tp 2
+    --check_ranks (24 layers, ARC 0.125, row scales; 30 experts as qdq
+    stacks and 8 of 16 heads a rank), the four prompts, 32 greedy tokens:
+    both ranks' logits bitwise equal at every step (main raises
+    otherwise), decode ms/step, a decode step's collectives (2 SUM and 1
+    MAX a layer), peak memory a rank, the path ep_tp (rank 0's
+    launches). 2. The cuts of EP_CUTS (_ep_checks) against the
+    single-device engine on qdq stacks fed the same tokens, through
+    engine_vs_plain in rank 0 (cosine >= 0.999 or the noise floor of the
+    same run, whichever is lower, and equal greedy tokens unless a floor
+    draw's differ too: moe_engine_check's rule over EP_DRAWS draws); both
+    ranks' logits bitwise equal; at 1 layer the MoE block on the rows
+    whose inputs are bitwise the single device's within a bf16 ulp of
+    the row's largest output (the f32 order of the ranks' partials); a
+    decode step's MoE collectives: one SUM a layer, one MAX more at
+    tensor scales. The witness (both engines on the plain versions) is
+    logged, not gated."""
+    from arcquant_tpu_torch import generate
+    from arcquant_tpu_torch.config import get_model_config
+    from arcquant_tpu_torch.parallel import launch
+
+    t_phase = time.perf_counter()
+    cfg = get_model_config(MOE_MODEL)
+    e_loc = cfg.num_experts // EP_RANKS
+    d, f = cfg.hidden_size, cfg.moe_intermediate_size
+
+    def ke(k):   # ARC columns at SELECT_FRAC, rounded up to 64
+        return -(-int(k * SELECT_FRAC) // 64) * 64
+    per_layer = e_loc * 2 * (2 * f * (d + ke(d)) + d * (f + ke(f)))
+    raw = cfg.num_experts * 3 * f * d * 2
+    log(f"  reckoned before the run: a rank's {e_loc} experts as bf16 qdq "
+        f"stacks take {per_layer / 2 ** 30:.3f} GiB a layer, "
+        f"{per_layer * cfg.num_layers / 2 ** 30:.2f} GiB over "
+        f"{cfg.num_layers} layers, the {EP_RANKS} ranks "
+        f"{EP_RANKS * per_layer * cfg.num_layers / 2 ** 30:.2f} GiB; each "
+        f"layer is drawn whole (its bf16 experts {raw / 2 ** 30:.2f} GiB) "
+        f"and sliced before its stacks are made")
+    argv = ["--model", MOE_MODEL, "--tp", str(EP_RANKS), "--dist_backend",
+            "gloo", "--max_new", str(NEW_TOKENS), "--check_ranks"]
+    for p in prompts_for(cfg):
+        argv += ["--tokens", ",".join(map(str, p))]
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    try:
+        ranks = generate.main(argv)
+    except Exception as e:
+        failures.append(f"[ep] generate --tp {EP_RANKS}: "
+                        f"{type(e).__name__}: {e}")
+        return None
+    log(f"  python -m arcquant_tpu_torch.generate --model {MOE_MODEL} --tp "
+        f"{EP_RANKS} --dist_backend gloo --check_ranks ({cfg.num_layers} "
+        f"layers, 4 prompts of {PROMPT_LENS} tokens, {NEW_TOKENS} new): "
+        f"{time.perf_counter() - t0:.1f} s wall, spawn and builds included; "
+        f"every step's logits bitwise equal across the {EP_RANKS} ranks "
+        f"({len(ranks[0]['steps'])} steps) ok")
+    log(f"  (both ranks time-share one card over gloo: no expert-parallel "
+        f"speed figure; {card})")
+    layers = cfg.num_layers
+    for r, res in enumerate(ranks):
+        dec = [s for s in res["steps"] if s["kind"] == "decode"]
+        ms = [s["ms"] for s in dec]
+        log(f"  rank {r}: decode {statistics.median(ms):.2f} ms/step (min "
+            f"{min(ms):.2f}, {len(ms)} steps); a decode step's collectives "
+            f"{dec[0]['comm']} in "
+            f"{statistics.median(s['comm_ms'] for s in dec):.2f} ms; peak "
+            f"device memory {res['peak_bytes'] / 2 ** 30:.2f} GiB")
+        want = {"sum": 2 * layers, "max": layers}
+        if any({k: v for k, v in s["comm"].items() if v} != want
+               for s in dec):
+            failures.append(f"[ep] rank {r}: a decode step's collectives "
+                            f"{dec[0]['comm']} != {want}")
+    counts = dict({n: ranks[0]["launches"].get(n, 0) for n in KERNEL_INFO},
+                  actq_by_m=dict(sorted(ranks[0]["actq_by_m"].items())))
+    log(f"  launches per rank (ep_tp): "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    _check_path(counts, EP_KERNELS, None, "[ep] generate --tp 2", failures)
+    del ranks
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        checks = launch(_ep_checks, EP_RANKS, "gloo")
+    except Exception as e:
+        failures.append(f"[ep] checks: {type(e).__name__}: {e}")
+        return counts
+    for (scale, layers, seed), r0 in checks[0].items():
+        r1 = checks[1][(scale, layers, seed)]
+        what = (f"[ep] {layers}-layer cut at {scale} scales, weights of "
+                f"seed {seed}")
+        failures.extend(r0["failures"])
+        same = all(bitwise(a, b) for a, b in zip(r0["got"], r1["got"]))
+        want = {"sum": 2 * layers,
+                "max": layers * (1 if scale == "row" else 2)}
+        comm_ok = all({k: v for k, v in c.items() if v} == want
+                      for c in r0["comm"] + r1["comm"])
+        log(f"  {what}: the ranks' logits "
+            f"{'bitwise equal' if same else 'DIFFER'}; a decode step's "
+            f"collectives {r0['comm'][0]} (o: 1 SUM + 1 MAX, the MoE block "
+            f"1 SUM{' + 1 MAX' if scale == 'tensor' else ''} a layer) "
+            f"{'ok' if same and comm_ok else 'FAIL'}")
+        if not (same and comm_ok):
+            failures.append(f"{what}: ranks equal {same}, collectives "
+                            f"{r0['comm'][0]} != {want}")
+        log(f"    witness, not gated: the TP engine on the plain versions "
+            f"against the single-device qdq engine on the plain versions, "
+            f"fed the same tokens: logits cosine by step "
+            f"{[round(c, 6) for c in r0['witness']]}")
+        if "moe_rows" in r0:
+            mr = r0["moe_rows"]
+            ok = mr["rows"] >= mr["total"] // 2 and mr["worst"] <= 2.0 ** -8
+            log(f"    the MoE block (ep_moe_block against moe_block, call "
+                f"by call): {mr['rows']} of {mr['total']} rows take bitwise "
+                f"equal inputs, their outputs at most {mr['worst']:.3g} of "
+                f"the row's largest apart (bar: half the rows or more, "
+                f"within 2^-8, a bf16 ulp of it) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"{what}: the MoE block off the single "
+                                f"device's on equal inputs {mr}")
+    log(f"  [ep] took {time.perf_counter() - t_phase:.1f} s on {card}")
+    return counts
+
+
+def _sp_rank(ctx):
+    """[sp] on one shard: the full pool and this shard's pool of the same
+    K/V (every rank draws the same tensors), #10's state form over the
+    shard's pool against its plain version, sp_paged_decode's merge
+    against paged_decode over the full pool, then ring_attention on the
+    shard's slice."""
+    from arcquant_tpu_torch.cache import paged
+    from arcquant_tpu_torch.config import KV_PAGE_SIZE, get_model_config
+    from arcquant_tpu_torch.kernels import paged_decode as pdk
+    from arcquant_tpu_torch.parallel import make_sp, ring_attention
+    from arcquant_tpu_torch.parallel import sp_paged_decode
+
+    global _QUIET
+    _QUIET = ctx.rank != 0
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sctx = make_sp()
+    cfg = get_model_config(MODEL)
+    hq, hkv, dh, page = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                         KV_PAGE_SIZE)
+    b, tmax = len(SP_LENS), max(SP_LENS)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    k = bf16_randn(gen, (b, tmax, hkv, dh), 2.0)
+    v = bf16_randn(gen, (b, tmax, hkv, dh))
+    q = bf16_randn(gen, (b, hq, dh), 2.0)
+    lens = torch.tensor(SP_LENS, dtype=torch.int32, device="cuda")
+    one = cfg.replace(num_layers=1)
+
+    def pool(off, n, local_lens):
+        pps = n // page
+        cache = paged.init_cache(one, 1 + b * pps, page, "cuda")
+        pt = (1 + torch.arange(b)[:, None] * pps
+              + torch.arange(pps)[None]).to(torch.int32).cuda()
+        pos = torch.arange(n, device="cuda")[None].expand(b, n)
+        pos = torch.where(pos < local_lens[:, None], pos, -1)
+        paged.append_kv(cache, 0, k[:, off:off + n], v[:, off:off + n], pt,
+                        pos)
+        return cache, pt
+
+    full, pt_full = pool(0, tmax, lens)
+    lo = sctx.shard * SP_BOUND
+    loc_lens = (lens - lo).clamp(0, SP_BOUND).to(torch.int32)
+    cache, pt = pool(lo, SP_BOUND, loc_lens)
+    args = (q, cache.codes[0], cache.params[0], pt, loc_lens)
+    o, m, l = pdk._paged_decode_cuda(*args)
+    po, pm, pl = pdk.paged_decode_state_plain(*args)
+    torch.cuda.synchronize()
+    empty = loc_lens == 0
+    out = dict(
+        state_ok=(close_bound(o[~empty], po[~empty])
+                  and bool(torch.allclose(m, pm, rtol=1e-5, atol=1e-5))
+                  and bool(torch.allclose(l, pl, rtol=1e-4))
+                  and bool((o[empty] == 0).all())
+                  and bool((m[empty] == -1e30).all())
+                  and bool((l[empty] == 0).all())),
+        state_err=(float((o.float() - po.float()).abs().max()),
+                   float((m - pm).abs().max()),
+                   float(((l - pl).abs() / pl.clamp(min=1e-30)).max())),
+        empty_rows=[i for i in range(b) if bool(empty[i])],
+        local_lens=loc_lens.tolist())
+    kernels = all_kernels()
+    reset_counts(kernels)
+    merged = sp_paged_decode(q, cache, 0, pt, loc_lens, sctx)
+    torch.cuda.synchronize()
+    out["launches"] = launch_counts(kernels)
+    single = pdk.paged_decode(q, full, 0, pt_full, lens)
+    plain = pdk.paged_decode_state_plain(q, full.codes[0], full.params[0],
+                                         pt_full, lens)[0]
+    out["merge_ok"] = close_bound(merged, single) and close_bound(merged,
+                                                                  plain)
+    out["merge_err"] = (float((merged.float() - single.float()).abs().max()),
+                        float((merged.float() - plain.float()).abs().max()))
+    del full, cache, k, v
+
+    t, tl = SP_RING_T, SP_RING_T // sctx.sp
+    qr = torch.randn((1, t, hq, dh), generator=gen, device="cuda")
+    kr = torch.randn((1, t, hkv, dh), generator=gen, device="cuda")
+    vr = torch.randn((1, t, hkv, dh), generator=gen, device="cuda")
+    sl = slice(sctx.shard * tl, (sctx.shard + 1) * tl)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ring = ring_attention(qr[:, sl], kr[:, sl], vr[:, sl], sctx)
+    torch.cuda.synchronize()
+    out["ring_ms"] = (time.perf_counter() - t0) * 1e3
+    g = hq // hkv
+    s = torch.einsum("bqhd,bkhd->bhqk", qr[:, sl],
+                     kr.repeat_interleave(g, dim=2)) / dh ** 0.5
+    qpos = torch.arange(sl.start, sl.stop, device="cuda")
+    s = s.masked_fill(qpos[:, None] < torch.arange(t, device="cuda")[None],
+                      float("-inf"))
+    ref = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1),
+                       vr.repeat_interleave(g, dim=2))
+    out["ring_err"] = float((ring - ref).abs().max())
+    return out
+
+
+def sp_run(card, failures):
+    """[sp]: sequence parallelism over SP_RANKS shards on the one card
+    (gloo): #10's state form at Qwen2.5-7B's attention shapes (28/4
+    heads, head_dim 128, pages of 128), B 4 of SP_LENS tokens, the pages
+    owned by token range (rank r: [r * SP_BOUND, (r + 1) * SP_BOUND)), so
+    the 1056- and 64-token rows are empty on rank 1: each rank's (out, m,
+    l) against the plain version within #10's bar (out one bf16 ulp +
+    2e-3, m 1e-5, l 1e-4 relative; an empty row out 0, m -1e30, l 0), the
+    merged sp_paged_decode (the path sp_decode, rank 0's launches)
+    against paged_decode and its plain version over the whole pool within
+    #10's out bar; then ring_attention at B 1, T SP_RING_T, 28/4 heads in
+    f32 against the plain f32 causal attention of each shard's rows
+    (within 1e-4)."""
+    from arcquant_tpu_torch.parallel import launch
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        ranks = launch(_sp_rank, SP_RANKS, "gloo")
+    except Exception as e:
+        failures.append(f"[sp] {type(e).__name__}: {e}")
+        return None
+    for r, res in enumerate(ranks):
+        ok = res["state_ok"]
+        log(f"  rank {r}: local lens {res['local_lens']} (empty rows "
+            f"{res['empty_rows']}); paged_decode_state against its plain "
+            f"version: out, m, l max errors {res['state_err']} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"[sp] rank {r}: #10's state off its plain "
+                            f"version {res['state_err']}")
+        ok = res["merge_ok"]
+        log(f"  rank {r}: sp_paged_decode (1 MAX + 2 SUM) against "
+            f"paged_decode and its plain version over the whole pool: max "
+            f"abs errors {res['merge_err']} (bar one bf16 ulp + 2e-3) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"[sp] rank {r}: the merge off the single "
+                            f"device {res['merge_err']}")
+        ok = res["ring_err"] <= 1e-4
+        log(f"  rank {r}: ring_attention B 1 T {SP_RING_T} (its "
+            f"{SP_RING_T // SP_RANKS} rows) against plain f32 causal "
+            f"attention: max abs error {res['ring_err']:.3g} (bar 1e-4), "
+            f"{res['ring_ms']:.1f} ms host clock "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"[sp] rank {r}: ring attention error "
+                            f"{res['ring_err']}")
+    counts = dict({n: ranks[0]["launches"].get(n, 0) for n in KERNEL_INFO},
+                  actq_by_m=ranks[0]["launches"]["actq_by_m"])
+    log(f"  launches per rank (sp_decode): "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    _check_path(counts, ("paged_decode",), None, "[sp] sp_paged_decode",
+                failures)
+    log(f"  [sp] took {time.perf_counter() - t_phase:.1f} s on {card}")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -5494,6 +6410,24 @@ def main() -> int:
         f"layers, packed w8, on {card}")
     lm_eval_launches = lm_eval_run(card, failures)
 
+    log(f"[pp] pipeline parallelism, {MODEL} full width, 28 layers over "
+        f"{PP_RANKS} stages, then {MOE_MODEL} at {MOE_PP_LAYERS} layers, "
+        f"both stages on cuda:0 over gloo, on {card}")
+    pp_launches, moe_pp_launches = pp_run(card, failures)
+    log(f"[dp] data parallelism, {MODEL} width, {DP_LAYERS} layers, dp {DP} "
+        f"x tp {DP_TP}, ContinuousBatcher, 4 ranks on cuda:0 over gloo, on "
+        f"{card}")
+    dp_launches = dp_run(card, failures)
+    log(f"[ep] expert parallelism under TP, {MOE_MODEL} full width, tp "
+        f"{EP_RANKS}: generate --tp {EP_RANKS} (24 layers) and the cuts "
+        f"(scale, layers, seed) {EP_CUTS}, both ranks on cuda:0 over gloo, "
+        f"on {card}")
+    ep_launches = ep_run(card, failures)
+    log(f"[sp] sequence parallelism, {MODEL} attention shapes, sp "
+        f"{SP_RANKS}: paged decode's state and merge, ring attention, on "
+        f"{card}")
+    sp_launches = sp_run(card, failures)
+
     log("[engine check] 1 and 2 layers (w8), 1 layer (w4), 1 layer (BF16), "
         "kernels vs plain versions; the MoE model at 1 layer")
     engine_check(cfg, failures)
@@ -5504,7 +6438,7 @@ def main() -> int:
         for f in failures:
             print(f"FAIL: {f}", file=sys.stderr)
         return 1
-    # launches: over the twenty-three main paths, the ARC generate(), the
+    # launches: over the twenty-eight main paths, the ARC generate(), the
     # HTTP server, the w4 generate(), the select-free generate(), the MoE
     # model's w8 and w4 generate() and HTTP server, benchmark_e2e in NVFP4
     # and BF16, the GEMM lab, generate_ondevice, evaluate's packed route,
@@ -5512,7 +6446,9 @@ def main() -> int:
     # generate and evaluate; the MoE model's BF16 and fake-format
     # generate(), evaluate's packed route, calibrate and its calibrated
     # engine; the tensor-scale generate(); rank 0 of generate --tp 2; the
-    # lm-eval adapter; actq's also by M
+    # lm-eval adapter; the PP generate() of both models (the stages
+    # summed); rank 0 of the dp x tp batcher, of the MoE generate --tp 2
+    # and of sp_paged_decode; actq's also by M
     path_launches = dict(
         generate=gen_launches, serve=serve_launches, generate_w4=w4_launches,
         generate_select_free=free_launches,
@@ -5526,7 +6462,9 @@ def main() -> int:
         evaluate_moe=moe_eval_launches, calibrate_moe=moe_cal_launches,
         calib_serve_moe=moe_cal_serve_launches,
         generate_tensor=tensor_launches, generate_tp=tp_launches,
-        lm_eval=lm_eval_launches)
+        lm_eval=lm_eval_launches, generate_pp=pp_launches,
+        moe_pp=moe_pp_launches, dp_tp=dp_launches, ep_tp=ep_launches,
+        sp_decode=sp_launches)
     actq_by_m = {p: c["actq_by_m"] for p, c in path_launches.items()}
     by_m = {}
     for c in actq_by_m.values():

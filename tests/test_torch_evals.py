@@ -297,11 +297,15 @@ def test_entry_points_raise_outside_the_slice(tmp_path, monkeypatch):
     assert moe_out["windows"] == 2 and np.isfinite(moe_out["ppl"])
     with pytest.raises(ValueError, match="HF model dir"):
         generate.main(["--model", NAME, "--prompt", "hello", "--cpu"])
-    # --tp runs the TP engine (tests/test_torch_tp_engine.py); an MoE
-    # config under TP is still refused
-    with pytest.raises(NotImplementedError, match="item 8"):
-        generate.main(["--model", "test-tiny-moe", "--tp", "2",
-                       "--dist_backend", "gloo", "--cpu"])
+    # --tp runs the TP engine (tests/test_torch_tp_engine.py), an MoE
+    # config included: its experts shard over the ranks
+    # (tests/test_torch_ep.py), the ranks' logits bitwise equal
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    ranks = generate.main(["--model", "test-tiny-moe", "--tp", "2",
+                           "--dist_backend", "gloo", "--cpu", "--max_new",
+                           "3", "--tokens", "5,17,301", "--check_ranks"])
+    assert ranks[0]["outputs"] == ranks[1]["outputs"]
+    assert len(ranks[0]["outputs"][0]) == 3
     d = evaluate.build_parser().parse_args(["--model", NAME])
     assert (d.quant_type, d.act_scale, d.select_frac, d.seqlen, d.ntokens,
             d.weight_fmt, d.kv_group_size, d.cpu) == (

@@ -488,6 +488,129 @@ def test_paged_kernels_at_tp2_heads():
                                rtol=2.0 ** -7, atol=2e-3)
 
 
+# -- the kernels under data, pipeline and sequence parallelism ---------------
+
+def test_actq_and_gemm_w8_at_a_dp_groups_rows():
+    """#1 and #2 at M 4 on one dp group's rows (slots 4-7 of an 8-slot
+    batch at dp 2, a view into the batch), at a tp-2 rank's qkv site
+    (K 3584, select 448): actq in each mode bitwise its plain version
+    (rmsnorm: its kernel-order emulation), and the GEMM on the group's
+    quantized rows within the summation-order bound, each row's result
+    the same as in the whole batch's."""
+    require_cuda()
+    n, k, select = TP2_SITES["qkv"]
+    rng = np.random.default_rng(8)
+    for mode in ("plain", "rmsnorm", "silu_mul"):
+        a, w = _actq_input(rng, 8, k, mode)
+        rows = a[4:]
+        args = dict(mode=mode, k=k, kq=packing.pad_kq(k, select), eps=1e-6)
+        xa, gx = qk._actq_cuda(rows, w, **args)
+        pa, pg = (qk.actq_kernel_order if mode == "rmsnorm"
+                  else qk.actq_plain)(rows, w, **args)
+        whole, _ = qk._actq_cuda(a, w, **args)
+        torch.cuda.synchronize()
+        assert torch.equal(xa, pa) and torch.equal(gx, pg), mode
+        assert torch.equal(xa, whole[4:]), mode
+    w = _bf16(outlier_x(rng, n, k) * 0.05)
+    ridx = torch.from_numpy(rng.permutation(k)).cuda()
+    pw = packing.pack_weight_arc(w, ridx, select, w_scale="channel")
+    x8 = _bf16(outlier_x(rng, 8, k))
+    xa, gx = qk.quantize_x_arc(x8[4:], ridx, select, kq=pw.kq)
+    gs, gw = gx.reshape(-1, 1), pw.global_scale.reshape(1, -1)
+    for dt in (torch.float32, torch.bfloat16):
+        y = gk._gemm_w8_cuda(xa, pw.codes, pw.scales, gs, gw, None, dt)
+        ref = gk.gemm_w8_plain(xa, pw.codes, pw.scales, gs, gw, None, dt)
+        torch.cuda.synchronize()
+        assert_summation_order_close(y, ref, dt == torch.float32)
+
+
+def test_paged_decode_state_on_partial_pools():
+    """#10's state form on the pools of a sequence-parallel decode at
+    Qwen2.5-7B's attention shapes (28/4 heads, head_dim 128, pages of
+    128): the rows' tokens split by range over two shards, rows with no
+    token on one shard. Each shard's (out, m, l) against its plain
+    version (an empty row: out 0, m -1e30, l 0), and the two states
+    merged (merge_decode_states, sp_paged_decode's rule) against the
+    kernel over the whole pool."""
+    require_cuda()
+    cfg = get_model_config("test-tiny").replace(
+        num_heads=28, num_kv_heads=4, head_dim=128, num_layers=1)
+    rng = np.random.default_rng(19)
+    lens, bound, page = [2048, 1500, 700, 64], 1024, 128
+    b, tmax = len(lens), max(lens)
+    k = _bf16(rng.standard_normal((b, tmax, 4, 128)) * 2)
+    v = _bf16(rng.standard_normal((b, tmax, 4, 128)))
+    q = _bf16(rng.standard_normal((b, 28, 128)) * 2)
+    sl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+
+    def pool(off, n, rows_lens):
+        pps = n // page
+        cache = paged.init_cache(cfg, 1 + b * pps, page, "cuda")
+        pt = (1 + torch.arange(b)[:, None] * pps
+              + torch.arange(pps)[None]).to(torch.int32).cuda()
+        pos = torch.arange(n, device="cuda")[None].expand(b, n)
+        paged.append_kv(cache, 0, k[:, off:off + n], v[:, off:off + n], pt,
+                        torch.where(pos < rows_lens[:, None], pos, -1))
+        return (q, cache.codes[0], cache.params[0], pt, rows_lens)
+
+    states = []
+    for lo in (0, bound):
+        local = (sl - lo).clamp(0, bound).to(torch.int32)
+        args = pool(lo, bound, local)
+        o, m, l = pdk._paged_decode_cuda(*args)
+        po, pm, pl = pdk.paged_decode_state_plain(*args)
+        torch.cuda.synchronize()
+        live = to_numpy(local) > 0
+        assert live.all() != bool(lo)     # the second shard has empty rows
+        np.testing.assert_allclose(to_numpy(o)[live], to_numpy(po)[live],
+                                   rtol=2.0 ** -7, atol=1e-3)
+        np.testing.assert_allclose(to_numpy(m), to_numpy(pm), rtol=1e-5,
+                                   atol=1e-5)
+        np.testing.assert_allclose(to_numpy(l), to_numpy(pl), rtol=1e-4)
+        assert (to_numpy(o)[~live] == 0).all()
+        assert (to_numpy(m)[~live] == -1e30).all()
+        assert (to_numpy(l)[~live] == 0).all()
+        states.append((o, m, l))
+    merged, _, _ = pdk.merge_decode_states(*zip(*states))
+    whole = pdk._paged_decode_cuda(*pool(0, tmax, sl))[0]
+    np.testing.assert_allclose(to_numpy(merged), to_numpy(whole),
+                               rtol=2.0 ** -7, atol=2e-3)
+
+
+def test_gemm_batched_at_the_pp_moe_stage():
+    """#15 at a pipeline stage's MoE layer (Qwen1.5-MoE-A2.7B at full
+    width, packed w8 experts, ARC 0.125, the stage's 4 decode rows): the
+    dense-mode expert FFN with the batched kernel bitwise the same FFN
+    with one gemm_w8 launch an expert (gemm_batched_chain), one launch a
+    call."""
+    require_cuda()
+    cfg = get_model_config("qwen1.5-moe-a2.7b").replace(num_layers=1)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    lp = llama.init_layer_params(cfg, gen, torch.bfloat16, "cuda")
+    calib = quantized.identity_calib(cfg, 0.125, device="cuda")[0]
+    qcfg = QuantConfig(quant_type="NVFP4", use_kernels=True,
+                       weight_fmt="w8", act_scale="row", w_scale="channel")
+    from arcquant_tpu_torch.models import moe
+    p = moe.quantize_moe_params_packed(lp["moe"], calib, qcfg)
+    del lp
+    x = torch.randn((4, cfg.hidden_size), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    cw = moe.route(cfg, p["router"]["w"], x)
+    xa, gx = quantized._act_quantize(x, calib["mlp_in"], qcfg)
+    n0 = gk.GEMM_BATCHED.launches
+    y = moe._ffn_dense_packed(p, xa, gx, cw, calib["down_in"], qcfg)
+    assert gk.GEMM_BATCHED.launches == n0 + 1
+    real = gk._gemm_batched_cuda
+    gk._gemm_batched_cuda = gk.gemm_batched_chain
+    try:
+        ref = moe._ffn_dense_packed(p, xa, gx, cw, calib["down_in"], qcfg)
+    finally:
+        gk._gemm_batched_cuda = real
+    torch.cuda.synchronize()
+    assert_bitwise([y], [ref])
+
+
 # -- decode megakernels (kernels/mlp_fused.py) --------------------------------
 
 def _bits(t):

@@ -31,7 +31,7 @@ from arcquant_tpu.parallel.tp_engine import TPInferenceEngine as JTPEngine
 from arcquant_tpu_torch import convert, generate
 from arcquant_tpu_torch.config import QuantConfig, get_model_config
 from arcquant_tpu_torch.engine import EngineConfig, InferenceEngine
-from arcquant_tpu_torch.parallel import launch, make_mesh
+from arcquant_tpu_torch.parallel import launch
 from arcquant_tpu_torch.testing import (TP_CHUNK, TP_EKW, TP_QKW,
                                         calib_arrays, cosine, tp_tasks)
 
@@ -224,8 +224,14 @@ def test_generate_tp_entry_point(runs, monkeypatch, capsys):
 
 
 def test_tp_refusals():
-    """nccl without a card a rank raises and names gloo; MoE under TP and
-    dp > 1 raise citing ROADMAP item 8; a CUDA graph under gloo raises."""
+    """nccl without a card a rank raises and names gloo; a CUDA graph under
+    gloo raises, and under nccl the captured step raises citing ROADMAP
+    item 8.6 (the only part of the TP engine not ported). MoE under TP is
+    served (experts sharded over the ranks, test_torch_ep.py), refused
+    only when tp does not divide the experts."""
+    from arcquant_tpu_torch.parallel import TPContext, TPInferenceEngine
+    from arcquant_tpu_torch.parallel.tp_engine import check_tp
+    from arcquant_tpu_torch.models import quantized
     if torch.cuda.device_count() < 2:
         with pytest.raises(RuntimeError, match="gloo"):
             launch(tp_tasks, 2, "nccl", args=([],))
@@ -233,17 +239,16 @@ def test_tp_refusals():
             generate.main(["--model", NAME, "--tp", "2"])
     with pytest.raises(ValueError, match="gloo"):
         generate.main(["--model", NAME, "--tp", "2", "--cpu"])
-    with pytest.raises(NotImplementedError, match="item 8"):
-        generate.main(["--model", "test-tiny-moe", "--tp", "2",
-                       "--dist_backend", "gloo", "--cpu"])
-    with pytest.raises(NotImplementedError, match="item 8"):
-        make_mesh(dp=2, tp=2)
-    from arcquant_tpu_torch.parallel import TPContext, TPInferenceEngine
-    from arcquant_tpu_torch.models import quantized
+    moe_cfg = get_model_config("test-tiny-moe")
+    check_tp(moe_cfg, QuantConfig(**TP_QKW), 2)
+    with pytest.raises(ValueError, match="num_experts"):
+        check_tp(moe_cfg.replace(num_experts=3), QuantConfig(**TP_QKW), 2)
     cfg = get_model_config(NAME)
-    ctx = TPContext(2, 0, None, "gloo", torch.device("cpu"))
-    with pytest.raises(ValueError, match="CUDA graph"):
-        TPInferenceEngine.dummy(cfg, quantized.identity_calib(cfg, 0.0),
-                                QuantConfig(**TP_QKW),
-                                EngineConfig(**TP_EKW), ctx,
-                                cuda_graphs=True)
+    for backend, exc, match in (("gloo", ValueError, "CUDA graph"),
+                                ("nccl", NotImplementedError, "item 8.6")):
+        ctx = TPContext(2, 0, None, backend, torch.device("cpu"))
+        with pytest.raises(exc, match=match):
+            TPInferenceEngine.dummy(cfg, quantized.identity_calib(cfg, 0.0),
+                                    QuantConfig(**TP_QKW),
+                                    EngineConfig(**TP_EKW), ctx,
+                                    cuda_graphs=True)
