@@ -1,7 +1,8 @@
 """What the benchmark scripts and chip_smoke.py share: the card's
 identity, a CUDA-event timer (the port's counterpart of the JAX package's
 timing helpers; CUDA events replace its two-length scan), the bound of
-an operation and the GEMMs' sum-order tolerance.
+an operation, the GEMMs' sum-order tolerance, and the component
+profiles' rows, their budget and a spy that counts an engine's calls.
 
 H100 SXM published dense peaks (NVIDIA data sheet): 989 TFLOP/s bf16 on
 the tensor cores and 3.35 TB/s of HBM3. A bound is the larger of an
@@ -12,10 +13,12 @@ timing is printed beside the card's name and limit.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import statistics
 import subprocess
 import time
-from typing import Callable, NamedTuple
+from typing import Callable, Dict, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -120,3 +123,137 @@ class Timer:
             times.append(s.elapsed_time(e))
         return Timing(statistics.median(times), min(times), max(times),
                       statistics.median(host))
+
+
+# -- component profiles (decode_profile.py, prefill_profile.py) ---------------
+
+class Row(NamedTuple):
+    """One component of a step: its name, a callable that runs it once,
+    how many times each way of running the step calls it (`mults`, e.g.
+    {"chain": 28, "fused": 0}), and the call it attributes, as
+    engine_calls() keys it (None for an alternative no way runs)."""
+    name: str
+    fn: Callable[[], object]
+    mults: Dict[str, int]
+    key: Optional[str]
+
+
+NOISY = 0.5   # a row whose hi - lo exceeds this share of its median
+
+
+def budget(rows: Sequence[Row], times: Dict[str, Timing], ways: Sequence[str],
+           unit: str = "us"):
+    """Print each row's median [lo-hi] (ms x 1e3 for "us") and its
+    multiplicity in each way, marked noisy where hi - lo exceeds NOISY
+    of its median. Returns each way's total, {way: (median, lo, hi)} in
+    ms: the sums of median x mult, lo x mult and hi x mult over every
+    row (none is dropped)."""
+    f = 1e3 if unit == "us" else 1.0
+    heads = "  ".join(f"{w:>7s}" for w in ways)
+    print(f"{'component':44s} {'median ' + unit:>12s} {'[lo-hi]':>20s}  "
+          f"{heads}")
+    totals = {w: [0.0, 0.0, 0.0] for w in ways}
+    for r in rows:
+        t = times[r.name]
+        noisy = t.hi - t.lo > NOISY * t.median
+        mults = "  ".join(f"x{r.mults.get(w, 0):6d}" for w in ways)
+        span = f"[{t.lo * f:.3f}-{t.hi * f:.3f}]"
+        print(f"{r.name:44s} {t.median * f:12.3f} {span:>20s}  {mults}"
+              f"{'  noisy' if noisy else ''}", flush=True)
+        for w in ways:
+            k = r.mults.get(w, 0)
+            for i, v in enumerate((t.median, t.lo, t.hi)):
+                totals[w][i] += v * k
+    return {w: tuple(totals[w]) for w in ways}
+
+
+def _sites(eng) -> dict:
+    """id of each linear's weight tensor in eng.qparams -> its site:
+    qkv, o, gateup, down, lm_head."""
+    out = {}
+    for p in eng.qparams["layers"]:
+        for site in ("qkv", "o", "gateup", "down"):
+            w = p.get(site)
+            if w is not None:
+                out[id(w.codes if hasattr(w, "codes") else w["w"])] = site
+    head = eng.qparams.get("lm_head_packed")
+    if head is not None:
+        out[id(head.codes)] = "lm_head"
+    return out
+
+
+@contextlib.contextmanager
+def engine_calls(eng):
+    """Count the calls that eng's forward makes to each function a
+    profile row attributes, while the block runs. Yields a Counter keyed
+    as the rows' keys: gemm_dequant:<site>, gemm_w8_actq_fused:<site>,
+    linear:<site> (site qkv, o, gateup, down or lm_head, by the weight's
+    identity in eng.qparams), quantize_x_arc:<K>, mlp_w8_fused,
+    rmsnorm_quantize_x, silu_mul_quantize_gu, silu_mul, rms_norm,
+    apply_rope, append_kv, paged_decode, flash_attention and sample.
+    Only the outermost of nested counted calls counts: a fused wrapper's
+    plain version on the CPU calls others."""
+    from ..cache import paged
+    from ..engine.engine import InferenceEngine
+    from ..kernels import attention, gemm as gk, mlp_fused as mf
+    from ..kernels import paged_decode as pdk, quantize as qk
+    from ..models import llama
+
+    sites = _sites(eng)
+
+    def site(w):
+        return sites.get(id(w.codes if hasattr(w, "codes") else w["w"]), "?")
+
+    targets = [
+        (gk, "gemm_dequant", lambda a: f"gemm_dequant:{site(a[1])}"),
+        (mf, "gemm_w8_actq_fused",
+         lambda a: f"gemm_w8_actq_fused:{site(a[1])}"),
+        (mf, "mlp_w8_fused", None),
+        (llama, "linear", lambda a: f"linear:{site(a[0])}"),
+        (qk, "quantize_x_arc", lambda a: f"quantize_x_arc:{a[0].shape[1]}"),
+        (qk, "rmsnorm_quantize_x", None),
+        (qk, "silu_mul_quantize_gu", None),
+        (qk, "_silu_mul", "silu_mul"),
+        (llama, "rms_norm", None), (llama, "apply_rope", None),
+        (paged, "append_kv", None), (pdk, "paged_decode", None),
+        (attention, "flash_attention", None),
+        (InferenceEngine, "_sample", "sample")]
+    counts = collections.Counter()
+    depth = [0]
+    saved = []
+    for owner, name, key in targets:
+        raw = owner.__dict__[name]
+        real = raw.__func__ if isinstance(raw, staticmethod) else raw
+
+        def spy(*a, real=real, name=name, key=key, **kw):
+            if depth[0] == 0:
+                counts[key(a) if callable(key) else key or name] += 1
+            depth[0] += 1
+            try:
+                return real(*a, **kw)
+            finally:
+                depth[0] -= 1
+        saved.append((owner, name, raw))
+        setattr(owner, name,
+                staticmethod(spy) if isinstance(raw, staticmethod) else spy)
+    try:
+        yield counts
+    finally:
+        for owner, name, raw in reversed(saved):
+            setattr(owner, name, raw)
+
+
+def pin(rows: Sequence[Row], way: str, counts) -> list:
+    """The rows whose multiplicity in `way` differs from the calls
+    counted (engine_calls), as (name, mult, calls), then each counted
+    call that no row attributes, as (key, 0, calls); an alternative (key
+    None) must have multiplicity 0. Empty when the plan is pinned."""
+    bad = []
+    for r in rows:
+        m = r.mults.get(way, 0)
+        got = counts.get(r.key, 0) if r.key else 0
+        if m != got:
+            bad.append((r.name, m, got))
+    keys = {r.key for r in rows}
+    bad += [(k, 0, n) for k, n in sorted(counts.items()) if k not in keys]
+    return bad

@@ -82,7 +82,16 @@ Phases, each printed as it runs:
   8. [bench_e2e]: arcquant_tpu_torch/benchmarks/benchmark_e2e.py's run()
      at Qwen2.5-7B, 28 layers, bs 4, prefill 1024, 32 decode steps, in
      the north-star configuration (NVFP4 select-free w8) and with --quant
-     BF16, with the script's lines, its JSON and the launch counts;
+     BF16, with the script's lines, its JSON and the launch counts; then
+     [tools] (tools_run): bench_serving.run at 28 layers (max_batch 8,
+     16 offline requests of 256 tokens, 32 new; every request finished,
+     TTFT <= latency, p50 <= p95; the launch counts, path bench_serving),
+     decode_profile's and prefill_profile's plans pinned to the calls of
+     an eager 28-layer step (bs 4, fused and unfused) and prefill (4 x
+     1024; the BF16 way at 1 layer), both profiles' budgets beside
+     [select-free]'s graph ms/step and [bench_e2e]'s NVFP4 prefill, and
+     mse_table and visualize.measure_mse at K 4096, 3584 and 18944 on the
+     card against the CPU from the same draws (1e-4 relative);
   9. [spec]: speculative decoding at Qwen2.5-7B, 28 layers (spec_run):
      benchmarks/bench_spec.py's verify ms at W 2, 4 and 8 against the
      decode step, select-free and ARC; generate_ondevice (W 4, n-gram
@@ -111,7 +120,7 @@ Phases, each printed as it runs:
      arcquant_tpu_torch.calibrate at 128 x 2048 tokens over 28 layers,
      #9 at its B 4 x T 2048 chunk, a 2-layer cut in every metric and
      against #9's plain version), [calib_serve] (calib_serve_run: that
-     artifact in the 28-layer engine beside identity 0.125, [graph], the
+     artifact's first 8 layers in the engine beside identity 0.125, [graph], the
      cut engines against the plain versions, ARC's MSE on planted
      outliers) and [ckpt] (ckpt_run: a 2-layer HF directory through
      generate and evaluate, a quantized checkpoint saved and loaded);
@@ -132,9 +141,10 @@ Phases, each printed as it runs:
      on the qdq stacks (use_kernels=False) against the packed experts at
      1 layer (w8, w4; tensor and row scales; dense and dispatch mode;
      packed dispatch against dense) against a floor of 2^-22 noise on the
-     stacks' products; then 24 layers in BF16 and in the NVFP4 fake format,
-     each built layer by layer, through generate() (no #1, no packed GEMM)
-     with prefill ms, decode ms/step, peak memory and [graph];
+     stacks' products; then CUT_LAYERS (8) layers in BF16 and in the NVFP4
+     fake format, each built layer by layer, through generate() (no #1, no
+     packed GEMM) with prefill ms, decode ms/step, peak memory and
+     [graph];
      [moe_eval] (eval_run on the MoE model): evaluate.main on
      qwen1.5-moe-a2.7b, 24 layers, 2 windows of 2048 (dispatch mode):
      BF16, NVFP4 fake (tensor, row), NVFP4 packed w8 (the experts qdq
@@ -142,10 +152,11 @@ Phases, each printed as it runs:
      (calibrate_run on the MoE model: 128 x 2048 tokens, 24 layers
      streamed, only #9; the 2-layer cut's plain run fed the #9 run's
      top-k sets) and [moe_calib_serve] (calib_serve_run on the MoE model:
-     its artifact in the packed MoE engine beside identity 0.125,
+     its artifact's first 8 layers in the packed MoE engine beside
+     identity 0.125,
      [graph], the 1- and 2-layer cuts against the plain versions, ARC's
      MSE on planted outliers); [engine_tensor] (engine_tensor_run): the
-     28-layer Qwen2.5-7B w8 ARC engine at act_scale "tensor" (no #1, no
+     Qwen2.5-7B w8 ARC engine cut to 8 layers at act_scale "tensor" (no #1, no
      megakernel), [graph], timed in turns beside row scales, the 1-layer
      cut against the plain versions, and the 1-layer logits of each
      route and scale against BF16's;
@@ -248,6 +259,13 @@ REPS = 7
 VERIFY_ULP_SHARE: dict = {}
 # Set in a [tp] rank other than 0, whose log() prints nothing.
 _QUIET = False
+_T0 = time.perf_counter()
+# The depth of the phases whose eager decode loops bound the smoke's time
+# on the host ([moe_qdq]'s BF16 and fake engines, [calib_serve],
+# [moe_calib_serve], [engine_tensor]: about 100 eager steps each, 0.2-0.4
+# s a step at full depth on a slow host); every gate of theirs holds at
+# any depth
+CUT_LAYERS = 8
 
 KERNEL_INFO = {
     "actq": ("arcquant_tpu_torch/csrc/actq.cu",
@@ -338,7 +356,11 @@ SHARED_PREFIX, SUFFIX, SAMPLED_LEN, SHORT_LEN = 1024, 100, 200, 16
 
 
 def log(msg: str) -> None:
+    """Print msg; a phase's header ("[...") with the seconds since the
+    start."""
     if not _QUIET:
+        if msg.startswith("["):
+            msg = f"{msg} (at {time.perf_counter() - _T0:.0f} s)"
         print(msg, flush=True)
 
 
@@ -1850,7 +1872,7 @@ def w4_run(cfg, card, qparams8, calib, failures):
 
 def free_run(cfg, card, failures):
     """Phase 7: the select-free path on 28 packed layers. Returns the
-    kernels' launch counts over generate().
+    kernels' launch counts over generate() and [graph]'s metrics.
 
     Then the A/B: the same weights in an engine with fused_decode=False,
     prefilled with the same prompts and fed the fused engine's greedy
@@ -1968,10 +1990,10 @@ def free_run(cfg, card, failures):
     del chain, runs, fused, others
     log(f"[graph] select-free, {MODEL} full width, {cfg.num_layers} layers: "
         f"the captured decode step against the eager loop, on {card}")
-    graph_check(eng, "select-free", card, failures)
+    graph = graph_check(eng, "select-free", card, failures)
     del eng
     torch.cuda.empty_cache()
-    return launches
+    return launches, graph
 
 
 # The [eval] phase: the accuracy path (python -m arcquant_tpu_torch.evaluate)
@@ -2648,8 +2670,10 @@ def calib_serve_run(card, calib, failures, model=MODEL,
                     busy=GENERATE_KERNELS, idle=ARC_IDLE_KERNELS,
                     tag="[calib_serve]"):
     """[calib_serve] (and [moe_calib_serve]): the calibrate_run artifact
-    served by InferenceEngine on `model` at full width and depth, on the
-    weights it was calibrated on (w8, per-row activation and per-channel
+    served by InferenceEngine on `model` at full width, cut to its first
+    CUT_LAYERS layers, on the weights it was calibrated on (a layer's
+    dummy weights do not depend on the depth; w8, per-row activation and
+    per-channel
     weight scales, packed head): bs 4, prompts of 1024 tokens, a one-shot
     prefill and NEW_TOKENS decode steps on the graph, with the launch
     counts (the path: each of `busy` launched, each of `idle` not),
@@ -2671,7 +2695,8 @@ def calib_serve_run(card, calib, failures, model=MODEL,
     from arcquant_tpu_torch.models import llama, quantized
 
     t_phase = time.perf_counter()
-    cfg = get_model_config(model)
+    full = get_model_config(model)
+    cfg = full.replace(num_layers=CUT_LAYERS)
     qcfg = QuantConfig(quant_type="NVFP4", use_kernels=True,
                        weight_fmt="w8", act_scale="row", w_scale="channel",
                        quantize_lm_head=True)
@@ -2681,7 +2706,8 @@ def calib_serve_run(card, calib, failures, model=MODEL,
     ident = quantized.identity_calib(cfg, SELECT_FRAC, device="cuda")
     kernels = all_kernels()
     engines, times = {}, {"calibrated": [], "identity 0.125": []}
-    for name, c in (("calibrated", calib), ("identity 0.125", ident)):
+    for name, c in (("calibrated", calib[:CUT_LAYERS]),
+                    ("identity 0.125", ident)):
         gc.collect()
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
@@ -2722,7 +2748,7 @@ def calib_serve_run(card, calib, failures, model=MODEL,
     ecfg1 = EngineConfig(max_batch=len(PROMPT_LENS),
                          max_seq_len=max(PROMPT_LENS) + NEW_TOKENS + 8)
     for layers in (1, 2):
-        cfg_l = cfg.replace(num_layers=layers)
+        cfg_l = full.replace(num_layers=layers)
         eng = init_params_engine(cfg_l, calib[:layers], qcfg, ecfg1)
         sel = [list(_selects(layer).values()) for layer in calib[:layers]]
         engine_vs_plain(eng, f"calibrated {layers}-layer w8 (selects {sel})",
@@ -2730,7 +2756,7 @@ def calib_serve_run(card, calib, failures, model=MODEL,
         del eng
 
     # ARC's claim on planted outliers
-    cfg2 = cfg.replace(num_layers=2)
+    cfg2 = full.replace(num_layers=2)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     params = llama.init_params(cfg2, gen, device="cuda")
@@ -3035,10 +3061,10 @@ def bench_e2e_run(card, failures):
     w8, packed head), then --quant BF16; each with the script's lines, its
     JSON and the launch counts (BF16 launches the attention kernels and
     none of the quantize, GEMM, dequant or lab kernels). Returns
-    {quant: launches}."""
+    ({quant: launches}, {quant: prefill ms})."""
     from arcquant_tpu_torch.benchmarks import benchmark_e2e as be
 
-    paths = {}
+    paths, prefill_ms = {}, {}
     for quant, want, idle in (
             ("NVFP4", FREE_KERNELS, FREE_IDLE_KERNELS + LAB_KERNELS),
             ("BF16", BF16_KERNELS,
@@ -3072,10 +3098,195 @@ def bench_e2e_run(card, failures):
                             f"{r['_tokens_valid']}, logits finite "
                             f"{r['_logits_finite']}")
         paths[quant] = launches
+        prefill_ms[quant] = r["prefill_ms"]
         del r
         gc.collect()
         torch.cuda.empty_cache()
-    return paths
+    return paths, prefill_ms
+
+
+# The [tools] phase: the benchmark tools (bench_serving, the two component
+# profiles, mse_table, evals/visualize.py)
+TOOLS_SERVING = ("--max_batch", "8", "--requests", "16", "--prompt_len",
+                 "256", "--max_new", "32")
+TOOLS_IDLE_KERNELS = (FREE_IDLE_KERNELS + LAB_KERNELS
+                      + ("paged_prefill", "gemm_batched"))
+TOOLS_MSE_K = (4096, 3584, 18944)   # 4096 runs the Hadamard scheme
+TOOLS_MSE_SELECT = (0, 256)
+TOOLS_MSE_RTOL = 1e-4
+
+
+def _tools_pins(eng, d_rows, p_rows, failures):
+    """decode_profile's and prefill_profile's plans against the calls of
+    the steps they attribute (common.engine_calls), eagerly
+    (cuda_graphs=False), on eng's 28 select-free layers: one decode step
+    at bs 4, fused and unfused (fused_decode=False), after one prefill of
+    4 x 1024 whose layers pin the quant way; the bf16 way on a 1-layer
+    BF16 engine at the same width (a multiplicity is per layer). d_rows
+    and p_rows: the two plans at Qwen2.5-7B, bs 4 and 4 x 1024."""
+    from arcquant_tpu_torch.benchmarks import common as cm
+    from arcquant_tpu_torch.benchmarks import decode_profile as dp
+    from arcquant_tpu_torch.benchmarks import prefill_profile as pp
+    from arcquant_tpu_torch.config import QuantConfig
+    from arcquant_tpu_torch.engine import EngineConfig, InferenceEngine
+    from arcquant_tpu_torch.models import quantized
+
+    cfg, b, t = eng.cfg, 4, 1024
+    ecfg = EngineConfig(max_batch=b, max_seq_len=t + 8)
+    toks = np.random.default_rng(7).integers(0, cfg.vocab_size, (b, t))
+    lens = np.full((b,), t, np.int32)
+    bad = {}
+    for way in dp.WAYS:
+        e = InferenceEngine(cfg, eng.qparams, eng.calib, eng.qcfg, ecfg,
+                            device="cuda", quantize_params=False,
+                            fused_decode=way == "fused", cuda_graphs=False)
+        box = {}
+        calls = pp.layer_calls(e, lambda: box.update(
+            state=e.prefill(e.new_state(), toks, lens)[1]))
+        if way == "fused":
+            bad["prefill quant"] = cm.pin(p_rows, "quant", calls)
+        with cm.engine_calls(e) as counts:
+            e.decode_scan(box["state"], torch.ones(b, dtype=torch.int32),
+                          torch.ones(b, dtype=torch.bool), 1)
+        torch.cuda.synchronize()
+        bad[f"decode {way}"] = cm.pin(d_rows, way, counts)
+        log(f"  decode step ({way}, eager, 28 layers, bs {b}) calls: "
+            f"{dict(sorted(counts.items()))}")
+        del e, box
+    bcfg = cfg.replace(num_layers=1)
+    beng = InferenceEngine.dummy(bcfg, quantized.identity_calib(
+        bcfg, 0.0, device="cuda"), QuantConfig(quant_type="BF16"), ecfg,
+        device="cuda", cuda_graphs=False)
+    calls = pp.layer_calls(beng, lambda: beng.prefill(beng.new_state(), toks,
+                                                     lens))
+    bad["prefill bf16"] = cm.pin(p_rows, "bf16", calls)
+    del beng
+    ok = not any(bad.values())
+    log(f"  plans pinned to the steps' calls (each row's multiplicity "
+        f"equals the calls to its function; mismatches as (row, mult, "
+        f"calls)): {bad} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"[tools] profile plans not pinned: {bad}")
+
+
+def _tools_mse(failures):
+    """mse_table.table (the script's M 128, N 1024, ks 0..2048) and
+    visualize.measure_mse (select 0 and 256) on the card against the CPU
+    from the same draws at each K of TOOLS_MSE_K."""
+    from arcquant_tpu_torch.benchmarks import mse_table
+    from arcquant_tpu_torch.evals import visualize
+
+    ks = [0, 64, 128, 256, 512, 1024, 2048]
+    worst = 0.0
+    for k in TOOLS_MSE_K:
+        vals = {}
+        for device in ("cuda", "cpu"):
+            x, w, ridx = mse_table.inputs(128, 1024, k, device)
+            t0 = time.perf_counter()
+            rows = dict(mse_table.table(x, w, ridx, ks))
+            for sel in TOOLS_MSE_SELECT:
+                for scheme, v in visualize.measure_mse(x, ridx, sel).items():
+                    rows[f"measure_mse {scheme} select {sel}"] = v
+            vals[device] = (rows, time.perf_counter() - t0)
+        (gpu, t_gpu), (cpu, t_cpu) = vals["cuda"], vals["cpu"]
+        rel = max(abs(gpu[n] - v) / max(abs(v), 1e-30) for n, v in cpu.items())
+        ok = set(gpu) == set(cpu) and rel <= TOOLS_MSE_RTOL and (
+            ("measure_mse hadamard select 0" in cpu) == (k == 4096))
+        worst = max(worst, rel)
+        log(f"  mse_table + measure_mse at M 128 N 1024 K {k}: card "
+            f"{t_gpu:.2f} s, CPU {t_cpu:.2f} s, {len(cpu)} values, largest "
+            f"relative difference {rel:.3g} (bar {TOOLS_MSE_RTOL}) "
+            f"{'ok' if ok else 'FAIL'}")
+        log(f"    {json.dumps({n: v for n, v in gpu.items()})}")
+        if not ok:
+            failures.append(f"[tools] mse at K {k}: card vs CPU {rel:.3g}, "
+                            f"keys {sorted(set(gpu) ^ set(cpu))}")
+    return worst
+
+
+def tools_run(card, failures, free_graph, e2e_prefill_ms):
+    """The [tools] phase at Qwen2.5-7B full width, 28 layers:
+    bench_serving.run (max_batch 8, 16 requests of 256 tokens, 32 new,
+    offline) with its JSON and launch counts (the path bench_serving);
+    its engine's weights then pin decode_profile's and prefill_profile's
+    plans to the steps' calls (_tools_pins); decode_profile (bs 4) with
+    its totals beside [select-free]'s graph ms/step, prefill_profile (4 x
+    1024) with its 28-layer total beside [bench_e2e]'s NVFP4 prefill;
+    then mse_table and measure_mse on the card against the CPU. Returns
+    bench_serving's launches."""
+    from arcquant_tpu_torch.benchmarks import bench_serving as bs
+    from arcquant_tpu_torch.benchmarks import decode_profile as dp
+    from arcquant_tpu_torch.benchmarks import prefill_profile as pp
+    from arcquant_tpu_torch.config import get_model_config
+
+    t_phase = time.perf_counter()
+    args = bs.build_parser().parse_args(["--model", MODEL, *TOOLS_SERVING])
+    kernels = all_kernels()
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    r = bs.run(args)
+    torch.cuda.synchronize()
+    launches = launch_counts(kernels)
+    log(f"  bench_serving ({r['layers']} layers) in "
+        f"{time.perf_counter() - t0:.1f} s: {json.dumps(bs.public(r))}")
+    log(f"  launches in bench_serving: {launches}")
+    _check_path(launches, FREE_KERNELS, TOOLS_IDLE_KERNELS,
+                "bench_serving", failures)
+    reqs = r["_requests"]
+    done = [q.done and q.error is None and len(q.output) == args.max_new
+            for q in reqs]
+    order = [q.t_first - q.t_submit <= q.t_done - q.t_submit for q in reqs]
+    pcts = (r["ttft_p50_s"] <= r["ttft_p95_s"]
+            and r["latency_p50_s"] <= r["latency_p95_s"])
+    valid = all(0 <= tok < r["_engine"].cfg.vocab_size
+                for q in reqs for tok in q.output)
+    ok = all(done) and all(order) and pcts and valid and len(reqs) == 16
+    log(f"  requests finished with {args.max_new} tokens: {sum(done)} of "
+        f"{len(reqs)}; TTFT <= latency: {sum(order)}; p50 <= p95: {pcts}; "
+        f"tokens in the vocabulary: {valid} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"[tools] bench_serving: finished {done}, ttft <= "
+                        f"latency {order}, p50 <= p95 {pcts}, valid {valid}")
+    cfg = get_model_config(MODEL)
+    with torch.no_grad():
+        d_rows, p_rows = dp.plan(cfg, 4, "cuda"), pp.plan(cfg, 4, 1024,
+                                                          "cuda")
+    _tools_pins(r["_engine"], d_rows, p_rows, failures)
+    del r, reqs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    timer = Timer(REPS)
+    log(f"  decode_profile: {MODEL} decode step components, bs 4, median "
+        f"[lo-hi] of {REPS} CUDA-event runs, L2 flushed")
+    with torch.no_grad():
+        d = dp.run(cfg, 4, timer, d_rows)
+    zero = [n for n, t in d["times"].items() if not t.median > 0]
+    graph = free_graph["decode_ms_per_step"]["graph"]
+    busy = free_graph["profiled_8_steps"]["graph"]["device_busy_ms_per_step"]
+    log(f"  decode component total: chain {d['totals']['chain'][0]:.3f} ms, "
+        f"fused {d['totals']['fused'][0]:.3f} ms; [select-free] (same run) "
+        f"graph {graph:.3f} ms/step, device busy {busy:.3f} ms/step; rows "
+        f"at or below 0: {zero} {'ok' if not zero else 'FAIL'}")
+    if zero:
+        failures.append(f"[tools] decode_profile rows not above 0: {zero}")
+    del d, d_rows
+    log(f"  prefill_profile: {MODEL} prefill components, B 4 x 1024, per "
+        f"layer")
+    with torch.no_grad():
+        p = pp.run(cfg, 4, 1024, timer, p_rows)
+    zero = [n for n, t in p["times"].items() if not t.median > 0]
+    log(f"  prefill component total x{cfg.num_layers}: quant "
+        f"{p['totals']['quant'][0]:.2f} ms, bf16 {p['totals']['bf16'][0]:.2f} "
+        f"ms; [bench_e2e] NVFP4 prefill (same run) {e2e_prefill_ms:.2f} ms; "
+        f"rows at or below 0: {zero} {'ok' if not zero else 'FAIL'}")
+    if zero:
+        failures.append(f"[tools] prefill_profile rows not above 0: {zero}")
+    del p, p_rows, timer
+    torch.cuda.empty_cache()
+    _tools_mse(failures)
+    log(f"  [tools] took {time.perf_counter() - t_phase:.1f} s on {card}")
+    return launches
 
 
 def _halves(cfg, n, seed):
@@ -4740,7 +4951,7 @@ def _moe_block_checks(cfg, failures):
 
 
 def _moe_engine_path(cfg, qcfg, label, card, failures):
-    """One 24-layer [moe_qdq] engine: built layer by layer from dummy
+    """One [moe_qdq] engine (CUT_LAYERS layers): built layer by layer from dummy
     weights (seed 0; InferenceEngine.dummy quantizes each layer as it is
     drawn, so raw and quantized stacks never coexist), generate() on the
     PROMPT_LENS prompts with the launch counts (attention kernels only:
@@ -4798,8 +5009,8 @@ def _moe_engine_path(cfg, qcfg, label, card, failures):
 
 def moe_qdq_run(cfg, card, failures):
     """[moe_qdq]: Qwen1.5-MoE-A2.7B at full width. The 1-layer block
-    checks (_moe_block_checks), then the 24-layer BF16 engine (the bf16
-    expert stacks) and the NVFP4 fake-format engine (use_kernels=False,
+    checks (_moe_block_checks), then the BF16 engine (the bf16 expert
+    stacks) and the NVFP4 fake-format engine (use_kernels=False,
     ARC 0.125, per-row activation and per-channel weight scales, the bf16
     head; the experts as qdq stacks), each through _moe_engine_path.
     Returns {"BF16": launches, "fake": launches}."""
@@ -4812,14 +5023,16 @@ def moe_qdq_run(cfg, card, failures):
             ("BF16", QuantConfig(quant_type="BF16")),
             ("fake", QuantConfig(quant_type="NVFP4", use_kernels=False,
                                  act_scale="row", w_scale="channel"))):
-        paths[label], _ = _moe_engine_path(cfg, qcfg, label, card, failures)
+        paths[label], _ = _moe_engine_path(
+            cfg.replace(num_layers=CUT_LAYERS), qcfg, label, card, failures)
     log(f"  [moe_qdq] took {time.perf_counter() - t_phase:.1f} s on {card}")
     return paths
 
 
 def engine_tensor_run(card, failures):
-    """[engine_tensor]: the Qwen2.5-7B packed w8 engine (28 layers, dummy
-    weights from seed 0, ARC 0.125, packed head) at act_scale "tensor":
+    """[engine_tensor]: the Qwen2.5-7B packed w8 engine (CUT_LAYERS layers,
+    dummy weights from seed 0, ARC 0.125, packed head) at act_scale
+    "tensor":
     one f32 scale a site activation through the unfused chain (no actq,
     no megakernel). generate() on the PROMPT_LENS prompts with its launch
     counts (TENSOR_IDLE_KERNELS 0), then [graph] (the decode graph
@@ -4840,7 +5053,7 @@ def engine_tensor_run(card, failures):
     from arcquant_tpu_torch.models import quantized
 
     t_phase = time.perf_counter()
-    cfg = get_model_config(MODEL)
+    cfg = get_model_config(MODEL).replace(num_layers=CUT_LAYERS)
     row = QuantConfig(quant_type="NVFP4", use_kernels=True, weight_fmt="w8",
                       act_scale="row", w_scale="channel",
                       quantize_lm_head=True)
@@ -6319,11 +6532,19 @@ def main() -> int:
 
     log(f"[select-free] {MODEL} full width, 28 layers, select_frac 0, "
         f"fused vs unfused decode, on {card}")
-    free_launches = free_run(cfg, card, failures)
+    free_launches, free_graph = free_run(cfg, card, failures)
 
     log(f"[bench_e2e] benchmarks/benchmark_e2e.py, {MODEL} full width, 28 "
         f"layers, NVFP4 select-free then BF16, on {card}")
-    e2e_launches = bench_e2e_run(card, failures)
+    e2e_launches, e2e_prefill_ms = bench_e2e_run(card, failures)
+
+    log(f"[tools] bench_serving, decode_profile and prefill_profile at "
+        f"{MODEL} full width, 28 layers; mse_table and "
+        f"visualize.measure_mse on the card against the CPU, on {card}")
+    tools_launches = tools_run(card, failures, free_graph,
+                               e2e_prefill_ms["NVFP4"])
+    gc.collect()
+    torch.cuda.empty_cache()
 
     log(f"[spec] speculative decoding, {MODEL} full width, 28 layers, "
         f"bench_spec (select-free, ARC), generate_ondevice (ARC, W 4) "
@@ -6347,7 +6568,8 @@ def main() -> int:
         calib, calib_launches, row9 = calibrate_run(card, work, failures)
         summary["flash_attn"]["calibrate"] = row9
         log(f"[calib_serve] the [calibrate] artifact served by "
-            f"InferenceEngine, {MODEL} full width, 28 layers, on {card}")
+            f"InferenceEngine, {MODEL} full width, its first {CUT_LAYERS} "
+            f"layers, on {card}")
         calib_serve_launches = calib_serve_run(card, calib, failures)
         del calib
         gc.collect()
@@ -6370,7 +6592,7 @@ def main() -> int:
     moe_serve_launches = moe_serve_run(card, failures)
 
     log(f"[moe_qdq] {MOE_MODEL} full width: the qdq stacks against the "
-        f"packed experts at 1 layer, then {moe_cfg.num_layers} layers in BF16 "
+        f"packed experts at 1 layer, then {CUT_LAYERS} layers in BF16 "
         f"and in the NVFP4 fake format (use_kernels=False), on {card}")
     moe_qdq_launches = moe_qdq_run(moe_cfg, card, failures)
     log(f"[moe_eval] python -m arcquant_tpu_torch.evaluate, {MOE_MODEL} full "
@@ -6390,15 +6612,15 @@ def main() -> int:
             card, work, failures, MOE_MODEL, "[moe_calibrate]")
         summary["flash_attn"]["calibrate_moe"] = row9
         log(f"[moe_calib_serve] the [moe_calibrate] artifact served by "
-            f"InferenceEngine, {MOE_MODEL} full width, "
-            f"{moe_cfg.num_layers} layers, on {card}")
+            f"InferenceEngine, {MOE_MODEL} full width, its first "
+            f"{CUT_LAYERS} layers, on {card}")
         moe_cal_serve_launches = calib_serve_run(
             card, calib, failures, MOE_MODEL, MOE_KERNELS["w8"],
             MOE_IDLE_KERNELS["w8"], "[moe_calib_serve]")
         del calib
         gc.collect()
         torch.cuda.empty_cache()
-    log(f"[engine_tensor] {MODEL} full width, 28 layers, w8, ARC, "
+    log(f"[engine_tensor] {MODEL} full width, {CUT_LAYERS} layers, w8, ARC, "
         f"act_scale tensor against row, on {card}")
     tensor_launches = engine_tensor_run(card, failures)
 
@@ -6438,10 +6660,10 @@ def main() -> int:
         for f in failures:
             print(f"FAIL: {f}", file=sys.stderr)
         return 1
-    # launches: over the twenty-eight main paths, the ARC generate(), the
+    # launches: over the twenty-nine main paths, the ARC generate(), the
     # HTTP server, the w4 generate(), the select-free generate(), the MoE
     # model's w8 and w4 generate() and HTTP server, benchmark_e2e in NVFP4
-    # and BF16, the GEMM lab, generate_ondevice, evaluate's packed route,
+    # and BF16, bench_serving, the GEMM lab, generate_ondevice, evaluate's packed route,
     # calibrate, the calibrated engine and the checkpoint directory's
     # generate and evaluate; the MoE model's BF16 and fake-format
     # generate(), evaluate's packed route, calibrate and its calibrated
@@ -6454,7 +6676,8 @@ def main() -> int:
         generate_select_free=free_launches,
         generate_moe=moe_launches["w8"], generate_moe_w4=moe_launches["w4"],
         serve_moe=moe_serve_launches, bench_e2e_nvfp4=e2e_launches["NVFP4"],
-        bench_e2e_bf16=e2e_launches["BF16"], gemm_lab=lab_launches,
+        bench_e2e_bf16=e2e_launches["BF16"], bench_serving=tools_launches,
+        gemm_lab=lab_launches,
         spec=spec_launches, evaluate=eval_launches,
         calibrate=calib_launches, calib_serve=calib_serve_launches,
         ckpt=ckpt_launches, generate_moe_bf16=moe_qdq_launches["BF16"],

@@ -178,13 +178,17 @@ def test_port_runs_without_jax():
     a select-free decode at batch 4 through the fused routes, generating
     with a tiny MoE engine (in dispatch and dense mode), serving two
     HTTP requests through ServingLoop, calibrating (python -m
-    arcquant_tpu_torch.calibrate --cpu), loading a checkpoint directory
-    and saving and loading a quantized checkpoint load neither jax nor
-    the JAX package, with safetensors and transformers blocked (the
-    card's machine has neither): load_tokenizer then raises ImportError."""
+    arcquant_tpu_torch.calibrate --cpu), loading a checkpoint directory,
+    saving and loading a quantized checkpoint, and the tools
+    (evals/visualize.py's measure_mse, bench_serving.run --cpu at 1
+    layer, mse_table, decode_profile and prefill_profile imported) load
+    neither jax nor the JAX package, with safetensors, transformers and
+    matplotlib blocked (the card's machine has none of them):
+    load_tokenizer then raises ImportError."""
     code = (
         "import sys, torch\n"
         "sys.modules['safetensors'] = sys.modules['transformers'] = None\n"
+        "sys.modules['matplotlib'] = None\n"
         "from arcquant_tpu_torch.config import QuantConfig, get_model_config\n"
         "from arcquant_tpu_torch.engine import EngineConfig, InferenceEngine\n"
         "from arcquant_tpu_torch.models import quantized\n"
@@ -308,6 +312,17 @@ def test_port_runs_without_jax():
         "    raise AssertionError('load_tokenizer without transformers')\n"
         "except ImportError as e:\n"
         "    assert 'transformers' in str(e), e\n"
+        "from arcquant_tpu_torch.evals import visualize\n"
+        "from arcquant_tpu_torch.benchmarks import (bench_serving,\n"
+        "    decode_profile, mse_table, prefill_profile)\n"
+        "x, _, ridx = mse_table.inputs(8, 4, 256)\n"
+        "assert set(visualize.measure_mse(x, ridx, 64)) == {\n"
+        "    'nvfp4', 'hadamard', 'arc'}\n"
+        "r = bench_serving.run(bench_serving.build_parser().parse_args(\n"
+        "    ['--model', 'test-tiny', '--layers', '1', '--max_batch', '2',\n"
+        "     '--requests', '2', '--prompt_len', '8', '--max_new', '2',\n"
+        "     '--cpu']))\n"
+        "assert all(len(q.output) == 2 for q in r['_requests']), r\n"
         "bad = [m for m in sys.modules\n"
         "       if m == 'jax' or m.startswith(('jax.', 'arcquant_tpu.'))\n"
         "       or m == 'arcquant_tpu']\n"

@@ -7,7 +7,9 @@ route against f64. Then the engine's decode step captured as a CUDA
 graph (2 layers at full width) against the eager loop
 (cuda_graphs=False): logits and tokens bitwise in every decode
 configuration, sampled decode_scan, a second state, the launch counts,
-no host synchronisation, and a capture that fails raising.
+no host synchronisation, and a capture that fails raising. The tools
+(``-k tools``): mse_table and measure_mse on the card against the CPU,
+and decode_profile's plan against one eager 2-layer step's calls.
 
 Every test is marked ``gpu`` and skips when torch sees no CUDA device.
 This file imports no JAX, so it also runs on a machine without it:
@@ -1686,3 +1688,53 @@ def test_decode_step_with_a_calibration_against_plain(monkeypatch):
     assert np.isfinite(got).all()
     assert cosine(got, want) >= cosine(floor, want), (cosine(got, want),
                                                       cosine(floor, want))
+
+
+# -- the tools (benchmarks/mse_table.py, decode_profile.py, evals/visualize.py)
+
+@pytest.mark.parametrize("k", [4096, 3584])
+def test_tools_mse_on_the_card_matches_the_cpu(k):
+    """mse_table.table and visualize.measure_mse on the card against the
+    CPU from the same draws (K 4096 runs the Hadamard scheme, 3584 not):
+    each value within 1e-4 relative, f32 matmul and mean order being the
+    only difference."""
+    require_cuda()
+    from arcquant_tpu_torch.benchmarks import mse_table
+    from arcquant_tpu_torch.evals import visualize
+    ks = [0, 64, 256, 1024]
+    out = {}
+    for device in ("cpu", "cuda"):
+        x, w, ridx = mse_table.inputs(64, 256, k, device)
+        rows = mse_table.table(x, w, ridx, ks)
+        mse = {s: visualize.measure_mse(x, ridx, sel)
+               for s, sel in (("sel0", 0), ("sel256", 256))}
+        out[device] = ([v for _, v in rows]
+                       + [v for m in mse.values() for v in m.values()])
+        assert ("hadamard" in mse["sel0"]) == (k == 4096)
+    np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=1e-4)
+
+
+@pytest.mark.parametrize("way", ["chain", "fused"])
+def test_tools_decode_plan_pinned_on_the_card(way):
+    """decode_profile's plan at Qwen2.5-7B width, bs 4, against one eager
+    decode step (cuda_graphs=False) of a 2-layer select-free engine on
+    the card: every row's multiplicity equals the step's calls to its
+    function (common.engine_calls), fused (the megakernels) and unfused;
+    every row runs."""
+    require_cuda()
+    from arcquant_tpu_torch.benchmarks import common, decode_profile
+    cfg = get_model_config("qwen2.5-7b").replace(num_layers=2)
+    calib = quantized.identity_calib(cfg, 0.0, device="cuda")
+    eng = InferenceEngine.dummy(cfg, calib, QuantConfig(**_QKW),
+                                EngineConfig(max_batch=4, max_seq_len=256),
+                                seed=5, device="cuda", cuda_graphs=False,
+                                fused_decode=way == "fused")
+    rows = decode_profile.plan(cfg, 4, "cuda")
+    for r in rows:
+        r.fn()
+    _, state, active = _prefill(eng, _graph_prompts(cfg))
+    with common.engine_calls(eng) as counts:
+        eng.decode_scan(state, torch.ones(4, dtype=torch.int32), active, 1)
+    torch.cuda.synchronize()
+    assert common.pin(rows, way, counts) == []
+    assert counts["gemm_dequant:lm_head"] == 1
