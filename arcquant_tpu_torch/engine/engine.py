@@ -72,6 +72,7 @@ experts' gate/up, the batched GEMM for their down projections) up to
 from __future__ import annotations
 
 import collections
+import contextlib
 import functools
 import sys
 import time
@@ -356,18 +357,21 @@ class _VerifyIO:
 class _Graph:
     """One step body over persistent buffers: `body(engine, state, io,
     gen)` runs it eagerly, in place; on the card `graph` holds its
-    capture and `launches` the kernel launches one replay makes. `gen`
-    is the generator a sampled body draws from (registered with the
-    graph). The engine is held weakly: the engine caches its graphs, and
-    a cycle through it would leave both to the cyclic garbage collector,
-    which can free a graph's memory pool while another graph is being
-    captured (and so break that capture)."""
+    capture, `launches` the kernel launches one replay makes and
+    `counters` what else it counts (a sharded engine's collectives,
+    ``_capture_counters``). `gen` is what the engine's ``_generator``
+    makes for a sampled body to draw from (one generator, or a list),
+    registered with the graph. The engine is held weakly: the engine
+    caches its graphs, and a cycle through it would leave both to the
+    cyclic garbage collector, which can free a graph's memory pool while
+    another graph is being captured (and so break that capture)."""
     io: object
     body: Callable
     engine: "weakref.ref"
-    gen: Optional[torch.Generator] = None
+    gen: object = None
     graph: Optional["torch.cuda.CUDAGraph"] = None
     launches: Optional[_build.GraphLaunches] = None
+    counters: tuple = ()
 
     def run(self, state) -> None:
         """The body, run eagerly."""
@@ -380,7 +384,8 @@ class _Graph:
             self.run(state)
             return
         self.graph.replay()
-        self.launches.replayed()
+        for c in (self.launches, *self.counters):
+            c.replayed()
 
 
 def _failed_at(e: BaseException) -> str:
@@ -677,16 +682,31 @@ class InferenceEngine:
         seq_lens.copy_(new_lens)
         return logits
 
+    # The step the decode and verify bodies run, and the eager loop too:
+    # a sharded engine names its own (its rows of the state, its
+    # collectives) by overriding these two.
+
+    def _decode_logits(self, state, tokens, active) -> torch.Tensor:
+        """The decode step's logits [B, V] f32 of tokens [B] (device) for
+        the active [B] slots, seq_lens advanced in place. Reads nothing
+        back to the host."""
+        cache, pt, seq_lens = state
+        return self._decode_forward(cache, pt, seq_lens, tokens, active)
+
+    def _verify_logits(self, state, tokens, valid) -> torch.Tensor:
+        """The verify step's logits [B, W, V] f32 (_verify_forward)."""
+        cache, pt, seq_lens = state
+        return self._verify_forward(cache, pt, seq_lens, tokens, valid)
+
     def _decode_body(self, state, io: _DecodeIO, gen, sampling) -> None:
         """One decode step on the persistent buffers, in place: the
-        forward of io.tokens for io.active, then the eager loop's next
-        token (argmax, or a draw from gen under sampling; inactive slots
-        keep theirs), io.active cleared where it is io.eos, the next
-        tokens into io.tokens and into io.out at column io.step, which
-        advances (modulo SCAN_CHUNK). The logits stay in io.logits."""
-        cache, pt, seq_lens = state
-        io.logits = self._decode_forward(cache, pt, seq_lens, io.tokens,
-                                         io.active)
+        step (_decode_logits) of io.tokens for io.active, then the eager
+        loop's next token (argmax, or a draw from gen under sampling;
+        inactive slots keep theirs), io.active cleared where it is
+        io.eos, the next tokens into io.tokens and into io.out at column
+        io.step, which advances (modulo SCAN_CHUNK). The logits stay in
+        io.logits."""
+        io.logits = self._decode_logits(state, io.tokens, io.active)
         nxt = torch.where(io.active, self._sample(io.logits, sampling, gen),
                           io.tokens)
         io.active &= nxt != io.eos
@@ -707,9 +727,7 @@ class InferenceEngine:
             all_logits=True, qcfg=self.qcfg)
 
     def _verify_body(self, state, io: _VerifyIO, gen=None) -> None:
-        cache, pt, seq_lens = state
-        io.logits = self._verify_forward(cache, pt, seq_lens, io.tokens,
-                                         io.valid)
+        io.logits = self._verify_logits(state, io.tokens, io.valid)
 
     def _verify_graph(self, state, w: int) -> _Graph:
         """The verify body of (state, route, W)."""
@@ -727,9 +745,9 @@ class InferenceEngine:
                sampled: bool = False) -> _Graph:
         """The step of (state, route, key): `body(engine, state, io, gen)`
         (a function, not a bound method: _Graph's docstring says why)
-        over the buffers `new_io()` makes and, when sampled, a generator
-        of its own; captured on `state` on first use (the least recently
-        used one dropped beyond GRAPH_CACHE). The state enters the key by
+        over the buffers `new_io()` makes and, when sampled, generators
+        of its own (_generator's); captured on `state` on first use (the
+        least recently used one dropped beyond GRAPH_CACHE). The state enters the key by
         its tensors' addresses: a graph captured on them is right for any
         state at the same addresses."""
         full = (_state_key(state), self.fused_decode, key)
@@ -739,7 +757,7 @@ class InferenceEngine:
                 self._graphs.popitem(last=False)
             g = self._capture(what, state, _Graph(
                 new_io(), body, weakref.ref(self),
-                torch.Generator(device=self.device) if sampled else None))
+                self._generator(0) if sampled else None))
         self._graphs[full] = g
         return g
 
@@ -750,11 +768,14 @@ class InferenceEngine:
         (every slot inactive, no token valid). A warm-up run of it goes
         first on the capture stream: it builds the kernels and runs every
         lazy initialisation (the kernels' shared-memory attributes,
-        cuBLAS's workspace, constant tables) outside the capture. The
-        capture is in the default global mode; the generator of a sampled
-        body is registered with the graph, so each replay draws the next
-        numbers. The body takes the state, so a cached graph holds no
-        state alive."""
+        cuBLAS's workspace, constant tables) outside the capture; a
+        sharded engine's warm-up makes its first collective on the
+        capture stream there too. The capture is in the default global
+        mode; the generators of a sampled body are registered with the
+        graph, so each replay draws the next numbers. The counters of
+        _capture_counters are entered around the capture beside the
+        kernel launches' and replayed with them. The body takes the
+        state, so a cached graph holds no state alive."""
         if self.device.type != "cuda":
             return g
         if self._capture_stream is None:
@@ -765,16 +786,21 @@ class InferenceEngine:
             g.run(state)
         torch.cuda.current_stream(self.device).wait_stream(stream)
         graph = torch.cuda.CUDAGraph()
-        if g.gen is not None:
-            graph.register_generator_state(g.gen)
+        for gen in (g.gen if isinstance(g.gen, list) else [g.gen]):
+            if gen is not None:
+                graph.register_generator_state(gen)
         torch.cuda.synchronize(self.device)
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(self.device)
         launches = _build.GraphLaunches()
+        counters = tuple(self._capture_counters())
         current = torch.cuda.current_stream(self.device)
         t0 = time.perf_counter()
         try:
-            with launches, torch.cuda.graph(graph, stream=stream):
+            with contextlib.ExitStack() as held:
+                for c in (launches, *counters):
+                    held.enter_context(c)
+                held.enter_context(torch.cuda.graph(graph, stream=stream))
                 g.run(state)
         except Exception as e:
             torch.cuda.set_stream(current)    # a failed capture keeps it
@@ -784,13 +810,23 @@ class InferenceEngine:
         rec = dict(what=what, capture_ms=(time.perf_counter() - t0) * 1e3,
                    pool_bytes=torch.cuda.memory_reserved(self.device)
                    - reserved, launches=launches.total)
+        for c in counters:
+            rec.update(c.record())
         self.graph_captures.append(rec)
         print(f"{what} captured as a CUDA graph in "
               f"{rec['capture_ms']:.1f} ms: {rec['launches']} kernel "
-              f"launches, graph pool {rec['pool_bytes'] / 2 ** 20:.1f} MiB",
+              f"launches, graph pool {rec['pool_bytes'] / 2 ** 20:.1f} MiB"
+              + (f", collectives {rec['comm']}" if "comm" in rec else ""),
               file=sys.stderr)
-        g.graph, g.launches = graph, launches
+        g.graph, g.launches, g.counters = graph, launches, counters
         return g
+
+    def _capture_counters(self) -> list:
+        """What a capture counts besides its kernel launches: context
+        managers entered around it, each with ``replayed()`` (once a
+        replay) and ``record()`` (keys for graph_captures). None on the
+        single device; a sharded engine's collectives."""
+        return []
 
     def _decode_graph(self, state, sampling) -> _Graph:
         """The decode body of (state, route, sampling)."""
@@ -808,11 +844,9 @@ class InferenceEngine:
         [B] bool. Returns (logits [B, V] f32, state); on the card a copy
         of the graph's logits, which its next replay overwrites."""
         if not self.cuda_graphs:
-            cache, pt, seq_lens = state
             tokens = torch.as_tensor(tokens, device=self.device)
             active = torch.as_tensor(active, device=self.device).bool()
-            return (self._decode_forward(cache, pt, seq_lens, tokens,
-                                         active), state)
+            return self._decode_logits(state, tokens, active), state
         g = self._decode_graph(state, None)
         g.io.tokens.copy_(torch.as_tensor(tokens))
         g.io.active.copy_(torch.as_tensor(active))
@@ -839,9 +873,7 @@ class InferenceEngine:
         tokens = torch.as_tensor(tokens, device=self.device).to(torch.int32)
         valid = torch.as_tensor(valid, device=self.device).to(torch.int32)
         if not self.cuda_graphs:
-            cache, pt, seq_lens = state
-            return self._verify_forward(cache, pt, seq_lens, tokens,
-                                        valid), state
+            return self._verify_logits(state, tokens, valid), state
         g = self._verify_graph(state, tokens.shape[1])
         g.io.tokens.copy_(tokens)
         g.io.valid.copy_(valid)
@@ -853,6 +885,15 @@ class InferenceEngine:
         g = torch.Generator(device=self.device)
         g.manual_seed(seed)
         return g
+
+    def _reseed(self, gen, seed: int) -> None:
+        """Seed what _generator made as _generator(seed) seeds it."""
+        gen.manual_seed(seed)
+
+    def _scan_replay(self, g: _Graph, state) -> None:
+        """One step of decode_scan on the graph (a sharded engine records
+        it)."""
+        g.replay(state)
 
     @staticmethod
     def _sample(logits, sampling, gen) -> torch.Tensor:
@@ -902,10 +943,10 @@ class InferenceEngine:
         io.eos.fill_(-1 if eos_id is None else eos_id)
         io.step.zero_()
         if g.gen is not None:
-            g.gen.manual_seed(seed)
+            self._reseed(g.gen, seed)
         parts = []
         for i in range(num_steps):
-            g.replay(state)
+            self._scan_replay(g, state)
             if (i + 1) % SCAN_CHUNK == 0 or i + 1 == num_steps:
                 parts.append(io.out[:, :i % SCAN_CHUNK + 1].clone())
         if not parts:

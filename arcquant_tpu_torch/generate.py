@@ -22,10 +22,12 @@ Runs on the card unless --cpu.
 (parallel/tp_engine.py): N ranks (processes, parallel/mesh.py's launcher)
 each build the TPInferenceEngine on its shard and run an identical
 ContinuousBatcher; rank 0 prints. --dist_backend nccl puts rank r on
-cuda:r (one card a rank), gloo every rank on cuda:0 (or the CPU with
---cpu). --check_ranks records every step on every rank, gathers the
-records on every rank (spawned or under torchrun) and fails unless the
-ranks' logits are bitwise equal at every step and their tokens equal.
+cuda:r (one card a rank) and decodes on CUDA graphs of each rank's step,
+the collectives inside; gloo puts every rank on cuda:0 (or the CPU with
+--cpu) and decodes eagerly. --check_ranks records every step on every
+rank, gathers the records on every rank (spawned or under torchrun) and
+fails unless the ranks' logits are bitwise equal at every step and their
+tokens equal.
 --quant_head serves the lm head as a packed W4A16 GEMM (as serve does);
 by default it stays bf16, as in the repository's demo.
 
@@ -125,9 +127,10 @@ def _serve(eng, prompts, tokenizer, max_new: int, show: bool) -> list:
 
 
 def _tp_rank(mesh, args) -> dict:
-    """One rank of --tp: its TPInferenceEngine and batcher; rank 0
-    prints. Returns the outputs, and the rank's kernel launches, peak
-    device memory and (--check_ranks) step records."""
+    """One rank of --tp: its TPInferenceEngine (capturing its steps
+    under nccl, eager under gloo) and batcher; rank 0 prints. Returns the
+    outputs, and the rank's kernel launches, peak device memory, whether
+    it decoded on graphs, and (--check_ranks) step records."""
     import torch
 
     from .engine import EngineConfig
@@ -159,7 +162,7 @@ def _tp_rank(mesh, args) -> dict:
     return dict(
         outputs=outputs, steps=eng.steps,
         launches={k.name: k.launches for k in _build.KERNELS},
-        actq_by_m=dict(qk.ACTQ.by_m),
+        actq_by_m=dict(qk.ACTQ.by_m), cuda_graphs=eng.cuda_graphs,
         peak_bytes=(torch.cuda.max_memory_allocated(mesh.device) if cuda
                     else None))
 

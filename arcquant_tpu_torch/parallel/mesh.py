@@ -37,7 +37,19 @@ The backend is the caller's choice and never switches by itself:
     broadcast or all_gather is staged through a CPU buffer explicitly
     (``Comm``); all_reduce takes the CUDA tensor as it is. Gloo's
     collectives cannot be captured in a CUDA graph, so an engine over
-    gloo decodes eagerly.
+    gloo on the card decodes eagerly.
+
+A group of one rank makes no collective call under gloo: the result of
+an all_reduce, broadcast or all_gather over one rank is its operand.
+Under nccl it makes the call all the same (a one-rank SUM or MAX of one
+operand is that operand), so that a one-rank engine on one card runs,
+and captures, the collectives a rank of a wider group does.
+
+The TP engine captures its steps as CUDA graphs under nccl: a capture
+counts its collectives apart (``CommCapture``, entered around it like
+the kernels' launch counters), and each replay adds them to the
+CommStats; a timed collective is not timed while a stream captures (a
+synchronize is illegal there).
 """
 
 from __future__ import annotations
@@ -94,7 +106,9 @@ class StepRecords:
     ``record_steps()`` makes every later step append to ``steps`` its
     kind, host ms, collectives (calls by op, ms, payload bytes) and a
     digest of its logits, the device synchronized around each step and
-    collective."""
+    each collective run eagerly. A captured step is recorded around its
+    replay, with the collectives its capture counted (CommCapture); the
+    step that captures also counts its warm-up run's."""
 
     steps: Optional[List[dict]] = None
 
@@ -126,10 +140,15 @@ def _sync(t: torch.Tensor) -> None:
         torch.cuda.synchronize(t.device)
 
 
+def _capturing(t: torch.Tensor) -> bool:
+    """Whether t's device stream is capturing a CUDA graph."""
+    return t.is_cuda and torch.cuda.is_current_stream_capturing()
+
+
 class _Timed:
     """Count one call of `op` (or of each op, as often as a dict of them
     says) in `comm` and its payload bytes, timing it when the stats are
-    timed."""
+    timed and no stream captures."""
 
     def __init__(self, comm: CommStats, op, t: torch.Tensor,
                  nbytes: int = 0):
@@ -141,14 +160,54 @@ class _Timed:
         for op, n in self.ops.items():
             c.calls[op] = c.calls.get(op, 0) + n
         c.nbytes += self.n
-        if c.timed:
+        self.timing = c.timed and not _capturing(self.t)
+        if self.timing:
             _sync(self.t)
             self.t0 = time.perf_counter()
 
     def __exit__(self, *exc):
-        if self.comm.timed and exc[0] is None:
+        if self.timing and exc[0] is None:
             _sync(self.t)
             self.comm.seconds += time.perf_counter() - self.t0
+
+
+class CommCapture:
+    """The collectives one captured CUDA graph holds, in a CommStats (the
+    counterpart of kernels/_build.py's GraphLaunches).
+
+    Enter it around the capture: the calls and payload bytes counted
+    there (calls that only enqueue into the graph) are taken back out of
+    the stats when it exits and kept; ``replayed(n)`` adds them n times,
+    once for each replay of the graph."""
+
+    def __init__(self, stats: CommStats):
+        self.stats = stats
+        self.calls: dict = {}
+        self.nbytes = 0
+
+    def __enter__(self) -> "CommCapture":
+        self._snap = self.stats.snapshot()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        calls0, _, bytes0 = self._snap
+        d = self.stats.since(self._snap)
+        self.calls = {op: n for op, n in d["comm"].items() if n}
+        self.nbytes = d["comm_bytes"]
+        self.stats.calls, self.stats.nbytes = dict(calls0), bytes0
+        return False
+
+    def replayed(self, times: int = 1) -> None:
+        """Count `times` replays of the graph."""
+        c = self.stats
+        for op, n in self.calls.items():
+            c.calls[op] = c.calls.get(op, 0) + n * times
+        c.nbytes += self.nbytes * times
+
+    def record(self) -> dict:
+        """The capture's collectives, calls by op and payload bytes (keys
+        of the engine's graph_captures)."""
+        return dict(comm=dict(self.calls), comm_bytes=self.nbytes)
 
 
 class Comm:
@@ -167,9 +226,15 @@ class Comm:
     def _staged(self, t: torch.Tensor) -> bool:
         return self.backend == "gloo" and t.is_cuda
 
+    def _alone(self) -> bool:
+        """A group of one rank that skips its calls: gloo's (module
+        docstring)."""
+        return len(self.ranks) == 1 and self.backend != "nccl"
+
     def all_reduce(self, t: torch.Tensor, op: str) -> torch.Tensor:
-        """all_reduce(op) of t over the group, in place (none alone)."""
-        if len(self.ranks) == 1:
+        """all_reduce(op) of t over the group, in place (none alone under
+        gloo)."""
+        if self._alone():
             return t
         with _Timed(self.stats, op, t):
             dist.all_reduce(t, op=dist.ReduceOp.SUM if op == "sum"
@@ -196,7 +261,7 @@ class Comm:
 
     def broadcast(self, t: torch.Tensor, src: int) -> torch.Tensor:
         """t from index src on every member (in place on the others)."""
-        if len(self.ranks) == 1:
+        if self._alone():
             return t
         buf = t.cpu() if self._staged(t) else t
         with _Timed(self.stats, "broadcast", t, t.numel() * t.element_size()):
@@ -226,7 +291,7 @@ class Comm:
 
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
         """The members' t concatenated on dim 0, in group order."""
-        if len(self.ranks) == 1:
+        if self._alone():
             return t
         t = t.contiguous()
         src = t.cpu() if self._staged(t) else t

@@ -34,7 +34,9 @@ stages need uniform shapes; the port keeps that calibration so its
 engines agree with JAX's.
 
 The engine decodes eagerly: gloo's send and recv cannot be captured in
-a CUDA graph.
+a CUDA graph, and the captured NCCL step (JAX jits its relay) is not
+ported (ROADMAP queue 1 item 8.7; at pp 1 nothing is relayed, so one
+card cannot check it).
 """
 
 from __future__ import annotations

@@ -50,7 +50,8 @@ Params = Dict[str, Any]
 
 
 def _all_reduce(t: torch.Tensor, op: str, ctx: TPContext) -> torch.Tensor:
-    """all_reduce(op) of t over the TP group, in place (none at tp 1)."""
+    """all_reduce(op) of t over the TP group, in place (at tp 1 none
+    under gloo; nccl makes the call, parallel/mesh.py)."""
     return ctx.tp_comm().all_reduce(t, op)
 
 

@@ -57,14 +57,26 @@ decode) with ``_tp_layer`` as their layer, and the base engine's host
 loops (chunks, ``decode_scan``'s steps, sampling on the device from a
 generator every rank seeds alike, so the ranks keep identical tokens).
 
-The TP engine decodes eagerly: gloo's collectives cannot be captured in
-a CUDA graph, and a captured NCCL step is not ported (ROADMAP queue 1
-item 8.6: it needs a machine with a card a rank).
+Under nccl the engine captures its steps as the single-device engine
+does (``cuda_graphs``, by default there): ``decode_step``, ``decode_scan``
+and ``verify_step`` replay a CUDA graph of this rank's step, its
+collectives inside. The bodies the base engine captures call the step
+by name (``_decode_logits``, ``_verify_logits``), which this engine
+overrides with its own: its dp group's rows of the page table and
+seq_lens, every group's seq_lens advanced, the logits gathered over the
+dp group. A sampled body draws from one generator a dp group, each
+registered with the graph and seeded in ``decode_scan`` as ``generate``
+seeds them. A capture counts its collectives apart and each replay adds
+them (``mesh.CommCapture``), so ``record_steps()`` still records a
+step's collectives; a replay is timed around the replay. Under gloo on
+the card the steps run eagerly (gloo's collectives cannot be captured;
+``cuda_graphs=True`` raises); on the CPU there is nothing to capture, and
+``cuda_graphs=True`` runs the same bodies eagerly.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -82,7 +94,7 @@ from ..quant import numerics as N
 from ..quant import packing
 from . import ep as epm
 from . import tp as tpm
-from .mesh import StepRecords, TPContext
+from .mesh import CommCapture, StepRecords, TPContext
 
 
 def _shard_fused_col(layer_p, projs, calib: SiteCalib, tp: int,
@@ -138,6 +150,21 @@ def _shard_layer(lp, lc: Dict[str, SiteCalib], qcfg: QuantConfig,
     return layer, sels
 
 
+def captures(mesh: TPContext, cuda_graphs: Optional[bool]) -> bool:
+    """Whether a TP engine over `mesh` captures its steps: as asked, by
+    default under nccl. A CUDA graph under gloo on the card raises
+    (gloo's collectives cannot be captured); on the CPU there is nothing
+    to capture and the bodies run eagerly."""
+    if cuda_graphs is None:
+        return mesh.backend == "nccl"
+    if cuda_graphs and mesh.backend == "gloo" and mesh.device.type == "cuda":
+        raise ValueError("gloo's collectives cannot be captured in a CUDA "
+                         "graph: over gloo on the card the TP engine "
+                         "decodes eagerly (cuda_graphs=False); nccl "
+                         "captures")
+    return bool(cuda_graphs)
+
+
 def check_tp(cfg: ModelConfig, qcfg: QuantConfig, tp: int) -> None:
     """Raise unless the TP engine serves cfg at qcfg over tp ranks."""
     if cfg.num_experts and cfg.num_experts % tp:
@@ -163,12 +190,14 @@ class TPInferenceEngine(StepRecords, InferenceEngine):
     kv heads (of its dp group's slots, at dp > 1). ``record_steps()``
     makes every step append a record of its host ms, its collectives and
     a digest of its logits to ``steps`` (the device synchronized around
-    each step and collective)."""
+    each step and each collective run eagerly). cuda_graphs: as the
+    single-device engine's, by default under nccl (``captures``)."""
 
     def __init__(self, cfg: ModelConfig, params, calib, qcfg: QuantConfig,
                  ecfg: EngineConfig, mesh: TPContext,
-                 cuda_graphs: bool = False):
+                 cuda_graphs: Optional[bool] = None):
         check_tp(cfg, qcfg, mesh.tp)
+        cuda_graphs = captures(mesh, cuda_graphs)
         calib = _to_device(calib, mesh.device)
         layers, sels = [], []
         for li, lp in enumerate(params["layers"]):
@@ -182,15 +211,8 @@ class TPInferenceEngine(StepRecords, InferenceEngine):
     def _setup(self, cfg, params, layers, row_sels, calib, qcfg, ecfg, mesh,
                cuda_graphs):
         """The engine over this rank's sharded `layers` (and their row
-        sites' select counts) and the replicated rest of `params`."""
-        if cuda_graphs:
-            if mesh.backend == "gloo":
-                raise ValueError("gloo's collectives cannot be captured in "
-                                 "a CUDA graph: the TP engine decodes "
-                                 "eagerly (cuda_graphs=False)")
-            raise NotImplementedError(
-                "a captured NCCL decode step is not ported (ROADMAP queue 1 "
-                "item 8.6): pass cuda_graphs=False")
+        sites' select counts) and the replicated rest of `params`;
+        cuda_graphs as ``captures`` settled it."""
         self.mesh, self.tp = mesh, mesh.tp
         self._row_sels = row_sels
         qparams = {k: params[k] for k in ("embed", "final_norm", "lm_head",
@@ -198,7 +220,7 @@ class TPInferenceEngine(StepRecords, InferenceEngine):
         qparams["layers"] = layers
         super().__init__(cfg, qparams, calib, qcfg, ecfg, device=mesh.device,
                          quantize_params=False, fused_decode=False,
-                         cuda_graphs=False)
+                         cuda_graphs=cuda_graphs)
         self._local_cfg = cfg.replace(num_heads=cfg.num_heads // mesh.tp,
                                       num_kv_heads=cfg.num_kv_heads
                                       // mesh.tp)
@@ -214,11 +236,12 @@ class TPInferenceEngine(StepRecords, InferenceEngine):
     def dummy(cls, cfg: ModelConfig, calib, qcfg: QuantConfig,
               ecfg: EngineConfig, mesh: TPContext, seed: int = 0,
               dtype=torch.bfloat16,
-              cuda_graphs: bool = False) -> "TPInferenceEngine":
+              cuda_graphs: Optional[bool] = None) -> "TPInferenceEngine":
         """InferenceEngine.dummy's weights (the same draws from `seed`),
         each layer drawn whole on every rank and sharded, so the full
         model never exists at once."""
         check_tp(cfg, qcfg, mesh.tp)
+        cuda_graphs = captures(mesh, cuda_graphs)
         device = mesh.device
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
@@ -367,6 +390,12 @@ class TPInferenceEngine(StepRecords, InferenceEngine):
         return [super(TPInferenceEngine, self)._generator(
             smp.mix_seed(seed, g)) for g in range(self.dp)]
 
+    def _reseed(self, gen, seed: int) -> None:
+        if not isinstance(gen, list):
+            return super()._reseed(gen, seed)
+        for g, x in enumerate(gen):
+            x.manual_seed(smp.mix_seed(seed, g))
+
     def _sample(self, logits, sampling, gen) -> torch.Tensor:
         """The base engine's draw, each dp group's rows from its own
         generator (every rank draws every group's rows alike)."""
@@ -387,26 +416,32 @@ class TPInferenceEngine(StepRecords, InferenceEngine):
         seq_lens.copy_(torch.where(lens > 0, lens, seq_lens))
         return self._gather(logits), state
 
-    @torch.no_grad()
-    def _decode_local(self, state, tokens, active):
-        dev, r = self.device, self._rows
-        tokens = torch.as_tensor(tokens, device=dev)
-        active = torch.as_tensor(active, device=dev).bool()
+    # the step the base engine's bodies and eager loop run: no host read,
+    # so it captures as it is
+
+    def _decode_logits(self, state, tokens, active):
+        """This dp group's decode rows, every group's seq_lens advanced
+        alike, the logits gathered: [B, V]."""
+        r = self._rows
         cache, pt, seq_lens = self._local(state)
         new_lens = state[2] + active.to(torch.int32)
         logits = self._decode_forward(cache, pt, seq_lens, tokens[r],
                                       active[r])
         state[2].copy_(new_lens)
-        return self._gather(logits), state
+        return self._gather(logits)
 
-    @torch.no_grad()
-    def _verify_local(self, state, tokens, valid):
-        dev, r = self.device, self._rows
-        tokens = torch.as_tensor(tokens, device=dev).to(torch.int32)
-        valid = torch.as_tensor(valid, device=dev).to(torch.int32)
+    def _verify_logits(self, state, tokens, valid):
+        """This dp group's verify rows, the logits gathered: [B, W, V]."""
+        r = self._rows
         cache, pt, seq_lens = self._local(state)
-        return self._gather(self._verify_forward(
-            cache, pt, seq_lens, tokens[r], valid[r])), state
+        return self._gather(self._verify_forward(cache, pt, seq_lens,
+                                                 tokens[r], valid[r]))
+
+    def _capture_counters(self) -> list:
+        return [CommCapture(self.mesh.comm)]
+
+    def _scan_replay(self, g, state) -> None:
+        self._recorded("decode", _replayed, g, state)
 
     # -- public steps, recorded on request ------------------------------------
 
@@ -415,9 +450,15 @@ class TPInferenceEngine(StepRecords, InferenceEngine):
                               lens, starts)
 
     def decode_step(self, state, tokens, active):
-        return self._recorded("decode", self._decode_local, state, tokens,
+        return self._recorded("decode", super().decode_step, state, tokens,
                               active)
 
     def verify_step(self, state, tokens, valid):
-        return self._recorded("verify", self._verify_local, state, tokens,
+        return self._recorded("verify", super().verify_step, state, tokens,
                               valid)
+
+
+def _replayed(g, state):
+    """One replay of a decode graph: (its logits, state)."""
+    g.replay(state)
+    return g.io.logits, state

@@ -184,6 +184,83 @@ def tp_engine_run(ctx, name, params, calib, toks, lens, fed, verify_toks,
     return out
 
 
+def graph_path_run(eng, toks, lens, fed, vt, vv, scan_steps) -> dict:
+    """An engine's steps for the graph-path checks (numpy): _steps (the
+    prefill, decode steps fed `fed`, a verify of vt / vv), a greedy
+    decode_scan of scan_steps from the prefill's tokens, and a sampled
+    one (top-k 8, seed 5) of 5."""
+    from .engine import SamplingParams
+    out = _steps(eng, toks, lens, fed, vt, vv)
+    act = torch.as_tensor(np.asarray(lens) > 0)
+
+    def scan(n, sampling=None):
+        logits, state = eng.prefill(eng.new_state(), toks, lens)
+        t, _ = eng.decode_scan(state, logits.argmax(-1).to(torch.int32),
+                               act, n, sampling=sampling, seed=5)
+        return to_numpy(t)
+
+    out["scan"] = scan(scan_steps)
+    out["sampled"] = scan(5, SamplingParams(temperature=0.9, top_k=8))
+    return out
+
+
+def _graphs_vs_eager(mesh, ekw, name, params, calib, toks, lens, fed, vt,
+                     vv) -> dict:
+    """The TP engine (TP_QKW, EngineConfig(**ekw)) over `mesh` on the graph
+    path (cuda_graphs=True: on the CPU its bodies run eagerly) and
+    eagerly, each through graph_path_run (verify at W = vt's width)."""
+    from .config import QuantConfig, get_model_config
+    from .engine import EngineConfig
+    from .parallel import TPInferenceEngine
+    cfg = get_model_config(name)
+    p, c = params_from_numpy(params), _calib(calib)
+    return {way: graph_path_run(
+        TPInferenceEngine(cfg, p, c, QuantConfig(**TP_QKW),
+                          EngineConfig(**ekw), mesh,
+                          cuda_graphs=way == "graph"),
+        toks, lens, fed, vt, vv, len(fed)) for way in ("graph", "eager")}
+
+
+def tp_engine_graphs(ctx, *args):
+    """_graphs_vs_eager on this rank's tp 2 engine (TP_EKW)."""
+    return _graphs_vs_eager(ctx, TP_EKW, *args)
+
+
+def tp_graph_gpu_run(ctx, name, layers, prompts, steps):
+    """One rank's TP engine on the card at `layers` layers of name's width
+    (dummy weights from seed 5, ARC 0.125, TP_QKW, batch 4): the prefill
+    of `prompts` and a greedy decode_scan of `steps`, eagerly and then on
+    the graph (captured on its state before the prefill), each with its
+    step records (kind, comm, digest) and tokens; the captures."""
+    from .config import QuantConfig, get_model_config
+    from .engine import EngineConfig
+    from .models import quantized
+    from .parallel import TPInferenceEngine
+    cfg = get_model_config(name).replace(num_layers=layers)
+    eng = TPInferenceEngine.dummy(
+        cfg, quantized.identity_calib(cfg, 0.125, device=ctx.device),
+        QuantConfig(**TP_QKW), EngineConfig(max_batch=4, max_seq_len=256),
+        ctx, seed=5)
+    out = {"cuda_graphs": eng.cuda_graphs}
+    toks, lens, _ = eng._pad_prompts(prompts)
+    act = torch.as_tensor(lens > 0, device=ctx.device)
+    for way in ("eager", "graph"):
+        eng.cuda_graphs = way == "graph"
+        state = eng.new_state()
+        if eng.cuda_graphs:         # every slot inactive: the capture alone
+            eng.decode_scan(state, torch.zeros_like(act, dtype=torch.int32),
+                            torch.zeros_like(act), 0)
+        eng.record_steps()
+        logits, state = eng.prefill(state, toks, lens)
+        t, _ = eng.decode_scan(state, logits.argmax(-1).to(torch.int32), act,
+                               steps)
+        out[way] = dict(tokens=to_numpy(t), steps=[
+            {k: s[k] for k in ("kind", "comm", "digest")} for s in eng.steps])
+        eng.steps = None
+    out["captures"] = eng.graph_captures
+    return out
+
+
 def tp_engine_serving(ctx, name, params, calib, prompts, gen_prompts,
                       gen_new):
     """The TP engine's serving contracts on this rank: the collectives of
@@ -502,6 +579,13 @@ def dp_engine_run(ctx, name, params, calib, toks, lens, fed, prompts,
                             dataclasses.replace(mesh, dp=1))
     out["dp1"] = _steps(ref, toks, lens, fed)
     return out
+
+
+def dp_engine_graphs(ctx, *args):
+    """_graphs_vs_eager on this rank's dp 2 x tp 2 engine (DP_EKW; a
+    sampled body draws from one generator a dp group)."""
+    from .parallel import make_mesh
+    return _graphs_vs_eager(make_mesh(dp=2, tp=2, cpu=True), DP_EKW, *args)
 
 
 def ep_block_run(ctx, name, params, cases):

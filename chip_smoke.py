@@ -181,6 +181,20 @@ Phases, each printed as it runs:
      stop, the launch counts, then every kernel call of the three against
      its plain version and the scores against the plain versions' within
      twice the farthest of three draws carrying the kernels' departures;
+     [tp_graph] (tp_graph_run): the TP engine's decode step, decode_scan
+     and verify_step captured as CUDA graphs over NCCL, one rank on
+     cuda:0 (a one-rank group makes its collectives under nccl): at
+     Qwen2.5-7B, 28 layers, ARC 0.125 and select-free, the captured
+     decode_scan (the four prompts, 32 greedy tokens) bitwise the eager
+     TP loop in tokens and every step's logits, a decode_step and a
+     verify_step (W 4) replay bitwise, the collectives the capture
+     counted an eager step's, one graph launch and no synchronizing call
+     a replay (8 profiled steps), decode ms/step graph and eager in
+     turns beside the single-device graph step without megakernels, the
+     capture's ms, pool and launches, peak memory (the path tp_graph,
+     the ARC run's); the 1-layer select-free cut against the
+     single-device engine; Qwen1.5-MoE-A2.7B at 8 layers bitwise its
+     eager loop;
  16. [pp] (pp_run): pipeline parallelism, two stages on this card over
      gloo: PPInferenceEngine.generate at Qwen2.5-7B, 28 layers (14 and
      their pool a stage), ARC 0.125, the packed head, the four prompts
@@ -216,10 +230,11 @@ Phases, each printed as it runs:
      engine_check, serving_engine_check and moe_engine_check for the
      bars).
 Every decode runs the captured step (InferenceEngine's default) except
-the eager references: the [graph] loops, [spec]'s round loop and floor
-draws, in 17 the plain versions, the verify's spied and isolating runs
-and the MoE check's spied forwards, and the sharded engines of 15 and
-16, which decode eagerly (gloo's collectives cannot be captured). Kernel launch
+the eager references: the [graph] and [tp_graph] loops, [spec]'s round
+loop and floor draws, in 17 the plain versions, the verify's spied and
+isolating runs and the MoE check's spied forwards, and the sharded
+engines over gloo in 15 and 16, which decode eagerly (gloo's collectives
+cannot be captured). Kernel launch
 counts stay launches on the card: a replay counts the launches its graph
 holds.
 The second-to-last line is the kernels' JSON summary, the last line
@@ -229,6 +244,7 @@ last line; without a CUDA device it exits 1 at once.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import gc
 import http.client
@@ -5368,6 +5384,344 @@ def tp_run(card, failures):
     return counts[0]
 
 
+# -- [tp_graph] ---------------------------------------------------------------
+
+# [tp_graph]: the TP engine's captured step on one NCCL rank (cuda:0), at
+# Qwen2.5-7B full width and depth in two settings, then the MoE model cut
+# to CUT_LAYERS; the verify replay at W TP_GRAPH_W, the profile over
+# TP_GRAPH_PROFILED steps; the eager loop's timed turns take
+# TP_GRAPH_EAGER_STEPS steps (a step of it is 10-25x the graph's), the
+# graph's NEW_TOKENS.
+TP_GRAPH_SETTINGS = (("ARC 0.125", SELECT_FRAC), ("select-free", 0.0))
+TP_GRAPH_W = 4
+TP_GRAPH_PROFILED = 8
+TP_GRAPH_EAGER_STEPS = 8
+
+
+def _scan_ms(eng, state, toks, lens, active, graphs):
+    """A fresh prefill on `state`, then a greedy decode_scan on the graph
+    (NEW_TOKENS steps) or eagerly (TP_GRAPH_EAGER_STEPS): (tokens, state,
+    ms a step)."""
+    eng.cuda_graphs = graphs
+    steps = NEW_TOKENS if graphs else TP_GRAPH_EAGER_STEPS
+    logits, state = eng.prefill(state, toks, lens)
+    first = logits.argmax(-1).to(torch.int32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, state = eng.decode_scan(state, first, active, steps)
+    torch.cuda.synchronize()
+    return out, state, (time.perf_counter() - t0) * 1e3 / steps
+
+
+def _tp_graph_scans(eng, label, steps, failures, kernels=None):
+    """[tp_graph]'s bitwise gate on one TP engine (one NCCL rank): the
+    [engine] prompts' prefill and a greedy decode_scan of `steps`, first
+    eagerly (cuda_graphs=False), then on the graph (captured on its state
+    before the prefill), each step recorded: the tokens and every step's
+    logits (the records' digests) bitwise, one capture, and the
+    collectives it counted those of every eager decode step (and of every
+    replay); the collectives are counted, not timed (no synchronize
+    around each). With `kernels` the graph run's launches are counted
+    (reset before its prefill). Returns (the eager and graph runs: tokens,
+    first tokens, records, state; the capture; the launch counts)."""
+    toks, lens, _ = eng._pad_prompts(prompts_for(eng.cfg))
+    active = torch.ones(len(PROMPT_LENS), dtype=torch.bool,
+                        device=eng.device)
+    runs, launches = {}, None
+    n_cap = len(eng.graph_captures)
+    for way in ("eager", "graph"):
+        eng.cuda_graphs = way == "graph"
+        state = eng.new_state()
+        if eng.cuda_graphs:
+            eng.drop_graphs()
+            capture(eng, state)
+        eng.record_steps()
+        eng.mesh.comm.timed = False
+        if kernels is not None and eng.cuda_graphs:
+            reset_counts(kernels)
+        logits, state = eng.prefill(state, toks, lens)
+        first = logits.argmax(-1).to(torch.int32)
+        out, state = eng.decode_scan(state, first, active, steps)
+        torch.cuda.synchronize()
+        if kernels is not None and eng.cuda_graphs:
+            launches = launch_counts(kernels)
+        runs[way] = dict(tokens=out, first=first, steps=eng.steps,
+                         state=state)
+        eng.steps = None
+    caps = eng.graph_captures[n_cap:]
+    e, g = runs["eager"], runs["graph"]
+    digests = [[s["digest"] for s in r["steps"]] for r in (e, g)]
+    same = [a == b for a, b in zip(*digests)]
+    tok_same = bool(torch.equal(e["tokens"], g["tokens"]))
+    comm = {w: [s["comm"] for s in r["steps"] if s["kind"] == "decode"]
+            for w, r in runs.items()}
+    want = comm["eager"][0]
+    cap_comm = caps[0].get("comm") if caps else None
+    comm_ok = (cap_comm == want and all(c == want for c in comm["eager"])
+               and comm["graph"] == comm["eager"])
+    ok = (tok_same and all(same) and len(same) == steps + 1
+          and len(caps) == 1 and comm_ok)
+    log(f"  {label}: the captured decode_scan ({steps} greedy tokens after "
+        f"the prefill) against the eager TP loop: tokens "
+        f"{'bitwise equal' if tok_same else 'DIFFER'}, logits bitwise at "
+        f"{sum(same)} of {len(same)} steps; captures {len(caps)}; "
+        f"collectives the capture counted {cap_comm}, an eager decode "
+        f"step's {want} (every eager step's alike, every replay's alike: "
+        f"{comm_ok}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"[tp_graph] {label}: tokens equal {tok_same}, "
+                        f"logits bitwise at {same}, captures {len(caps)}, "
+                        f"collectives {cap_comm} vs {comm}")
+    return runs, (caps[0] if caps else {}), launches
+
+
+def _tp_graph_engine(eng, label, card, failures, single=None,
+                     kernels=None):
+    """[tp_graph] on one 28-layer TP engine: _tp_graph_scans' gate, then
+    a decode_step replay and a verify_step replay at W TP_GRAPH_W bitwise
+    their eager counterparts on the same states; 8 steps of decode_scan
+    under torch.profiler and set_sync_debug_mode("error") (one
+    cudaGraphLaunch a step, no synchronizing call); decode ms/step in
+    turns (eager, graph, graph, eager; with `single`, a single-device
+    engine on the same weights, its graph step between the graph's
+    turns), the tokens equal in every turn (as far as the eager turns
+    go); the capture's ms, pool and
+    launches. With `single` also whether its logits, fed the TP graph's
+    tokens, are bitwise the TP engine's at each step (printed, no
+    gate). Returns (the phase's metrics, the graph run's launches)."""
+    runs, cap, launches = _tp_graph_scans(eng, label, NEW_TOKENS, failures,
+                                          kernels)
+    e, g = runs["eager"], runs["graph"]
+    active = torch.ones(len(PROMPT_LENS), dtype=torch.bool,
+                        device=eng.device)
+    cur = e["tokens"][:, -1].contiguous()
+    vt = e["tokens"][:, :TP_GRAPH_W].contiguous()
+    valid = torch.full((len(PROMPT_LENS),), TP_GRAPH_W, dtype=torch.int32,
+                       device=eng.device)
+    n_cap = len(eng.graph_captures)
+    step, verify = {}, {}
+    for way, r in runs.items():
+        eng.cuda_graphs = way == "graph"
+        step[way], r["state"] = eng.decode_step(r["state"], cur, active)
+        verify[way], r["state"] = eng.verify_step(r["state"], vt, valid)
+    vcap = eng.graph_captures[n_cap:]
+    replay_ok = (bitwise(step["graph"], step["eager"])
+                 and bitwise(verify["graph"], verify["eager"]))
+    log(f"  {label}: a decode_step replay and a verify_step replay (W "
+        f"{TP_GRAPH_W}) against their eager counterparts: "
+        f"{'bitwise equal' if replay_ok else 'DIFFER'}; the verify's "
+        f"capture counted {[c.get('comm') for c in vcap]} "
+        f"{'ok' if replay_ok else 'FAIL'}")
+    if not replay_ok:
+        failures.append(f"[tp_graph] {label}: a decode_step or verify_step "
+                        "replay differs from its eager counterpart")
+    del step, verify
+
+    toks, lens, _ = eng._pad_prompts(prompts_for(eng.cfg))
+    state = g["state"]
+    eng.cuda_graphs = True
+    logits, state = eng.prefill(state, toks, lens)
+    first = logits.argmax(-1).to(torch.int32)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    synced = None
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            eng.decode_scan(state, first, active, TP_GRAPH_PROFILED)
+        except RuntimeError as err:
+            synced = str(err)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    names = collections.Counter(ev.name for ev in prof.events()
+                                if ev.device_type
+                                == torch.autograd.DeviceType.CPU)
+    graph_launches = names.get("cudaGraphLaunch", 0)
+    host_reads = {n: c for n, c in names.items()
+                  if n.startswith(("cudaMemcpy", "cudaStreamSynchronize",
+                                   "cudaDeviceSynchronize",
+                                   "cudaEventSynchronize"))}
+    busy, n_act = _device_busy_ms(prof)
+    prof_ok = synced is None and graph_launches == TP_GRAPH_PROFILED
+    log(f"  {label}: {TP_GRAPH_PROFILED} decode_scan steps on the graph "
+        f"under torch.profiler and set_sync_debug_mode('error'): "
+        f"cudaGraphLaunch {graph_launches} (bar: one a step), a "
+        f"synchronizing call: {synced or 'none'}; the host's copy and "
+        f"synchronize calls {host_reads or 'none'} (the window's closing "
+        f"synchronize among them; decode_scan copies its tokens out on the "
+        f"device); device busy "
+        f"{busy / TP_GRAPH_PROFILED:.3f} ms a step of "
+        f"{wall / TP_GRAPH_PROFILED:.3f} (idle share "
+        f"{1 - busy / wall:.4f}) {'ok' if prof_ok else 'FAIL'}")
+    if not prof_ok:
+        failures.append(f"[tp_graph] {label}: {graph_launches} graph "
+                        f"launches over {TP_GRAPH_PROFILED} steps, sync "
+                        f"{synced}")
+
+    if single is not None:
+        # the single-device engine (fused_decode=False) fed the TP graph's
+        # tokens: its logits against the TP engine's records, no gate
+        fed = [g["first"]] + [g["tokens"][:, i]
+                              for i in range(NEW_TOKENS - 1)]
+        digests = []
+        lg, st = single.prefill(single.new_state(), toks, lens)
+        digests.append(_digest(lg))
+        for cur_i in fed:
+            lg, st = single.decode_step(st, cur_i, active)
+            digests.append(_digest(lg))
+        same = sum(a == b["digest"] for a, b in zip(digests, g["steps"]))
+        log(f"  {label}: the single-device engine (fused_decode=False, "
+            f"its graph) fed the same tokens: logits bitwise the one-rank "
+            f"TP engine's at {same} of {len(digests)} steps (printed, not "
+            f"a gate: the TP row sites quantize in torch, the single "
+            f"device on #1)")
+
+    ms = {"eager": [], "graph": [], "single": []}
+    outs = []
+    order = (("eager", "graph", "single", "single", "graph", "eager")
+             if single is not None else ("eager", "graph", "graph",
+                                         "eager"))
+    # each state's step captured already: the turns time replays
+    states = {"eager": e["state"], "graph": g["state"]}
+    if single is not None:
+        states["single"] = st
+    for way in order:
+        who = single if way == "single" else eng
+        out, states[way], t = _scan_ms(who, states[way], toks, lens, active,
+                                       way != "eager")
+        ms[way].append(round(t, 3))
+        outs.append(out)
+    n = TP_GRAPH_EAGER_STEPS
+    tok_same = all(torch.equal(outs[0][:, :n], o[:, :n]) for o in outs[1:])
+    log(f"  {label}: decode_scan tokens equal in every timed turn (the "
+        f"first {n}): "
+        f"{tok_same} {'ok' if tok_same else 'FAIL'}")
+    if not tok_same:
+        failures.append(f"[tp_graph] {label}: the timed turns' tokens "
+                        "differ")
+    metrics = dict(
+        decode_ms_per_step_in_turns={k: v for k, v in ms.items() if v},
+        order=list(order),
+        steps_timed=dict(graph=NEW_TOKENS, eager=TP_GRAPH_EAGER_STEPS),
+        capture_ms=round(cap.get("capture_ms", 0.0), 1),
+        graph_pool_mib=round(cap.get("pool_bytes", 0) / 2 ** 20, 1),
+        kernel_launches_per_replay=cap.get("launches"),
+        collectives_per_replay=cap.get("comm"),
+        verify_capture_ms=[round(c["capture_ms"], 1) for c in vcap],
+        profiled=dict(graph_launches=graph_launches,
+                      wall_ms_per_step=round(wall / TP_GRAPH_PROFILED, 3),
+                      device_busy_ms_per_step=round(
+                          busy / TP_GRAPH_PROFILED, 3),
+                      device_idle_share=round(1 - busy / wall, 4),
+                      device_activities_per_step=n_act / TP_GRAPH_PROFILED),
+        peak_memory_gib=round(_peak(eng.device) / 2 ** 30, 3), card=card)
+    log(f"  [tp_graph] {label} {eng.cfg.name} {eng.cfg.num_layers} layers "
+        f"bs=4, one nccl rank: {json.dumps(metrics)}")
+    return metrics, launches
+
+
+def _tp_graph_rank(ctx, card):
+    """[tp_graph] on the one NCCL rank (cuda:0): for each setting of
+    TP_GRAPH_SETTINGS the TP engine at Qwen2.5-7B, 28 layers, dummy
+    weights from seed 0 (w8, row and channel scales, the packed head;
+    capturing by default under nccl) through _tp_graph_engine, its
+    eager and captured runs on the same packed weights (the one engine,
+    cuda_graphs switched); at select-free beside the single-device
+    engine (fused_decode=False) on the same seed; then the 1-layer
+    select-free cut (seed 1) against the single-device engine under
+    [tp]'s rule (engine_vs_plain), and Qwen1.5-MoE-A2.7B cut to
+    CUT_LAYERS through _tp_graph_scans. Returns the failures, the ARC
+    graph run's launches (the path tp_graph) and the metrics."""
+    from arcquant_tpu_torch.config import get_model_config
+    from arcquant_tpu_torch.engine import EngineConfig, InferenceEngine
+    from arcquant_tpu_torch.models import quantized
+    from arcquant_tpu_torch.parallel import TPInferenceEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    failures, metrics, launches = [], {}, None
+    cfg = get_model_config(MODEL)
+    qcfg = _arc_qcfg()
+    ecfg = EngineConfig(max_batch=len(PROMPT_LENS),
+                        max_seq_len=max(PROMPT_LENS) + NEW_TOKENS + 8)
+    for label, frac in TP_GRAPH_SETTINGS:
+        calib = quantized.identity_calib(cfg, frac, device=ctx.device)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(ctx.device)
+        t0 = time.perf_counter()
+        eng = TPInferenceEngine.dummy(cfg, calib, qcfg, ecfg, ctx, seed=0)
+        log(f"  {label}: the TP engine built in "
+            f"{time.perf_counter() - t0:.1f} s (captures its steps: "
+            f"{eng.cuda_graphs}), peak device memory "
+            f"{_peak(ctx.device) / 2 ** 30:.3f} GiB")
+        single = None
+        if frac == 0.0:
+            single = InferenceEngine.dummy(cfg, calib, qcfg, ecfg, seed=0,
+                                           device=ctx.device,
+                                           fused_decode=False)
+        metrics[label], counted = _tp_graph_engine(
+            eng, label, card, failures, single,
+            all_kernels() if launches is None else None)
+        launches = launches or counted
+        del eng, single
+        gc.collect()
+    _check_path(launches, TP_KERNELS, None, "[tp_graph] the captured TP "
+                "engine", failures)
+    log(f"  launches in the ARC run's prefill and captured decode_scan "
+        f"(tp_graph): { {k: v for k, v in launches.items() if v} }")
+
+    cfg1 = cfg.replace(num_layers=1)
+    calib1 = quantized.identity_calib(cfg1, 0.0, device=ctx.device)
+    eng = TPInferenceEngine.dummy(cfg1, calib1, qcfg, ecfg, ctx, seed=1)
+    single = InferenceEngine.dummy(cfg1, calib1, qcfg, ecfg, seed=1,
+                                   device=ctx.device, fused_decode=False)
+    engine_vs_plain(eng, "[tp_graph] 1-layer select-free TP (one nccl rank, "
+                    "its step captured) vs single-device", failures,
+                    paged_floor=True, ref=single, real=tuple(KERNEL_INFO))
+    del eng, single
+
+    mcfg = get_model_config(MOE_MODEL).replace(num_layers=CUT_LAYERS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(ctx.device)
+    eng = TPInferenceEngine.dummy(
+        mcfg, quantized.identity_calib(mcfg, SELECT_FRAC, device=ctx.device),
+        qcfg, ecfg, ctx, seed=0)
+    _, cap, _ = _tp_graph_scans(eng, f"{MOE_MODEL} {CUT_LAYERS} layers "
+                                "(experts as qdq stacks, ep_moe_block)",
+                                NEW_TOKENS, failures)
+    log(f"  {MOE_MODEL} {CUT_LAYERS} layers: capture "
+        f"{cap.get('capture_ms', 0.0):.1f} ms, graph pool "
+        f"{cap.get('pool_bytes', 0) / 2 ** 20:.1f} MiB, "
+        f"{cap.get('launches')} kernel launches a replay, peak device "
+        f"memory {_peak(ctx.device) / 2 ** 30:.3f} GiB ({card})")
+    del eng
+    return dict(failures=failures, launches=launches, metrics=metrics)
+
+
+def tp_graph_run(card, failures):
+    """[tp_graph]: the TP engine's decode step, decode_scan and verify_step
+    captured as CUDA graphs over NCCL, on one NCCL rank
+    (parallel.mesh.launch, cuda:0; a one-rank group makes its
+    collectives under nccl, so the capture holds a tp-2 rank's calls):
+    _tp_graph_rank. Returns the path tp_graph's launch counts."""
+    from arcquant_tpu_torch.parallel import launch
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        [res] = launch(_tp_graph_rank, 1, "nccl", args=(card,))
+    except Exception as e:       # a failed capture included
+        failures.append(f"[tp_graph]: {type(e).__name__}: {e}")
+        return None
+    failures.extend(res["failures"])
+    log(f"  [tp_graph] took {time.perf_counter() - t_phase:.1f} s on {card}")
+    return res["launches"]
+
+
 class _WordTok:
     """A toy word tokenizer for [lm_eval] (the card has no transformers):
     the word w<i> is id i, any other word a hash of it; decode writes
@@ -6628,6 +6982,10 @@ def main() -> int:
         f"generate --tp {TP_RANKS} (28 layers) and 1-layer checks, both ranks "
         f"on cuda:0 over gloo, on {card}")
     tp_launches = tp_run(card, failures)
+    log(f"[tp_graph] the TP engine's captured step over NCCL, one rank on "
+        f"cuda:0, {MODEL} full width, 28 layers (ARC 0.125, select-free), "
+        f"{MOE_MODEL} at {CUT_LAYERS} layers, on {card}")
+    tp_graph_launches = tp_graph_run(card, failures)
     log(f"[lm_eval] the lm-eval adapter, {MODEL} width, {LM_EVAL_LAYERS} "
         f"layers, packed w8, on {card}")
     lm_eval_launches = lm_eval_run(card, failures)
@@ -6660,7 +7018,7 @@ def main() -> int:
         for f in failures:
             print(f"FAIL: {f}", file=sys.stderr)
         return 1
-    # launches: over the twenty-nine main paths, the ARC generate(), the
+    # launches: over the thirty main paths, the ARC generate(), the
     # HTTP server, the w4 generate(), the select-free generate(), the MoE
     # model's w8 and w4 generate() and HTTP server, benchmark_e2e in NVFP4
     # and BF16, bench_serving, the GEMM lab, generate_ondevice, evaluate's packed route,
@@ -6668,8 +7026,8 @@ def main() -> int:
     # generate and evaluate; the MoE model's BF16 and fake-format
     # generate(), evaluate's packed route, calibrate and its calibrated
     # engine; the tensor-scale generate(); rank 0 of generate --tp 2; the
-    # lm-eval adapter; the PP generate() of both models (the stages
-    # summed); rank 0 of the dp x tp batcher, of the MoE generate --tp 2
+    # one-rank NCCL TP engine's captured run; the lm-eval adapter; the
+    # PP generate() of both models (the stages summed); rank 0 of the dp x tp batcher, of the MoE generate --tp 2
     # and of sp_paged_decode; actq's also by M
     path_launches = dict(
         generate=gen_launches, serve=serve_launches, generate_w4=w4_launches,
@@ -6685,7 +7043,8 @@ def main() -> int:
         evaluate_moe=moe_eval_launches, calibrate_moe=moe_cal_launches,
         calib_serve_moe=moe_cal_serve_launches,
         generate_tensor=tensor_launches, generate_tp=tp_launches,
-        lm_eval=lm_eval_launches, generate_pp=pp_launches,
+        tp_graph=tp_graph_launches, lm_eval=lm_eval_launches,
+        generate_pp=pp_launches,
         moe_pp=moe_pp_launches, dp_tp=dp_launches, ep_tp=ep_launches,
         sp_decode=sp_launches)
     actq_by_m = {p: c["actq_by_m"] for p, c in path_launches.items()}

@@ -9,8 +9,11 @@ every step of the dp 2 x tp 2 engine, decode steps against decode_scan,
 the collectives of a decode step, a sampled decode_scan, the batcher over
 dynamic pages with chunked prefill and a page pool a dp group, the
 replicated fallback (max_batch 3) and the dp 1 engine over the same tp
-group. The JAX references run here on 4 devices of tests/conftest.py's
-CPU mesh, their Pallas kernels in interpret mode.
+group; then the graph path (cuda_graphs=True: the bodies the card
+captures, run eagerly on the CPU, one generator a dp group) against the
+eager loop (the worker dp_engine_graphs). The JAX references run here
+on 4 devices of tests/conftest.py's CPU mesh, their Pallas kernels in
+interpret mode.
 """
 
 import jax
@@ -44,6 +47,10 @@ LENS = np.asarray([4, 2, 4, 3], np.int32)
 PROMPTS = [[5, 17, 301, 42], [100, 200, 33], [7, 8], [1, 2, 3]]
 MORE = [list(range(1, 29))] * 6
 STEPS = ("prefill", "decode1", "decode2", "decode3")
+# the graph-path verify at W 4: per row 4 tokens, 4 / 2 / 3 / 0 valid
+VT = np.asarray([[7, 8, 9, 10], [3, 4, 0, 0], [11, 12, 13, 0],
+                 [1, 0, 0, 0]], np.int32)
+VV = np.asarray([4, 2, 3, 0], np.int32)
 
 
 def _jax_run(cfg, params, calib):
@@ -72,11 +79,13 @@ def runs():
     calib = jquantized.identity_calib(cfg, 0.0)
     ref = _jax_run(cfg, params, calib)
     params = jax.tree.map(np.asarray, params)
-    task = ("dp_engine_run", (NAME, params, calib_arrays(calib), TOKS, LENS,
-                              ref["fed"], PROMPTS, MORE))
-    ranks = [r[0] for r in launch(tp_tasks, 4, "gloo", cpu=True,
-                                  args=([task],))]
-    return dict(ref=ref, params=params, calib=calib, ranks=ranks)
+    tasks = [("dp_engine_run", (NAME, params, calib_arrays(calib), TOKS,
+                                LENS, ref["fed"], PROMPTS, MORE)),
+             ("dp_engine_graphs", (NAME, params, calib_arrays(calib), TOKS,
+                                   LENS, ref["fed"], VT, VV))]
+    ranks = launch(tp_tasks, 4, "gloo", cpu=True, args=(tasks,))
+    return dict(ref=ref, params=params, calib=calib,
+                ranks=[r[0] for r in ranks], graphs=[r[1] for r in ranks])
 
 
 def _single(runs, ecfg):
@@ -129,6 +138,31 @@ def test_dp_sampling_one_generator_a_group(runs):
                                       r["group_draws_want"])
         assert r["sampled_generate"][0] == r["sampled_generate"][1]
         assert r["sampled_generate"][0] == r0["sampled_generate"][0]
+
+
+def test_dp_graph_path_bitwise_eager(runs):
+    """At dp 2 x tp 2, cuda_graphs=True against cuda_graphs=False on the
+    same weights: the prefill, 3 decode_steps fed the JAX tokens, a
+    verify_step at W 4, a greedy and a sampled decode_scan (group g's
+    rows from mix_seed(seed, g)'s generator, both registered with the
+    body), bitwise on every rank; the ranks agree."""
+    g0 = runs["graphs"][0]
+    for g in runs["graphs"]:
+        assert set(g["graph"]) == set(g["eager"])
+        for key, want in g["eager"].items():
+            np.testing.assert_array_equal(g["graph"][key], want,
+                                          err_msg=key)
+            np.testing.assert_array_equal(g["graph"][key], g0["graph"][key],
+                                          err_msg=key)
+
+
+def test_dp_graph_path_tokens_match_jax(runs):
+    """The graph path's greedy decode_scan from the prefill gives the JAX
+    dp x tp engine's greedy tokens (its decode steps' argmaxes)."""
+    ref = runs["ref"]
+    want = np.stack(ref["fed"][1:]
+                    + [ref["logits"]["decode3"].argmax(-1)], 1)
+    np.testing.assert_array_equal(runs["graphs"][0]["graph"]["scan"], want)
 
 
 def test_dp_decode_collectives(runs):

@@ -7,7 +7,8 @@ route against f64. Then the engine's decode step captured as a CUDA
 graph (2 layers at full width) against the eager loop
 (cuda_graphs=False): logits and tokens bitwise in every decode
 configuration, sampled decode_scan, a second state, the launch counts,
-no host synchronisation, and a capture that fails raising. The tools
+no host synchronisation, and a capture that fails raising; and the TP
+engine's captured step on one NCCL rank (``-k tp_graph``). The tools
 (``-k tools``): mse_table and measure_mse on the card against the CPU,
 and decode_profile's plan against one eager 2-layer step's calls.
 
@@ -1738,3 +1739,28 @@ def test_tools_decode_plan_pinned_on_the_card(way):
     torch.cuda.synchronize()
     assert common.pin(rows, way, counts) == []
     assert counts["gemm_dequant:lm_head"] == 1
+
+
+def test_tp_graph_one_nccl_rank():
+    """One NCCL rank (parallel.launch, cuda:0) at Qwen2.5-7B width cut to
+    2 layers: the TP engine captures by default, its captured
+    decode_scan's tokens and every step's logits (the records' digests)
+    are bitwise its eager loop's, and the collectives the capture
+    counted are an eager decode step's, 2 SUM + 2 MAX a layer."""
+    require_cuda()
+    from arcquant_tpu_torch.parallel import launch
+    from arcquant_tpu_torch.testing import tp_tasks
+    cfg = get_model_config("qwen2.5-7b")
+    [[res]] = launch(tp_tasks, 1, "nccl", args=([(
+        "tp_graph_gpu_run", ("qwen2.5-7b", 2, _graph_prompts(cfg), 8))],))
+    assert res["cuda_graphs"]
+    eager, graph = res["eager"], res["graph"]
+    np.testing.assert_array_equal(graph["tokens"], eager["tokens"])
+    assert [s["digest"] for s in graph["steps"]] == [
+        s["digest"] for s in eager["steps"]]
+    assert len(graph["steps"]) == 1 + 8
+    dec = [s["comm"] for s in eager["steps"] if s["kind"] == "decode"]
+    assert dec[0] == {"sum": 4, "max": 4}
+    assert [c["what"] for c in res["captures"]] == ["decode step"]
+    assert res["captures"][0]["comm"] == dec[0]
+    assert [s["comm"] for s in graph["steps"] if s["kind"] == "decode"] == dec

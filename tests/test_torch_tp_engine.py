@@ -9,7 +9,9 @@ one-shot prefill, 3 decode steps fed the JAX TP engine's greedy tokens, a
 verify_step and a chunked prefill; then the serving contracts at select
 0: the collectives of a decode step, speculative decoding and the
 batcher's spec_window and decode burst against the engine's own greedy
-decode, generate_ondevice's refusal, sampled decode_scan. A second spawn
+decode, generate_ondevice's refusal, sampled decode_scan; and at each
+ARC setting the graph path (cuda_graphs=True: the bodies the card
+captures, run eagerly on the CPU) against the eager loop. A second spawn
 runs ``python -m arcquant_tpu_torch.generate --tp 2 --dist_backend gloo
 --cpu``. The JAX TP engine runs here on 2 devices of tests/conftest.py's
 CPU mesh, its Pallas kernels in interpret mode.
@@ -90,8 +92,18 @@ def runs():
              for r in ref.values()]
     tasks.append(("tp_engine_serving", (NAME, params, ref[0.0]["calib"],
                                         SPEC_PROMPTS, GEN_PROMPTS, GEN_NEW)))
+    tasks += [("tp_engine_graphs", (NAME, params, r["calib"], r["toks"],
+                                    r["lens"], r["fed"], *_verify4(r)))
+              for r in ref.values()]
     ranks = launch(tp_tasks, 2, "gloo", cpu=True, args=(tasks,))
     return dict(ref=ref, params=params, ranks=ranks)
+
+
+def _verify4(ref):
+    """The graph-path verify's inputs at W 4: the JAX verify's three
+    tokens a row and one more, 4 and 2 of them valid."""
+    vt = np.concatenate([ref["vt"], [[9], [3]]], 1).astype(np.int32)
+    return vt, np.asarray([4, 2], np.int32)
 
 
 def _rows(step, logits, vv):
@@ -196,6 +208,35 @@ def test_tp_sampled_decode_scan(runs):
     np.testing.assert_array_equal(*s0["greedy_scan"])
 
 
+def _graphs(runs, frac, rank=0):
+    return runs["ranks"][rank][len(FRACS) + 1 + FRACS.index(frac)]
+
+
+@pytest.mark.parametrize("frac", FRACS)
+def test_tp_graph_path_bitwise_eager(runs, frac):
+    """cuda_graphs=True (the decode and verify bodies the card captures,
+    over the TP step) against cuda_graphs=False on the same weights:
+    the prefill, 3 decode_steps fed the JAX tokens, a verify_step at W
+    4, a greedy and a sampled decode_scan, bitwise on both ranks."""
+    for r in range(2):
+        g = _graphs(runs, frac, r)
+        assert set(g["graph"]) == set(g["eager"])
+        for key, want in g["eager"].items():
+            np.testing.assert_array_equal(g["graph"][key], want,
+                                          err_msg=key)
+
+
+@pytest.mark.parametrize("frac", FRACS)
+def test_tp_graph_path_tokens_match_jax(runs, frac):
+    """The graph path's greedy decode_scan from the prefill gives the JAX
+    TP engine's greedy tokens (its decode steps' argmaxes)."""
+    ref = runs["ref"][frac]
+    want = np.stack(ref["fed"][1:]
+                    + [ref["logits"]["decode3"].argmax(-1)], 1)
+    np.testing.assert_array_equal(_graphs(runs, frac)["graph"]["scan"],
+                                  want)
+
+
 def test_tp_generate_ondevice_rejected(runs):
     assert "single-chip" in (_serving(runs)["ondevice_error"] or "")
 
@@ -213,6 +254,7 @@ def test_generate_tp_entry_point(runs, monkeypatch, capsys):
     results = generate.main(argv)
     want = _serving(runs)["dummy_generate"]
     assert [r["outputs"] for r in results] == [want, want]
+    assert not any(r["cuda_graphs"] for r in results)
     assert all(s["digest"] == t["digest"] for s, t in
                zip(results[0]["steps"], results[1]["steps"]))
     decode = [s for s in results[0]["steps"] if s["kind"] == "decode"]
@@ -225,10 +267,12 @@ def test_generate_tp_entry_point(runs, monkeypatch, capsys):
 
 def test_tp_refusals():
     """nccl without a card a rank raises and names gloo; a CUDA graph under
-    gloo raises, and under nccl the captured step raises citing ROADMAP
-    item 8.6 (the only part of the TP engine not ported). MoE under TP is
-    served (experts sharded over the ranks, test_torch_ep.py), refused
-    only when tp does not divide the experts."""
+    gloo on the card raises before any weight is put on the device (the
+    context needs no card), and on the CPU it is accepted (nothing to
+    capture: the bodies run eagerly); under nccl the engine captures by
+    default. MoE under TP is served (experts sharded over the ranks,
+    test_torch_ep.py), refused only when tp does not divide the
+    experts."""
     from arcquant_tpu_torch.parallel import TPContext, TPInferenceEngine
     from arcquant_tpu_torch.parallel.tp_engine import check_tp
     from arcquant_tpu_torch.models import quantized
@@ -244,11 +288,15 @@ def test_tp_refusals():
     with pytest.raises(ValueError, match="num_experts"):
         check_tp(moe_cfg.replace(num_experts=3), QuantConfig(**TP_QKW), 2)
     cfg = get_model_config(NAME)
-    for backend, exc, match in (("gloo", ValueError, "CUDA graph"),
-                                ("nccl", NotImplementedError, "item 8.6")):
-        ctx = TPContext(2, 0, None, backend, torch.device("cpu"))
-        with pytest.raises(exc, match=match):
-            TPInferenceEngine.dummy(cfg, quantized.identity_calib(cfg, 0.0),
-                                    QuantConfig(**TP_QKW),
-                                    EngineConfig(**TP_EKW), ctx,
-                                    cuda_graphs=True)
+
+    def dummy(backend, device, **kw):
+        ctx = TPContext(2, 0, None, backend, torch.device(device))
+        return TPInferenceEngine.dummy(cfg, quantized.identity_calib(cfg, 0.0),
+                                       QuantConfig(**TP_QKW),
+                                       EngineConfig(**TP_EKW), ctx, **kw)
+
+    with pytest.raises(ValueError, match="CUDA graph"):
+        dummy("gloo", "cuda", cuda_graphs=True)
+    assert dummy("gloo", "cpu", cuda_graphs=True).cuda_graphs
+    assert not dummy("gloo", "cpu").cuda_graphs
+    assert dummy("nccl", "cpu").cuda_graphs
