@@ -7,8 +7,8 @@ decode shapes, in one process, on the same bits.
   python -m arcquant_tpu_torch.benchmarks.gemm_lab --exp scale    # decode modes
   python -m arcquant_tpu_torch.benchmarks.gemm_lab --exp w4       # w4 decodes
   python -m arcquant_tpu_torch.benchmarks.gemm_lab --exp shapes   # qwen2.5-7b, M 4
-  python -m arcquant_tpu_torch.benchmarks.gemm_lab --exp dma      # copy-ring depth
-  python -m arcquant_tpu_torch.benchmarks.gemm_lab --exp dmaprod  # production vs ring
+  python -m arcquant_tpu_torch.benchmarks.gemm_lab --exp dma      # the copy rings' knobs
+  python -m arcquant_tpu_torch.benchmarks.gemm_lab --exp dmaprod  # production vs the rings
 
 Every row is the median of 7 CUDA-event runs with L2 flushed, its
 min-max spread, its share of the weight-stream bound (the bytes of
@@ -16,9 +16,12 @@ codes, scales, activations and output over 3.35 TB/s; for the bf16
 torch.matmul row, of the unquantized weight's bytes) and the card's
 name and power limit. `exact` says whether a variant's output equals the
 production GEMM's bit for bit. The sweeps run over Hopper tiles (BN
-columns a block, BKS k rows a stage, the ring's depth) and k splits; a
-configuration that does not fit a block's shared memory is printed as
-skipped, one that is not instantiated in csrc/gemm_lab.cu as not built.
+columns a block, BKS k rows a stage, the ring's depth) and k splits; for
+lab_w8_ring (the TMA ring) its depth, its consumer warps (BN / 32) and
+its blocks an SM, for lab_w8_ring_n its cluster size. A configuration
+that does not fit a block's shared memory is printed as skipped, one
+that is not instantiated in csrc/gemm_lab.cu as not built, a cluster
+size the card cannot schedule as refused.
 Times are device times: the timer holds the stream busy while the host
 enqueues the call (``common.Timer``).
 """
@@ -43,8 +46,8 @@ from .common import (Timer, Timing, bound_ms, card, nbytes, require_cuda,
 SHAPES = {"qkv": (4608, 3584), "o": (3584, 3584), "gateup": (37888, 3584),
           "down": (3584, 18944)}
 BLOCK_SWEEP = [(bn, bks) for bn in (64, 128, 256) for bks in (32, 64, 128, 256)]
-STAGE_SWEEP = tuple(sorted({s for _, _, s in gl.RING_CONFIGS}))
 SPLIT_SWEEP = (1, 2, 4, 8, 16)   # k splits of the default tile
+CLUSTER_SWEEP = (None, 1, 2, 4, 8, 16)   # lab_w8_ring_n (None: production's)
 DEFAULT = dict(bn=128, bks=128, stages=3)
 AB_ROUNDS = 5   # best_by_site's alternating re-timing
 
@@ -231,54 +234,88 @@ def exp_shapes(lab: Lab, m: int = 4):
     return out
 
 
-def exp_dma(lab: Lab, m, n, k):
-    c = Case(m, n, k)
-    lab.head(c)
+def ring_variants(c: Case):
+    """(name, callable, must) of every built copy-ring variant at the
+    case's shape: lab_w8_ring at each configuration and every count of
+    blocks an SM its shared memory allows (production's plan, so bitwise
+    by design); lab_w8_ring_n at each tile and cluster size of
+    CLUSTER_SWEEP the card schedules (bitwise where the cluster is
+    production's split count)."""
     ops = c.operands("w8")
-    for stages in STAGE_SWEEP:
-        for per_sm in (1, 2):
-            name = f"lab_w8_ring bn=128 bks=128 stages={stages} {per_sm}/SM"
-            if lab.skip(name, 128, 128, stages, "base",
-                        [(*r, "base") for r in gl.RING_CONFIGS]):
+    out = []
+    for bn, bks, stages in gl.RING_CONFIGS:
+        for per_sm in range(1, gl.ring_per_sm(bn, stages) + 1):
+            b = gl.ring_blocks(per_sm)
+            out.append((f"lab_w8_ring bn={bn} ({bn // 32} consumer warps) "
+                        f"stages={stages} {per_sm}/SM",
+                        lambda bn=bn, bks=bks, stages=stages, b=b:
+                        gl.lab_w8_ring(*ops, bn=bn, bks=bks, stages=stages,
+                                       blocks=b), True))
+    prod = gl._plan(c.m, c.n, c.kq)
+    for bn, bks, stages in sorted({t[:3] for t in gl.RING_N_CONFIGS}):
+        seen = set()
+        for cluster in CLUSTER_SWEEP:
+            plan = gl._plan(c.m, c.n, c.kq, cluster)
+            if plan in seen or gl.cluster_fit(bn, bks, stages, plan[0]) < 1:
                 continue
-            blocks = gl.ring_blocks(per_sm)
-            y = gl.lab_w8_ring(*ops, stages=stages, blocks=blocks)
-            lab.row(name, lambda stages=stages, blocks=blocks: gl.lab_w8_ring(
-                *ops, stages=stages, blocks=blocks), c.bound_s("w8"),
-                f"exact={c.exact(y)}")
-    for stages in STAGE_SWEEP:
-        name = f"lab_w8_ring_n bn=128 bks=128 stages={stages}"
-        if lab.skip(name, 128, 128, stages, "base", gl.LAB_CONFIGS):
-            continue
-        y = gl.lab_w8_ring_n(*ops, stages=stages)
-        lab.row(name, lambda stages=stages: gl.lab_w8_ring_n(
-            *ops, stages=stages), c.bound_s("w8"), f"exact={c.exact(y)}")
+            seen.add(plan)
+            out.append((f"lab_w8_ring_n bn={bn} bks={bks} stages={stages} "
+                        f"cluster={plan[0]}",
+                        lambda bn=bn, bks=bks, stages=stages, cl=cluster:
+                        gl.lab_w8_ring_n(*ops, bn=bn, bks=bks, stages=stages,
+                                         cluster=cl), plan == prod))
+    return out
+
+
+def exp_dma(lab: Lab, m, n, k):
+    """The copy rings: lab_w8_ring at each depth, consumer-warp count and
+    blocks an SM; lab_w8_ring_n at each depth and cluster size (the sizes
+    the card cannot schedule printed as refused)."""
+    c = Case(m, n, k)
+    _, prod = lab.head(c)
+    for bn, bks, stages in gl.RING_CONFIGS:
+        if gl.ring_smem_bytes(bn, stages) > gl.SMEM_MAX:
+            lab.log(f"  lab_w8_ring bn={bn} stages={stages} skipped: "
+                    f"{gl.ring_smem_bytes(bn, stages)} B of shared memory")
+    for bn, bks, stages, cl in gl.RING_N_CONFIGS:
+        if cl in CLUSTER_SWEEP and gl.cluster_fit(bn, bks, stages, cl) < 1:
+            lab.log(f"  lab_w8_ring_n bn={bn} stages={stages} cluster={cl} "
+                    "refused: the card cannot schedule it")
+    for name, fn, must in ring_variants(c):
+        y = fn()
+        t = lab.row(name, fn, c.bound_s("w8"),
+                    f"exact={c.exact(y)} (bitwise by design: {must})")
+        lab.log(f"  {'':46s} {prod.median / t.median:.3f}x production")
 
 
 def exp_dmaprod(lab: Lab, m: int = 4):
-    """Production against lab_w8_ring (128 x 128, 3 stages, a block an
-    SM) at Qwen2.5-7B's decode shapes."""
-    tot_p = tot_r = 0.0
+    """Production against the two copy rings at their defaults
+    (lab_w8_ring: 128 columns, 2 slots, RING_PER_SM blocks an SM;
+    lab_w8_ring_n: production's split count as the cluster size) at
+    Qwen2.5-7B's decode shapes."""
+    tot = dict(production=0.0, ring=0.0, ring_n=0.0)
     for name, (n, k) in SHAPES.items():
         c = Case(m, n, k)
         ops = c.operands("w8")
-        y = gl.lab_w8_ring(*ops)
-        tp = lab.row(f"{name} production w8", c.production("w8"),
-                     c.bound_s("w8"))
-        tr = lab.row(f"{name} lab_w8_ring", lambda: gl.lab_w8_ring(*ops),
-                     c.bound_s("w8"), f"exact={c.exact(y)}")
-        tot_p += tp.median
-        tot_r += tr.median
+        runs = dict(production=c.production("w8"),
+                    ring=lambda: gl.lab_w8_ring(*ops),
+                    ring_n=lambda: gl.lab_w8_ring_n(*ops))
+        for what, fn in runs.items():
+            y = fn()
+            tot[what] += lab.row(f"{name} {what}", fn, c.bound_s("w8"),
+                                 f"exact={c.exact(y)}").median
         del c
-    lab.log(f"TOTAL: production {tot_p:.4f} ms, ring {tot_r:.4f} ms "
-            f"({tot_p / tot_r:.3f}x)  [{lab.card}]")
+    lab.log(f"TOTAL: production {tot['production']:.4f} ms, ring "
+            f"{tot['ring']:.4f} ms ({tot['production'] / tot['ring']:.3f}x), "
+            f"ring_n {tot['ring_n']:.4f} ms "
+            f"({tot['production'] / tot['ring_n']:.3f}x)  [{lab.card}]")
 
 
 def candidates(c: Case, fmt: str):
     """(name, callable, must) of every built lab variant of a format at
     the case's shape: w8 base tiles, the default tile at each split count
-    of SPLIT_SWEEP that production's plan does not give, the rings; w4 f32
-    tiles and the same splits. `must`: the variant keeps production's k
+    of SPLIT_SWEEP that production's plan does not give, the copy rings
+    (ring_variants); w4 f32 tiles and the same splits. `must`: the variant keeps production's k
     order, so its output must equal production's bit for bit (else it is
     held to the sum-order bound)."""
     ops = c.operands(fmt)
@@ -298,18 +335,7 @@ def candidates(c: Case, fmt: str):
                         lambda splits=splits: lab(*ops, splits=splits,
                                                   **DEFAULT), False))
     if fmt == "w8":
-        for bn, bks, stages in gl.RING_CONFIGS:
-            for per_sm in (1, 2):
-                blocks = gl.ring_blocks(per_sm)
-                out.append((f"lab_w8_ring bn={bn} bks={bks} stages={stages} "
-                            f"{per_sm}/SM",
-                            lambda bn=bn, bks=bks, stages=stages, b=blocks:
-                            gl.lab_w8_ring(*ops, bn=bn, bks=bks,
-                                           stages=stages, blocks=b), True))
-            out.append((f"lab_w8_ring_n bn={bn} bks={bks} stages={stages}",
-                        lambda bn=bn, bks=bks, stages=stages:
-                        gl.lab_w8_ring_n(*ops, bn=bn, bks=bks,
-                                         stages=stages), plan == 1))
+        out += ring_variants(c)
     return out
 
 
@@ -325,12 +351,15 @@ def best_by_site(lab: Lab, m: int = 4, sites=SHAPES):
     bitwise to production where it keeps production's k order, else
     within the sum-order bound), the fastest; then production, the
     fastest and the default tile re-timed in turns over AB_ROUNDS rounds
-    (the selection's own timing is a minimum over many variants), and
-    production and the fastest once more without the timer's hold (how
-    much of a wrapper's host time an unheld timing counts). Returns a
-    list of dicts (site, fmt, best, splits: production's k splits,
+    (the selection's own timing is a minimum over many variants), in w8
+    with the fastest lab_w8_ring and the fastest lab_w8_ring_n beside
+    them, and production and the fastest once more without the timer's
+    hold (how much of a wrapper's host time an unheld timing counts).
+    Returns a list of dicts (site, fmt, best, rings: {ring, ring_n: the
+    fastest variant's name} in w8, splits: production's k splits,
     variants: {name: (ms, exact, must, close)}, ab: {production, best,
-    default: Timing over the rounds}, unheld: {production, best}, bound_ms)."""
+    default[, ring, ring_n]: Timing over the rounds}, unheld: {production,
+    best}, bound_ms)."""
     rows = []
     for name, (n, k) in sites.items():
         c = Case(m, n, k)
@@ -346,6 +375,12 @@ def best_by_site(lab: Lab, m: int = 4, sites=SHAPES):
             default = f"lab_w{fmt[1]} bn=128 bks=128 stages=3"
             turns = {"production": c.production(fmt), "best": fns[best],
                      "default": fns[default]}
+            rings = {}
+            for kind in (("ring", "ring_n") if fmt == "w8" else ()):
+                named = [w for w in variants
+                         if w.startswith(f"lab_w8_{kind} ")]
+                rings[kind] = min(named, key=lambda w: variants[w][0])
+                turns[kind] = fns[rings[kind]]
             per = {w: [] for w in turns}
             for _ in range(AB_ROUNDS):
                 for w, fn in turns.items():
@@ -373,7 +408,13 @@ def best_by_site(lab: Lab, m: int = 4, sites=SHAPES):
                     f"{ab['default'].median / ab['production'].median:.3f}; "
                     f"unheld: production {unheld['production']}, best "
                     f"{unheld['best']}; bound {b:.4f} ms  [{lab.card}]")
-            rows.append(dict(site=name, fmt=fmt, best=best,
+            for kind, w in rings.items():
+                lab.log(f"  {name:6s} {fmt} M={m}, the fastest {kind}: {w} "
+                        f"{ab[kind]} in turns, "
+                        f"{ab[kind].median / ab['production'].median:.3f}x "
+                        f"production, {b / ab[kind].median * 100:.1f}% of the "
+                        f"bound, bitwise {variants[w][1]}  [{lab.card}]")
+            rows.append(dict(site=name, fmt=fmt, best=best, rings=rings,
                              splits=gk._split_plan(m, n, c.kq)[1],
                              variants=variants, ab=ab, unheld=unheld,
                              bound_ms=b))

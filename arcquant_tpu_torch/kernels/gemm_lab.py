@@ -9,30 +9,38 @@ f32 accumulation, with its tile, pipeline depth and decode varied.
                  bf16, the product in bf16), noscale (bf16(code): a probe
                  of the ALU floor);
   lab_w8_ring    ``w8_dma_variant``: a persistent grid whose blocks each
-                 drive one copy ring over a run of (split, m-tile, n-tile)
-                 work items in the weight's byte order (mode base);
-  lab_w8_ring_n  ``w8_dma_nblock``: one block per n tile over the whole K
-                 (mode base, one split);
+                 drive one warp-specialised TMA ring (a producer warp,
+                 full / empty mbarriers, 4 or 8 consumer warps decoding
+                 into mma.sync fragments) over a run of (split, m-tile,
+                 n-tile) work items in the weight's byte order (mode
+                 base, production's split plan);
+  lab_w8_ring_n  ``w8_dma_nblock``: one thread-block cluster per n tile,
+                 its CTAs splitting K and summing their partials in
+                 distributed shared memory (mode base);
   lab_w4         ``w4_variant``: nibble decodes f32 (production), i16
                  (straight to bf16 bits, bf16 scale products) and nodec
                  (the byte's bits c << 22 as f32 for both k rows: a probe
                  of the stream floor).
 
-CUDA tensors launch ``csrc/gemm_lab.cu`` (a ring of cp.async stages of
-BKS k rows, BN columns a block, the production 32-deep promotion and
-epilogue); CPU tensors run the plain versions, which decode as the JAX
-kernel bodies do and take an f32 matmul. xa is in natural k order for
-both formats (the TPU's split-half w4 operand is not carried over) and
-is not padded to 16 rows: the kernels mask the rows past M.
+CUDA tensors launch ``csrc/gemm_lab.cu``: lab_w8 and lab_w4 a ring of
+cp.async stages of BKS k rows, BN columns a block, the production
+32-deep promotion and epilogue; the two rings production's 128-deep
+stage and mainloop (``gemm_small_m.cuh``) fed by TMA. CPU tensors run
+the plain versions, which decode as the JAX kernel bodies do and take an
+f32 matmul. xa is in natural k order for both formats (the TPU's
+split-half w4 operand is not carried over) and is not padded to 16
+rows: the kernels mask the rows past M.
 
 With production's split plan (``gemm._split_plan``, the default) the
 exact modes (base, mul3d, bf16; w4 f32 and i16) give gemm_w8's bits, and
-so does lab_w8_ring; lab_w8_ring_n does where the plan has one split.
-Nothing on a serving path calls this module.
+so do lab_w8_ring and lab_w8_ring_n (at a cluster size of production's
+split count, its default). Nothing on a serving path calls this module.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -47,7 +55,7 @@ LAB_W8 = _build.Kernel("lab_w8", "arc_lab_w8",
 LAB_W8_RING = _build.Kernel("lab_w8_ring", "arc_lab_w8_ring",
                             [P, P, P, P, P, P, P] + [I32] * 9)
 LAB_W8_RING_N = _build.Kernel("lab_w8_ring_n", "arc_lab_w8_ring_n",
-                              [P, P, P, P, P, P] + [I32] * 6)
+                              [P, P, P, P, P, P] + [I32] * 8)
 LAB_W4 = _build.Kernel("lab_w4", "arc_lab_w4",
                        [P, P, P, P, P, P, P] + [I32] * 9)
 KERNELS = (LAB_W8, LAB_W8_RING, LAB_W8_RING_N, LAB_W4)
@@ -58,8 +66,7 @@ EXACT_MODES = ("base", "mul3d", "bf16", "f32", "i16")
 _MODE_ID = {m: i for i, m in enumerate(W8_MODES + W4_MODES)}
 
 # (bn, bks, stages, mode) instantiated in csrc/gemm_lab.cu
-# (LAB_CONFIG_LIST; lab_w8_ring_n runs the base entries) and the ring's
-# (bn, bks, stages) (RING_CONFIG_LIST)
+# (LAB_CONFIG_LIST)
 LAB_CONFIGS = (
     *((bn, bks, 3, "base") for bn in (64, 128, 256)
       for bks in (32, 64, 128, 256) if (bn, bks) != (256, 256)),
@@ -67,23 +74,52 @@ LAB_CONFIGS = (
     (128, 128, 3, "mul3d"), (128, 128, 3, "bf16"), (128, 128, 3, "noscale"),
     (64, 256, 3, "f32"), (128, 128, 3, "f32"), (128, 256, 3, "f32"),
     (256, 128, 3, "f32"), (128, 128, 3, "i16"), (128, 128, 3, "nodec"))
-RING_CONFIGS = ((128, 128, 2), (128, 128, 3), (128, 128, 4), (128, 128, 6))
+# lab_w8_ring's (bn, bks, stages) (RING_CONFIG_LIST): bn / 32 consumer
+# warps, 128-deep stages (production's), `stages` ring slots
+RING_CONFIGS = ((128, 128, 2), (128, 128, 4), (128, 128, 6), (128, 128, 8),
+                (256, 128, 2), (256, 128, 4))
+# lab_w8_ring_n's (bn, bks, stages, cluster): RING_N_CONFIG_LIST's tiles
+# at every cluster size up to MAX_CLUSTER (a launch attribute, not an
+# instantiation; 8 is the portable limit)
+MAX_CLUSTER = 16
+RING_N_CONFIGS = tuple((128, 128, stages, c) for stages in (2, 3, 4)
+                       for c in range(1, MAX_CLUSTER + 1))
 
 SMEM_MAX = 232448   # shared memory a block can use on an H100
 SUBK = 32           # the production k-tile
 BM = 16             # activation rows a block
 
 
+def _al(x: int) -> int:
+    return -(-x // 128) * 128
+
+
 def smem_bytes(bn: int, bks: int, stages: int, mode: str) -> int:
-    """Dynamic shared memory of a configuration (csrc/gemm_lab.cu Cfg)."""
-    def al(x):
-        return -(-x // 128) * 128
+    """Dynamic shared memory of a lab_w8 / lab_w4 configuration
+    (csrc/gemm_lab.cu Cfg)."""
     code_rows = bks // 2 if mode in W4_MODES else bks
-    stage = (al(code_rows * bn) + al(bks // 16 * bn)
-             + al(BM * (bks + 8) * 2))
-    s3 = al(bks // 16 * bn * 4) if mode == "mul3d" else 0
-    return (stages * stage + al(SUBK * (bn + 8) * 2) + al(bn // 32 * 256 * 4)
-            + s3)
+    stage = (_al(code_rows * bn) + _al(bks // 16 * bn)
+             + _al(BM * (bks + 8) * 2))
+    s3 = _al(bks // 16 * bn * 4) if mode == "mul3d" else 0
+    return (stages * stage + _al(SUBK * (bn + 8) * 2)
+            + _al(bn // 32 * 256 * 4) + s3)
+
+
+# The copy rings' stage: gemm_small_m.cuh's 128-column w8 stage
+# (Cfg<1, false>), filled by three TMA boxes, {inner, outer} elements and
+# the element's bytes: codes 128 k rows of 144 (128 + 16 pad) bytes,
+# scales 8 rows of 128, activations 16 rows of 136 (128 + 8 pad) bf16.
+RING_HALF = 128
+RING_BOXES = {"codes": (RING_HALF + 16, 128, 1), "scales": (RING_HALF, 8, 1),
+              "xa": (128 + 8, BM, 2)}
+RING_STAGE = sum(_al(i * o * b) for i, o, b in RING_BOXES.values())
+
+
+def ring_smem_bytes(bn: int, stages: int) -> int:
+    """Dynamic shared memory of a copy-ring configuration (csrc/
+    gemm_lab.cu ring::Ring): the alignment pad, `stages` slots of bn /
+    128 stages, a full and an empty mbarrier a slot."""
+    return 128 + stages * (bn // RING_HALF) * RING_STAGE + 16 * stages
 
 
 # -- plain versions ------------------------------------------------------------
@@ -167,7 +203,7 @@ def _operands(name, w4, xa, codes, scales, gs, gw):
             gw.reshape(-1).float().contiguous(), m, n, kq)
 
 
-def _plan(m, n, kq, splits: Optional[int]):
+def _plan(m, n, kq, splits: Optional[int] = None):
     """(splits, 32-tiles a split): production's plan unless `splits` is
     given."""
     if splits is None:
@@ -223,19 +259,63 @@ def lab_w4(xa, codes, scales, gs, gw, mode: str = "f32", bn: int = 128,
                    stages, splits)
 
 
+def cluster_ranges(m: int, n: int, kq: int, cluster: Optional[int] = None):
+    """The k-tile range [kt0, kt1) of each CTA rank of a lab_w8_ring_n
+    cluster, as the kernel takes it from _plan's (c, per): c CTAs, rank r
+    over [r per, min((r + 1) per, Kq / 32))."""
+    c, per = _plan(m, n, kq, cluster)
+    return [(r * per, min((r + 1) * per, kq // SUBK)) for r in range(c)]
+
+
+@functools.lru_cache(maxsize=None)
+def cluster_fit(bn: int, bks: int, stages: int, cluster: int) -> int:
+    """How many lab_w8_ring_n clusters of this configuration and size the
+    current card holds at once (cudaOccupancyMaxActiveClusters; 0: it
+    cannot schedule one)."""
+    active = ctypes.c_int(0)
+    fn = _build.library().arc_lab_cluster_fit
+    fn.argtypes = [I32, I32, I32, I32, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    rc = fn(bn, bks, stages, cluster, ctypes.byref(active))
+    if rc != 0:
+        raise RuntimeError(f"arc_lab_cluster_fit failed: cudaError {rc}")
+    return active.value
+
+
+def _tma_operands(name, xa, codes, scales, gs, gw):
+    """The rings' operands: the lab's checks, then 16-byte aligned bases
+    (TMA's; a misaligned one is copied)."""
+    xa, codes, scales, gs, gw, m, n, kq = _operands(name, False, xa, codes,
+                                                     scales, gs, gw)
+    return (gk._aligned(xa), gk._aligned(codes), gk._aligned(scales), gs, gw,
+            m, n, kq)
+
+
 def lab_w8_ring_n(xa, codes, scales, gs, gw, bn: int = 128, bks: int = 128,
-                  stages: int = 3):
-    """w8_dma_nblock: one block per BN-wide n tile over the whole K
-    through a `stages`-deep ring (mode base, one split)."""
+                  stages: int = 2, cluster: Optional[int] = None):
+    """w8_dma_nblock: one cluster of c CTAs per 128-wide n tile, CTA r
+    streaming its k range through its own TMA ring, the cluster summing
+    the partials in distributed shared memory in rank order (mode base).
+    c is production's split count by default (its bits), else about
+    `cluster` (_plan). Raises for a configuration that is not
+    built and for a cluster size the card cannot schedule."""
     if gk._cpu(xa):
         return lab_w8_plain(xa, codes, scales, gs, gw, "base")
-    _check("lab_w8_ring_n", bn, bks, stages, "base", LAB_CONFIGS)
-    xa, codes, scales, gs, gw, m, n, kq = _operands(
-        "lab_w8_ring_n", False, xa, codes, scales, gs, gw)
+    xa, codes, scales, gs, gw, m, n, kq = _tma_operands(
+        "lab_w8_ring_n", xa, codes, scales, gs, gw)
+    c, per = _plan(m, n, kq, cluster)
+    if (bn, bks, stages, c) not in RING_N_CONFIGS:
+        raise ValueError(f"lab_w8_ring_n: configuration bn={bn} bks={bks} "
+                         f"stages={stages} cluster={c} is not built "
+                         "(csrc/gemm_lab.cu RING_N_CONFIG_LIST, MAX_CLUSTER)")
+    if cluster_fit(bn, bks, stages, c) < 1:
+        raise ValueError(f"lab_w8_ring_n: the card cannot schedule a cluster "
+                         f"of {c} CTAs of bn={bn} bks={bks} stages={stages} "
+                         "(cudaOccupancyMaxActiveClusters 0)")
     out = torch.empty((m, n), dtype=torch.bfloat16, device=xa.device)
     LAB_W8_RING_N(_build.ptr(xa), _build.ptr(codes), _build.ptr(scales),
                   _build.ptr(gs), _build.ptr(gw), _build.ptr(out), m, n, kq,
-                  bn, bks, stages)
+                  bn, bks, stages, c, per)
     return out
 
 
@@ -245,20 +325,31 @@ def ring_blocks(per_sm: int = 1) -> int:
     return per_sm * props.multi_processor_count
 
 
+def ring_per_sm(bn: int, stages: int) -> int:
+    """How many blocks of a lab_w8_ring configuration an H100 SM holds
+    (228 KB of shared memory, 1 KB of it reserved a block)."""
+    return (228 * 1024) // (ring_smem_bytes(bn, stages) + 1024)
+
+
+RING_PER_SM = 3   # lab_w8_ring's default grid: three blocks an SM
+
+
 def lab_w8_ring(xa, codes, scales, gs, gw, bn: int = 128, bks: int = 128,
-                stages: int = 3, blocks: Optional[int] = None):
-    """w8_dma_variant on a persistent grid of `blocks` blocks (one an SM
-    by default), production's split plan, mode base."""
+                stages: int = 2, blocks: Optional[int] = None):
+    """w8_dma_variant on a persistent grid of `blocks` blocks
+    (RING_PER_SM an SM by default), each a producer warp and bn / 32
+    consumer warps over a `stages`-slot TMA ring; production's split
+    plan, mode base."""
     if gk._cpu(xa):
         return lab_w8_plain(xa, codes, scales, gs, gw, "base")
     if (bn, bks, stages) not in RING_CONFIGS:
         raise ValueError(f"lab_w8_ring: configuration bn={bn} bks={bks} "
                          f"stages={stages} is not built (RING_CONFIG_LIST)")
-    xa, codes, scales, gs, gw, m, n, kq = _operands(
-        "lab_w8_ring", False, xa, codes, scales, gs, gw)
+    xa, codes, scales, gs, gw, m, n, kq = _tma_operands(
+        "lab_w8_ring", xa, codes, scales, gs, gw)
     splits, per = _plan(m, n, kq, None)
     items = splits * -(-m // BM) * -(-n // bn)
-    blocks = min(items, blocks or ring_blocks())
+    blocks = min(items, blocks or ring_blocks(RING_PER_SM))
     out = torch.empty((m, n), dtype=torch.bfloat16, device=xa.device)
     ws = (torch.empty((splits, m, n), dtype=torch.float32, device=xa.device)
           if splits > 1 else None)

@@ -29,9 +29,14 @@ Phases, each printed as it runs:
      projections in w8 and w4 at M 4, 8 and 256, bitwise against the
      per-expert loop of the single GEMM, the 60-expert stack decoded in
      one launch, and the attention kernels at its G = 1; and the GEMM
-     lab's four kernels (csrc/gemm_lab.cu) in every decode mode at the
-     gateup and qkv sites at M 4, the exact ones bitwise against gemm_w8,
-     and at qkv whether a bitwise A/B can see the k order (gemm_w8's f32
+     lab's four kernels (csrc/gemm_lab.cu; lab_w8_ring a warp-specialised
+     TMA + mbarrier persistent ring, lab_w8_ring_n one thread-block
+     cluster per n tile with its split-K summed in distributed shared
+     memory) at the four decode sites at M 4, select-free and ARC 0.125,
+     each beside its bound and torch.matmul over the decoded bf16
+     weight, in every decode mode at the gateup and qkv sites
+     (select-free), the exact ones and both rings bitwise against
+     gemm_w8, and at qkv whether a bitwise A/B can see the k order (gemm_w8's f32
      sums and lab_w8's outputs at 1 split and at production's 7, on
      quantized and on bf16 activations); gemm_w8's and gemm_w4's large-M
      tile (M 4096) at the four prefill sites beside its bound and
@@ -127,9 +132,11 @@ Phases, each printed as it runs:
  12. [lab]: the GEMM lab's script (benchmarks/gemm_lab.py) at the four
      decode sites at M 4: production against bf16 torch.matmul and the
      bound, every built lab variant in w8 and w4 (tiles, depths, k
-     splits, the rings) timed and held to production (bitwise where it
-     keeps production's k order), the fastest per site, then production,
-     the fastest and the default tile re-timed in turns over five rounds;
+     splits; the TMA ring's depths, consumer warps and blocks an SM, the
+     cluster kernel's cluster sizes) timed and held to production
+     (bitwise where it keeps production's k order), the fastest per site,
+     then production, the fastest, the default tile and (w8) the fastest
+     of each copy ring re-timed in turns over five rounds;
  13. the MoE model, qwen1.5-moe-a2.7b at full width, all 24 layers, in
      w8 and then w4 (moe_run): generate() on the same 4 requests with the
      launch counts (gemm_batched once a layer a decode step), prefill ms,
@@ -977,93 +984,130 @@ def route_checks(cfg, gen, timer, record, failures):
         torch.cuda.empty_cache()
 
 
+LAB_SITES = ("qkv", "o", "gateup", "down")
+
+
 def lab_kernel_checks(cfg, gen, timer, record, failures):
-    """Phase 3, the GEMM lab's kernels (#16) with their default tile (128
-    columns, 128-deep stages, 3 stages) at Qwen2.5-7B's gateup (M 4, Kq
-    3584 select-free: production plans one split) and qkv (M 4: 7 splits),
-    one weight packed in w8 and w4:
-      lab_w8         base, mul3d, bf16, noscale;
-      lab_w8_ring    a block an SM, production's plan;
-      lab_w8_ring_n  one split over the whole K;
-      lab_w4         f32, i16, nodec;
-    each against its plain version within the f32 sum order plus one bf16
-    ulp; the exact modes (and the ring) bitwise equal to gemm_w8, which
-    gemm_w4 equals too, ring_n only where production has one split (bars:
-    fail if not); bf16 and i16 also their error against f64 beside
-    production's; the probes (noscale, nodec) checked for shape and
-    finiteness only. Kernel ms, plain ms, bound and torch.matmul over the
-    decoded bf16 weight at gateup (the representative rows: base, f32)."""
+    """Phase 3, the GEMM lab's kernels (#16) at Qwen2.5-7B's four decode
+    sites (qkv, o, gateup, down) at M 4, select-free and ARC 0.125, one
+    weight a site packed in w8 and w4: a line per kernel at its default
+    configuration (lab_w8 base and lab_w4 f32: 128 x 128, 3 stages,
+    production's split plan; lab_w8_ring: the TMA ring, 128 columns, 4
+    slots, two blocks an SM; lab_w8_ring_n: one cluster of production's
+    split count per n tile) with its ms, bound, torch.matmul over the
+    decoded bf16 weight, plain ms, error against the plain version and
+    bitwise against gemm_w8 (all four run production's plan and k order
+    there; gemm_w4 equals gemm_w8 too), on the card named with its power
+    limit; at gateup and qkv select-free also the other decode modes
+    (lab_w8 mul3d, bf16, noscale; lab_w4 i16, nodec), bf16 and i16 with
+    their error against f64 beside production's, the probes (noscale,
+    nodec) checked for shape and finiteness only. Bars: within the f32
+    sum order plus one bf16 ulp of the plain version, and bitwise where
+    the kernel runs production's plan. The representative rows (the
+    kernels line) are gateup select-free."""
+    from arcquant_tpu_torch.benchmarks.common import card
     from arcquant_tpu_torch.kernels import gemm as gk
     from arcquant_tpu_torch.kernels import gemm_lab as gl
     from arcquant_tpu_torch.kernels import quantize as qk
     from arcquant_tpu_torch.quant import packing
 
     h, f, m, bf = cfg.hidden_size, cfg.intermediate_size, 4, torch.bfloat16
-    for name, n in (("gateup", 2 * f), ("qkv", cfg.q_size + 2 * cfg.kv_size)):
-        w = bf16_randn(gen, (n, h), h ** -0.5)
-        ridx = torch.arange(h, device="cuda")
-        p8, p4 = (packing.pack_weight_arc(w, ridx, 0, fmt=fmt,
-                                          w_scale="channel")
-                  for fmt in ("w8", "w4"))
-        del w
-        xa, gx = qk.quantize_x_arc(bf16_randn(gen, (m, h), 2.0), ridx, 0)
-        gs, gw = gx.reshape(-1), p8.global_scale.reshape(-1).float()
-        prod = gk._gemm_w8_cuda(xa, p8.codes, p8.scales, gx, gw[None], None,
-                                bf)
-        prod4 = gk._gemm_w4_cuda(xa, p4.codes, p4.scales, gx, gw[None], None,
-                                 bf)
-        f64 = gemm_w8_f64(xa, p8.codes, p8.scales, gx, gw[None], None, None)
-        _, splits, _ = gk._split_plan(m, n, p8.kq)
-        rep = name == "gateup"
-        wd = gk.dequant_weight(p8) if rep else None   # natural k order
-        a8 = (xa, p8.codes, p8.scales, gs, gw)
-        a4 = (xa, p4.codes, p4.scales, gs, gw)
-        rows = [("lab_w8", mode, lambda mode=mode: gl.lab_w8(*a8, mode=mode),
-                 lambda mode=mode: gl.lab_w8_plain(*a8, mode), p8)
-                for mode in gl.W8_MODES]
-        rows += [("lab_w8_ring", "base", lambda: gl.lab_w8_ring(*a8),
-                  lambda: gl.lab_w8_plain(*a8), p8),
-                 ("lab_w8_ring_n", "base", lambda: gl.lab_w8_ring_n(*a8),
-                  lambda: gl.lab_w8_plain(*a8), p8)]
-        rows += [("lab_w4", mode, lambda mode=mode: gl.lab_w4(*a4, mode=mode),
-                  lambda mode=mode: gl.lab_w4_plain(*a4, mode), p4)
-                 for mode in gl.W4_MODES]
-        torch.cuda.synchronize()
-        if not bitwise([prod4], [prod]):
-            failures.append(f"lab {name}: gemm_w4 differs from gemm_w8")
-        for kernel, mode, run, plain, pk in rows:
-            y, ref = run(), plain()
+    dims = {"qkv": (cfg.q_size + 2 * cfg.kv_size, h), "o": (h, cfg.q_size),
+            "gateup": (2 * f, h), "down": (h, f)}
+    where = card()
+    table = []
+    for frac in (0.0, SELECT_FRAC):
+        for name in LAB_SITES:
+            n, k = dims[name]
+            sel = int(round(frac * k / 64)) * 64
+            w = bf16_randn(gen, (n, k), k ** -0.5)
+            ridx = torch.randperm(k, generator=gen, device="cuda")
+            p8, p4 = (packing.pack_weight_arc(w, ridx, sel, fmt=fmt,
+                                              w_scale="channel")
+                      for fmt in ("w8", "w4"))
+            del w
+            xa, gx = qk.quantize_x_arc(bf16_randn(gen, (m, k), 2.0), ridx,
+                                       sel, kq=p8.kq)
+            gs, gw = gx.reshape(-1), p8.global_scale.reshape(-1).float()
+            prod = gk._gemm_w8_cuda(xa, p8.codes, p8.scales, gx, gw[None],
+                                    None, bf)
+            prod4 = gk._gemm_w4_cuda(xa, p4.codes, p4.scales, gx, gw[None],
+                                     None, bf)
+            _, splits, _ = gk._split_plan(m, n, p8.kq)
+            cl = gl._plan(m, n, p8.kq)[0]
+            wd = gk.dequant_weight(p8)   # natural k order, bf16
+            lib_ms = timer(lambda: torch.matmul(xa, wd))
+            a8 = (xa, p8.codes, p8.scales, gs, gw)
+            a4 = (xa, p4.codes, p4.scales, gs, gw)
+            modes = name in ("gateup", "qkv") and frac == 0.0
+            rows = [("lab_w8", mode, lambda mode=mode: gl.lab_w8(*a8,
+                                                                 mode=mode),
+                     lambda mode=mode: gl.lab_w8_plain(*a8, mode), p8)
+                    for mode in (gl.W8_MODES if modes else ("base",))]
+            rows += [("lab_w8_ring", "base", lambda: gl.lab_w8_ring(*a8),
+                      lambda: gl.lab_w8_plain(*a8), p8),
+                     ("lab_w8_ring_n", "base", lambda: gl.lab_w8_ring_n(*a8),
+                      lambda: gl.lab_w8_plain(*a8), p8)]
+            rows += [("lab_w4", mode, lambda mode=mode: gl.lab_w4(*a4,
+                                                                 mode=mode),
+                      lambda mode=mode: gl.lab_w4_plain(*a4, mode), p4)
+                     for mode in (gl.W4_MODES if modes else ("f32",))]
+            f64 = gemm_w8_f64(xa, p8.codes, p8.scales, gx, gw[None], None,
+                              None) if modes else None
             torch.cuda.synchronize()
-            err = float((y.float() - ref.float()).abs().max())
-            same = bitwise([y], [prod])
-            must = mode in gl.EXACT_MODES and not (
-                kernel == "lab_w8_ring_n" and splits > 1)
-            if mode in ("noscale", "nodec"):
-                ok = y.shape == prod.shape and bool(torch.isfinite(y).all())
-                tol = "probe: shape and finite only"
-            else:
-                ok = sum_order_bound(y, ref, False) and (same or not must)
-                tol = ("bitwise vs gemm_w8; " if must else "") + \
-                    "f32 sum order + 1 bf16 ulp vs plain"
-            if mode in ("bf16", "i16"):
-                e_y, e_p = (float((z.double() - f64).abs().mean()
-                                  / f64.abs().mean()) for z in (y, prod))
-                log(f"  {'':13s} {name} {mode}: mean relative error vs f64 "
-                    f"{e_y:.6g} (gemm_w8 {e_p:.6g})")
-            is_rep = rep and mode in ("base", "f32")
-            record(kernel, f"{name} {mode} M={m} Kq={pk.kq} N={n} "
-                   f"splits={1 if kernel == 'lab_w8_ring_n' else splits} "
-                   f"bitwise-vs-gemm_w8={same}", err, ok, timer(run),
-                   timer(plain), tol, rep=is_rep,
-                   work=(2.0 * m * pk.kq * n,
-                         nbytes(xa, pk.codes, pk.scales, gs, gw, y)),
-                   library=(lambda: torch.matmul(xa, wd)) if is_rep else None,
-                   library_what="torch.matmul over the decoded bf16 weight")
-            del y, ref
-        if splits > 1:
-            split_order_check(gen, xa, p8, splits, failures)
-        del p8, p4, wd, f64
-        torch.cuda.empty_cache()
+            if not bitwise([prod4], [prod]):
+                failures.append(f"lab {name} sel={sel}: gemm_w4 differs from "
+                                "gemm_w8")
+            for kernel, mode, run, plain, pk in rows:
+                y, ref = run(), plain()
+                torch.cuda.synchronize()
+                err = float((y.float() - ref.float()).abs().max())
+                same = bitwise([y], [prod])
+                must = mode in gl.EXACT_MODES
+                if mode in ("noscale", "nodec"):
+                    ok = y.shape == prod.shape and bool(
+                        torch.isfinite(y).all())
+                    tol = "probe: shape and finite only"
+                else:
+                    ok = sum_order_bound(y, ref, False) and (same or not must)
+                    tol = ("bitwise vs gemm_w8; " if must else "") + \
+                        "f32 sum order + 1 bf16 ulp vs plain"
+                if mode in ("bf16", "i16"):
+                    e_y, e_p = (float((z.double() - f64).abs().mean()
+                                      / f64.abs().mean()) for z in (y, prod))
+                    log(f"  {'':13s} {name} {mode}: mean relative error vs "
+                        f"f64 {e_y:.6g} (gemm_w8 {e_p:.6g})")
+                is_rep = name == "gateup" and frac == 0.0 and mode in (
+                    "base", "f32")
+                work = (2.0 * m * pk.kq * n,
+                        nbytes(xa, pk.codes, pk.scales, gs, gw, y))
+                plan = (f"cluster={cl}" if kernel == "lab_w8_ring_n"
+                        else f"splits={splits}")
+                t_k, t_p = timer(run), timer(plain)
+                record(kernel, f"{name} {mode} M={m} Kq={pk.kq} N={n} "
+                       f"sel={sel} {plan} bitwise-vs-gemm_w8={same}", err,
+                       ok, t_k, t_p, tol, rep=is_rep, work=work,
+                       library=(lambda: torch.matmul(xa, wd)) if is_rep
+                       else None,
+                       library_what="torch.matmul over the decoded bf16 "
+                       "weight")
+                if mode in ("base", "f32"):
+                    b_ms = bound_ms(*work)[0]
+                    log(f"  {'':13s} {kernel} {name} sel={sel}: kernel "
+                        f"{t_k:.4f} ms, bound {b_ms:.4f} ms, torch.matmul "
+                        f"{lib_ms:.4f} ms, plain {t_p:.4f} ms, "
+                        f"{t_k / lib_ms:.2f}x torch.matmul, "
+                        f"{b_ms / t_k * 100:.1f}% of the bound  [{where}]")
+                    table.append(dict(kernel=kernel, site=name, sel=sel,
+                                      ms=t_k, bound_ms=b_ms, library_ms=lib_ms,
+                                      plain_ms=t_p, max_abs_err=err,
+                                      bitwise=same))
+                del y, ref
+            if splits > 1 and name == "qkv" and frac == 0.0:
+                split_order_check(gen, xa, p8, splits, failures)
+            del p8, p4, wd, f64, xa, prod, prod4
+            torch.cuda.empty_cache()
+    log(f"  lab rows: {json.dumps(dict(rows=table, card=where))}")
 
 
 def split_order_check(gen, xa, pw, splits, failures):
@@ -3025,11 +3069,13 @@ def lab_run(card, failures):
     """The [lab] phase: the GEMM lab's script (benchmarks/gemm_lab.py) at
     Qwen2.5-7B's four decode sites at M 4, one process: exp_shapes
     (production w8 and w4 against bf16 torch.matmul and the bound), then
-    every built lab variant of each format (tiles, depths, k splits, the
-    rings) timed and checked against production, the fastest, and
-    production, the fastest and the default tile re-timed in turns
+    every built lab variant of each format (tiles, depths, k splits; the
+    TMA ring at each depth, consumer-warp count and blocks an SM, the
+    cluster kernel at each cluster size) timed and checked against
+    production, the fastest, and production, the fastest, the default
+    tile and the fastest of each copy ring re-timed in turns
     (best_by_site; bars: a variant that keeps production's k order gives
-    its bits, the others, lab_w8_ring_n where production splits K and the
+    its bits, the others, lab_w8_ring_n at other cluster sizes and the
     other split counts, stay within the sum-order bound). Returns the
     launch counts over the phase."""
     from arcquant_tpu_torch.benchmarks import gemm_lab as bl
@@ -3056,7 +3102,7 @@ def lab_run(card, failures):
     def ms(t):
         return dict(median=t.median, spread=[t.lo, t.hi])
     summary = [dict(site=r["site"], fmt=r["fmt"], best=r["best"],
-                    exact=r["variants"][r["best"]][1],
+                    exact=r["variants"][r["best"]][1], rings=r["rings"],
                     **{f"{w}_ms": ms(t) for w, t in r["ab"].items()},
                     best_over_production=r["ab"]["best"].median
                     / r["ab"]["production"].median,

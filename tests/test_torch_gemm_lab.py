@@ -36,7 +36,12 @@ from arcquant_tpu.quant import packing as JP
 from arcquant_tpu_torch.convert import packed_from_numpy
 from arcquant_tpu_torch.kernels import gemm as gk
 from arcquant_tpu_torch.kernels import gemm_lab as gl
+from arcquant_tpu_torch.kernels import quantize
+from arcquant_tpu_torch.quant import numerics as N
+from arcquant_tpu_torch.quant import packing
 from arcquant_tpu_torch.testing import to_numpy, to_torch
+
+from test_torch_gemm_small_m import mainloop_emulation
 
 ROOT = Path(__file__).resolve().parents[1]
 N_OUT, K, BM = 256, 512, 16
@@ -178,29 +183,139 @@ def test_nibble_and_byte_decodes():
 
 def test_configs_match_the_cuda_source():
     """The Python lists name exactly the instantiated configurations of
-    csrc/gemm_lab.cu, and each fits an H100 block's shared memory; the
-    sweeps' largest tile does not."""
+    csrc/gemm_lab.cu (lab_w8 / lab_w4, the TMA ring's, the cluster
+    kernel's tiles and its largest cluster), and each fits an H100
+    block's shared memory; the sweeps' largest tile does not."""
     src = (ROOT / "arcquant_tpu_torch" / "csrc" / "gemm_lab.cu").read_text()
     names = {"BASE": "base", "MUL3D": "mul3d", "BF16": "bf16",
              "NOSCALE": "noscale", "W4_F32": "f32", "W4_I16": "i16",
              "W4_NODEC": "nodec"}
 
     def entries(macro, n_fields):
-        body = re.search(rf"#define {macro}\(X\)(.*?)\n\n", src, re.S).group(1)
+        body = re.search(rf"#define {macro}\(X\)((?:[^\n]*\\\n)*[^\n]*)",
+                         src).group(1)
         return [tuple(int(v) if v.strip().isdigit() else names[v.strip()]
                       for v in e.split(","))
                 for e in re.findall(r"X\(([^)]*)\)", body)
                 if len(e.split(",")) == n_fields]
     assert sorted(entries("LAB_CONFIG_LIST", 4)) == sorted(gl.LAB_CONFIGS)
     assert sorted(entries("RING_CONFIG_LIST", 3)) == sorted(gl.RING_CONFIGS)
-    assert len(gl.LAB_CONFIGS) + len(gl.RING_CONFIGS) <= 32
+    max_c = int(re.search(r"constexpr int MAX_CLUSTER = (\d+);", src).group(1))
+    assert max_c == gl.MAX_CLUSTER <= 16
+    assert sorted(gl.RING_N_CONFIGS) == sorted(
+        (*t, c) for t in entries("RING_N_CONFIG_LIST", 3)
+        for c in range(1, max_c + 1))
+    tiles = {t[:3] for t in gl.RING_N_CONFIGS}
+    assert len(gl.LAB_CONFIGS) + len(gl.RING_CONFIGS) + len(tiles) <= 32
     for bn, bks, stages, mode in gl.LAB_CONFIGS:
         assert gl.smem_bytes(bn, bks, stages, mode) <= gl.SMEM_MAX
     for bn, bks, stages in gl.RING_CONFIGS:
-        assert gl.smem_bytes(bn, bks, stages, "base") <= gl.SMEM_MAX
+        assert bn % gl.RING_HALF == 0 and bks == 128
+        assert gl.ring_smem_bytes(bn, stages) <= gl.SMEM_MAX
     assert gl.smem_bytes(256, 256, 3, "base") > gl.SMEM_MAX
     with pytest.raises(ValueError, match="mode"):
         gl.lab_w8_plain(*_case(4, 0, "w8")[1], mode="f32")
+
+
+def test_ring_boxes_and_shared_memory():
+    """The copy rings' TMA boxes: at most 256 elements a dimension, rows
+    of a multiple of 16 bytes, each a multiple of 128 bytes (the next
+    box's destination stays 128-byte aligned), padded as
+    gemm_small_m.cuh pads the stage it fills (code rows BN + 16 bytes,
+    activation rows BKS + 8 bf16), and together one stage; every ring
+    and cluster configuration's shared memory fits a block."""
+    small = (ROOT / "arcquant_tpu_torch" / "csrc"
+             / "gemm_small_m.cuh").read_text()
+    assert "LDC = kW4 ? BN + 32 : BN + 16" in small
+    assert "LDA = BKS + 8" in small
+    assert gl.RING_BOXES["codes"][0] == gl.RING_HALF + 16
+    assert gl.RING_BOXES["xa"][0] == 128 + 8
+    for inner, outer, size in gl.RING_BOXES.values():
+        assert inner <= 256 and outer <= 256
+        assert inner * size % 16 == 0
+        assert inner * outer * size % 128 == 0
+    assert gl.RING_STAGE == sum(i * o * b for i, o, b in
+                                gl.RING_BOXES.values())
+    for bn, _, stages in gl.RING_CONFIGS:
+        assert gl.ring_smem_bytes(bn, stages) <= gl.SMEM_MAX
+    for bn, _, stages, _ in gl.RING_N_CONFIGS:
+        assert gl.ring_smem_bytes(bn, stages) <= gl.SMEM_MAX
+        # the cluster's f32 partial tile [16 x 128] reuses slot 0
+        assert gl.BM * gl.RING_HALF * 4 <= gl.RING_STAGE
+
+
+SITES = {"qkv": (4608, 3584), "o": (3584, 3584), "gateup": (37888, 3584),
+         "down": (3584, 18944)}
+
+
+@pytest.mark.parametrize("site", list(SITES))
+@pytest.mark.parametrize("m", [4, 16, 64])
+@pytest.mark.parametrize("select_frac", [0, 0.125])
+def test_cluster_plan_is_production_split(site, m, select_frac):
+    """lab_w8_ring_n's default cluster: one CTA per production split,
+    CTA r over exactly production split r's k-tiles, within the largest
+    cluster the kernel takes."""
+    n, k = SITES[site]
+    kq = packing.pad_kq(k, int(round(select_frac * k / 64)) * 64)
+    _, splits, per = gk._split_plan(m, n, kq)
+    tiles = kq // gl.SUBK
+    want = [(s * per, min((s + 1) * per, tiles)) for s in range(splits)]
+    got = gl.cluster_ranges(m, n, kq)
+    assert got == want
+    assert (128, 128, 3, len(got)) in gl.RING_N_CONFIGS
+    assert got[0][0] == 0 and got[-1][1] == tiles
+    assert all(a < b for a, b in got)
+
+
+def cluster_emulation(xa, codes, scales, gs, gw, cluster=None):
+    """lab_w8_ring_n's sums in plain torch: CTA r's k-tiles (cluster_ranges)
+    each a 32-deep product from zero promoted in k order into its f32
+    partial; c = 1 stores the partial; c > 1 sums the partials in rank
+    order from 0.0 (w8::sum_splits); store_out's epilogue."""
+    m, kq = xa.shape
+    s = N.ue4m3_from_bytes(scales) * 0.5
+    w = codes.float() * s.repeat_interleave(N.NVFP4_GROUP, dim=0)
+    x = xa.float()
+    parts = []
+    for kt0, kt1 in gl.cluster_ranges(m, codes.shape[1], kq, cluster):
+        acc = torch.zeros((m, codes.shape[1]))
+        for kt in range(kt0, kt1):
+            acc = acc + x[:, kt * 32:(kt + 1) * 32] @ w[kt * 32:(kt + 1) * 32]
+        parts.append(acc)
+    if len(parts) == 1:
+        total = parts[0]
+    else:
+        total = torch.zeros_like(parts[0])
+        for p in parts:
+            total = total + p
+    return gk._epilogue(total, gs.reshape(-1, 1), gw.reshape(1, -1), None,
+                        torch.bfloat16)
+
+
+@pytest.mark.parametrize("m,n,k,select", [(4, 256, 512, 0), (4, 256, 2048, 0),
+                                          (16, 208, 1536, 64),
+                                          (3, 640, 4096, 128)])
+def test_cluster_reduce_equals_split_k_emulation(m, n, k, select):
+    """The cluster reduce, emulated, gives bit for bit the split-K
+    emulation production is held to (test_torch_gemm_small_m.py), at one
+    split (the direct store) and at several (the rank-order sum)."""
+    rng = np.random.default_rng(7 * m + n + select)
+    w = torch.tensor(rng.standard_normal((n, k)) * 0.05).to(torch.bfloat16)
+    ridx = torch.tensor(rng.permutation(k))
+    pw = packing.pack_weight_arc(w, ridx, select, fmt="w8",
+                                 w_scale="channel")
+    x = torch.tensor(rng.standard_normal((m, k))).to(torch.bfloat16)
+    xa, gx = quantize.quantize_x_arc(x, ridx, select, kq=pw.kq)
+    gw = pw.global_scale.float().reshape(1, -1).expand(1, n)
+    got = cluster_emulation(xa, pw.codes, pw.scales, gx, gw)
+    want = mainloop_emulation(xa, pw.codes, pw.scales, gx.reshape(-1, 1),
+                              gw, None, torch.bfloat16)
+    c = len(gl.cluster_ranges(m, n, pw.kq))
+    assert c == gk._split_plan(m, n, pw.kq)[1]
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16)), c
+    assert_close(to_numpy(got),
+                 to_numpy(gl.lab_w8_plain(xa, pw.codes, pw.scales,
+                                          gx.reshape(-1), gw.reshape(-1))))
 
 
 @pytest.mark.parametrize("m,n,kq", [(4, 4608, 3584), (4, 37888, 3584),

@@ -1085,9 +1085,12 @@ def test_lab_every_configuration():
 
 @pytest.mark.parametrize("n", [37888, 4608])
 def test_lab_ring_n(n):
-    """One block per n tile over the whole K: bit for bit gemm_w8 where
-    the production plan has one split (gateup at M 4: 296 n tiles), the
-    sum-order bound of the plain version where it splits (qkv: 7)."""
+    """One cluster per n tile (gateup at M 4: production plans one split,
+    so c = 1 and 296 single-CTA clusters; qkv: 7 splits, clusters of 7):
+    at its default cluster size, production's split count, bit for bit
+    gemm_w8 at every built tile; at other sizes within the sum-order
+    bound of the plain version (and bitwise where the plan is the
+    same)."""
     require_cuda()
     rng = np.random.default_rng(420)
     p8, _, xa, gx, gw = _lab_case(rng, 4, n, 3584, 0)
@@ -1096,12 +1099,87 @@ def test_lab_ring_n(n):
     gs = gx.reshape(-1)
     prod = gk._gemm_w8_cuda(xa, p8.codes, p8.scales, gx, gw.reshape(1, -1),
                             None, torch.bfloat16)
-    for bn, bks, stages, mode in gl.LAB_CONFIGS:
-        if mode == "base" and (bn, bks) == (128, 128):
+    ref = gl.lab_w8_plain(xa, p8.codes, p8.scales, gs, gw)
+    default = gl._plan(4, n, p8.kq)
+    for bn, bks, stages in sorted({t[:3] for t in gl.RING_N_CONFIGS}):
+        for cluster in (None, 1, 2, 4, 8, 16):
+            if gl.cluster_fit(bn, bks, stages,
+                              gl._plan(4, n, p8.kq, cluster)[0]) < 1:
+                continue
+            n0 = gl.LAB_W8_RING_N.launches
             y = gl.lab_w8_ring_n(xa, p8.codes, p8.scales, gs, gw, bn=bn,
-                                 bks=bks, stages=stages)
-            _lab_checks(y, gl.lab_w8_plain(xa, p8.codes, p8.scales, gs, gw),
-                        prod, splits == 1)
+                                 bks=bks, stages=stages, cluster=cluster)
+            assert gl.LAB_W8_RING_N.launches == n0 + 1
+            _lab_checks(y, ref, prod,
+                        gl._plan(4, n, p8.kq, cluster) == default)
+
+
+@pytest.mark.parametrize("m", [1, 3, 8, 16])
+@pytest.mark.parametrize("n,select", [(1040, 64), (208, 0), (2000, 64)])
+def test_lab_rings_small_m_ragged_n(m, n, select):
+    """Both copy rings at M 1-16 and N % 128 != 0 (a ragged last tile,
+    zero-filled by the TMA boxes; at N 1040 and bn 256 a last tile whose
+    second half lies wholly past N): at production's plan bit for bit
+    gemm_w8, at other cluster sizes within the sum-order bound of the
+    plain version."""
+    require_cuda()
+    rng = np.random.default_rng(440 + m + n)
+    p8, _, xa, gx, gw = _lab_case(rng, m, n, 2944, select)
+    gs = gx.reshape(-1)
+    prod = gk._gemm_w8_cuda(xa, p8.codes, p8.scales, gx, gw.reshape(1, -1),
+                            None, torch.bfloat16)
+    ref = gl.lab_w8_plain(xa, p8.codes, p8.scales, gs, gw)
+    for bn, bks, stages in gl.RING_CONFIGS:
+        for blocks in (None, 3):
+            n0 = gl.LAB_W8_RING.launches
+            y = gl.lab_w8_ring(xa, p8.codes, p8.scales, gs, gw, bn=bn,
+                               bks=bks, stages=stages, blocks=blocks)
+            assert gl.LAB_W8_RING.launches == n0 + 1
+            _lab_checks(y, ref, prod, True)
+    default = gl._plan(m, n, p8.kq)
+    for cluster in (None, 1, 2, 5, 16):
+        c = gl._plan(m, n, p8.kq, cluster)
+        if gl.cluster_fit(128, 128, 3, c[0]) < 1:
+            continue
+        y = gl.lab_w8_ring_n(xa, p8.codes, p8.scales, gs, gw,
+                             cluster=cluster)
+        _lab_checks(y, ref, prod, c == default)
+
+
+def test_lab_rings_refuse(monkeypatch):
+    """A configuration that is not built raises, and so does a cluster
+    size the card cannot schedule (every such size of the built tiles,
+    if the card refuses any; and one that cudaOccupancyMaxActiveClusters
+    is made to refuse): nothing runs another way."""
+    require_cuda()
+    rng = np.random.default_rng(450)
+    p8, _, xa, gx, gw = _lab_case(rng, 4, 4608, 3584, 0)
+    ops = (xa, p8.codes, p8.scales, gx.reshape(-1), gw)
+    launches = (gl.LAB_W8_RING.launches, gl.LAB_W8_RING_N.launches)
+    with pytest.raises(ValueError, match="not built"):
+        gl.lab_w8_ring(*ops, bn=64)
+    with pytest.raises(ValueError, match="not built"):
+        gl.lab_w8_ring(*ops, stages=3)
+    with pytest.raises(ValueError, match="not built"):
+        gl.lab_w8_ring_n(*ops, stages=5)
+    with pytest.raises(ValueError, match="not built"):
+        gl.lab_w8_ring_n(*ops, cluster=32)
+    refused = [t for t in gl.RING_N_CONFIGS if gl.cluster_fit(*t) < 1]
+    for bn, bks, stages, c in refused:
+        if gl._plan(4, 4608, p8.kq, c)[0] == c:
+            with pytest.raises(ValueError, match="cannot schedule"):
+                gl.lab_w8_ring_n(*ops, bn=bn, bks=bks, stages=stages,
+                                 cluster=c)
+    monkeypatch.setattr(gl, "cluster_fit", lambda *a: 0)
+    with pytest.raises(ValueError, match="cannot schedule"):
+        gl.lab_w8_ring_n(*ops)
+    # the entry point itself refuses a cluster past MAX_CLUSTER
+    out = torch.empty((4, 4608), dtype=torch.bfloat16, device="cuda")
+    ptrs = [_build.ptr(t) for t in (*ops, out)]
+    with pytest.raises(RuntimeError, match="cudaError"):
+        gl.LAB_W8_RING_N(*ptrs, 4, 4608, p8.kq, 128, 128, 2,
+                         gl.MAX_CLUSTER + 1, 16)
+    assert (gl.LAB_W8_RING.launches, gl.LAB_W8_RING_N.launches) == launches
 
 
 @pytest.mark.parametrize("splits", [1, 2, 5, 7, 16])
