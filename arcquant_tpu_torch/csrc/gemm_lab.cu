@@ -19,22 +19,50 @@
 // gemm_w8, gemm_w4, gemm_batched and the megakernels run) against the
 // same bits; it is not on a serving path.
 //
-// lab_w8 and lab_w4 (lab_kernel) vary the tile and the decode:
+// lab_w8 and lab_w4 (lab_kernel) run production's small-M mainloop
+// (gemm_small_m.cuh) with its tile, depth and decode varied:
 //   - a ring of STAGES shared-memory stages, filled with 16-byte
-//     cp.async copies (commit_group / wait_group), each holding BKS k
-//     rows of the weight (BKS code rows in w8, BKS/2 in w4), their
-//     BKS/16 scale rows and the 16 x BKS activations; BN columns a block;
-//   - the decode mode, which turns a stage's codes into a bf16 32 x BN
-//     tile in shared memory, 32 k rows at a time;
-//   - the product is the production one: each 32-deep sub-tile runs its
-//     two k = 16 WMMA MMAs from a zeroed fragment and is promoted into
-//     the f32 total with __fadd_rn; the split-K partials are summed in
+//     cp.async copies (zero fill past M and N; one __syncthreads a
+//     stage), each holding BKS k rows of the weight (BKS code rows in w8,
+//     BKS/2 in w4, padded as production pads them: LDC = BN + 16 bytes in
+//     w8, BN + 32 in w4, so the four code rows a fragment load reads start
+//     8 banks apart at BN 64, 128 and 256), their BKS/16 scale rows and
+//     the 16 x BKS activations (rows of BKS + 8 bf16); BN columns a block,
+//     BN / 32 warps, each owning 32 columns;
+//   - no decoded B tile in shared memory: at each k = 16 step a thread
+//     loads one 32-bit word of its four columns from each code row its
+//     mma.sync m16n8k16 B fragments need and decodes it in registers into
+//     the fragments of the warp's four n = 8 MMAs (fragment column g of
+//     MMA i is the warp's column 4 g + i); activations come by ldmatrix;
+//   - the decode mode (each computes what its plain version in
+//     kernels/gemm_lab.py computes):
+//       base    production's decode_step: the bf16 192 + c and one
+//               bf16x2 FMA with the scale built from its bits;
+//       mul3d   a stage's [BKS/16, BN] scales decoded once into a shared
+//               tile of bf16 pairs (the mode's second barrier a stage),
+//               read per group; the code as below (noscale), one __hmul2;
+//       bf16    code and scale converted to bf16 on the conversion unit,
+//               one __hmul2 (the A/B against base);
+//       noscale bf16(c) on the ALU: the byte's low 7 bits m in the bf16
+//               128 + m, less 128 (c >= 0) or 256 (c < 0), one exact
+//               bf16x2 subtraction (a probe of the ALU floor);
+//       f32     (w4) production's decode_step: byte-permute nibble tables
+//               and one bf16x2 multiply by the scale;
+//       i16     (w4) w4_variant's 16-bit map on the two halves of a word
+//               (the magnitude << 6, the sign bit into bit 15, plus
+//               0x3F00; mag 1 gives 0), one __hmul2 by the scale pair;
+//       nodec   (w4) the byte's bits c << 6 as bf16 for both k rows (a
+//               probe of the stream floor);
+//   - the product is the production one: each 32-deep k-tile's two k =
+//     16 MMAs start from zero and the partial is promoted into the f32
+//     total with __fadd_rn in k order; the split-K partials are summed in
 //     split order (w8::splitk_reduce_kernel); the epilogue is
-//     w8::store_out's. So with production's split plan
+//     w8::store_out's, from registers. So with production's split plan
 //     (kernels/gemm.py:_split_plan) every mode whose decode is exact
 //     (base, mul3d, bf16; w4 f32 and i16: an e2m1 value times a ue4m3
-//     scale has at most 6 significant bits) gives gemm_w8's bits. The
-//     probes (noscale, nodec) compute other functions on purpose.
+//     scale has at most 6 significant bits) gives gemm_w8's bits, on bf16
+//     activations too. The probes (noscale, nodec) compute other
+//     functions on purpose.
 //
 // The two copy-ring kernels try Hopper's own ways of streaming the
 // weight (namespace lab::ring). Both keep production's arithmetic: a
@@ -98,48 +126,50 @@
 // weight in w8 and 0.5625 in w4 (gateup 37888 x 3584: 43.2 and 22.9 us
 // at 3.35 TB/s).
 #include <cooperative_groups.h>
-#include <mma.h>
 
 #include "gemm_wgmma.cuh"
 
 namespace lab {
 
-using namespace nvcuda;
+namespace sm = w8::small;
 
 enum Mode { BASE = 0, MUL3D = 1, BF16 = 2, NOSCALE = 3, W4_F32 = 4, W4_I16 = 5, W4_NODEC = 6 };
 
 constexpr int BM = 16;    // activation rows a block (decode M <= 16)
 constexpr int SUBK = 32;  // the production k-tile: what one promotion covers
+constexpr int NJ = sm::NJ;  // n = 8 MMAs a warp runs a k step (its 32 columns)
 
 #define LAB_AL(x) ((((x) + 127) / 128) * 128)
 
 // The layout of a configuration's dynamic shared memory: STAGES stages
-// of [codes CR x BN | scales SR x BN | activations BM x LDA bf16], then
-// the decoded B tile, the epilogue's per-warp staging and, for mul3d, the
-// stage's decoded scale tile. Mirrored by kernels/gemm_lab.py:smem_bytes.
+// of [codes CR x LDC | scales SR x BN | activations BM x LDA bf16], then,
+// for mul3d, the stage's decoded scale tile (SR x BN bf16 pairs).
+// Mirrored by kernels/gemm_lab.py:smem_bytes.
 template <int BN_, int BKS_, int STAGES_, int MODE_>
 struct Cfg {
   static constexpr int BN = BN_, BKS = BKS_, STAGES = STAGES_, MODE = MODE_;
   static constexpr bool W4 = MODE >= W4_F32;
   static constexpr int NW = BN / 32;  // warps; each owns 32 columns
   static constexpr int NT = NW * 32;
-  static constexpr int SUB = BKS / SUBK;           // sub-tiles a stage
-  static constexpr int CRT = W4 ? SUBK / 2 : SUBK;  // code rows a sub-tile
+  static constexpr int SUB = BKS / SUBK;           // k-tiles a stage
+  static constexpr int CRT = W4 ? SUBK / 2 : SUBK;  // code rows a k-tile
   static constexpr int CR = SUB * CRT;              // code rows a stage
   static constexpr int SR = BKS / 16;               // scale rows a stage
   static constexpr int CPR = BN / 16;               // 16-byte chunks a code row
-  static constexpr int LDA = BKS + 8, LDB = BN + 8;
-  static constexpr int CODE_B = LAB_AL(CR * BN), SCALE_B = LAB_AL(SR * BN);
+  static constexpr int LDA = BKS + 8;
+  static constexpr int LDC = W4 ? BN + 32 : BN + 16;  // gemm_small_m.cuh's padding
+  static constexpr int CODE_B = LAB_AL(CR * LDC), SCALE_B = LAB_AL(SR * BN);
   static constexpr int A_B = LAB_AL(BM * LDA * 2);
   static constexpr int STAGE_B = CODE_B + SCALE_B + A_B;
-  static constexpr int BS_B = LAB_AL(SUBK * LDB * 2);
-  static constexpr int CS_B = LAB_AL(NW * 256 * 4);
   static constexpr int S3_B = MODE == MUL3D ? LAB_AL(SR * BN * 4) : 0;
-  static constexpr int SMEM = STAGES * STAGE_B + BS_B + CS_B + S3_B;
-  static_assert(BKS % SUBK == 0 && BN % 32 == 0, "tile");
+  static constexpr int SMEM = STAGES * STAGE_B + S3_B;
+  // blocks an SM for __launch_bounds__: as many as the SM's 228 KB of
+  // shared memory holds (1 KB reserved a block), at most as many as
+  // leave 128 registers a thread
+  static constexpr int FIT = 233472 / (SMEM + 1024), REG_FIT = 65536 / (NT * 128);
+  static constexpr int MIN_BLOCKS = FIT < 1 ? 1 : (FIT < REG_FIT ? FIT : REG_FIT);
+  static_assert(BKS % SUBK == 0 && BN % 32 == 0 && LDC % 16 == 0, "tile");
 };
-
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> Acc;
 
 // Copies the stage of 32-tiles [t0, t0 + nsub) of the (m0, n0) tile into
 // `stage` (rows past nsub are left alone; activation rows past M and
@@ -153,198 +183,169 @@ __device__ __forceinline__ void load_stage(uint8_t* stage, const bf16* xa, const
   bf16* as = reinterpret_cast<bf16*>(stage + C::CODE_B + C::SCALE_B);
   const int tid = threadIdx.x;
   const int crows = nsub * C::CRT, srows = nsub * 2;
-  for (int c = tid; c < C::CR * C::CPR; c += C::NT) {
+  for (int c = tid; c < crows * C::CPR; c += C::NT) {
     const int r = c / C::CPR, nc = (c % C::CPR) * 16;
-    if (r < crows) {
-      const bool ok = n0 + nc < N;
-      cp16(cs + r * C::BN + nc, codes + (int64_t)(t0 * C::CRT + r) * N + (ok ? n0 + nc : 0), ok);
-    }
+    const bool ok = n0 + nc < N;
+    cp16(cs + r * C::LDC + nc, codes + (int64_t)(t0 * C::CRT + r) * N + (ok ? n0 + nc : 0), ok);
   }
-  for (int c = tid; c < C::SR * C::CPR; c += C::NT) {
+  for (int c = tid; c < srows * C::CPR; c += C::NT) {
     const int r = c / C::CPR, nc = (c % C::CPR) * 16;
-    if (r < srows) {
-      const bool ok = n0 + nc < N;
-      cp16(ss + r * C::BN + nc, scales + (int64_t)(t0 * 2 + r) * N + (ok ? n0 + nc : 0), ok);
-    }
+    const bool ok = n0 + nc < N;
+    cp16(ss + r * C::BN + nc, scales + (int64_t)(t0 * 2 + r) * N + (ok ? n0 + nc : 0), ok);
   }
-  constexpr int APR = C::BKS / 8;  // 16-byte chunks of an activation row
-  for (int c = tid; c < BM * APR; c += C::NT) {
-    const int r = c / APR, kc = (c % APR) * 8;
-    if (kc < nsub * SUBK) {
-      const bool ok = m0 + r < M;
-      cp16(as + r * C::LDA + kc, xa + (int64_t)(ok ? m0 + r : 0) * Kq + t0 * SUBK + kc, ok);
-    }
+  const int apr = nsub * SUBK / 8;  // 16-byte chunks of an activation row
+  for (int c = tid; c < BM * apr; c += C::NT) {
+    const int r = c / apr, kc = (c % apr) * 8;
+    const bool ok = m0 + r < M;
+    cp16(as + r * C::LDA + kc, xa + (int64_t)(ok ? m0 + r : 0) * Kq + t0 * SUBK + kc, ok);
   }
 }
 
-// Decodes code rows of sub-tile u into the bf16 [32, BN] tile Bs.
+// bf16(c) of the int8 codes in bytes 0 and 2 of p, off the conversion
+// unit: the low 7 bits m land in the bf16 128 + m (0x4300 | m), and one
+// bf16x2 subtraction takes 128 (c >= 0) or 256 (0x4380, c < 0) off,
+// exact for every byte.
+__device__ __forceinline__ __nv_bfloat162 code_pair(uint32_t p) {
+  return __hsub2(as_bf162((p & 0x007F007Fu) | 0x43004300u),
+                 as_bf162((p & 0x00800080u) | 0x43004300u));
+}
+
+// w4_variant's 16-bit map of a byte's two nibbles into the two halves
+// of a word (low nibble low): the magnitude into bits 6-8, the sign into
+// bit 15, plus 0x3F00 (the e2m1x values as bf16); mag 1 gives +0.
+__device__ __forceinline__ uint32_t i16_pair(uint32_t byte) {
+  const uint32_t w = (byte & 0xFu) | ((byte & 0xF0u) << 12);
+  const uint32_t mag = w & 0x00070007u;
+  const uint32_t h = ((mag << 6) | ((w & 0x00080008u) << 12)) + 0x3F003F00u;
+  return h & ~__vcmpeq2(mag, 0x00010001u);
+}
+
+// The B fragments of the warp's NJ n = 8 MMAs at one k = 16 step, by the
+// configuration's decode mode (b0: k rows 2t, 2t + 1; b1: 2t + 8, 2t + 9;
+// t = lane % 4; fragment column g = lane / 4 of MMA i is the warp's
+// column NJ g + i). cs points at the step's first code row and the warp's
+// columns, ss at the step's scale row and the warp's columns, s3 at the
+// same place of the decoded scale tile (mul3d).
 template <class C>
-__device__ __forceinline__ void decode_sub(const uint8_t* stage, const float* s3, bf16* Bs,
-                                           int u) {
-  const uint8_t* cs = stage;
-  const uint8_t* ss = stage + C::CODE_B;
-  const int tid = threadIdx.x;
-  for (int c = tid; c < C::CRT * C::CPR; c += C::NT) {
-    const int r = c / C::CPR, nc = (c % C::CPR) * 16;
-    const uint4 cv = *reinterpret_cast<const uint4*>(cs + (u * C::CRT + r) * C::BN + nc);
-    const uint8_t* cb = reinterpret_cast<const uint8_t*>(&cv);
-    if constexpr (!C::W4) {
-      const int srow = u * 2 + r / 16;
-      const uint4 sv = *reinterpret_cast<const uint4*>(ss + srow * C::BN + nc);
-      const uint8_t* sb = reinterpret_cast<const uint8_t*>(&sv);
-      __align__(16) bf16 wv[16];
+__device__ __forceinline__ void frag_decode(const uint8_t* cs, const uint8_t* ss,
+                                            const uint32_t* s3, int lane, uint32_t (&b0)[NJ],
+                                            uint32_t (&b1)[NJ]) {
+  const int g = lane >> 2, t = lane & 3;
+  if constexpr (C::MODE == BASE || C::MODE == W4_F32) {
+    sm::decode_step<C::W4, C::LDC>(cs, ss, lane, b0, b1);
+  } else if constexpr (!C::W4) {
+    uint32_t w[4];  // k rows 2t, 2t + 1, 2t + 8, 2t + 9 of the thread's columns
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const float code = (float)(int8_t)cb[j];
-        if constexpr (C::MODE == BASE) {
-          wv[j] = f2bf(code * (ue4m3_decode(sb[j]) * 0.5f));
-        } else if constexpr (C::MODE == MUL3D) {
-          wv[j] = f2bf(code * s3[srow * C::BN + nc + j]);
-        } else if constexpr (C::MODE == BF16) {
-          wv[j] = __hmul(f2bf(code), f2bf(ue4m3_decode(sb[j]) * 0.5f));
-        } else {  // NOSCALE
-          wv[j] = f2bf(code);
-        }
+    for (int r = 0; r < 4; ++r)
+      w[r] = sm::lds32(cs + (2 * t + (r & 1) + 8 * (r >> 1)) * C::LDC + NJ * g);
+    if constexpr (C::MODE == BF16) {
+      const uint32_t sw = sm::lds32(ss + NJ * g);
+#pragma unroll
+      for (int i = 0; i < NJ; ++i) {
+        const __nv_bfloat162 s =
+            __float2bfloat162_rn(ue4m3_decode((sw >> (8 * i)) & 0xFFu) * 0.5f);
+        auto c = [&](int r) { return (float)(int8_t)(w[r] >> (8 * i)); };
+        b0[i] = bits(__hmul2(__floats2bfloat162_rn(c(0), c(1)), s));
+        b1[i] = bits(__hmul2(__floats2bfloat162_rn(c(2), c(3)), s));
       }
-      uint4* dst = reinterpret_cast<uint4*>(Bs + r * C::LDB + nc);
-      dst[0] = reinterpret_cast<const uint4*>(wv)[0];
-      dst[1] = reinterpret_cast<const uint4*>(wv)[1];
     } else {
-      // code row r holds k rows 2r (low nibbles) and 2r + 1 (high)
-      const int srow = u * 2 + r / 8;
-      const uint4 sv = *reinterpret_cast<const uint4*>(ss + srow * C::BN + nc);
-      const uint8_t* sb = reinterpret_cast<const uint8_t*>(&sv);
-      __align__(16) bf16 lo[16], hi[16];
-      if constexpr (C::MODE == W4_F32) {
-#pragma unroll
-        for (int j = 0; j < 16; ++j) {
-          const float sc = ue4m3_decode(sb[j]);
-          lo[j] = f2bf(e2m1x_decode(cb[j] & 15u) * sc);
-          hi[j] = f2bf(e2m1x_decode(cb[j] >> 4) * sc);
-        }
-      } else if constexpr (C::MODE == W4_I16) {
-        // nibble -> bf16 bits (the f32 map's top half), bf16 scales, and
-        // the products of neighbouring columns in one __hmul2
-        auto dec = [](uint32_t nib) -> bf16 {
-          const uint32_t mag = nib & 7u;
-          const uint32_t bits = ((mag << 6) | ((nib & 8u) << 12)) + 0x3F00u;
-          return __ushort_as_bfloat16((unsigned short)(mag == 1u ? 0u : bits));
-        };
-#pragma unroll
-        for (int j = 0; j < 16; j += 2) {
-          const __nv_bfloat162 s2 =
-              __halves2bfloat162(f2bf(ue4m3_decode(sb[j])), f2bf(ue4m3_decode(sb[j + 1])));
-          const __nv_bfloat162 l2 =
-              __hmul2(__halves2bfloat162(dec(cb[j] & 15u), dec(cb[j + 1] & 15u)), s2);
-          const __nv_bfloat162 h2 =
-              __hmul2(__halves2bfloat162(dec(cb[j] >> 4), dec(cb[j + 1] >> 4)), s2);
-          lo[j] = __low2bfloat16(l2);
-          lo[j + 1] = __high2bfloat16(l2);
-          hi[j] = __low2bfloat16(h2);
-          hi[j + 1] = __high2bfloat16(h2);
-        }
-      } else {  // W4_NODEC: the byte's bits c << 22 as f32, rounded (exact) to bf16
-#pragma unroll
-        for (int j = 0; j < 16; ++j) {
-          lo[j] = __ushort_as_bfloat16((unsigned short)((uint32_t)cb[j] << 6));
-          hi[j] = lo[j];
-        }
+      uint32_t sv[NJ];
+      if constexpr (C::MODE == MUL3D) {
+        const uint4 v = *reinterpret_cast<const uint4*>(s3 + NJ * g);
+        sv[0] = v.x, sv[1] = v.y, sv[2] = v.z, sv[3] = v.w;
       }
-      uint4* d0 = reinterpret_cast<uint4*>(Bs + (2 * r) * C::LDB + nc);
-      uint4* d1 = reinterpret_cast<uint4*>(Bs + (2 * r + 1) * C::LDB + nc);
-      d0[0] = reinterpret_cast<const uint4*>(lo)[0];
-      d0[1] = reinterpret_cast<const uint4*>(lo)[1];
-      d1[0] = reinterpret_cast<const uint4*>(hi)[0];
-      d1[1] = reinterpret_cast<const uint4*>(hi)[1];
+#pragma unroll
+      for (int i = 0; i < NJ; ++i) {
+        // byte i of the two k rows into bytes 0 and 2
+        const uint32_t sel = (uint32_t)i | ((uint32_t)i << 4) | ((4u + i) << 8) | ((4u + i) << 12);
+        __nv_bfloat162 x0 = code_pair(__byte_perm(w[0], w[1], sel));
+        __nv_bfloat162 x1 = code_pair(__byte_perm(w[2], w[3], sel));
+        if constexpr (C::MODE == MUL3D) {
+          x0 = __hmul2(x0, as_bf162(sv[i]));
+          x1 = __hmul2(x1, as_bf162(sv[i]));
+        }
+        b0[i] = bits(x0);
+        b1[i] = bits(x1);
+      }
+    }
+  } else {
+    // code row t holds k rows 2t (low nibbles) and 2t + 1 (high), row
+    // t + 4 rows 2t + 8 and 2t + 9
+    const uint32_t q0 = sm::lds32(cs + t * C::LDC + NJ * g);
+    const uint32_t q1 = sm::lds32(cs + (t + 4) * C::LDC + NJ * g);
+    if constexpr (C::MODE == W4_I16) {
+      const uint32_t sw = sm::lds32(ss + NJ * g);
+#pragma unroll
+      for (int i = 0; i < NJ; ++i) {
+        const __nv_bfloat162 s = sm::ue4m3_pair<0>((sw >> (8 * i)) & 0xFFu);
+        b0[i] = bits(__hmul2(as_bf162(i16_pair(q0 >> (8 * i))), s));
+        b1[i] = bits(__hmul2(as_bf162(i16_pair(q1 >> (8 * i))), s));
+      }
+    } else {  // W4_NODEC: c << 6 for both k rows of byte c
+#pragma unroll
+      for (int i = 0; i < NJ; ++i) {
+        b0[i] = (((q0 >> (8 * i)) & 0xFFu) << 6) * 0x10001u;
+        b1[i] = (((q1 >> (8 * i)) & 0xFFu) << 6) * 0x10001u;
+      }
     }
   }
 }
 
-// The nsub 32-deep sub-tiles of a loaded stage into acc (the warp's two
-// 16 x 16 fragments of columns warp * 32 + [0, 32)).
+// The nsub 32-deep k-tiles of a loaded stage into acc (the warp's NJ
+// 16 x 8 accumulators of columns warp * 32 + [0, 32)): per k-tile, two
+// k = 16 MMAs from zero, then the partial promoted with __fadd_rn.
 template <class C>
-__device__ __forceinline__ void compute_stage(const uint8_t* stage, int nsub, bf16* Bs, float* s3,
-                                              Acc (&acc)[2]) {
-  const bf16* as = reinterpret_cast<const bf16*>(stage + C::CODE_B + C::SCALE_B);
-  const int warp = threadIdx.x >> 5;
-  if constexpr (C::MODE == MUL3D) {
-    // the stage's scale tile, decoded once and indexed per group
-    const uint8_t* ss = stage + C::CODE_B;
-    for (int i = threadIdx.x; i < nsub * 2 * C::BN; i += C::NT) s3[i] = ue4m3_decode(ss[i]) * 0.5f;
-    __syncthreads();
-  }
-  for (int u = 0; u < nsub; ++u) {
-    decode_sub<C>(stage, s3, Bs, u);
-    __syncthreads();
-    Acc part[2];
-    wmma::fill_fragment(part[0], 0.0f);
-    wmma::fill_fragment(part[1], 0.0f);
-#pragma unroll
-    for (int kk = 0; kk < SUBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af;
-      wmma::load_matrix_sync(af, as + u * SUBK + kk, C::LDA);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr;
-        wmma::load_matrix_sync(bfr, Bs + kk * C::LDB + warp * 32 + j * 16, C::LDB);
-        wmma::mma_sync(part[j], af, bfr, part[j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int e = 0; e < part[j].num_elements; ++e)
-        acc[j].x[e] = __fadd_rn(acc[j].x[e], part[j].x[e]);
-    __syncthreads();
-  }
-}
-
-// acc of the (m0, n0) tile: to partial[split] ([splits, M, N]) when
-// `partial` is set, else the epilogue into out (bf16).
-template <class C>
-__device__ __forceinline__ void store_tile(Acc (&acc)[2], float* cs_all, const float* gs,
-                                           const float* gw, bf16* out, float* partial, int split,
-                                           int M, int N, int m0, int n0) {
+__device__ __forceinline__ void compute_stage(const uint8_t* stage, int nsub, const uint32_t* s3,
+                                              float (&acc)[NJ][4]) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* cs = cs_all + warp * 256;
+  const uint8_t* cs = stage + warp * 8 * NJ;
+  const uint8_t* ss = stage + C::CODE_B + warp * 8 * NJ;
+  const bf16* as = reinterpret_cast<const bf16*>(stage + C::CODE_B + C::SCALE_B);
+  s3 += warp * 8 * NJ;
+  for (int u = 0; u < nsub; ++u) {
+    float part[NJ][4];
 #pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    wmma::store_matrix_sync(cs, acc[j], 16, wmma::mem_row_major);
-    __syncwarp();
-    for (int e = lane; e < 256; e += 32) {
-      const int gm = m0 + e / 16, gn = n0 + warp * 32 + j * 16 + e % 16;
-      if (gm < M && gn < N) {
-        const int64_t idx = (int64_t)gm * N + gn;
-        if (partial != nullptr) partial[(int64_t)split * M * N + idx] = cs[e];
-        else w8::store_out(cs[e], idx, gm, gn, gs, gw, nullptr, out, 0);
-      }
+    for (int i = 0; i < NJ; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part[i][e] = 0.0f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      uint32_t b0[NJ], b1[NJ], a[4];
+      frag_decode<C>(cs + (u * C::CRT + h * (C::CRT / 2)) * C::LDC, ss + (2 * u + h) * C::BN,
+                     s3 + (2 * u + h) * C::BN, lane, b0, b1);
+      ldsm_x4(a, as + (lane & 15) * C::LDA + u * SUBK + h * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int i = 0; i < NJ; ++i) mma_bf16(part[i], a, b0[i], b1[i]);
     }
-    __syncwarp();
+#pragma unroll
+    for (int i = 0; i < NJ; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][e] = __fadd_rn(acc[i][e], part[i][e]);
   }
 }
 
-// lab_w8 / lab_w4: grid (n-tiles, m-tiles, splits); each
-// block runs its split's 32-tiles [kt0, kt1) through the STAGES ring.
+// lab_w8 / lab_w4: grid (n-tiles, m-tiles, splits); each block runs its
+// split's 32-tiles [kt0, kt1) through the STAGES ring, then stores its
+// accumulators from registers: to partial[split] ([splits, M, N]) when
+// `partial` is set, else store_out's epilogue into out (bf16).
 template <int BN, int BKS, int STAGES, int MODE>
-__global__ void __launch_bounds__(BN) lab_kernel(const bf16* __restrict__ xa,
-                                                 const int8_t* __restrict__ codes,
-                                                 const uint8_t* __restrict__ scales,
-                                                 const float* __restrict__ gs,
-                                                 const float* __restrict__ gw,
-                                                 bf16* __restrict__ out, float* __restrict__ partial,
-                                                 int M, int N, int Kq, int tiles_per_split) {
+__global__ void __launch_bounds__(BN, (Cfg<BN, BKS, STAGES, MODE>::MIN_BLOCKS))
+lab_kernel(const bf16* __restrict__ xa, const int8_t* __restrict__ codes,
+           const uint8_t* __restrict__ scales, const float* __restrict__ gs,
+           const float* __restrict__ gw, bf16* __restrict__ out, float* __restrict__ partial,
+           int M, int N, int Kq, int tiles_per_split) {
   using C = Cfg<BN, BKS, STAGES, MODE>;
   extern __shared__ __align__(128) uint8_t smem[];
-  bf16* Bs = reinterpret_cast<bf16*>(smem + STAGES * C::STAGE_B);
-  float* Cs = reinterpret_cast<float*>(smem + STAGES * C::STAGE_B + C::BS_B);
-  float* s3 = reinterpret_cast<float*>(smem + STAGES * C::STAGE_B + C::BS_B + C::CS_B);
+  uint32_t* s3 = reinterpret_cast<uint32_t*>(smem + STAGES * C::STAGE_B);
   const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM, split = blockIdx.z;
   const int kt0 = split * tiles_per_split;
   const int ntl = min(kt0 + tiles_per_split, Kq / SUBK) - kt0;
   const int nst = (ntl + C::SUB - 1) / C::SUB;
-  Acc acc[2];
-  wmma::fill_fragment(acc[0], 0.0f);
-  wmma::fill_fragment(acc[1], 0.0f);
+  float acc[NJ][4];
+#pragma unroll
+  for (int i = 0; i < NJ; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.0f;
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
     if (s < nst)
@@ -354,17 +355,40 @@ __global__ void __launch_bounds__(BN) lab_kernel(const bf16* __restrict__ xa,
   }
   for (int q = 0; q < nst; ++q) {
     cp_wait<STAGES - 2>();
-    __syncthreads();
+    __syncthreads();  // stage q has landed; every warp is done with stage q - 1
     const int p = q + STAGES - 1;
     if (p < nst)
       load_stage<C>(smem + (p % STAGES) * C::STAGE_B, xa, codes, scales, M, N, Kq, m0, n0,
                     kt0 + p * C::SUB, min(C::SUB, ntl - p * C::SUB));
     cp_commit();
-    compute_stage<C>(smem + (q % STAGES) * C::STAGE_B, min(C::SUB, ntl - q * C::SUB), Bs, s3,
-                     acc);
+    const uint8_t* stage = smem + (q % STAGES) * C::STAGE_B;
+    const int nsub = min(C::SUB, ntl - q * C::SUB);
+    if constexpr (C::MODE == MUL3D) {
+      // the stage's scale tile, decoded once and indexed per group
+      const uint8_t* ss = stage + C::CODE_B;
+      for (int i = threadIdx.x; i < nsub * 2 * BN; i += C::NT)
+        s3[i] = bits(sm::ue4m3_pair<1>(ss[i]));
+      __syncthreads();
+    }
+    compute_stage<C>(stage, nsub, s3, acc);
   }
   cp_wait<0>();
-  store_tile<C>(acc, Cs, gs, gw, out, partial, split, M, N, m0, n0);
+
+  // acc[i]: rows g (+ 8 for e >= 2), fragment columns 2t + (e & 1),
+  // which are the warp's columns NJ (2t + (e & 1)) + i
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < NJ; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int gm = m0 + g + 8 * (e >> 1), gn = n0 + warp * 8 * NJ + NJ * (2 * t + (e & 1)) + i;
+      if (gm < M && gn < N) {
+        const int64_t idx = (int64_t)gm * N + gn;
+        if (partial != nullptr) partial[(int64_t)split * M * N + idx] = acc[i][e];
+        else w8::store_out(acc[i][e], idx, gm, gn, gs, gw, nullptr, out, 0);
+      }
+    }
 }
 
 template <int BN, int BKS, int STAGES, int MODE>
@@ -378,7 +402,7 @@ int launch(const void* xa, const void* codes, const void* scales, const void* gs
   lab_kernel<BN, BKS, STAGES, MODE><<<grid, C::NT, C::SMEM, st>>>(
       (const bf16*)xa, (const int8_t*)codes, (const uint8_t*)scales, (const float*)gs,
       (const float*)gw, (bf16*)out, splits > 1 ? (float*)ws : nullptr, M, N, Kq, tps);
-  return 0;
+  return (int)cudaGetLastError();
 }
 
 // The instantiated configurations (BN, BKS, STAGES, MODE); the same list

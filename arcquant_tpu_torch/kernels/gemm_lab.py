@@ -2,12 +2,13 @@
 variants): the dequant GEMM y = bf16((xa @ dec(W)) * gs[m] * gw[n]) with
 f32 accumulation, with its tile, pipeline depth and decode varied.
 
-  lab_w8         ``w8_variant``: decode modes base (production: i8 -> f32
-                 times the per-row expanded ue4m3 / 2, -> bf16), mul3d
-                 (the same product against a decoded [BKS/16, BN] scale
-                 tile indexed per group), bf16 (code and scale cast to
-                 bf16, the product in bf16), noscale (bf16(code): a probe
-                 of the ALU floor);
+  lab_w8         ``w8_variant``: decode modes base (production: bf16(c
+                 * ue4m3 / 2), as the bf16 192 + c and one bf16x2 FMA),
+                 mul3d (the same product against a [BKS/16, BN] scale
+                 tile decoded once a stage and indexed per group), bf16
+                 (code and scale cast to bf16 on the conversion unit,
+                 the product in bf16), noscale (bf16(code) on the ALU: a
+                 probe of the ALU floor);
   lab_w8_ring    ``w8_dma_variant``: a persistent grid whose blocks each
                  drive one warp-specialised TMA ring (a producer warp,
                  full / empty mbarriers, 4 or 8 consumer warps decoding
@@ -17,19 +18,24 @@ f32 accumulation, with its tile, pipeline depth and decode varied.
   lab_w8_ring_n  ``w8_dma_nblock``: one thread-block cluster per n tile,
                  its CTAs splitting K and summing their partials in
                  distributed shared memory (mode base);
-  lab_w4         ``w4_variant``: nibble decodes f32 (production), i16
-                 (straight to bf16 bits, bf16 scale products) and nodec
+  lab_w4         ``w4_variant``: nibble decodes f32 (production's
+                 byte-permute tables), i16 (the 16-bit map straight to
+                 bf16 bits, bf16 scale products) and nodec
                  (the byte's bits c << 22 as f32 for both k rows: a probe
                  of the stream floor).
 
-CUDA tensors launch ``csrc/gemm_lab.cu``: lab_w8 and lab_w4 a ring of
-cp.async stages of BKS k rows, BN columns a block, the production
-32-deep promotion and epilogue; the two rings production's 128-deep
-stage and mainloop (``gemm_small_m.cuh``) fed by TMA. CPU tensors run
-the plain versions, which decode as the JAX kernel bodies do and take an
-f32 matmul. xa is in natural k order for both formats (the TPU's
-split-half w4 operand is not carried over) and is not padded to 16
-rows: the kernels mask the rows past M.
+CUDA tensors launch ``csrc/gemm_lab.cu``: lab_w8 and lab_w4 production's
+small-M mainloop (``gemm_small_m.cuh``) at another tile and decode: a
+ring of cp.async stages of BKS k rows (code rows padded as production
+pads them), BN columns a block of BN / 32 warps, each thread decoding
+its columns' code words in registers straight into ``mma.sync`` B
+fragments by the mode (base and f32 with production's own
+``decode_step``), the production 32-deep promotion and epilogue from
+registers; the two rings production's 128-deep stage and mainloop fed
+by TMA. CPU tensors run the plain versions, which decode as the JAX
+kernel bodies do and take an f32 matmul. xa is in natural k order for
+both formats (the TPU's split-half w4 operand is not carried over) and
+is not padded to 16 rows: the kernels mask the rows past M.
 
 With production's split plan (``gemm._split_plan``, the default) the
 exact modes (base, mul3d, bf16; w4 f32 and i16) give gemm_w8's bits, and
@@ -94,15 +100,23 @@ def _al(x: int) -> int:
     return -(-x // 128) * 128
 
 
+def code_ld(bn: int, mode: str) -> int:
+    """Bytes of a stage's code row (csrc/gemm_lab.cu Cfg::LDC): BN
+    padded as gemm_small_m.cuh pads it, so that the four code rows a
+    fragment load reads start 8 banks apart."""
+    return bn + 32 if mode in W4_MODES else bn + 16
+
+
 def smem_bytes(bn: int, bks: int, stages: int, mode: str) -> int:
     """Dynamic shared memory of a lab_w8 / lab_w4 configuration
-    (csrc/gemm_lab.cu Cfg)."""
+    (csrc/gemm_lab.cu Cfg): `stages` stages of padded code rows, scale
+    rows and activation rows, and mul3d's decoded scale tile (a bf16
+    pair a scale)."""
     code_rows = bks // 2 if mode in W4_MODES else bks
-    stage = (_al(code_rows * bn) + _al(bks // 16 * bn)
+    stage = (_al(code_rows * code_ld(bn, mode)) + _al(bks // 16 * bn)
              + _al(BM * (bks + 8) * 2))
     s3 = _al(bks // 16 * bn * 4) if mode == "mul3d" else 0
-    return (stages * stage + _al(SUBK * (bn + 8) * 2)
-            + _al(bn // 32 * 256 * 4) + s3)
+    return stages * stage + s3
 
 
 # The copy rings' stage: gemm_small_m.cuh's 128-column w8 stage
@@ -130,22 +144,29 @@ def _epilogue(acc, gs, gw):
         torch.bfloat16)
 
 
-def lab_w8_plain(xa, codes, scales, gs, gw, mode: str = "base"):
-    """Plain version of lab_w8 (and of the rings, mode base): the weight
-    decoded by `mode` as w8_variant's body does, an f32 matmul, the
-    epilogue. xa: [M, Kq] bf16; codes [Kq, N] int8; scales [Kq/16, N]
-    uint8; gs [M] or [M, 1]; gw [N] or [1, N]."""
+def w8_weight(codes, scales, mode: str = "base") -> torch.Tensor:
+    """The bf16 weight [Kq, N] that lab_w8's `mode` decodes, as
+    w8_variant's body decodes it. codes [Kq, N] int8; scales [Kq/16, N]
+    uint8."""
     if mode not in W8_MODES:
         raise ValueError(f"lab_w8: unknown mode {mode!r}")
     c = codes.float()
     s = N.ue4m3_from_bytes(scales) * 0.5
     if mode == "noscale":
-        w = c.to(torch.bfloat16)
-    elif mode == "bf16":
-        w = c.to(torch.bfloat16) * s.to(torch.bfloat16).repeat_interleave(
-            N.NVFP4_GROUP, dim=0)
-    else:   # base and mul3d: one f32 product, rounded to bf16
-        w = (c * s.repeat_interleave(N.NVFP4_GROUP, dim=0)).to(torch.bfloat16)
+        return c.to(torch.bfloat16)
+    if mode == "bf16":
+        return c.to(torch.bfloat16) * s.to(
+            torch.bfloat16).repeat_interleave(N.NVFP4_GROUP, dim=0)
+    # base and mul3d: one f32 product, rounded to bf16
+    return (c * s.repeat_interleave(N.NVFP4_GROUP, dim=0)).to(torch.bfloat16)
+
+
+def lab_w8_plain(xa, codes, scales, gs, gw, mode: str = "base"):
+    """Plain version of lab_w8 (and of the rings, mode base): the weight
+    decoded by `mode` (w8_weight), an f32 matmul, the epilogue. xa: [M,
+    Kq] bf16; codes [Kq, N] int8; scales [Kq/16, N] uint8; gs [M] or [M,
+    1]; gw [N] or [1, N]."""
+    w = w8_weight(codes, scales, mode)
     return _epilogue(xa.to(torch.bfloat16).float() @ w.float(), gs, gw)
 
 
@@ -160,11 +181,11 @@ def _i16_values(nib: torch.Tensor) -> torch.Tensor:
     return bits.to(torch.int16).view(torch.bfloat16)
 
 
-def lab_w4_plain(xa, codes, scales, gs, gw, mode: str = "f32"):
-    """Plain version of lab_w4: the nibbles decoded by `mode` as
-    w4_variant's body does, laid out in natural k order (row 2g from
-    byte g's low nibble, 2g + 1 from its high one), an f32 matmul, the
-    epilogue. codes [Kq/2, N] uint8; the rest as lab_w8_plain."""
+def w4_weight(codes, scales, mode: str = "f32") -> torch.Tensor:
+    """The bf16 weight [Kq, N] that lab_w4's `mode` decodes: the nibbles
+    decoded as w4_variant's body does, laid out in natural k order (row
+    2g from byte g's low nibble, 2g + 1 from its high one). codes [Kq/2,
+    N] uint8; scales [Kq/16, N] uint8."""
     if mode not in W4_MODES:
         raise ValueError(f"lab_w4: unknown mode {mode!r}")
     s = N.ue4m3_from_bytes(scales).repeat_interleave(N.NVFP4_GROUP // 2,
@@ -178,7 +199,14 @@ def lab_w4_plain(xa, codes, scales, gs, gw, mode: str = "f32"):
     else:   # nodec
         even = odd = (codes.int() << 22).view(torch.float32).to(
             torch.bfloat16)
-    w = torch.stack([even, odd], dim=1).reshape(-1, codes.shape[1])
+    return torch.stack([even, odd], dim=1).reshape(-1, codes.shape[1])
+
+
+def lab_w4_plain(xa, codes, scales, gs, gw, mode: str = "f32"):
+    """Plain version of lab_w4: the weight decoded by `mode` (w4_weight),
+    an f32 matmul, the epilogue. codes [Kq/2, N] uint8; the rest as
+    lab_w8_plain."""
+    w = w4_weight(codes, scales, mode)
     return _epilogue(xa.to(torch.bfloat16).float() @ w.float(), gs, gw)
 
 

@@ -29,8 +29,11 @@ Phases, each printed as it runs:
      projections in w8 and w4 at M 4, 8 and 256, bitwise against the
      per-expert loop of the single GEMM, the 60-expert stack decoded in
      one launch, and the attention kernels at its G = 1; and the GEMM
-     lab's four kernels (csrc/gemm_lab.cu; lab_w8_ring a warp-specialised
-     TMA + mbarrier persistent ring, lab_w8_ring_n one thread-block
+     lab's four kernels (csrc/gemm_lab.cu; lab_w8 and lab_w4 production's
+     small-M mainloop at the lab's tiles and decodes, each code word
+     decoded in registers into mma.sync fragments; lab_w8_ring a
+     warp-specialised TMA + mbarrier persistent ring, lab_w8_ring_n one
+     thread-block
      cluster per n tile with its split-K summed in distributed shared
      memory) at the four decode sites at M 4, select-free and ARC 0.125,
      each beside its bound and torch.matmul over the decoded bf16
@@ -992,8 +995,8 @@ def lab_kernel_checks(cfg, gen, timer, record, failures):
     sites (qkv, o, gateup, down) at M 4, select-free and ARC 0.125, one
     weight a site packed in w8 and w4: a line per kernel at its default
     configuration (lab_w8 base and lab_w4 f32: 128 x 128, 3 stages,
-    production's split plan; lab_w8_ring: the TMA ring, 128 columns, 4
-    slots, two blocks an SM; lab_w8_ring_n: one cluster of production's
+    production's split plan; lab_w8_ring: the TMA ring, 128 columns, 2
+    slots, three blocks an SM; lab_w8_ring_n: one cluster of production's
     split count per n tile) with its ms, bound, torch.matmul over the
     decoded bf16 weight, plain ms, error against the plain version and
     bitwise against gemm_w8 (all four run production's plan and k order
@@ -1410,7 +1413,9 @@ def fused_checks(cfg, gen, timer, record, summary):
                timer(lambda: cuda(*args)), timer(lambda: plain(*args)),
                "bitwise vs the CUDA chain; each step vs its plain version",
                rep=rep, work=work(got))
-        log(f"  {'':13s} CUDA chain (actq -> gemm_w8 ...) {chain_ms:.4f} ms")
+        b_ms, b_by = bound_ms(*work(got))
+        log(f"  {'':13s} CUDA chain (actq -> gemm_w8 ...) {chain_ms:.4f} ms; "
+            f"bound {b_ms:.5f} ms ({b_by})")
         if rep:
             summary[kernel]["chain_ms"] = chain_ms
 

@@ -41,7 +41,8 @@ from arcquant_tpu_torch.quant import numerics as N
 from arcquant_tpu_torch.quant import packing
 from arcquant_tpu_torch.testing import to_numpy, to_torch
 
-from test_torch_gemm_small_m import mainloop_emulation
+from test_torch_gemm_small_m import (S_REF, e2m1x_pairs, mainloop_emulation,
+                                     ue4m3_pair)
 
 ROOT = Path(__file__).resolve().parents[1]
 N_OUT, K, BM = 256, 512, 16
@@ -207,6 +208,17 @@ def test_configs_match_the_cuda_source():
         for c in range(1, max_c + 1))
     tiles = {t[:3] for t in gl.RING_N_CONFIGS}
     assert len(gl.LAB_CONFIGS) + len(gl.RING_CONFIGS) + len(tiles) <= 32
+    # the fragment mainloop: padded code rows, no WMMA, no B or C tile
+    lab_ns = src[src.index("namespace lab {"):src.index("namespace ring {")]
+    assert "LDC = W4 ? BN + 32 : BN + 16" in lab_ns
+    assert "wmma" not in lab_ns and "Bs" not in lab_ns
+    assert lab_ns.count("sm::decode_step<") == 1
+    assert gl.smem_bytes(128, 128, 3, "base") == 3 * (128 * 144 + 8 * 128
+                                                      + 16 * 136 * 2)
+    assert gl.smem_bytes(128, 128, 3, "mul3d") == \
+        gl.smem_bytes(128, 128, 3, "base") + 8 * 128 * 4
+    assert gl.smem_bytes(128, 128, 3, "f32") == 3 * (64 * 160 + 8 * 128
+                                                     + 16 * 136 * 2)
     for bn, bks, stages, mode in gl.LAB_CONFIGS:
         assert gl.smem_bytes(bn, bks, stages, mode) <= gl.SMEM_MAX
     for bn, bks, stages in gl.RING_CONFIGS:
@@ -215,6 +227,132 @@ def test_configs_match_the_cuda_source():
     assert gl.smem_bytes(256, 256, 3, "base") > gl.SMEM_MAX
     with pytest.raises(ValueError, match="mode"):
         gl.lab_w8_plain(*_case(4, 0, "w8")[1], mode="f32")
+
+
+@pytest.mark.parametrize("bn,bks,stages,mode", gl.LAB_CONFIGS)
+def test_code_rows_padded_off_bank_conflicts(bn, bks, stages, mode):
+    """A fragment load (one 32-bit word a thread: lane t = l % 4 reads
+    code row 2t (w8) or t (w4) of the step, at column 4 (l / 4) of its
+    warp's 32) hits 32 distinct banks: the rows start 8 banks apart at
+    every built BN; every row and stage stays 16-byte aligned for
+    cp.async."""
+    ld = gl.code_ld(bn, mode)
+    assert ld % 16 == 0
+    for warp in range(bn // 32):
+        for r0 in (0, 1, 8, 9) if mode in gl.W8_MODES else (0, 4):
+            step = 2 if mode in gl.W8_MODES else 1
+            banks = {((r0 + step * t) * ld + warp * 32 + 4 * g) // 4 % 32
+                     for t in range(4) for g in range(8)}
+            assert len(banks) == 32, (bn, mode, warp, r0)
+
+
+def _bf16_value(h):
+    """bf16 bits (any unsigned array) -> their f32 values."""
+    return (np.asarray(h, np.uint32) << 16).view(np.float32)
+
+
+def _round_bf16(x):
+    """f32 values -> bf16 bits, rounded to nearest even (no NaN here)."""
+    u = np.asarray(x, np.float32).view(np.uint32)
+    return ((u + 0x7FFF + ((u >> 16) & 1)) >> 16).astype(np.uint16)
+
+
+def _halves(v):
+    v = np.asarray(v, np.uint32)
+    return (v & 0xFFFF).astype(np.uint16), (v >> 16).astype(np.uint16)
+
+
+def _ue4m3_decode(b):
+    """common.cuh's ue4m3_decode on the bits (e == 0: m 2^-9)."""
+    b = np.asarray(b, np.uint32)
+    e, m = (b >> 3) & 0xF, b & 7
+    normal = (((e + 120) << 23) | (m << 20)).astype(np.uint32).view(
+        np.float32)
+    return np.where(e == 0, m.astype(np.float32) * np.float32(2.0 ** -9),
+                    normal).astype(np.float32)
+
+
+def _bits(w):
+    return w.view(torch.int16).numpy().view(np.uint16)
+
+
+def test_register_decodes_equal_plain_decode():
+    """Every register decode of lab_w8 and lab_w4 (csrc/gemm_lab.cu
+    frag_decode), its integer and bf16x2 steps emulated on the 32-bit
+    words a thread holds, over all 256 code bytes x all 256 ue4m3 scale
+    bytes, equals the plain version's decoded weight (w8_weight,
+    w4_weight) bit for bit:
+      noscale  byte c's low 7 bits into the bf16 128 + m, less 128 or 256
+               (sign bit) in one bf16x2 subtraction; the word holds byte
+               c twice and the other k row's byte twice (byte_perm's
+               pair), which the masks drop;
+      mul3d    that pair times the stage's scale tile entry, the bf16 pair
+               of ue4m3 / 2 built from the bits (ue4m3_pair<1>), __hmul2;
+      bf16     code and ue4m3_decode / 2 rounded to bf16, __hmul2;
+      i16      w4_variant's map on the two 16-bit halves of a word (mag 1
+               -> 0), times ue4m3_pair<0>;
+      nodec    c << 6 in both halves;
+      f32      production's byte-permute tables (e2m1x_pairs) times
+               ue4m3_pair<0>. The one exception: a zero code with its
+               sign bit set (nibble 9) decodes to -0 where the plain
+               version gives +0, a zero product's sign that the
+               zero-started partials absorb."""
+    byte = np.arange(256, dtype=np.uint32)
+    c = np.repeat(byte[:, None], 256, axis=1)        # [code byte, scale byte]
+    sb = np.repeat(byte[None, :], 256, axis=0)
+    other = (c + 91) % 256                           # the word's other k row
+    codes8 = torch.from_numpy(byte.astype(np.uint8)).view(torch.int8)
+    codes8 = codes8[:, None].expand(256, 256).contiguous()
+    scales8 = torch.from_numpy(byte.astype(np.uint8))[None].expand(16, 256)
+    plain8 = {m: _bits(gl.w8_weight(codes8, scales8.contiguous(), m))
+              for m in gl.W8_MODES}
+    s_w8 = np.array([_round_bf16(ue4m3_pair(b, 1)) for b in range(256)])
+    s_w4 = np.array([_round_bf16(ue4m3_pair(b, 0)) for b in range(256)])
+
+    def mul(a, b):
+        return _round_bf16(_bf16_value(a) * _bf16_value(b))
+
+    p = c | (c << 8) | (other << 16) | (other << 24)
+    lo, hi = _halves((p & 0x007F007F) | 0x43004300)
+    klo, khi = _halves((p & 0x00800080) | 0x43004300)
+    code_lo = _round_bf16(_bf16_value(lo) - _bf16_value(klo))
+    code_hi = _round_bf16(_bf16_value(hi) - _bf16_value(khi))
+    got = {"noscale": (code_lo, code_hi),
+           "mul3d": (mul(code_lo, s_w8[sb]), mul(code_hi, s_w8[sb]))}
+    s_cvt = _round_bf16(_ue4m3_decode(sb) * np.float32(0.5))
+    assert (_ue4m3_decode(byte) == np.float32(S_REF)).all()
+    got["bf16"] = tuple(
+        mul(_round_bf16(v.astype(np.uint8).view(np.int8).astype(np.float32)),
+            s_cvt) for v in (c, other))
+    for mode, (g_lo, g_hi) in got.items():
+        np.testing.assert_array_equal(g_lo, plain8[mode], err_msg=mode)
+        np.testing.assert_array_equal(g_hi, plain8[mode][other, sb],
+                                      err_msg=mode)
+
+    codes4 = torch.from_numpy(byte.astype(np.uint8))[:, None].expand(
+        256, 256).contiguous()
+    scales4 = torch.from_numpy(byte.astype(np.uint8))[None].expand(32, 256)
+    plain4 = {m: _bits(gl.w4_weight(codes4, scales4.contiguous(), m))
+              for m in gl.W4_MODES}
+    w = (c & 0xF) | ((c & 0xF0) << 12)
+    mag = w & 0x00070007
+    h = ((mag << 6) | ((w & 0x00080008) << 12)) + 0x3F003F00
+    h &= ~(np.where((mag & 0xFFFF) == 1, 0xFFFF, 0)
+           | np.where((mag >> 16) == 1, 0xFFFF0000, 0)).astype(np.uint32)
+    got = {"i16": tuple(mul(x, s_w4[sb]) for x in _halves(h)),
+           "nodec": _halves((c << 6) * 0x10001)}
+    pairs = np.array([_halves(e2m1x_pairs(b, (b + 91) % 256, 0)[0])
+                      for b in range(256)])       # [byte, half]
+    got["f32"] = tuple(mul(pairs[c, j], s_w4[sb]) for j in (0, 1))
+    for mode, (g_lo, g_hi) in got.items():
+        for g, want, nib in ((g_lo, plain4[mode][0::2], c & 0xF),
+                             (g_hi, plain4[mode][1::2], c >> 4)):
+            if mode == "f32":   # the signed zero code: -0 against +0
+                signed_zero = nib == 9
+                assert (g[signed_zero] == 0x8000).all()
+                assert (want[signed_zero] == 0).all()
+                g = np.where(signed_zero, 0, g)
+            np.testing.assert_array_equal(g, want, err_msg=mode)
 
 
 def test_ring_boxes_and_shared_memory():

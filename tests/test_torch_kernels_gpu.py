@@ -1083,6 +1083,52 @@ def test_lab_every_configuration():
         gl.lab_w8(xa, p8.codes, p8.scales, gs, gw, bn=256, bks=256)
 
 
+@pytest.mark.parametrize("m", [16, 40])
+def test_lab_wide_and_narrow_tiles_over_m_tiles(m):
+    """lab_w8 and lab_w4 at every built configuration of BN 64 and 256,
+    at M 16 (one m tile) and M 40 (three m tiles of 16 rows, the last
+    ragged; production runs one 64-row tile): within the sum-order bound
+    of the plain version, the exact modes bit for bit gemm_w8 at
+    production's plan (N 1040: a ragged last n tile)."""
+    require_cuda()
+    rng = np.random.default_rng(460 + m)
+    p8, p4, xa, gx, gw = _lab_case(rng, m, 1040, 960, 64)
+    gs = gx.reshape(-1)
+    prod = gk._gemm_w8_cuda(xa, p8.codes, p8.scales, gx, gw.reshape(1, -1),
+                            None, torch.bfloat16)
+    configs = [c for c in gl.LAB_CONFIGS if c[0] in (64, 256)]
+    assert {c[3] for c in configs} == {"base", "f32"}
+    for bn, bks, stages, mode in configs:
+        fmt = (gl.lab_w8, gl.lab_w8_plain, p8) if mode in gl.W8_MODES \
+            else (gl.lab_w4, gl.lab_w4_plain, p4)
+        run, plain, pk = fmt
+        y = run(xa, pk.codes, pk.scales, gs, gw, mode=mode, bn=bn, bks=bks,
+                stages=stages)
+        _lab_checks(y, plain(xa, pk.codes, pk.scales, gs, gw, mode), prod,
+                    True)
+
+
+@pytest.mark.parametrize("m", [4, 16])
+def test_lab_w8_bf16_activations_bitwise(m):
+    """lab_w8 base on bf16 activations (A16, unit row scales), where the
+    k order shows in the bits: at production's plan (qkv: 7 splits at M
+    4) bit for bit gemm_w8 at every built base tile, and within the
+    sum-order bound of the plain version."""
+    require_cuda()
+    rng = np.random.default_rng(470 + m)
+    p8, _, _, _, gw = _lab_case(rng, m, 4608, 3584, 0)
+    x = _bf16(rng.standard_normal((m, p8.kq)) * 2.0)
+    ones = torch.ones(m, device="cuda")
+    prod = gk._gemm_w8_cuda(x, p8.codes, p8.scales, ones[:, None],
+                            gw.reshape(1, -1), None, torch.bfloat16)
+    ref = gl.lab_w8_plain(x, p8.codes, p8.scales, ones, gw)
+    for bn, bks, stages, mode in gl.LAB_CONFIGS:
+        if mode == "base":
+            y = gl.lab_w8(x, p8.codes, p8.scales, ones, gw, bn=bn, bks=bks,
+                          stages=stages)
+            _lab_checks(y, ref, prod, True)
+
+
 @pytest.mark.parametrize("n", [37888, 4608])
 def test_lab_ring_n(n):
     """One cluster per n tile (gateup at M 4: production plans one split,
