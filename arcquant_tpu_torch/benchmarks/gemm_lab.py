@@ -321,7 +321,7 @@ def candidates(c: Case, fmt: str):
     ops = c.operands(fmt)
     lab = gl.lab_w8 if fmt == "w8" else gl.lab_w4
     mode = "base" if fmt == "w8" else "f32"
-    plan = gk._split_plan(c.m, c.n, c.kq)[1]
+    plan = gk._split_plan(c.m, c.n, c.kq, fmt)[1]
     out = []
     for bn, bks, stages, md in gl.LAB_CONFIGS:
         if md == mode:
@@ -415,7 +415,7 @@ def best_by_site(lab: Lab, m: int = 4, sites=SHAPES):
                         f"production, {b / ab[kind].median * 100:.1f}% of the "
                         f"bound, bitwise {variants[w][1]}  [{lab.card}]")
             rows.append(dict(site=name, fmt=fmt, best=best, rings=rings,
-                             splits=gk._split_plan(m, n, c.kq)[1],
+                             splits=gk._split_plan(m, n, c.kq, fmt)[1],
                              variants=variants, ab=ab, unheld=unheld,
                              bound_ms=b))
         del c

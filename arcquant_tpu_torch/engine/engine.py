@@ -86,7 +86,7 @@ import torch
 
 from ..cache import paged
 from ..config import KV_PAGE_SIZE, ModelConfig, QuantConfig
-from ..kernels import _build, attention, gemm as gk
+from ..kernels import _build, attention, autotune, gemm as gk
 from ..kernels import mlp_fused as mf
 from ..kernels import paged_decode as pdk
 from ..kernels import quantize as qk
@@ -449,6 +449,11 @@ class InferenceEngine:
                 and qcfg.quant_type == "NVFP4"):
             head = self.qparams.pop("lm_head", self.qparams["embed"])
             self.qparams["lm_head_packed"] = pack_lm_head(head, qcfg)
+        # the measured GEMM plan (opt-in, ARC_GEMM_AUTOTUNE=1): this
+        # engine's weight shapes timed at the serving batch before any
+        # capture, so every graph holds the tuned split
+        if autotune.should_autotune(self.device):
+            autotune.autotune_engine(self.qparams, ecfg.max_batch)
         self.inv_freq = llama.rope_inv_freq(cfg).to(self.device)
 
     @classmethod

@@ -24,6 +24,12 @@ vmap of ``_gemm_call``), whose every expert's slice gives the bits of a
 ``gemm_w8`` or ``gemm_w4`` launch on that expert. ``dequant_weight``
 decodes a stacked pack in one launch too.
 
+At M <= 64 the fused GEMM's small-M tile splits k across blocks by
+``_split_plan``: the measured plan table's split for (format, M bucket,
+Kq, N) where one is trusted (kernels/autotune.py, the JAX package's
+autotune table), else ``heuristic_splits``. Every launcher of the
+small-M mainloop takes that answer.
+
 CUDA tensors launch the kernels in ``csrc/`` (``gemm_w8.cu``,
 ``gemm_w4.cu``, ``gemm_batched.cu``, ``dequant.cu``); CPU tensors run
 the plain versions (``*_plain``), whose matmul is f32. The decoded
@@ -42,7 +48,7 @@ import torch
 
 from ..quant import numerics as N
 from ..quant.packing import PackedWeight, PackedWeightI8
-from . import _build
+from . import _build, autotune
 
 P, I32 = _build.P, _build.I32
 _GEMM_ARGS = [P, P, P, P, P, P, P, I32, P, I32, I32, I32, I32, I32, I32]
@@ -180,21 +186,54 @@ def pin_rowmajor_plain(x: torch.Tensor) -> torch.Tensor:
 
 # -- CUDA launchers ------------------------------------------------------------
 
-def _split_plan(m: int, n: int, kq: int):
-    """(small_m, splits, k-tiles per split) for the CUDA GEMM. The k
-    split fixes the bits of a small-M output (each split's 32-deep
-    k-tiles summed in order, the splits in order): the megakernels
-    (mlp_fused.py) and gemm_batched take the same plan."""
-    small = m <= _SMALL_M
-    bm = 32 if small else 128
-    blocks = -(-n // 128) * -(-m // bm)
-    k_tiles = kq // _BK
-    splits = 1
-    if small:
-        splits = max(1, min(-(-_TARGET_BLOCKS // blocks),
-                            k_tiles // _MIN_SPLIT_TILES))
+def _plan_at(k_tiles: int, splits: int):
+    """(splits, k-tiles per split) for `splits` requested over k_tiles:
+    per = ceil(k_tiles / splits), and as many splits as that leaves none
+    empty (a plan it returns maps to itself)."""
     per = -(-k_tiles // splits)
-    return small, -(-k_tiles // per), per
+    return -(-k_tiles // per), per
+
+
+def heuristic_splits(m: int, n: int, kq: int) -> int:
+    """The small-M tile's split count where the plan table has no entry:
+    enough splits for about _TARGET_BLOCKS blocks, each split at least
+    _MIN_SPLIT_TILES k-tiles."""
+    blocks = -(-n // 128) * -(-m // 32)
+    k_tiles = kq // _BK
+    splits = max(1, min(-(-_TARGET_BLOCKS // blocks),
+                        k_tiles // _MIN_SPLIT_TILES))
+    return _plan_at(k_tiles, splits)[0]
+
+
+def split_candidates(m: int, n: int, kq: int) -> list:
+    """The split counts kernels/autotune.py times at a small-M shape: the
+    heuristic's first, then each plan of 1 up to the most splits that keep
+    _MIN_SPLIT_TILES k-tiles a split, no plan twice."""
+    k_tiles = kq // _BK
+    out = [heuristic_splits(m, n, kq)]
+    for s in range(1, max(1, k_tiles // _MIN_SPLIT_TILES) + 1):
+        s = _plan_at(k_tiles, s)[0]
+        if s not in out:
+            out.append(s)
+    return out
+
+
+def _split_plan(m: int, n: int, kq: int, fmt: str = "w8"):
+    """(small_m, splits, k-tiles per split) for the CUDA GEMM of format
+    `fmt`. At M <= _SMALL_M the split count is the plan table's
+    (autotune.lookup_split: measured on this card kind for (fmt, M
+    bucket, Kq, N), trusted only beyond its noise gate), else
+    heuristic_splits'; the large-M tile takes one split. The k split
+    fixes the bits of a small-M output (each split's 32-deep k-tiles
+    summed in order, the splits in order): the megakernels
+    (mlp_fused.py), gemm_batched and the lab take this plan, so they stay
+    bitwise the chain under any table."""
+    k_tiles = kq // _BK
+    if m > _SMALL_M:
+        return False, 1, k_tiles
+    splits = (autotune.lookup_split(fmt, m, kq, n)
+              or heuristic_splits(m, n, kq))
+    return (True, *_plan_at(k_tiles, splits))
 
 
 def _aligned(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
@@ -216,9 +255,12 @@ def _pad_n(n: int, codes, scales, gw, bias):
     return n + pad, p(codes), p(scales), p(gw), p(bias)
 
 
-def _gemm_cuda(w4, xa, codes, scales, gs, gw, bias, out_dtype):
+def _gemm_cuda(w4, xa, codes, scales, gs, gw, bias, out_dtype,
+               splits: Optional[int] = None):
     """Launch the fused GEMM of the format (w4: codes uint8 [Kq/2, N];
-    else int8 [Kq, N]). gs: [M, 1] f32; gw: [1, N] f32."""
+    else int8 [Kq, N]). gs: [M, 1] f32; gw: [1, N] f32. `splits` forces
+    the small-M tile's split count (autotune's candidates); by default
+    _split_plan's."""
     kernel = GEMM_W4 if w4 else GEMM_W8
     _build.require_cuda(kernel.name, xa, codes, scales, gs, gw, bias)
     m, kq = xa.shape
@@ -239,7 +281,13 @@ def _gemm_cuda(w4, xa, codes, scales, gs, gw, bias, out_dtype):
     gs = gs.reshape(-1).float().contiguous()
     gw = gw.reshape(-1).float().contiguous()
     bias = bias.contiguous() if bias is not None else None
-    small, splits, per = _split_plan(m, n, kq)
+    if splits is None:
+        small, splits, per = _split_plan(m, n, kq, "w4" if w4 else "w8")
+    elif m <= _SMALL_M and 1 <= splits <= kq // _BK:
+        small, (splits, per) = True, _plan_at(kq // _BK, splits)
+    else:
+        raise ValueError(f"{kernel.name}: no plan of {splits} splits at "
+                         f"M {m}, Kq {kq}")
     n_run = n
     if not small:
         n_run, codes, scales, gw, bias = _pad_n(n, codes, scales, gw, bias)
@@ -254,21 +302,23 @@ def _gemm_cuda(w4, xa, codes, scales, gs, gw, bias, out_dtype):
     return out if n_run == n else out[:, :n].contiguous()
 
 
-def _gemm_w8_cuda(xa, codes, scales, gs, gw, bias, out_dtype):
+def _gemm_w8_cuda(xa, codes, scales, gs, gw, bias, out_dtype, splits=None):
     """Launch csrc/gemm_w8.cu."""
-    return _gemm_cuda(False, xa, codes, scales, gs, gw, bias, out_dtype)
+    return _gemm_cuda(False, xa, codes, scales, gs, gw, bias, out_dtype,
+                      splits)
 
 
-def _gemm_w4_cuda(xa, codes, scales, gs, gw, bias, out_dtype):
+def _gemm_w4_cuda(xa, codes, scales, gs, gw, bias, out_dtype, splits=None):
     """Launch csrc/gemm_w4.cu."""
-    return _gemm_cuda(True, xa, codes, scales, gs, gw, bias, out_dtype)
+    return _gemm_cuda(True, xa, codes, scales, gs, gw, bias, out_dtype,
+                      splits)
 
 
 def _gemm_batched_cuda(xa, codes, scales, gs, gw, out_dtype):
     """Launch csrc/gemm_batched.cu over all experts at once. xa: [E, M,
     Kq] bf16; codes: [E, Kq, N] int8 or [E, Kq/2, N] uint8; scales:
     [E, Kq/16, N]; gs: [E, M, 1] f32; gw: [E, 1, N] f32. Each expert takes
-    the split plan of a single GEMM of its shape."""
+    the split plan of a single GEMM of its shape and format."""
     _build.require_cuda("gemm_batched", xa, codes, scales, gs, gw)
     w4 = codes.dtype == torch.uint8
     e, m, kq = xa.shape
@@ -287,7 +337,7 @@ def _gemm_batched_cuda(xa, codes, scales, gs, gw, out_dtype):
     codes, scales = codes.contiguous(), scales.contiguous()
     gs = gs.float().expand(e, m, 1).contiguous()
     gw = gw.float().expand(e, 1, n).contiguous()
-    small, splits, per = _split_plan(m, n, kq)
+    small, splits, per = _split_plan(m, n, kq, "w4" if w4 else "w8")
     n_run = n
     if not small:
         n_run, codes, scales, gw, _ = _pad_n(n, codes, scales, gw, None)

@@ -37,10 +37,12 @@ kernel bodies do and take an f32 matmul. xa is in natural k order for
 both formats (the TPU's split-half w4 operand is not carried over) and
 is not padded to 16 rows: the kernels mask the rows past M.
 
-With production's split plan (``gemm._split_plan``, the default) the
-exact modes (base, mul3d, bf16; w4 f32 and i16) give gemm_w8's bits, and
-so do lab_w8_ring and lab_w8_ring_n (at a cluster size of production's
-split count, its default). Nothing on a serving path calls this module.
+With production's split plan (``gemm._split_plan`` of the format, the
+default: the plan table's split or the heuristic's) the exact modes
+(base, mul3d, bf16; w4 f32 and i16) give the bits of gemm_w8 (gemm_w4
+for lab_w4, which equals gemm_w8 at the same plan), and so do
+lab_w8_ring and lab_w8_ring_n (at a cluster size of production's split
+count, its default). Nothing on a serving path calls this module.
 """
 
 from __future__ import annotations
@@ -231,11 +233,11 @@ def _operands(name, w4, xa, codes, scales, gs, gw):
             gw.reshape(-1).float().contiguous(), m, n, kq)
 
 
-def _plan(m, n, kq, splits: Optional[int] = None):
-    """(splits, 32-tiles a split): production's plan unless `splits` is
-    given."""
+def _plan(m, n, kq, splits: Optional[int] = None, fmt: str = "w8"):
+    """(splits, 32-tiles a split): production's plan of the format unless
+    `splits` is given."""
     if splits is None:
-        _, splits, per = gk._split_plan(m, n, kq)
+        _, splits, per = gk._split_plan(m, n, kq, fmt)
         return splits, per
     per = -(-(kq // SUBK) // splits)
     return -(-(kq // SUBK) // per), per
@@ -253,7 +255,7 @@ def _launch(kernel, w4, xa, codes, scales, gs, gw, mode, bn, bks, stages,
     _check(kernel.name, bn, bks, stages, mode, LAB_CONFIGS)
     xa, codes, scales, gs, gw, m, n, kq = _operands(kernel.name, w4, xa,
                                                      codes, scales, gs, gw)
-    splits, per = _plan(m, n, kq, splits)
+    splits, per = _plan(m, n, kq, splits, "w4" if w4 else "w8")
     out = torch.empty((m, n), dtype=torch.bfloat16, device=xa.device)
     ws = (torch.empty((splits, m, n), dtype=torch.float32, device=xa.device)
           if splits > 1 else None)

@@ -29,9 +29,14 @@ PackedWeightI8 weights, f % 128 == 0 with kq2 >= f, and a select-free
 input site for #14 and #12. They drop JAX's k-block condition: the JAX
 megakernels stream at the k block gemm_dequant would pick
 (``_engine_bk``: its autotune table, else its heuristic, limited to
-``_OK_BKS``), while the port has no autotune table and splits k with
-gemm.py:_split_plan, which the fused kernels take over as it is. So
-neither ``_OK_BKS`` nor ``_engine_bk`` carries over.
+``_OK_BKS``, so that they stay bitwise the chain). The port's
+counterpart is the k split: each fused GEMM takes gemm.py:_split_plan's
+answer for its shape in w8 (``_plan``), which is the plan table's
+measured split (kernels/autotune.py) or the heuristic's, the same one
+the chain's gemm_w8 launch takes. Any split the plan gives is legal for
+the fused kernels (their persistent grid walks (n-tile, split) items,
+their workspace is sized by ``_ws``), so no ``_OK_BKS`` gate carries
+over.
 
 MLP_FUSED_M takes the place of JAX's ARC_MLP_FUSED_M environment
 variable (0 turns the routes off); the engine's own switch is
@@ -211,8 +216,9 @@ def _phase_a_rows(x: torch.Tensor, d: int) -> torch.Tensor:
 
 
 def _plan(m: int, pw: PackedWeightI8):
-    """The chain's k split of this GEMM: (splits, k-tiles per split)."""
-    _, splits, per = gk._split_plan(m, pw.n, pw.kq)
+    """The chain's k split of this GEMM (the plan table's or the
+    heuristic's): (splits, k-tiles per split)."""
+    _, splits, per = gk._split_plan(m, pw.n, pw.kq, "w8")
     return splits, per
 
 

@@ -140,6 +140,17 @@ Phases, each printed as it runs:
      (bitwise where it keeps production's k order), the fastest per site,
      then production, the fastest, the default tile and (w8) the fastest
      of each copy ring re-timed in turns over five rounds;
+     [autotune] (autotune_run): the measured GEMM plan table
+     (kernels/autotune.py): benchmarks/gemm_autotune.py into a scratch
+     table at the decode shapes, w8 and w4, M 4, each site's ms by split;
+     under it 28 layers at ARC 0.125 and select-free, the captured step
+     bitwise its eager loop and the fused routes bitwise the chain; then
+     decode ms/step and the megakernels' times, the shipped table
+     against the heuristic, in turns. Every other phase runs under the
+     table shipped for the card kind (kernels/autotune_tables/), the A/Bs
+     of gemm_w4 against gemm_w8 at gemm_w8's splits, and gemm_w4 and
+     the w4 engine are also held at w4's own plans (to plain's sum-order
+     bound; the graph bitwise its eager loop);
  13. the MoE model, qwen1.5-moe-a2.7b at full width, all 24 layers, in
      w8 and then w4 (moe_run): generate() on the same 4 requests with the
      launch counts (gemm_batched once a layer a decode step), prefill ms,
@@ -625,18 +636,28 @@ def kernel_checks(cfg, timer, failures):
                    library=lib if rep else None,
                    library_what="torch.matmul over the decoded bf16 weight")
             args4 = (xa, pw4.codes, pw4.scales, gs, gw, pw4.bias, dt)
-            y4 = gk._gemm_w4_cuda(*args4)
+            # bitwise gemm_w8 at gemm_w8's split; the row's error and
+            # time are gemm_w4's at its own plan (the plan table's for
+            # w4, which may differ), the launch production makes
+            s8, s4 = ((gk._split_plan(m, n, pw.kq)[1],
+                       gk._split_plan(m, n, pw.kq, "w4")[1])
+                      if m <= gk._SMALL_M else (None, None))
+            y4 = gk._gemm_w4_cuda(*args4, splits=s8)
+            own4 = y4 if s4 == s8 else gk._gemm_w4_cuda(*args4)
             ref4 = gk.gemm_w4_plain(*args4)
             torch.cuda.synchronize()
             same = bitwise([y4], [y])
             record("gemm_w4", f"{name} M={m} Kq={pw.kq} N={n}"
                    + (" A16" if act == "A16" else "")
+                   + (f" splits w8={s8} w4={s4}" if s4 else "")
                    + f" bitwise-vs-gemm_w8={same}",
-                   float((y4.float() - ref4.float()).abs().max()),
-                   same and sum_order_bound(y4, ref4, f32),
+                   float((own4.float() - ref4.float()).abs().max()),
+                   same and sum_order_bound(y4, ref4, f32)
+                   and sum_order_bound(own4, ref4, f32),
                    timer(lambda: gk._gemm_w4_cuda(*args4)),
                    timer(lambda: gk.gemm_w4_plain(*args4)),
-                   "bitwise vs gemm_w8 on the same weight; f32 sum order"
+                   "bitwise vs gemm_w8 on the same weight at its split; "
+                   "at that split and at its own plan f32 sum order"
                    + ("" if f32 else " + 1 bf16 ulp") + " vs plain",
                    rep=rep, work=(2.0 * m * pw.kq * n,
                                   nbytes(xa, pw4.codes, pw4.scales, gs, gw,
@@ -999,9 +1020,10 @@ def lab_kernel_checks(cfg, gen, timer, record, failures):
     slots, three blocks an SM; lab_w8_ring_n: one cluster of production's
     split count per n tile) with its ms, bound, torch.matmul over the
     decoded bf16 weight, plain ms, error against the plain version and
-    bitwise against gemm_w8 (all four run production's plan and k order
-    there; gemm_w4 equals gemm_w8 too), on the card named with its power
-    limit; at gateup and qkv select-free also the other decode modes
+    bitwise against production (gemm_w8; gemm_w4 at its own plan, the
+    plan table's for w4, for lab_w4: each kernel runs production's plan
+    and k order there; gemm_w4 at gemm_w8's split equals gemm_w8 too), on
+    the card named with its power limit; at gateup and qkv select-free also the other decode modes
     (lab_w8 mul3d, bf16, noscale; lab_w4 i16, nodec), bf16 and i16 with
     their error against f64 beside production's, the probes (noscale,
     nodec) checked for shape and finiteness only. Bars: within the f32
@@ -1034,9 +1056,14 @@ def lab_kernel_checks(cfg, gen, timer, record, failures):
             gs, gw = gx.reshape(-1), p8.global_scale.reshape(-1).float()
             prod = gk._gemm_w8_cuda(xa, p8.codes, p8.scales, gx, gw[None],
                                     None, bf)
-            prod4 = gk._gemm_w4_cuda(xa, p4.codes, p4.scales, gx, gw[None],
-                                     None, bf)
             _, splits, _ = gk._split_plan(m, n, p8.kq)
+            splits4 = gk._split_plan(m, n, p8.kq, "w4")[1]
+            # gemm_w4 at gemm_w8's split gives its bits; at its own
+            # (the plan table's for w4) lab_w4's reference
+            prod4 = gk._gemm_w4_cuda(xa, p4.codes, p4.scales, gx, gw[None],
+                                     None, bf, splits=splits)
+            own4 = (prod4 if splits4 == splits else gk._gemm_w4_cuda(
+                xa, p4.codes, p4.scales, gx, gw[None], None, bf))
             cl = gl._plan(m, n, p8.kq)[0]
             wd = gk.dequant_weight(p8)   # natural k order, bf16
             lib_ms = timer(lambda: torch.matmul(xa, wd))
@@ -1045,27 +1072,33 @@ def lab_kernel_checks(cfg, gen, timer, record, failures):
             modes = name in ("gateup", "qkv") and frac == 0.0
             rows = [("lab_w8", mode, lambda mode=mode: gl.lab_w8(*a8,
                                                                  mode=mode),
-                     lambda mode=mode: gl.lab_w8_plain(*a8, mode), p8)
+                     lambda mode=mode: gl.lab_w8_plain(*a8, mode), p8, prod)
                     for mode in (gl.W8_MODES if modes else ("base",))]
             rows += [("lab_w8_ring", "base", lambda: gl.lab_w8_ring(*a8),
-                      lambda: gl.lab_w8_plain(*a8), p8),
+                      lambda: gl.lab_w8_plain(*a8), p8, prod),
                      ("lab_w8_ring_n", "base", lambda: gl.lab_w8_ring_n(*a8),
-                      lambda: gl.lab_w8_plain(*a8), p8)]
+                      lambda: gl.lab_w8_plain(*a8), p8, prod)]
             rows += [("lab_w4", mode, lambda mode=mode: gl.lab_w4(*a4,
                                                                  mode=mode),
-                      lambda mode=mode: gl.lab_w4_plain(*a4, mode), p4)
+                      lambda mode=mode: gl.lab_w4_plain(*a4, mode), p4, own4)
                      for mode in (gl.W4_MODES if modes else ("f32",))]
             f64 = gemm_w8_f64(xa, p8.codes, p8.scales, gx, gw[None], None,
                               None) if modes else None
             torch.cuda.synchronize()
             if not bitwise([prod4], [prod]):
                 failures.append(f"lab {name} sel={sel}: gemm_w4 differs from "
-                                "gemm_w8")
-            for kernel, mode, run, plain, pk in rows:
+                                f"gemm_w8 at {splits} splits")
+            if own4 is not prod4 and not sum_order_bound(
+                    own4, gk.gemm_w4_plain(xa, p4.codes, p4.scales, gx,
+                                           gw[None], None, bf), False):
+                failures.append(f"lab {name} sel={sel}: gemm_w4 at its own "
+                                f"{splits4} splits outside the sum-order "
+                                "bound of plain")
+            for kernel, mode, run, plain, pk, production in rows:
                 y, ref = run(), plain()
                 torch.cuda.synchronize()
                 err = float((y.float() - ref.float()).abs().max())
-                same = bitwise([y], [prod])
+                same = bitwise([y], [production])
                 must = mode in gl.EXACT_MODES
                 if mode in ("noscale", "nodec"):
                     ok = y.shape == prod.shape and bool(
@@ -1073,8 +1106,8 @@ def lab_kernel_checks(cfg, gen, timer, record, failures):
                     tol = "probe: shape and finite only"
                 else:
                     ok = sum_order_bound(y, ref, False) and (same or not must)
-                    tol = ("bitwise vs gemm_w8; " if must else "") + \
-                        "f32 sum order + 1 bf16 ulp vs plain"
+                    tol = (f"bitwise vs gemm_{pk_fmt(pk)}; " if must
+                           else "") + "f32 sum order + 1 bf16 ulp vs plain"
                 if mode in ("bf16", "i16"):
                     e_y, e_p = (float((z.double() - f64).abs().mean()
                                       / f64.abs().mean()) for z in (y, prod))
@@ -1085,10 +1118,11 @@ def lab_kernel_checks(cfg, gen, timer, record, failures):
                 work = (2.0 * m * pk.kq * n,
                         nbytes(xa, pk.codes, pk.scales, gs, gw, y))
                 plan = (f"cluster={cl}" if kernel == "lab_w8_ring_n"
-                        else f"splits={splits}")
+                        else f"splits={splits4 if pk is p4 else splits}")
                 t_k, t_p = timer(run), timer(plain)
                 record(kernel, f"{name} {mode} M={m} Kq={pk.kq} N={n} "
-                       f"sel={sel} {plan} bitwise-vs-gemm_w8={same}", err,
+                       f"sel={sel} {plan} bitwise-vs-gemm_{pk_fmt(pk)}="
+                       f"{same}", err,
                        ok, t_k, t_p, tol, rep=is_rep, work=work,
                        library=(lambda: torch.matmul(xa, wd)) if is_rep
                        else None,
@@ -1108,15 +1142,14 @@ def lab_kernel_checks(cfg, gen, timer, record, failures):
                 del y, ref
             if splits > 1 and name == "qkv" and frac == 0.0:
                 split_order_check(gen, xa, p8, splits, failures)
-            del p8, p4, wd, f64, xa, prod, prod4
+            del p8, p4, wd, f64, xa, prod, prod4, own4
             torch.cuda.empty_cache()
     log(f"  lab rows: {json.dumps(dict(rows=table, card=where))}")
 
 
 def split_order_check(gen, xa, pw, splits, failures):
     """Can a bitwise A/B see the k order? gemm_w8's f32 sums (gs = gw = 1,
-    f32 out) at production's `splits` against one split (the plan patched
-    over), and lab_w8's bf16 outputs at 1 and at `splits`, on the
+    f32 out) at production's `splits` against one split (forced), and lab_w8's bf16 outputs at 1 and at `splits`, on the
     quantized xa (e2m1 values) and on bf16 activations (A16). Logs how
     many outputs differ and how many f32 sums equal the f64 sum; fails
     only if the two orders differ by more than the f32 sum-order bound."""
@@ -1126,19 +1159,12 @@ def split_order_check(gen, xa, pw, splits, failures):
     m, n = xa.shape[0], pw.codes.shape[1]
     ones_m = torch.ones((m, 1), device="cuda")
     ones_n = torch.ones((1, n), device="cuda")
-    plan = gk._split_plan
     xbf = bf16_randn(gen, xa.shape, 2.0)
     for what, x in (("quantized xa", xa), ("bf16 xa (A16)", xbf)):
-        def acc():
+        def acc(s=None):
             return gk._gemm_w8_cuda(x, pw.codes, pw.scales, ones_m, ones_n,
-                                    None, torch.float32)
-        at_plan = acc()
-        gk._split_plan = lambda m_, n_, kq: (plan(m_, n_, kq)[0], 1,
-                                             kq // gk._BK)
-        try:
-            at_one = acc()
-        finally:
-            gk._split_plan = plan
+                                    None, torch.float32, splits=s)
+        at_plan, at_one = acc(), acc(1)
         exact = gemm_w8_f64(x, pw.codes, pw.scales, ones_m, ones_n, None,
                             None)
         lab = [gl.lab_w8(x, pw.codes, pw.scales, ones_m, ones_n, splits=s)
@@ -1254,6 +1280,46 @@ def paged_prefill_check(cfg, gen, timer, record, rep=True):
 def _bits(t: torch.Tensor) -> torch.Tensor:
     return t.contiguous().view(torch.int16 if t.element_size() == 2
                                else torch.int32)
+
+
+@contextlib.contextmanager
+def plan_table(entries):
+    """The GEMM plan table `entries` (kernels/autotune.py's format) in
+    force inside the block, through ARC_AUTOTUNE_FILE and a re-read; the
+    table before it after. A graph keeps the plan it captured: engines
+    drop theirs when the table changes."""
+    import os
+    from arcquant_tpu_torch.kernels import autotune
+    saved = os.environ.get("ARC_AUTOTUNE_FILE")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "plan_table.json")
+        with open(path, "w") as f:
+            json.dump(entries, f)
+        os.environ["ARC_AUTOTUNE_FILE"] = path
+        autotune.invalidate_cache()
+        try:
+            yield autotune._load()
+        finally:
+            if saved is None:
+                os.environ.pop("ARC_AUTOTUNE_FILE", None)
+            else:
+                os.environ["ARC_AUTOTUNE_FILE"] = saved
+            autotune.invalidate_cache()
+
+
+def w8_plans_for_w4() -> dict:
+    """The plan table in force with every w4 entry replaced by the w8 one
+    of the same (M bucket, Kq, N), and none where w8 has none: gemm_w4
+    then takes gemm_w8's split at every shape."""
+    from arcquant_tpu_torch.kernels import autotune
+    w8 = {k: v for k, v in autotune._load().items() if k.startswith("w8|")}
+    return {**w8, **{"w4" + k[2:]: v for k, v in w8.items()}}
+
+
+def pk_fmt(pk) -> str:
+    """The weight format of a packed weight: "w4" or "w8"."""
+    from arcquant_tpu_torch.quant import packing
+    return "w4" if isinstance(pk, packing.PackedWeight) else "w8"
 
 
 def bitwise(got, want) -> bool:
@@ -1786,12 +1852,16 @@ def w4_run(cfg, card, qparams8, calib, failures):
     random weights) with weight_fmt w4: decode runs actq then gemm_w4 at
     every site and the head (the megakernels are w8 only); prefill runs
     gemm_w4 at o and down and the large-M route (dequant_w4, pin_rowmajor,
-    torch.mm) at qkv and gateup. Then the A/B against the phase-4 w8
+    torch.mm) at qkv and gateup. At w4's own plans (the plan table in
+    force) the captured decode, fed its greedy tokens, is held bitwise
+    to an eager-loop engine on the same weights. Then the A/B against the phase-4 w8
     weights (qparams8) in an engine of the same settings: with the route
     off (gemm.XLA_M = 0) both prefill and decode 32 steps fed the same
     tokens, two runs each in turns, and the logits must be bitwise equal
-    at every step of every run (gemm_w4 gives gemm_w8's bits, and gu_actq
-    the w8 chain's), with the decode ms/step of each; with the route on,
+    at every step of every run (gemm_w4 gives gemm_w8's bits at the same
+    split, and gu_actq the w8 chain's: the A/B runs under the plan table
+    with the w8 entries for w4 too, w8_plans_for_w4), with the decode
+    ms/step of each; with the route on,
     the prefill logits' cosine is logged (the w4 route contracts k in
     the split even/odd order). Prefill times of both formats with the
     route on and off, two each, in turns."""
@@ -1846,20 +1916,47 @@ def w4_run(cfg, card, qparams8, calib, failures):
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
     capture(eng, state)
+    fed, graph_steps = [], [logits.clone()]
     t0 = time.perf_counter()
     for _ in range(NEW_TOKENS):
-        logits, state = eng.decode_step(
-            state, logits.argmax(-1).to(torch.int32), active)
+        fed.append(logits.argmax(-1).to(torch.int32))
+        logits, state = eng.decode_step(state, fed[-1], active)
+        graph_steps.append(logits.clone())
     torch.cuda.synchronize()
     dec_s = time.perf_counter() - t0
     finite = bool(torch.isfinite(logits).all())
     peak = torch.cuda.max_memory_allocated() - held
     del state, logits
+    # at w4's own plans (the table in force): the graph bitwise the eager
+    # loop, fed the same tokens
+    loop = InferenceEngine(cfg, eng.qparams, calib, qcfg4, ecfg,
+                           device="cuda", quantize_params=False,
+                           cuda_graphs=False)
+    logits, state = loop.prefill(loop.new_state(), toks, lens)
+    loop_steps = [logits.clone()]
+    for cur in fed:
+        logits, state = loop.decode_step(state, cur, active)
+        loop_steps.append(logits.clone())
+    own_same = [bool(torch.equal(_bits(a), _bits(b)))
+                for a, b in zip(graph_steps, loop_steps)]
+    log(f"  w4 at its own plans: graph vs eager loop, fed the same tokens: "
+        f"logits bitwise equal at {sum(own_same)} of {len(own_same)} steps "
+        f"(prefill + {NEW_TOKENS} decode; bar: all) "
+        f"{'ok' if all(own_same) else 'FAIL'}")
+    if not all(own_same):
+        failures.append(f"w4 graph vs loop at its own plans: bitwise at "
+                        f"{own_same}")
+    del loop, state, logits, graph_steps, loop_steps
 
     eng8 = InferenceEngine(cfg, qparams8, calib, qcfg8, ecfg,
                            device="cuda", quantize_params=False)
     engines = {"w8": eng8, "w4": eng}
     saved, runs, feed = gk.XLA_M, {}, None
+    # gemm_w4 gives gemm_w8's bits at the same split: the A/B runs both
+    # formats at the w8 plans (the plan table may give w4 other splits)
+    same_plans = contextlib.ExitStack()
+    same_plans.enter_context(plan_table(w8_plans_for_w4()))
+    eng.drop_graphs()
     try:
         # in turns, so that the host's drift favours no format or route
         for fmt, route in (("w8", True), ("w4", True), ("w8", False),
@@ -1891,6 +1988,7 @@ def w4_run(cfg, card, qparams8, calib, failures):
             del state, logits
     finally:
         gk.XLA_M = saved
+        same_plans.close()
     ref = runs[("w8", False)][0]["steps"]
     others = [r["steps"] for r in runs[("w8", False)][1:]
               + runs[("w4", False)]]
@@ -3118,6 +3216,269 @@ def lab_run(card, failures):
     log(f"  lab summary: {json.dumps(dict(sites=summary, card=card))}")
     gc.collect()
     torch.cuda.empty_cache()
+    return launches
+
+
+# The [autotune] phase: the measured GEMM plan table (kernels/autotune.py).
+AUTOTUNE_STEPS = 8       # decode steps of the bitwise A/Bs
+AUTOTUNE_SETTINGS = (("ARC 0.125", SELECT_FRAC), ("select-free", 0.0))
+AUTOTUNE_FORCED = 4      # gateup's split where the scratch table keeps 1
+
+
+def _with_gateup_split(table, cfg, frac):
+    """table, plus a gateup entry of AUTOTUNE_FORCED splits at M 4 (w8)
+    where the table leaves gateup to the heuristic, so that a split the
+    heuristic does not give is on the decode path. The entry is marked
+    forced: its "ms" are not measured."""
+    from arcquant_tpu_torch.kernels import autotune
+    from arcquant_tpu_torch.kernels import gemm as gk
+    from arcquant_tpu_torch.quant import packing
+    h = cfg.hidden_size
+    kq = packing.pad_kq(h, int(round(frac * h / 64)) * 64)
+    n = 2 * cfg.intermediate_size
+    key = autotune._key("w8", 4, kq, n)
+    heur = gk.heuristic_splits(4, n, kq)
+    e = table.get(key, {})
+    if e.get("splits", heur) != heur:
+        return table
+    return dict(table, **{key: dict(
+        splits=AUTOTUNE_FORCED, heuristic=heur, noise=0.0, forced=True,
+        ms={str(AUTOTUNE_FORCED): 1.0, str(heur): 2.0})})
+
+
+def _site_plans(eng) -> dict:
+    """{site: (heuristic splits, the plan's splits)} of eng's w8 weights
+    (layer 0 and the head) at M = max_batch."""
+    from arcquant_tpu_torch.kernels import gemm as gk
+    m = eng.ecfg.max_batch
+    pws = {s: eng.qparams["layers"][0][s] for s in ("qkv", "o", "gateup",
+                                                    "down")}
+    pws["head"] = eng.qparams["lm_head_packed"]
+    return {s: (gk.heuristic_splits(m, pw.n, pw.kq),
+                gk._split_plan(m, pw.n, pw.kq, pk_fmt(pw))[1])
+            for s, pw in pws.items()}
+
+
+def _autotune_ab(eng, failures, label):
+    """The same weights decoded three ways, AUTOTUNE_STEPS steps fed the
+    eager loop's greedy tokens after one prefill: the captured step
+    (eng), the eager loop (cuda_graphs=False) and the chain
+    (fused_decode=False, eager). Every step's logits bitwise: graph =
+    loop, fused loop = chain. Returns the megakernels' launches in the
+    loop."""
+    from arcquant_tpu_torch.engine import InferenceEngine
+    from arcquant_tpu_torch.kernels import mlp_fused as mf
+
+    def twin(**kw):
+        return InferenceEngine(eng.cfg, eng.qparams, eng.calib, eng.qcfg,
+                               eng.ecfg, device=eng.device,
+                               quantize_params=False, **kw)
+    engines = {"loop": twin(cuda_graphs=False), "graph": eng,
+               "chain": twin(cuda_graphs=False, fused_decode=False)}
+    eng.drop_graphs()
+    toks, lens, _ = eng._pad_prompts(prompts_for(eng.cfg))
+    active = torch.ones(len(PROMPT_LENS), dtype=torch.bool,
+                        device=eng.device)
+    steps, feed, fused = {}, None, {}
+    mk = (mf.GEMM_ACTQ, mf.GU_ACTQ, mf.MLP_W8)
+    for name, e in engines.items():
+        state = e.new_state()
+        logits, state = e.prefill(state, toks, lens)
+        out, fed = [], []
+        before = {k.name: k.launches for k in mk}
+        for i in range(AUTOTUNE_STEPS):
+            cur = (logits.argmax(-1).to(torch.int32) if feed is None
+                   else feed[i])
+            fed.append(cur)
+            logits, state = e.decode_step(state, cur, active)
+            out.append(logits.clone())
+        torch.cuda.synchronize()
+        fused[name] = {k.name: k.launches - before[k.name] for k in mk}
+        steps[name], feed = out, fed
+        del state, logits
+    same = {pair: [bool(torch.equal(_bits(a), _bits(b)))
+                   for a, b in zip(steps[pair[0]], steps[pair[1]])]
+            for pair in (("graph", "loop"), ("chain", "loop"))}
+    ok = all(all(v) for v in same.values()) and sum(fused["loop"].values())
+    log(f"  {label}: {AUTOTUNE_STEPS} decode steps fed the same tokens: "
+        f"graph vs loop bitwise at {sum(same[('graph', 'loop')])}, fused "
+        f"loop vs chain at {sum(same[('chain', 'loop')])} of "
+        f"{AUTOTUNE_STEPS}; megakernel launches in the loop "
+        f"{fused['loop']} (bar: all, all, some) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"[autotune] {label}: bitwise {same}, megakernel "
+                        f"launches {fused['loop']}")
+    del engines
+    return fused["loop"]
+
+
+def _autotune_kernel_ms(eng, timer, tables):
+    """The megakernels eng's decode step runs, at its layer 0 at M 4, under
+    each plan table of `tables` ({name: entries}), in turns (a, b, b, a):
+    select-free #14 gemm_actq at qkv and o (plain mode) and #12 mlp_w8
+    (quantized mode), with ARC columns #13 gu_actq at gateup. {kernel
+    site: {table: [ms, ms]}}."""
+    from arcquant_tpu_torch.kernels import mlp_fused as mf
+    from arcquant_tpu_torch.kernels import quantize as qk
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    lp = eng.qparams["layers"][0]
+    m, bf, h = 4, torch.bfloat16, eng.cfg.hidden_size
+    f = eng.cfg.intermediate_size
+    x = bf16_randn(gen, (m, h))
+    xa1, gs1 = qk.quantize_x_arc(x, torch.arange(h, device="cuda"), 0,
+                                 kq=lp["gateup"].kq)
+    if eng.calib[0]["down_in"].select_num == 0:
+        runs = {"gemm_actq qkv": lambda: mf._gemm_actq_cuda(
+                    x, lp["qkv"], h, bf, None, 0.0),
+                "gemm_actq o": lambda: mf._gemm_actq_cuda(
+                    x, lp["o"], h, bf, None, 0.0),
+                "mlp_w8": lambda: mf._mlp_w8_cuda(
+                    xa1, gs1, lp["gateup"], lp["down"], f, bf, None, 0.0)}
+    else:
+        runs = {"gu_actq gateup": lambda: mf._gu_actq_cuda(
+            xa1, gs1, lp["gateup"], f, lp["down"].kq, bf)}
+    names = list(tables)
+    out = {k: {t: [] for t in names} for k in runs}
+    for t in (names[0], names[1], names[1], names[0]):
+        with plan_table(tables[t]):
+            for k, fn in runs.items():
+                out[k][t].append(round(timer(fn).median, 4))
+    return out
+
+
+def _autotune_step_ms(eng, tables):
+    """Decode ms/step of eng's captured step (decode_scan of NEW_TOKENS
+    after a prefill) under each table of `tables`, in turns (a, b, b, a),
+    the graphs dropped and captured anew at each switch."""
+    toks, lens, _ = eng._pad_prompts(prompts_for(eng.cfg))
+    active = torch.ones(len(PROMPT_LENS), dtype=torch.bool,
+                        device=eng.device)
+    names = list(tables)
+    out = {t: [] for t in names}
+    for t in (names[0], names[1], names[1], names[0]):
+        with plan_table(tables[t]):
+            eng.drop_graphs()
+            state = eng.new_state()
+            logits, state = eng.prefill(state, toks, lens)
+            capture(eng, state)
+            first = logits.argmax(-1).to(torch.int32)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.decode_scan(state, first, active, NEW_TOKENS)
+            torch.cuda.synchronize()
+            out[t].append(round((time.perf_counter() - t0) * 1e3
+                                / NEW_TOKENS, 3))
+            del state, logits
+    eng.drop_graphs()
+    return out
+
+
+def autotune_run(card, failures):
+    """[autotune]: the measured GEMM plan table (kernels/autotune.py).
+
+    (1) benchmarks/gemm_autotune.py into a scratch table at Qwen2.5-7B's
+    decode shapes (select-free with the head; ARC 0.125), w8 and w4, M 4,
+    5 rounds in turns: each site's ms by split, the choice, the noise.
+    (2) With that table in force (plus a forced gateup split where it
+    keeps the heuristic's, _with_gateup_split), a 28-layer engine at ARC
+    0.125 and one select-free, each decoded AUTOTUNE_STEPS steps three
+    ways (_autotune_ab): the captured step bitwise its eager loop, the
+    fused routes bitwise the chain; the sites' plans against the
+    heuristic's, at least one different. (3) Under the shipped table (on
+    a card with none, the table of (1)) against the heuristic's (an empty
+    table), in turns: each engine's
+    decode ms/step on the captured step, and the megakernels at M 4
+    (_autotune_kernel_ms), beside the card's name and power limit.
+    Gates on (2) only; the times are reported. Returns the launch counts
+    over (2)'s decodes."""
+    import os
+    from arcquant_tpu_torch.benchmarks import gemm_autotune as ga
+    from arcquant_tpu_torch.config import get_model_config
+    from arcquant_tpu_torch.engine import EngineConfig, InferenceEngine
+    from arcquant_tpu_torch.kernels import autotune
+    from arcquant_tpu_torch.models import quantized
+
+    t_phase = time.perf_counter()
+    cfg = get_model_config(MODEL)
+    shipped_path = autotune._shipped_table_path()
+    shipped = None
+    if os.path.exists(shipped_path):
+        with open(shipped_path) as f:
+            shipped = json.load(f)
+        log(f"  shipped table: {os.path.relpath(shipped_path)}, "
+            f"{len(shipped)} entries, "
+            f"{sum(e['splits'] != e['heuristic'] for e in shipped.values())}"
+            " off the heuristic")
+    else:
+        log(f"  no table shipped for this card ({shipped_path}): (3) times "
+            "the table measured in (1) against the heuristic")
+    with plan_table({}) as scratch:
+        for fmt in ("w8", "w4"):
+            for flags in (["--head"], ["--select_frac", str(SELECT_FRAC)]):
+                ga.main(["--model", MODEL, "--fmt", fmt, "--m", "4",
+                         "--reps", "5"] + flags)
+        tuned = dict(scratch)
+    ab_tables = {"shipped" if shipped is not None else "measured":
+                 shipped if shipped is not None else tuned, "heuristic": {}}
+    log(f"  (1) scratch table: {len(tuned)} entries measured in "
+        f"{time.perf_counter() - t_phase:.1f} s, off the heuristic: "
+        + json.dumps({k: [e["heuristic"], e["splits"]]
+                      for k, e in sorted(tuned.items())
+                      if e["splits"] != e["heuristic"]}) + f" on {card}")
+
+    qcfg = _arc_qcfg()
+    ecfg = EngineConfig(max_batch=len(PROMPT_LENS),
+                        max_seq_len=max(PROMPT_LENS) + NEW_TOKENS + 8)
+    timer = Timer(REPS)
+    kernels = all_kernels()
+    launches, metrics = {}, {}
+    for label, frac in AUTOTUNE_SETTINGS:
+        calib = quantized.identity_calib(cfg, frac, device="cuda")
+        table = _with_gateup_split(tuned, cfg, frac)
+        t0 = time.perf_counter()
+        with plan_table(table):
+            eng = InferenceEngine.dummy(cfg, calib, qcfg, ecfg, seed=0,
+                                        device="cuda")
+            plans = _site_plans(eng)
+            off = {s: p for s, p in plans.items() if p[0] != p[1]}
+            log(f"  (2) {label}: {cfg.num_layers} layers built in "
+                f"{time.perf_counter() - t0:.1f} s; (heuristic, plan) "
+                f"splits at M 4: {plans}; "
+                f"{'forced gateup' if table is not tuned else 'measured'}")
+            if not off:
+                failures.append(f"[autotune] {label}: no site off the "
+                                "heuristic's split")
+            reset_counts(kernels)
+            _autotune_ab(eng, failures, label)
+            for k, v in launch_counts(kernels).items():
+                if k == "actq_by_m":
+                    by_m = launches.setdefault(k, {})
+                    for mm, c in v.items():
+                        by_m[mm] = by_m.get(mm, 0) + c
+                else:
+                    launches[k] = launches.get(k, 0) + v
+        table_name, table = next(iter(ab_tables.items()))
+        steps = _autotune_step_ms(eng, ab_tables)
+        kms = _autotune_kernel_ms(eng, timer, ab_tables)
+        gain = (statistics.mean(steps["heuristic"])
+                / statistics.mean(steps[table_name]))
+        with plan_table(table):
+            plans = _site_plans(eng)
+        metrics[label] = {"decode_ms_per_step_in_turns": steps,
+                          f"heuristic_over_{table_name}": round(gain, 4),
+                          "megakernel_ms_in_turns": kms,
+                          f"{table_name}_plans": plans}
+        log(f"  (3) {label}: {json.dumps(metrics[label])} on {card}")
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"  launches over (2)'s decodes: {launches}")
+    for name in ("actq", "gemm_w8", "paged_decode", "gemm_actq", "gu_actq",
+                 "mlp_w8"):
+        if launches[name] <= 0:
+            failures.append(f"[autotune] kernel {name} not launched")
+    log(f"  [autotune] took {time.perf_counter() - t_phase:.1f} s on {card}")
     return launches
 
 
@@ -6988,6 +7349,12 @@ def main() -> int:
         f"median of 7 CUDA-event runs, L2 flushed, on {card}")
     lab_launches = lab_run(card, failures)
 
+    log(f"[autotune] the measured GEMM plan table: gemm_autotune at "
+        f"{MODEL}'s decode shapes, M 4, w8 and w4; 28 layers at ARC "
+        f"{SELECT_FRAC} and select-free under it (graph vs loop, fused vs "
+        f"chain); decode ms/step, shipped table vs heuristic, on {card}")
+    autotune_launches = autotune_run(card, failures)
+
     moe_cfg = get_model_config(MOE_MODEL)
     log(f"[moe] {MOE_MODEL} full width, {moe_cfg.num_layers} layers, ARC, "
         f"w8 then w4, on {card}")
@@ -7069,10 +7436,11 @@ def main() -> int:
         for f in failures:
             print(f"FAIL: {f}", file=sys.stderr)
         return 1
-    # launches: over the thirty main paths, the ARC generate(), the
+    # launches: over the thirty-one main paths, the ARC generate(), the
     # HTTP server, the w4 generate(), the select-free generate(), the MoE
     # model's w8 and w4 generate() and HTTP server, benchmark_e2e in NVFP4
-    # and BF16, bench_serving, the GEMM lab, generate_ondevice, evaluate's packed route,
+    # and BF16, bench_serving, the GEMM lab, [autotune]'s decodes,
+    # generate_ondevice, evaluate's packed route,
     # calibrate, the calibrated engine and the checkpoint directory's
     # generate and evaluate; the MoE model's BF16 and fake-format
     # generate(), evaluate's packed route, calibrate and its calibrated
@@ -7086,7 +7454,7 @@ def main() -> int:
         generate_moe=moe_launches["w8"], generate_moe_w4=moe_launches["w4"],
         serve_moe=moe_serve_launches, bench_e2e_nvfp4=e2e_launches["NVFP4"],
         bench_e2e_bf16=e2e_launches["BF16"], bench_serving=tools_launches,
-        gemm_lab=lab_launches,
+        gemm_lab=lab_launches, autotune=autotune_launches,
         spec=spec_launches, evaluate=eval_launches,
         calibrate=calib_launches, calib_serve=calib_serve_launches,
         ckpt=ckpt_launches, generate_moe_bf16=moe_qdq_launches["BF16"],

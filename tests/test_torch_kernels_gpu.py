@@ -19,6 +19,8 @@ This file imports no JAX, so it also runs on a machine without it:
 (tests/conftest.py imports jax; ``--noconftest`` leaves it out.)
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -40,6 +42,28 @@ from arcquant_tpu_torch.testing import (cosine, gpu, outlier_x,
                                         require_cuda, to_numpy)
 
 pytestmark = gpu
+
+
+@pytest.fixture
+def heuristic_plans(tmp_path, monkeypatch):
+    """The test runs the GEMMs at the heuristic's k splits (an empty plan
+    table in force), whatever table ships for the card; a test that takes
+    a table of its own writes it with _use_table. The other tests run
+    under the shipped table, as production does."""
+    from arcquant_tpu_torch.kernels import autotune
+    path = tmp_path / "plan_table.json"
+    path.write_text("{}")
+    monkeypatch.setenv("ARC_AUTOTUNE_FILE", str(path))
+    autotune.invalidate_cache()
+    yield
+    autotune.invalidate_cache()
+
+
+def _use_table(tmp_path, entries):
+    """Put the plan table `entries` in force (the fixture's file)."""
+    from arcquant_tpu_torch.kernels import autotune
+    (tmp_path / "plan_table.json").write_text(json.dumps(entries))
+    autotune.invalidate_cache()
 
 
 def _bf16(x, device="cuda"):
@@ -861,6 +885,7 @@ def test_pin_rowmajor_bitwise(m, k):
                          + [(m, n, K_DOWN, SEL_DOWN) for m, n in LARGE_M]
                          + SMALL_M)
 @pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.usefixtures("heuristic_plans")   # w4 and w8 at one split
 def test_gemm_w4_bitwise_equals_w8(m, n, k, select, bias):
     """gemm_w4 on a w4 pack gives gemm_w8's bits on a w8 pack of the same
     weight (32-row tile with split-K, the large-M tile up to M 4096 at
@@ -1130,6 +1155,7 @@ def test_lab_w8_bf16_activations_bitwise(m):
 
 
 @pytest.mark.parametrize("n", [37888, 4608])
+@pytest.mark.usefixtures("heuristic_plans")   # gateup: one split
 def test_lab_ring_n(n):
     """One cluster per n tile (gateup at M 4: production plans one split,
     so c = 1 and 296 single-CTA clusters; qkv: 7 splits, clusters of 7):
@@ -1246,6 +1272,205 @@ def test_lab_splits(splits):
     y = gl.lab_w4(xa, p4.codes, p4.scales, gs, gw, splits=splits)
     _lab_checks(y, gl.lab_w4_plain(xa, p4.codes, p4.scales, gs, gw), prod,
                 same)
+
+
+# -- the measured GEMM plan table (kernels/autotune.py) --------------------------
+
+SHIPPED_TABLE = "arcquant_tpu_torch/kernels/autotune_tables/nvidia_h100_80gb_hbm3.json"
+# Qwen2.5-7B's four decode sites select-free: (name, K, N)
+PLAN_SITES = [("qkv", 3584, 4608), ("o", 3584, 3584),
+              ("gateup", 3584, 37888), ("down", 18944, 3584)]
+
+
+def _split_entry(m, kq, n, splits, fmt="w8"):
+    """A plan-table entry in which `splits` beats the heuristic by 2x."""
+    from arcquant_tpu_torch.kernels import autotune
+    h = gk.heuristic_splits(m, n, kq)
+    return {autotune._key(fmt, autotune._m_bucket(m), kq, n): dict(
+        splits=splits, heuristic=h, noise=0.0,
+        ms={str(splits): 1.0, str(h): 2.0})}
+
+
+def _k_order_emulation(xa, w, splits, per):
+    """The small-M tile's f32 sums of xa @ w (w the decoded f32 weight):
+    each 32-deep k-tile's product (exact, in f64, rounded to f32), added
+    in order into its split's f32 total from 0.0, the splits' totals
+    added in split order from 0.0."""
+    m, kq = xa.shape
+    tiles = (xa.double().reshape(m, -1, 32).transpose(0, 1)
+             @ w.double().reshape(-1, 32, w.shape[1])).float()
+    total = torch.zeros((m, w.shape[1]), device=xa.device)
+    k_tiles = kq // 32
+    for s in range(splits):
+        acc = torch.zeros_like(total)
+        for t in range(s * per, min((s + 1) * per, k_tiles)):
+            acc = acc + tiles[t]
+        total = total + acc
+    return total
+
+
+@pytest.mark.parametrize("site,k,n", PLAN_SITES)
+@pytest.mark.usefixtures("heuristic_plans")
+def test_gemm_every_candidate_split_k_order(site, k, n, tmp_path):
+    """gemm_w8 and gemm_w4 at M 4 at every split the plan table may choose
+    (gemm.split_candidates) at Qwen2.5-7B's decode sites: f32 sums (gs = gw
+    = 1) on the quantized activations bitwise the emulation of that
+    split's k-tile walk (their 32-deep tile sums are exact in f32, so a
+    tile skipped or summed twice shows; the order does not), gemm_w4
+    bitwise gemm_w8; on bf16 activations (where the order shows) within
+    the f32 sum-order bound of the emulation of the split, and at the
+    splits in force (the heuristic's, the shipped H100 table's) a mean
+    relative error against f64 within 2x the plain f32 product's (one
+    split over down's 592 k-tiles, never chosen, reaches 2.5x); and the
+    same bits when a plan table gives the split."""
+    require_cuda()
+    rng = np.random.default_rng(500 + k + n)
+    m = 4
+    # Gaussian weights and activations, no outlier columns: a 32-deep
+    # tile's products then span few enough bits for an exact f32 sum
+    w0 = _bf16(rng.standard_normal((n, k)) * k ** -0.5)
+    p8, p4 = (packing.pack_weight_arc(w0, None, 0, fmt=f, w_scale="channel")
+              for f in ("w8", "w4"))
+    del w0
+    xa, _ = qk.quantize_x_arc(_bf16(rng.standard_normal((m, k))),
+                              torch.arange(k).cuda(), 0, kq=p8.kq)
+    ones_m = torch.ones((m, 1), device="cuda")
+    ones_n = torch.ones((1, n), device="cuda")
+    w = packing.dequantize_weight(p8, torch.float32)   # scaled units
+    xbf = _bf16(rng.standard_normal((m, p8.kq)) * 2)
+    f64 = xbf.double() @ w.double()
+    e_plain = _rel_err(xbf.float() @ w, f64)
+    cands = gk.split_candidates(m, n, p8.kq)
+    assert cands[0] == gk.heuristic_splits(m, n, p8.kq) and 1 in cands
+    with open(SHIPPED_TABLE) as f:
+        shipped = json.load(f)[f"w8|4|{p8.kq}|{n}"]["splits"]
+    in_force = {cands[0], shipped}
+    for s in cands:
+        splits, per = gk._plan_at(p8.kq // 32, s)
+        assert splits == s
+        y8, y4 = (fn(xa, pk.codes, pk.scales, ones_m, ones_n, None,
+                     torch.float32, splits=s)
+                  for fn, pk in ((gk._gemm_w8_cuda, p8),
+                                 (gk._gemm_w4_cuda, p4)))
+        want = _k_order_emulation(xa, w, splits, per)
+        a16 = gk._gemm_w8_cuda(xbf, p8.codes, p8.scales, ones_m, ones_n,
+                               None, torch.float32, splits=s)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(y8), _bits(want)), (site, s)
+        assert torch.equal(_bits(y4), _bits(y8)), (site, s)
+        assert_summation_order_close(
+            a16, _k_order_emulation(xbf, w, splits, per), True)
+        if s in in_force:
+            assert _rel_err(a16, f64) <= 2 * e_plain, (site, s)
+    s = cands[-1]
+    _use_table(tmp_path, {**_split_entry(m, p8.kq, n, s, "w8"),
+                          **_split_entry(m, p8.kq, n, s, "w4")})
+    for fmt, fn, pk in (("w8", gk._gemm_w8_cuda, p8),
+                        ("w4", gk._gemm_w4_cuda, p4)):
+        assert gk._split_plan(m, n, p8.kq, fmt)[1] == s
+        forced = fn(xa, pk.codes, pk.scales, ones_m, ones_n, None,
+                    torch.float32, splits=s)
+        tabled = fn(xa, pk.codes, pk.scales, ones_m, ones_n, None,
+                    torch.float32)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(tabled), _bits(forced)), (site, fmt)
+
+
+@pytest.mark.usefixtures("heuristic_plans")
+def test_megakernels_bitwise_chain_under_a_table(tmp_path):
+    """A plan table that moves every Qwen2.5-7B select-free site off the
+    heuristic's split at M 4 (gateup 1 -> 4, qkv and o 7 -> 2, down 10 ->
+    16): #12 mlp_w8 (norm and quantized modes), #13 gu_actq and #14
+    gemm_actq (rmsnorm at qkv, plain at o) bit for bit their chains, the
+    fused kernels at the table's splits."""
+    require_cuda()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(510)
+    m, d, f = 4, 3584, 18944
+
+    def pack(n, k):
+        w = (torch.randn((n, k), generator=gen, device="cuda")
+             * k ** -0.5).to(torch.bfloat16)
+        b = (torch.randn((n,), generator=gen, device="cuda") * 0.1).to(
+            torch.bfloat16)
+        return packing.pack_weight_arc(w, torch.arange(k).cuda(), 0,
+                                       bias=b, w_scale="channel")
+    pws = {"qkv": pack(4608, d), "o": pack(d, d), "gateup": pack(2 * f, d),
+           "down": pack(d, f)}
+    table, want = {}, {"qkv": 2, "o": 2, "gateup": 4, "down": 16}
+    for site, pw in pws.items():
+        assert gk.heuristic_splits(m, pw.n, pw.kq) != want[site]
+        table.update(_split_entry(m, pw.kq, pw.n, want[site]))
+    _use_table(tmp_path, table)
+    for site, pw in pws.items():
+        assert mf._plan(m, pw) == gk._plan_at(pw.kq // 32, want[site])
+    x = (torch.randn((m, d), generator=gen, device="cuda") * 4).to(
+        torch.bfloat16)
+    nw = (torch.randn((d,), generator=gen, device="cuda") * 0.1 + 1).to(
+        torch.bfloat16)
+    for site, norm in (("qkv", nw), ("o", None)):
+        args = (x, pws[site], d, torch.bfloat16, norm, 1e-6)
+        got = mf._gemm_actq_cuda(*args)
+        torch.cuda.synchronize()
+        assert_bitwise(got, mf.gemm_actq_chain(*args))
+    xa1, gs1 = qk.quantize_x_arc(x, torch.arange(d).cuda(), 0,
+                                 kq=pws["gateup"].kq)
+    args = (xa1, gs1, pws["gateup"], f, pws["down"].kq, torch.bfloat16)
+    got = mf._gu_actq_cuda(*args)
+    torch.cuda.synchronize()
+    assert_bitwise(got, mf.gu_actq_chain(*args))
+    for args in ((x, None, pws["gateup"], pws["down"], f, torch.bfloat16, nw,
+                  1e-6),
+                 (xa1, gs1, pws["gateup"], pws["down"], f, torch.bfloat16,
+                  None, 0.0)):
+        got = mf._mlp_w8_cuda(*args)
+        torch.cuda.synchronize()
+        assert_bitwise(got, mf.mlp_w8_chain(*args))
+
+
+@pytest.mark.usefixtures("heuristic_plans")
+def test_measure_packed_and_the_engine_hook(tmp_path, monkeypatch):
+    """measure_packed on the card: every candidate timed, the fastest
+    recorded with the heuristic's time and the noise, the table written
+    and served; then ARC_GEMM_AUTOTUNE=1 tunes a test-tiny engine's 2-D
+    packed weights (the head included) at its build, and its captured
+    decode step is bitwise its eager loop under that table."""
+    require_cuda()
+    from arcquant_tpu_torch.kernels import autotune
+    rng = np.random.default_rng(520)
+    p8, p4 = _pair(rng, 256, 2048, 0, False)
+    e = autotune.measure_packed(p8, 4, reps=2)
+    cands = gk.split_candidates(4, 256, 2048)
+    assert set(e["ms"]) == {str(s) for s in cands}
+    assert e["heuristic"] == cands[0] and e["splits"] in cands
+    assert all(v > 0 for v in e["ms"].values()) and e["noise"] >= 0
+    assert min(e["ms"].values()) == e["ms"][str(e["splits"])]
+    saved = json.loads((tmp_path / "plan_table.json").read_text())
+    assert saved["w8|4|2048|256"] == e
+    assert autotune.measure_packed(p4, 4, reps=1)["heuristic"] == cands[0]
+
+    cfg = get_model_config("test-tiny")
+    qcfg = QuantConfig(**_QKW)
+    calib = quantized.identity_calib(cfg, 0.125, device="cuda")
+    ecfg = EngineConfig(max_batch=4, max_seq_len=128)
+    monkeypatch.setenv("ARC_GEMM_AUTOTUNE", "1")
+    eng = InferenceEngine.dummy(cfg, calib, qcfg, ecfg, seed=0)
+    t = autotune._load()
+    for pw in autotune._packed_leaves(eng.qparams):
+        if pw.codes.dim() == 2:
+            assert autotune._key("w8", 4, pw.kq, pw.n) in t
+    monkeypatch.delenv("ARC_GEMM_AUTOTUNE")
+    loop = InferenceEngine(cfg, eng.qparams, calib, qcfg, ecfg,
+                           quantize_params=False, cuda_graphs=False)
+    prompts = _graph_prompts(cfg)
+    outs = []
+    for e_ in (loop, eng):
+        logits, state, active = _prefill(e_, prompts)
+        out, _ = e_.decode_scan(state, logits.argmax(-1).to(torch.int32),
+                                active, 4)
+        outs.append(out)
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
 
 
 # -- the decode step as a CUDA graph -------------------------------------------
