@@ -459,10 +459,17 @@ class InferenceEngine:
     @classmethod
     def dummy(cls, cfg: ModelConfig, calib, qcfg: QuantConfig,
               ecfg: EngineConfig, seed: int = 0, device="cuda",
-              dtype=torch.bfloat16, **kw) -> "InferenceEngine":
+              dtype=torch.bfloat16, layer_init=None, tree=None,
+              **kw) -> "InferenceEngine":
         """Random ("dummy") weights from `seed`, packed layer by layer so
         the full bf16 model never exists at once (BF16: bf16 layers).
-        kw: the constructor's switches (fused_decode, cuda_graphs)."""
+        layer_init(cfg, gen, dtype, device) draws a layer
+        (llama.init_layer_params by default) and tree(cfg, gen, dtype,
+        device, layers) the rest around the layers (dummy_tree): another
+        init's draws (testing.conditioned_engine). kw: the constructor's
+        switches (fused_decode, cuda_graphs)."""
+        layer_init = layer_init or llama.init_layer_params
+        tree = tree or dummy_tree
         device = resolve_device(device)
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
@@ -470,11 +477,11 @@ class InferenceEngine:
         calib = _to_device(calib, device)
         layers = []
         for i in range(cfg.num_layers):
-            lp = llama.init_layer_params(cfg, gen, dtype, device)
+            lp = layer_init(cfg, gen, dtype, device)
             layers.append(quantized.quantize_layer_params_fused(
                 lp, calib[i], qcfg))
             del lp
-        return cls(cfg, dummy_tree(cfg, gen, dtype, device, layers), calib,
+        return cls(cfg, tree(cfg, gen, dtype, device, layers), calib,
                    qcfg, ecfg, device=device, quantize_params=False, **kw)
 
     def _head_logits(self, x2d: torch.Tensor) -> torch.Tensor:

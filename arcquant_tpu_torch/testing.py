@@ -8,6 +8,8 @@ would otherwise start one thread per core.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -54,6 +56,122 @@ def outlier_x(rng: np.random.Generator, m: int, k: int,
     cols = rng.choice(k, k // 32, replace=False)
     x[:, cols] *= scale
     return x
+
+
+# -- the conditioned dummy init -----------------------------------------------
+# llama.init_params' draws (unit norms, N(0, 1/K) linears, a 0.02
+# embedding) make a forward of 2 or more layers chaotic at the ulp level:
+# each unit-gain residual branch swamps the small embedding, so every
+# layer's freshly quantized branch becomes the whole stream and one e2m1
+# flip moves the logits. These weights keep the stream larger than the
+# branches that write to it: an embedding of unit rms, and the outputs of
+# the 2L residual branches (o and down; an MoE layer's expert and shared
+# expert down) scaled by CONDITIONED_BRANCH / sqrt(2L), GPT-2's residual
+# scaling, so that all branches together stay at CONDITIONED_BRANCH of
+# the stream at any depth. The factor trades the noise floor against the
+# quantization's own weight: at Qwen2.5-7B width and 2 layers the layers'
+# NVFP4 against BF16 (the head in bf16) stands 8-10 times the deficit of
+# 2^-22 GEMM noise from 1 at factors 1/4 to 1/16 and 15 times at 1/32
+# (on an H100, chip_smoke.py [conditioned]).
+CONDITIONED_BRANCH = 1 / 32
+
+
+def branch_scale(cfg) -> float:
+    """The factor of a residual branch's output weights at cfg's depth."""
+    return CONDITIONED_BRANCH / math.sqrt(2 * cfg.num_layers)
+
+
+def conditioned_layer(cfg, gen: torch.Generator, dtype=torch.bfloat16,
+                      device="cpu"):
+    """One decoder layer of the conditioned init: llama.init_layer_params'
+    draws from `gen`, the residual branches' output weights times
+    branch_scale(cfg) (then rounded to dtype again)."""
+    from .models import llama
+    scale = branch_scale(cfg)
+    p = llama.init_layer_params(cfg, gen, dtype, device)
+    outs = [p["o"]]
+    if "moe" in p:
+        outs += [p["moe"][k] for k in ("down", "sdown") if k in p["moe"]]
+    else:
+        outs.append(p["down"])
+    for lin in outs:
+        lin["w"] = lin["w"] * scale
+    return p
+
+
+# A greedy token is a tie when the reference's two largest logits are
+# closer than this share of the row's rms: the head reads a bf16
+# activation, and two forwards whose activations sit an ulp apart on most
+# elements move a logit by up to about 1.5% of the row's rms (the port
+# against the JAX engine on test-qwen-tiny, the same weights: 0.8-1.5%).
+TIE_RESOLUTION = 2.0 ** -6
+
+
+def greedy_ties(ref, draws=()) -> torch.Tensor:
+    """The rows of reference logits `ref` [B, V] (numpy or torch) whose
+    greedy token is a tie: a top-2 gap under TIE_RESOLUTION of the row's
+    rms, or a greedy token that one of `draws` (the reference with noise,
+    the same shape) changes. A bool tensor [B]."""
+    ref = torch.as_tensor(np.asarray(ref, np.float64))
+    top = ref.topk(2, dim=-1).values
+    rms = ref.pow(2).mean(-1).sqrt()
+    ties = top[:, 0] - top[:, 1] < TIE_RESOLUTION * rms
+    for d in draws:
+        d = torch.as_tensor(np.asarray(d, np.float64))
+        ties |= d.argmax(-1) != ref.argmax(-1)
+    return ties
+
+
+def same_greedy(got, ref, draws=()) -> tuple:
+    """Greedy tokens of logits `got` against the reference's, ties
+    (greedy_ties) aside: (equal at every other row, the number of rows
+    that are ties, the number of rows whose tokens differ)."""
+    got = torch.as_tensor(np.asarray(got, np.float64))
+    ties = greedy_ties(ref, draws)
+    differ = got.argmax(-1) != torch.as_tensor(
+        np.asarray(ref, np.float64)).argmax(-1)
+    return (not bool((differ & ~ties).any()), int(ties.sum()),
+            int(differ.sum()))
+
+
+def conditioned_tree(cfg, gen: torch.Generator, dtype, device,
+                     layers: list) -> dict:
+    """The tree around `layers` (drawn first from gen), engine.dummy_tree's
+    place: an N(0, 1) embedding, a unit final norm and, for an untied
+    config, an N(0, 1/D) lm_head (unit-scale logits), drawn in that
+    order."""
+    def normal(shape, std):
+        return (torch.randn(shape, generator=gen, dtype=torch.float32,
+                            device=device) * std).to(dtype)
+    d = cfg.hidden_size
+    tree = {"embed": normal((cfg.vocab_size, d), 1.0),
+            "final_norm": torch.ones((d,), dtype=dtype, device=device),
+            "layers": layers}
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = normal((cfg.vocab_size, d), d ** -0.5)
+    return tree
+
+
+def conditioned_params(cfg, gen: torch.Generator, dtype=torch.bfloat16,
+                       device="cpu"):
+    """The conditioned init's whole tree, in the layout
+    convert.params_from_numpy and the engines take: the layers
+    (conditioned_layer), then conditioned_tree's embedding and head."""
+    layers = [conditioned_layer(cfg, gen, dtype, device)
+              for _ in range(cfg.num_layers)]
+    return conditioned_tree(cfg, gen, dtype, device, layers)
+
+
+def conditioned_engine(cfg, calib, qcfg, ecfg, seed: int = 0, device="cuda",
+                       **kw):
+    """InferenceEngine.dummy (dense or MoE) on conditioned_params' weights
+    from `seed` (the same draws), each layer packed as it is drawn, so the
+    bf16 model never exists at once. kw: the constructor's switches
+    (cuda_graphs, fused_decode)."""
+    from .engine.engine import InferenceEngine
+    return InferenceEngine.dummy(cfg, calib, qcfg, ecfg, seed, device,
+                                 layer_init=conditioned_layer,
+                                 tree=conditioned_tree, **kw)
 
 
 # -- rank workers of the tensor-parallel tests -------------------------------

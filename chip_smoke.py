@@ -249,7 +249,15 @@ Phases, each printed as it runs:
      layer chunked and suffix prefill and a speculative verify, and the
      MoE engine at 1 layer (see
      engine_check, serving_engine_check and moe_engine_check for the
-     bars).
+     bars);
+ 18. [conditioned] (conditioned_run): the engine on the conditioned dummy
+     init (arcquant_tpu_torch.testing.conditioned_engine), kernels
+     against the plain versions at the flat bar and within twice the
+     noise floor's deficit, each beside BF16 on the same weights (see
+     COND_FLAT).
+    python3 chip_smoke.py --conditioned [factor ...]
+runs phase 18 alone, then at each branch factor given
+(testing.CONDITIONED_BRANCH) the w8 ARC route beside BF16 (cond_sweep).
 Every decode runs the captured step (InferenceEngine's default) except
 the eager references: the [graph] and [tp_graph] loops, [spec]'s round
 loop and floor draws, in 17 the plain versions, the verify's spied and
@@ -2311,6 +2319,42 @@ def _one_layer_packed_vs_fake(cfg, what, failures):
     return flips
 
 
+def _ppl_gate(argv, packed, fake, flips, what, failures, draws=2,
+              least=0.01) -> tuple:
+    """The accuracy path's full-depth gate: the packed route's PPL against
+    the fake row route's (``evaluate.main`` with `argv`), beside `draws`
+    draws of the fake row route under flips() (_one_layer_packed_vs_fake's
+    flips): within `least`, or the farthest draw where that is higher;
+    least None: within the farthest draw plus the draws' spread, the floor
+    alone. Returns (the gap, the farthest draw's, the bar)."""
+    from arcquant_tpu_torch import evaluate
+
+    floors = []
+    with _scratch_dir(), flips():
+        for _ in range(draws):
+            gc.collect()
+            torch.cuda.empty_cache()
+            floors.append(evaluate.main(argv + EVAL_ROUTES[2][1])["ppl"])
+    rel = _ppl_rel(packed, fake)
+    apart = [_ppl_rel(d, fake) for d in floors]
+    floor = max(apart)
+    if least is None:
+        bar = floor + (floor - min(apart))
+        rule = "the farthest draw plus the draws' spread"
+    else:
+        bar = max(least, floor)
+        rule = f"{least:.0%}, or the floor where higher"
+    ok = rel <= bar
+    log(f"  {what}: packed PPL {packed!r} against fake row {fake!r}: "
+        f"{rel:.4%} apart; the fake row route's floor draws {floors} are "
+        f"up to {floor:.4%} from it (bar: {rule}, {bar:.4%}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"{what} packed PPL {packed} vs fake row {fake}: "
+                        f"{rel:.4%} > {bar:.4%}")
+    return rel, floor, bar
+
+
 def eval_run(card, failures, model=MODEL, kernels=EVAL_KERNELS,
              tag="[eval]"):
     """[eval] (and [moe_eval]): ``evaluate.main`` (the entry point of
@@ -2383,24 +2427,8 @@ def eval_run(card, failures, model=MODEL, kernels=EVAL_KERNELS,
 
     # full depth: the packed PPL against the fake row route's; the floor,
     # two draws of the fake route flipped alike
-    floors = []
-    with _scratch_dir(), flips():
-        for _ in range(2):
-            gc.collect()
-            torch.cuda.empty_cache()
-            floors.append(evaluate.main(argv + EVAL_ROUTES[2][1])["ppl"])
-    rel = _ppl_rel(ppl[3], ppl[2])
-    floor = max(_ppl_rel(d, ppl[2]) for d in floors)
-    bar = max(0.01, floor)
-    ok = rel <= bar
-    log(f"  {depth}: packed PPL {ppl[3]!r} against fake row {ppl[2]!r}: "
-        f"{rel:.4%} apart; the fake row route's floor draws {floors} are "
-        f"up to {floor:.4%} from it (bar: 1%, or the floor where higher, "
-        f"{bar:.4%}) {'ok' if ok else 'FAIL'}; BF16 {ppl[0]!r}, fake "
-        f"tensor {ppl[1]!r}")
-    if not ok:
-        failures.append(f"{tag} packed PPL {ppl[3]} vs fake row "
-                        f"{ppl[2]}: {rel:.4%} > {bar:.4%}")
+    _ppl_gate(argv, ppl[3], ppl[2], flips, f"{tag} {depth}", failures)
+    log(f"  {depth}: BF16 PPL {ppl[0]!r}, fake tensor {ppl[1]!r}")
 
     # the fake row route with the packed route's epilogue order, (y gx)
     # gw in place of y (gx gs): how much of the packed-vs-fake gap the
@@ -4671,7 +4699,18 @@ PLAIN_BARS = {
     "dequant_w8": "bit-exact",
     "flash_attn": "1 bf16 ulp + 2e-3",
     "paged_decode": "1 bf16 ulp + 2e-3, m within 1e-5, l within 1e-4, "
-                    "empty rows 0"}
+                    "empty rows 0",
+    "gemm_w4": "f32 sum order, + 1 bf16 ulp for bf16 outputs",
+    "paged_prefill": "1 bf16 ulp + 2e-3 at live queries, rows of seq_len 0 "
+                     "exact zeros"}
+
+
+def _prefill_live(out, a):
+    """The paged prefill's live queries ([B, Tq] bool, qpos < seq_len) of
+    a call on `a`: the padded ones past a row's end are not outputs."""
+    st, sl = a[4], a[5]
+    qpos = st[:, None] + torch.arange(out.shape[1], device=out.device)
+    return qpos < sl[:, None]
 
 
 def _held_to_plain(kernel, out, ref, a, kw) -> bool:
@@ -4683,12 +4722,16 @@ def _held_to_plain(kernel, out, ref, a, kw) -> bool:
         return (bitwise(out, qk.actq_kernel_order(*a, **kw))
                 and one_step_bound(out[0], ref[0])
                 and bool(torch.allclose(out[1], ref[1], rtol=1e-2)))
-    if kernel == "gemm_w8":
+    if kernel in ("gemm_w8", "gemm_w4"):
         return sum_order_bound(out, ref, a[6] == torch.float32)
     if kernel == "dequant_w8":
         return bitwise([out], [ref])
     if kernel == "flash_attn":
         return close_bound(out, ref)
+    if kernel == "paged_prefill":
+        live = _prefill_live(out, a)
+        return (close_bound(out[live], ref[live])
+                and bool((out[a[5] == 0] == 0).all()))
     (o, m, l), (po, pm, pl), sl = out, ref, a[4]
     return (close_bound(o, po)
             and bool(torch.allclose(m, pm, rtol=1e-5, atol=1e-5))
@@ -4699,8 +4742,9 @@ def _held_to_plain(kernel, out, ref, a, kw) -> bool:
 @contextlib.contextmanager
 def beside_plain(kernels):
     """Every call of each of `kernels` (actq, gemm_w8, dequant_w8,
-    flash_attn, paged_decode) also runs the kernel's plain version on the
-    same inputs and holds the outputs to PLAIN_BARS: the kernels against
+    flash_attn, paged_decode, gemm_w4, paged_prefill) also runs the
+    kernel's plain version on the same inputs and holds the outputs to
+    PLAIN_BARS: the kernels against
     their plain versions at the shapes and on the data of the path being
     driven. Yields {kernel: dict(calls, shapes, err, off, n, ok, share)}:
     the calls, their distinct shapes, the largest absolute error of the
@@ -4728,7 +4772,17 @@ def beside_plain(kernels):
         "paged_decode": (pdk, "_paged_decode_cuda",
                          pdk.paged_decode_state_plain, lambda a, kw:
                          f"B={a[0].shape[0]} H={a[0].shape[1]}/"
-                         f"{a[1].shape[2]} seq_lens {a[4].tolist()}")}
+                         f"{a[1].shape[2]} seq_lens {a[4].tolist()}"),
+        # a forced plan (splits=) is the kernel's alone
+        "gemm_w4": (gk, "_gemm_w4_cuda",
+                    lambda *a, splits=None: gk.gemm_w4_plain(*a),
+                    lambda a, kw: f"M={a[0].shape[0]} Kq={a[0].shape[1]} "
+                    f"N={a[1].shape[1]}"),
+        "paged_prefill": (pdk, "_paged_prefill_cuda",
+                          pdk.paged_prefill_plain, lambda a, kw:
+                          f"B={a[0].shape[0]} Tq={a[0].shape[1]} "
+                          f"H={a[0].shape[2]}/{a[1].shape[2]} q_starts "
+                          f"{a[4].tolist()} seq_lens {a[5].tolist()}")}
     seen = {k: dict(calls=0, shapes=set(), err=0.0, off=0, n=0, ok=True,
                     share=0.0, _within=[0, 0]) for k in kernels}
 
@@ -4737,6 +4791,9 @@ def beside_plain(kernels):
             out = real(*a, **kw)
             ref = plain(*a, **kw)
             o, r = (out[0], ref[0]) if isinstance(out, tuple) else (out, ref)
+            if kernel == "paged_prefill":
+                live = _prefill_live(o, a)
+                o, r = o[live], r[live]
             st = seen[kernel]
             st["calls"] += 1
             st["shapes"].add(shape(a, kw))
@@ -4907,12 +4964,14 @@ def engine_vs_plain(eng, label, failures, paged_floor=False, ref=None,
     return got, fed
 
 
-def noise_draws(run, draws, paged=True):
+def noise_draws(run, draws, paged=True, prefill=False):
     """`draws` runs of run() on the plain versions with every GEMM's f32
-    result (the w8 GEMM's and the large-M route's product) times
+    result (the w8 and w4 GEMMs' and the large-M route's product) times
     (1 + 2^-22 N(0, 1)) before its rounding, draw d from seed d; with
     `paged` also the batched expert GEMM's, and paged decode's times
-    (1 + 2^-16 N(0, 1)). The noise floors' runs."""
+    (1 + 2^-16 N(0, 1)); with `prefill` also the paged prefill's (the
+    chunked prefill's attention) times (1 + 2^-16 N(0, 1)). The noise
+    floors' runs."""
     from arcquant_tpu_torch.kernels import gemm as gk
     from arcquant_tpu_torch.kernels import paged_decode as pdk
     floors = []
@@ -4921,11 +4980,15 @@ def noise_draws(run, draws, paged=True):
             gen = torch.Generator(device="cuda")
             gen.manual_seed(seed)
             gk._gemm_w8_cuda = _noisy_gemm(gen)
+            gk._gemm_w4_cuda = _noisy_gemm(gen, gk.gemm_w4_plain)
             gk._mm_f32_cuda = _noisy_mm(gen)
             if paged:
                 gk._gemm_batched_cuda = _noisy_batched(gen)
                 pdk._paged_decode_cuda = _noisy_attention(
                     pdk.paged_decode_state_plain, gen, 2.0 ** -16)
+            if prefill:
+                pdk._paged_prefill_cuda = _noisy_attention(
+                    pdk.paged_prefill_plain, gen, 2.0 ** -16)
             floors.append(run())
     return floors
 
@@ -4987,14 +5050,15 @@ def _flipped_attention(fn, gen, share):
     return f
 
 
-def _noisy_gemm(gen):
-    """The w8 GEMM plain version with its f32 result perturbed before it
-    is rounded to the output dtype."""
+def _noisy_gemm(gen, plain=None):
+    """The w8 GEMM plain version (or `plain`, the w4 one) with its f32
+    result perturbed before it is rounded to the output dtype."""
     from arcquant_tpu_torch.kernels import gemm as gk
+    plain = plain or gk.gemm_w8_plain
 
     def f(xa, codes, scales, gs, gw, bias, out_dtype):
-        return _noise(gk.gemm_w8_plain(xa, codes, scales, gs, gw, bias,
-                                       torch.float32), gen).to(out_dtype)
+        return _noise(plain(xa, codes, scales, gs, gw, bias,
+                            torch.float32), gen).to(out_dtype)
     return f
 
 
@@ -7255,6 +7319,561 @@ def sp_run(card, failures):
     return counts
 
 
+# -- [conditioned] ------------------------------------------------------------
+
+# [conditioned]: the engine on testing.conditioned_engine's weights (seed 1:
+# a unit-rms embedding, the residual branches' outputs scaled by
+# testing.branch_scale), the head left in bf16 (quantize_lm_head off), so
+# that every comparison is of the layers. Each case is cond_case: at a step
+# whose floor (the lowest cosine of COND_DRAWS noise draws) is at or above
+# COND_FLAT the route is not chaotic, and the step is held to the flat bar,
+# cosine >= 0.999 and equal greedy tokens but at ties, and to the floor's
+# own scale, 1 - cosine <= COND_K (1 - floor) (or COND_EPS, where that is
+# larger: a floor of 1 to 7 digits); below COND_FLAT, to the floor
+# (floor_gate). COND_K: the kernels' deficit was at most 1.06 floors' in
+# every case and step on the H100, so twice the floor is a fault. Beside
+# each case but tp 2 (which equals the single device) the layers' NVFP4
+# against BF16 on the same weights must stand COND_K floors' deficits from
+# 1 (_cond_visible: a fault as large as the layers' whole quantization
+# would miss the bar); COND_VISIBLE floors is logged, met or not: at 2
+# layers it was 8-15 and at 28 2.0-3.4 for branch factors 1/32 to 1/4 (one
+# e2m1 flip at an MLP's input moves a few percent of its down input's e2m1
+# decisions, so every branch sees flips at depth).
+COND_FLAT = 0.9999
+COND_DRAWS = 3
+COND_K = 2
+COND_EPS = 1e-6
+COND_LAYERS = (2, 28)
+COND_CHUNK = 256          # the chunked prefill (#11, paged_prefill)
+COND_VISIBLE = 10
+COND_SPEC_TOKENS = 32
+
+
+def _cond_qcfg(**kw):
+    from arcquant_tpu_torch.config import QuantConfig
+    return QuantConfig(quant_type="NVFP4", use_kernels=True, weight_fmt="w8",
+                       act_scale="row", w_scale="channel",
+                       quantize_lm_head=False).replace(**kw)
+
+
+def _cond_ecfg(**kw):
+    from arcquant_tpu_torch.engine import EngineConfig
+    return EngineConfig(max_batch=len(PROMPT_LENS),
+                        max_seq_len=max(PROMPT_LENS) + NEW_TOKENS + 8, **kw)
+
+
+def cond_case(eng, label, failures, summary, ref=None, real=(),
+              prefill=False) -> tuple:
+    """One [conditioned] case: eng's engine_steps (the decode replaying
+    the captured step) against `ref`'s (default eng), eager, on the plain
+    versions but `real` (KERNEL_INFO's names), fed the same tokens; each
+    step beside its floor, COND_DRAWS noise_draws of ref on the plain
+    versions (with `prefill` the paged prefill's outputs perturbed like
+    paged decode's), and held to COND_FLAT's rule. A flat step of an
+    engine that is its own reference that misses its bar is localized:
+    beside_plain over every kernel it holds, on the same steps.
+    summary[label]: the lowest cosine and floor, the largest ratio of a
+    step's deficit to its floor's, whether every step was flat. Returns
+    (logits by step, tokens fed, floor by step)."""
+    from arcquant_tpu_torch.testing import same_greedy
+
+    ref = eng if ref is None else ref
+    got, fed = engine_steps(eng)
+    graphs, ref.cuda_graphs = ref.cuda_graphs, False
+    with PlainKernels(keep=real):
+        want = engine_steps(ref, fed)[0]
+    if real:
+        with PlainKernels():
+            plain = engine_steps(ref, fed)[0]
+    else:
+        plain = want
+    draws = noise_draws(lambda: engine_steps(ref, fed)[0], COND_DRAWS,
+                        prefill=prefill)
+    ref.cuda_graphs = graphs
+    floors, coss, ratios, missed = [], [], [], False
+    for i, (a, b) in enumerate(zip(got, want)):
+        at = [d[i] for d in draws]
+        each = [_cosine(plain[i], d) for d in at]
+        floor, cos = min(each), _cosine(a, b)
+        floors.append(floor)
+        coss.append(cos)
+        ratios.append((1 - cos) / max(1 - floor, 1e-30))
+        what = f"{label} " + ("prefill" if i == 0 else f"decode {i}")
+        if floor >= COND_FLAT:
+            rows_ok, ties, differ = same_greedy(a, b, at)
+            room = max(COND_K * (1 - floor), COND_EPS)
+            ok = cos >= 0.999 and 1 - cos <= room and rows_ok
+            missed = missed or not ok
+            bar = (f"the flat bar, the floor {floor:.7f} >= {COND_FLAT}: "
+                   f"cosine >= 0.999 and 1 - cosine <= {room:.3g} ({COND_K}"
+                   f" x the floor's deficit, at least {COND_EPS}); equal "
+                   f"tokens but at ties: {ties} tie rows, {differ} rows "
+                   f"apart")
+        else:
+            ok, _, bar_cos, same, noisy = floor_gate(a, b, plain[i], at)
+            bar = (f"cosine >= {bar_cos:.7f}, the floor, {floor:.7f} below "
+                   f"{COND_FLAT}: chaotic on this route; equal tokens "
+                   f"unless a draw's differ: "
+                   f"{'they do' if noisy else 'they do not'}")
+        log(f"  {what}: logits cosine {cos:.7f}, 1 - cosine "
+            f"{ratios[-1]:.3g} x the floor's; the draws "
+            f"{[round(c, 7) for c in each]} (bar: {bar}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"{what} engine vs plain: cos {cos}, floor "
+                            f"{floor}")
+    if missed and ref is eng:
+        # a fault of the port: each kernel the spy can hold, call by call
+        # (eagerly: a replay makes no call)
+        graphs, eng.cuda_graphs = eng.cuda_graphs, False
+        with beside_plain(tuple(PLAIN_BARS)) as seen:
+            engine_steps(eng, fed)
+        eng.cuda_graphs = graphs
+        plain_gate({k: v for k, v in seen.items() if v["calls"]},
+                   f"{label} (localizing the flat-bar miss)", failures)
+    summary[label] = dict(cos=round(min(coss), 7), floor=round(min(floors), 7),
+                          ratio=round(max(ratios), 3),
+                          flat=min(floors) >= COND_FLAT)
+    return got, fed, floors
+
+
+def _cond_visible(label, got, bf16, floors, failures, summary):
+    """The layers' quantization beside the floor: got (NVFP4) against the
+    BF16 engine on the same weights fed the same tokens (bf16), 1 - cosine
+    beyond cond_case's room (COND_K (1 - floor), at least COND_EPS) at
+    each step, else the bar could not tell a fault the size of the layers'
+    quantization from the noise; whether it reaches COND_VISIBLE floors'
+    deficits is logged. summary[label]["visible"]: the least ratio of the
+    two deficits."""
+    cos = [_cosine(a, b) for a, b in zip(got, bf16)]
+    ratio = min((1 - c) / max(1 - f, 1e-30) for c, f in zip(cos, floors))
+    ok = all(1 - c >= max(COND_K * (1 - f), COND_EPS)
+             for c, f in zip(cos, floors))
+    log(f"  {label} NVFP4 against BF16 on the same weights (the layers "
+        f"alone: the head is bf16 in both), logits cosine by step "
+        f"{[round(c, 7) for c in cos]}: {ratio:.3g} floors' deficits from 1 "
+        f"at the least (bar: >= {COND_K}, at least {COND_EPS} from 1; "
+        f"{COND_VISIBLE} "
+        f"{'met' if ratio >= COND_VISIBLE else 'not met'}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"{label}: NVFP4 against BF16 {cos} within "
+                        f"{COND_K} x the floors' deficits {floors}: "
+                        "quantization hidden")
+    summary[label]["visible"] = round(ratio, 3)
+
+
+def _cond_beside_bf16(eng, bf16, label, failures, summary, **kw):
+    """cond_case of eng, then _cond_visible against `bf16`, the BF16
+    engine on the same weights: (logits by step, tokens fed)."""
+    got, fed, floors = cond_case(eng, label, failures, summary, **kw)
+    _cond_visible(label, got, engine_steps(bf16, fed)[0], floors, failures,
+                  summary)
+    return got, fed
+
+
+def _cond_dense(cfg, layers, failures, summary):
+    """The four dense routes at `layers` layers: w8 ARC 0.125, the chunked
+    prefill on its weights, w8 select-free and w4 ARC 0.125, each beside
+    the BF16 engine on the same weights fed its tokens (_cond_beside_bf16);
+    ARC against select-free for the record. Returns the w8 ARC engine and
+    the BF16 one."""
+    from arcquant_tpu_torch import testing
+    from arcquant_tpu_torch.config import QuantConfig
+    from arcquant_tpu_torch.engine import InferenceEngine
+    from arcquant_tpu_torch.models import quantized
+
+    cfg_l = cfg.replace(num_layers=layers)
+    arc = quantized.identity_calib(cfg_l, SELECT_FRAC, device="cuda")
+    free = quantized.identity_calib(cfg_l, 0.0, device="cuda")
+    ecfg = _cond_ecfg()
+    bf16 = testing.conditioned_engine(cfg_l, arc, QuantConfig(
+        quant_type="BF16"), ecfg, seed=1)
+    tag = f"[conditioned] {layers}-layer"
+
+    def case(eng, label, **kw):
+        return _cond_beside_bf16(eng, bf16, label, failures, summary, **kw)
+
+    eng = testing.conditioned_engine(cfg_l, arc, _cond_qcfg(), ecfg, seed=1)
+    got_arc, fed_arc = case(eng, f"{tag} w8 ARC {SELECT_FRAC}")
+    chunked = InferenceEngine(cfg_l, eng.qparams, arc, _cond_qcfg(),
+                              _cond_ecfg(prefill_chunk=COND_CHUNK),
+                              device="cuda", quantize_params=False)
+    case(chunked, f"{tag} chunked prefill ({COND_CHUNK}) w8 ARC "
+         f"{SELECT_FRAC}", prefill=True)
+    del chunked
+    arc_eng = eng
+    eng = testing.conditioned_engine(cfg_l, free, _cond_qcfg(), ecfg, seed=1)
+    case(eng, f"{tag} w8 select-free")
+    cos = [_cosine(a, b) for a, b in
+           zip(got_arc, engine_steps(eng, fed_arc)[0])]
+    log(f"  {tag} w8 ARC {SELECT_FRAC} against select-free on the same "
+        f"weights, logits cosine by step {[round(c, 7) for c in cos]} (for "
+        f"the record)")
+    summary[f"{tag} ARC vs select-free"] = round(min(cos), 7)
+    del eng
+    eng = testing.conditioned_engine(cfg_l, arc, _cond_qcfg(weight_fmt="w4"),
+                                     ecfg, seed=1)
+    case(eng, f"{tag} w4 ARC {SELECT_FRAC}")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return arc_eng, bf16
+
+
+def _cond_ranks(ctx):
+    """[conditioned]'s tp-2 cases on one rank (rank 0 logs; every rank
+    returns its failures and rank 0 the summary), 2 layers each, on
+    testing.conditioned_params' weights of seed 1, each rank's
+    TPInferenceEngine sharding them:
+      Qwen2.5-7B select-free, the TP engine against the single-device
+        InferenceEngine (cond_case's ref= and real=: [tp] check 2's
+        comparison; ARC's row sites select per shard, so only select-free
+        is one function on both);
+      [ep]'s 2-layer cut of Qwen1.5-MoE-A2.7B at tensor scales, select 0:
+        the MoE TP engine against the single-device engine on qdq stacks
+        of the same weights (testing.qdq_moe_engine)."""
+    from arcquant_tpu_torch import testing
+    from arcquant_tpu_torch.config import get_model_config
+    from arcquant_tpu_torch.engine import InferenceEngine
+    from arcquant_tpu_torch.models import quantized
+    from arcquant_tpu_torch.parallel.tp_engine import TPInferenceEngine
+
+    global _QUIET
+    _QUIET = ctx.rank != 0
+    torch.backends.cuda.matmul.allow_tf32 = False
+    failures, summary = [], {}
+    ecfg = _cond_ecfg()
+    for model, scale in ((MODEL, "row"), (MOE_MODEL, "tensor")):
+        cfg = get_model_config(model).replace(num_layers=2)
+        qcfg = _cond_qcfg(act_scale=scale)
+        calib = quantized.identity_calib(cfg, 0.0, device=ctx.device)
+        gen = torch.Generator(device=ctx.device)
+        gen.manual_seed(1)
+        params = testing.conditioned_params(cfg, gen, device=ctx.device)
+        eng = TPInferenceEngine(cfg, params, calib, qcfg, ecfg, ctx)
+        if ctx.rank == 0:
+            single = (testing.qdq_moe_engine(cfg, params, calib, qcfg, ecfg,
+                                             device=ctx.device)
+                      if cfg.num_experts else
+                      InferenceEngine(cfg, params, calib, qcfg, ecfg,
+                                      device=ctx.device))
+            single.cuda_graphs = False
+            cond_case(eng, f"[conditioned] 2-layer {model} {scale} scales "
+                      f"select-free, TP {ctx.tp} vs single-device", failures,
+                      summary, ref=single, real=tuple(KERNEL_INFO))
+            del single
+        else:
+            engine_steps(eng)            # rank 0's TP run, its collectives
+        del eng, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return dict(failures=failures, summary=summary)
+
+
+@contextlib.contextmanager
+def _tensor_scale_ulp(gen):
+    """Every per-tensor activation scale (numerics.nvfp4_global_scale
+    without per_row) moved one f32 ulp up or down, at random: a flip of
+    every element near an e2m1 boundary at once, the correlated floor of
+    a per-tensor route."""
+    from arcquant_tpu_torch.quant import numerics
+
+    real = numerics.nvfp4_global_scale
+
+    def moved(x, per_row=False):
+        g = real(x, per_row)
+        if per_row:
+            return g
+        up = torch.rand((), generator=gen, device=g.device) < 0.5
+        return torch.where(up, torch.nextafter(g, g + 1),
+                           torch.nextafter(g, g - 1))
+    numerics.nvfp4_global_scale = moved
+    try:
+        yield
+    finally:
+        numerics.nvfp4_global_scale = real
+
+
+def _ep_correlated_floor(summary):
+    """[ep]'s 2-layer cut at tensor scales (llama.init_layer_params'
+    weights of seed 1, select 0, 3 decode steps), the single-device qdq
+    engine on the plain versions against itself with the tensor
+    activation scales moved one ulp (_tensor_scale_ulp, COND_DRAWS draws),
+    fed the same tokens: the correlated floor of the cut, logged beside
+    the 2^-22 / 2^-16 floor [ep] gates on."""
+    import functools
+
+    from arcquant_tpu_torch import testing
+    from arcquant_tpu_torch.config import get_model_config
+    from arcquant_tpu_torch.engine.engine import dummy_tree
+    from arcquant_tpu_torch.models import llama, quantized
+
+    cfg = get_model_config(MOE_MODEL).replace(num_layers=2)
+    qcfg = _arc_qcfg().replace(act_scale="tensor")
+    calib = quantized.identity_calib(cfg, 0.0, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    raw = [llama.init_layer_params(cfg, gen, torch.bfloat16, "cuda")
+           for _ in range(cfg.num_layers)]
+    single = testing.qdq_moe_engine(
+        cfg, dummy_tree(cfg, gen, torch.bfloat16, "cuda", raw), calib, qcfg,
+        _cond_ecfg(), device="cuda")
+    single.cuda_graphs = False
+    del raw
+    steps = functools.partial(engine_steps, decodes=3)
+    with PlainKernels():
+        plain, fed = steps(single)
+        draws = []
+        for seed in range(COND_DRAWS):
+            g = torch.Generator(device="cuda")
+            g.manual_seed(seed)
+            with _tensor_scale_ulp(g):
+                draws.append(steps(single, fed)[0])
+        ulp22 = noise_draws(lambda: steps(single, fed)[0], COND_DRAWS)
+    floors = [min(_cosine(p, d[i]) for d in draws)
+              for i, p in enumerate(plain)]
+    noise = [min(_cosine(p, d[i]) for d in ulp22)
+             for i, p in enumerate(plain)]
+    same = [all(torch.equal(p.argmax(-1), d[i].argmax(-1)) for d in draws)
+            for i, p in enumerate(plain)]
+    log(f"  [ep]'s 2-layer cut at tensor scales, weights of seed 1 (the "
+        f"chaotic init): the plain single-device qdq engine against itself "
+        f"with the tensor activation scales one ulp off, {COND_DRAWS} draws: "
+        f"floor by step {[round(f, 6) for f in floors]}, greedy tokens "
+        f"equal in every draw {same}; the 2^-22 / 2^-16 floor of the same "
+        f"engine {[round(f, 6) for f in noise]} (for the record)")
+    summary["ep correlated floor (chaotic init)"] = dict(
+        ulp=[round(f, 6) for f in floors], noise=[round(f, 6) for f in noise])
+    del single
+
+
+def _cond_eval(card, failures, summary):
+    """[eval]'s 28-layer packed-vs-fake row PPL on the conditioned weights
+    (llama.init_params swapped for testing.conditioned_params while
+    evaluate.main draws; seed 0, the same stream), through [eval]'s gate
+    (_ppl_gate) on the flip draws' floor alone: 3 draws of the fake row
+    route with the flips of the 1-layer check (_one_layer_packed_vs_fake,
+    on the conditioned layer), the bar the farthest draw plus the draws'
+    spread; then the packed route with #9's plain version, for how much
+    of the gap #9's ulps make, and BF16's PPL beside the floor."""
+    from arcquant_tpu_torch import evaluate, testing
+    from arcquant_tpu_torch.config import get_model_config
+    from arcquant_tpu_torch.kernels import attention
+    from arcquant_tpu_torch.models import llama
+
+    argv = ["--model", MODEL, "--eval_ppl", "--dataset", "synthetic",
+            "--seqlen", str(EVAL_SEQLEN), "--ntokens",
+            str(EVAL_SEQLEN * EVAL_WINDOWS)]
+    real_init = llama.init_params
+
+    def run(flags):
+        gc.collect()
+        torch.cuda.empty_cache()
+        with _scratch_dir():
+            return evaluate.main(argv + flags)["ppl"]
+    llama.init_params = (lambda cfg, gen, dtype=torch.bfloat16, device="cpu":
+                         testing.conditioned_params(cfg, gen, dtype, device))
+    try:
+        bf16 = run(EVAL_ROUTES[0][1])
+        fake = run(EVAL_ROUTES[2][1])
+        packed = run(EVAL_ROUTES[3][1])
+        flips = _one_layer_packed_vs_fake(get_model_config(MODEL),
+                                          "[conditioned] eval", failures)
+        rel, floor, bar = _ppl_gate(argv, packed, fake, flips,
+                                    "[conditioned] eval, 28 layers",
+                                    failures, draws=3, least=None)
+        real9 = attention._flash_cuda
+        attention._flash_cuda = attention.flash_attention_plain
+        try:
+            plain9 = run(EVAL_ROUTES[3][1])
+        finally:
+            attention._flash_cuda = real9
+    finally:
+        llama.init_params = real_init
+    log(f"  [conditioned] eval, 28 layers: the packed route with #9's plain "
+        f"version: PPL {plain9!r}, {_ppl_rel(plain9, fake):.4%} from fake "
+        f"row, {_ppl_rel(plain9, packed):.4%} from packed; BF16 {bf16!r}, "
+        f"fake row {_ppl_rel(fake, bf16):.4%} from it, "
+        f"{_ppl_rel(fake, bf16) / floor:.3g} times the floor (for the "
+        f"record)")
+    summary["eval 28 layers"] = dict(
+        packed=packed, fake_row=fake, bf16=bf16, gap=rel, floor=floor,
+        bar=bar, plain9=plain9)
+
+
+def _cond_spec(eng, summary):
+    """Speculative decoding on `eng`, the 28-layer w8 ARC 0.125 engine on
+    the conditioned weights (seed 1): SpeculativeEngine.generate
+    (NgramDrafter, W 4) against the engine's plain greedy decode
+    (generate), COND_SPEC_TOKENS tokens of each PROMPT_LENS prompt, the
+    first step where a row's tokens differ; and the verify (W 4, the
+    paged prefill at Tq 4) of 4 decode tokens after the prefill against
+    those decode steps, by logits cosine at each position. Logged: the
+    verify's attention is the paged prefill kernel, whose outputs sit an
+    ulp from paged decode's on about 1.5% of elements, so a greedy tie
+    can go either way."""
+    from arcquant_tpu_torch.engine import NgramDrafter, SpeculativeEngine
+
+    prompts = prompts_for(eng.cfg, seed=1)
+    plain = eng.generate(prompts, COND_SPEC_TOKENS)
+    spec = SpeculativeEngine(eng, NgramDrafter(), window=4).generate(
+        prompts, COND_SPEC_TOKENS)
+    first = [next((j for j, (a, b) in enumerate(zip(p, q)) if a != b), None)
+             for p, q in zip(plain, spec)]
+    decode, fed = engine_steps(eng)
+    toks, lens, _ = eng._pad_prompts(prompts)
+    _, state = eng.prefill(eng.new_state(), toks, lens)
+    vlog, _ = eng.verify_step(state, torch.stack(fed, dim=1),
+                              torch.full((len(fed[0]),), 4))
+    cos = [round(_cosine(vlog[:, i].float().cpu(), decode[i + 1]), 7)
+           for i in range(4)]
+    log(f"  [conditioned] spec, 28 layers: SpeculativeEngine.generate (W 4) "
+        f"against plain greedy decode, {COND_SPEC_TOKENS} tokens of each of "
+        f"{len(prompts)} prompts: first differing step by row {first} (None: "
+        f"equal throughout; logged, not gated); the verify of 4 decode "
+        f"tokens against those decode steps, logits cosine by position {cos}")
+    summary["spec 28 layers"] = dict(first_differing=first, verify_cos=cos)
+
+
+def cond_sweep(cfg, factor):
+    """The conditioned init at another branch factor
+    (testing.CONDITIONED_BRANCH, restored after; python3 chip_smoke.py
+    --conditioned [factor ...]): Qwen2.5-7B's w8 ARC route at each depth
+    of COND_LAYERS beside BF16 on its weights (_cond_beside_bf16), logged
+    with a summary line and gated on nothing: how the floor and the
+    layers' quantization move with the factor."""
+    from arcquant_tpu_torch import testing
+    from arcquant_tpu_torch.config import QuantConfig
+    from arcquant_tpu_torch.models import quantized
+
+    real, testing.CONDITIONED_BRANCH = testing.CONDITIONED_BRANCH, factor
+    summary, ignored = {}, []
+    try:
+        for layers in COND_LAYERS:
+            cfg_l = cfg.replace(num_layers=layers)
+            calib = quantized.identity_calib(cfg_l, SELECT_FRAC,
+                                             device="cuda")
+            eng, bf16 = (testing.conditioned_engine(cfg_l, calib, q,
+                                                    _cond_ecfg(), seed=1)
+                         for q in (_cond_qcfg(),
+                                   QuantConfig(quant_type="BF16")))
+            _cond_beside_bf16(eng, bf16, f"[sweep {factor}] {layers}-layer "
+                              f"w8 ARC {SELECT_FRAC}", ignored, summary)
+            del eng, bf16
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        testing.CONDITIONED_BRANCH = real
+    log(f"  [sweep {factor}] {json.dumps(summary)}")
+
+
+def conditioned_run(card, failures):
+    """[conditioned]: the port's engine held to the flat bar on
+    testing.conditioned_engine's weights (see COND_FLAT), kernels against
+    the plain versions (cond_case: the kernels' decode replaying the
+    captured step, the plain one eager), prefill of the PROMPT_LENS
+    prompts and 4 decode steps fed the same tokens, each step beside the
+    floor of COND_DRAWS draws of 2^-22 GEMM and 2^-16 paged-decode noise:
+    Qwen2.5-7B at each depth of COND_LAYERS in four routes (_cond_dense);
+    the [engine_tensor] cut at tensor scales at 1 and 28 layers; the TP
+    engine at tp 2 and [ep]'s tensor-scale MoE cut (_cond_ranks, in
+    processes of their own beside the dense cases);
+    Qwen1.5-MoE-A2.7B packed w8 at 1 and CUT_LAYERS layers; each but tp 2
+    beside BF16 on its weights (_cond_beside_bf16). Then [ep]'s correlated
+    floor on the chaotic init, [eval]'s 28-layer PPL gap and speculative
+    decoding on the conditioned weights. Logs a summary line."""
+    from arcquant_tpu_torch import testing
+    from arcquant_tpu_torch.config import QuantConfig, get_model_config
+    from arcquant_tpu_torch.engine import InferenceEngine
+    from arcquant_tpu_torch.models import quantized
+    from arcquant_tpu_torch.parallel import launch
+
+    t_phase = time.perf_counter()
+    cfg = get_model_config(MODEL)
+    summary = {"branch": testing.CONDITIONED_BRANCH, "seconds": {}}
+
+    def lap(part):
+        gc.collect()
+        torch.cuda.empty_cache()
+        seconds = summary["seconds"]
+        seconds[part] = round(time.perf_counter() - t_phase
+                              - sum(seconds.values()), 1)
+    # the tp-2 ranks (their own processes, 2 layers) run beside the dense
+    # cases: their start-up and gloo steps are host time
+    ranks = {}
+
+    def tp2():
+        try:
+            ranks["result"] = launch(_cond_ranks, TP_RANKS, "gloo")
+        except Exception as e:
+            ranks["error"] = e
+    thread = threading.Thread(target=tp2)
+    thread.start()
+    for layers in COND_LAYERS:
+        arc, bf16 = _cond_dense(cfg, layers, failures, summary)
+        lap(f"dense {layers}")
+    # the tensor-scale cut: at full depth the ARC engine's packed weights
+    # (act_scale does not enter the packing) under the tensor qcfg
+    calib = quantized.identity_calib(cfg, SELECT_FRAC, device="cuda")
+    for layers in (1, cfg.num_layers):
+        tensor = _cond_qcfg(act_scale="tensor")
+        if layers == cfg.num_layers:
+            eng = InferenceEngine(cfg, arc.qparams, calib, tensor,
+                                  _cond_ecfg(), device="cuda",
+                                  quantize_params=False)
+            plain16 = bf16
+        else:
+            cfg_l = cfg.replace(num_layers=layers)
+            calib_l = quantized.identity_calib(cfg_l, SELECT_FRAC,
+                                               device="cuda")
+            eng = testing.conditioned_engine(cfg_l, calib_l, tensor,
+                                             _cond_ecfg(), seed=1)
+            plain16 = testing.conditioned_engine(
+                cfg_l, calib_l, QuantConfig(quant_type="BF16"),
+                _cond_ecfg(), seed=1)
+        _cond_beside_bf16(eng, plain16, f"[conditioned] {layers}-layer w8 "
+                          f"ARC {SELECT_FRAC} tensor scales", failures,
+                          summary)
+        del eng, plain16
+    del bf16
+    lap("tensor")
+    _cond_spec(arc, summary)
+    del arc
+    lap("spec")
+    moe_cfg = get_model_config(MOE_MODEL)
+    for layers in (1, CUT_LAYERS):
+        cfg_l = moe_cfg.replace(num_layers=layers)
+        calib = quantized.identity_calib(cfg_l, SELECT_FRAC, device="cuda")
+        eng, plain16 = (testing.conditioned_engine(cfg_l, calib, q,
+                                                   _cond_ecfg(), seed=1)
+                        for q in (_cond_qcfg(),
+                                  QuantConfig(quant_type="BF16")))
+        _cond_beside_bf16(eng, plain16, f"[conditioned] {layers}-layer "
+                          f"{MOE_MODEL} w8 ARC {SELECT_FRAC}", failures,
+                          summary)
+        del eng, plain16
+        gc.collect()
+        torch.cuda.empty_cache()
+    lap("moe")
+    thread.join()
+    if "error" in ranks:
+        e = ranks["error"]
+        failures.append(f"[conditioned] tp 2: {type(e).__name__}: {e}")
+    else:
+        for r, res in enumerate(ranks["result"]):
+            failures.extend(f"rank {r}: {f}" for f in res["failures"])
+        summary.update(ranks["result"][0]["summary"])
+    lap("tp 2 (waited for)")
+    _ep_correlated_floor(summary)
+    lap("ep floor")
+    _cond_eval(card, failures, summary)
+    lap("eval")
+    log(f"  [conditioned] {json.dumps(summary)}")
+    log(f"  [conditioned] took {time.perf_counter() - t_phase:.1f} s on "
+        f"{card}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -7277,6 +7896,15 @@ def main() -> int:
 
     failures: list = []
     cfg = get_model_config(MODEL)
+    if sys.argv[1:2] == ["--conditioned"]:
+        # [conditioned] alone, then the branch factors of the command line
+        log(f"[conditioned] alone, on {card}")
+        conditioned_run(card, failures)
+        for factor in sys.argv[2:]:
+            cond_sweep(cfg, float(factor))
+        for f in failures:
+            log(f"FAIL: {f}")
+        return 1 if failures else 0
     log(f"[kernels vs plain versions] {MODEL} shapes, median of {REPS} "
         f"CUDA-event runs, L2 flushed, on {card}")
     timer = Timer(REPS)
@@ -7431,6 +8059,14 @@ def main() -> int:
     engine_check(cfg, failures)
     serving_engine_check(cfg, failures)
     moe_engine_check(moe_cfg, failures)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log(f"[conditioned] the flat bar on the conditioned dummy init: "
+        f"{MODEL} at {COND_LAYERS} layers (w8 ARC, chunked, select-free, "
+        f"w4), tensor scales, tp {TP_RANKS}, {MOE_MODEL}, [ep]'s cut, "
+        f"[eval]'s PPL and spec decoding, on {card}")
+    conditioned_run(card, failures)
 
     if failures:
         for f in failures:
