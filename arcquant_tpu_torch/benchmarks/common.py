@@ -123,55 +123,97 @@ def _sites(eng) -> dict:
     return out
 
 
-@contextlib.contextmanager
-def engine_calls(eng):
-    """Count the calls that eng's forward makes to each function a
-    profile row attributes, while the block runs. Yields a Counter keyed
-    as the rows' keys: gemm_dequant:<site>, gemm_w8_actq_fused:<site>,
-    linear:<site> (site qkv, o, gateup, down or lm_head, by the weight's
-    identity in eng.qparams), quantize_x_arc:<K>, mlp_w8_fused,
-    rmsnorm_quantize_x, silu_mul_quantize_gu, silu_mul, rms_norm,
-    apply_rope, append_kv, paged_decode, flash_attention and sample.
-    Only the outermost of nested counted calls counts: a fused wrapper's
-    plain version on the CPU calls others."""
+# The prefix of the profiler ranges that engine_calls(..., ranges=True)
+# opens: benchmarks/trace_summary.py attributes device time by them.
+RANGE = "row:"
+# The ARC residual (kernels/quantize.py _arc_residual_into) is counted
+# where it is outermost and opens a range at any depth: its share of the
+# rows that call it is read from the nested ranges.
+ARC_RESIDUAL = "arc_residual"
+
+
+def _targets(level: str, site) -> list:
+    """(owner, attribute, key) of each function engine_calls counts at
+    `level`: "ops", the component profiles' functions (the kernels'
+    wrappers and the torch ops between them), or "layers", verify_lab's
+    components of a layer (its attention input, o projection and MLP,
+    rope, the KV append, the attention) and the head. A key is a name,
+    a function of the call's arguments, or None for the attribute's
+    name; site(weight) names a linear's site."""
     from ..cache import paged
-    from ..engine.engine import InferenceEngine
+    from ..engine import engine as E
     from ..kernels import attention, gemm as gk, mlp_fused as mf
     from ..kernels import paged_decode as pdk, quantize as qk
     from ..models import llama
 
+    common = [(llama, "rms_norm", None), (llama, "apply_rope", None),
+              (paged, "append_kv", None), (pdk, "paged_decode", None),
+              (pdk, "paged_prefill", None),
+              (attention, "flash_attention", None),
+              (E.InferenceEngine, "_sample", "sample")]
+    if level == "layers":
+        return [(E, "_attn_common", "attn_common"), (E, "_o_proj", "o_proj"),
+                (E, "_mlp", "mlp"),
+                (E.InferenceEngine, "_head_logits", "head")] + common
+    if level != "ops":
+        raise ValueError(f"level {level!r}: 'ops' or 'layers'")
+    return [
+        (gk, "gemm_dequant", lambda a: f"gemm_dequant:{site(a[1])}"),
+        (mf, "gemm_w8_actq_fused",
+         lambda a: f"gemm_w8_actq_fused:{site(a[1])}"),
+        (mf, "mlp_w8_fused", None), (mf, "gateup_silu_quantize", None),
+        (llama, "linear", lambda a: f"linear:{site(a[0])}"),
+        (qk, "quantize_x_arc", lambda a: f"quantize_x_arc:{a[0].shape[1]}"),
+        (qk, "rmsnorm_quantize_x", None), (qk, "silu_mul_quantize_gu", None),
+        (qk, "_silu_mul", "silu_mul"),
+        (qk, "_arc_residual_into", ARC_RESIDUAL)] + common
+
+
+@contextlib.contextmanager
+def engine_calls(eng, level: str = "ops", ranges: bool = False):
+    """Count the calls that eng's forward makes to each function a
+    profile row attributes, while the block runs. Yields a Counter keyed
+    as the rows' keys. At level "ops": gemm_dequant:<site>,
+    gemm_w8_actq_fused:<site>, linear:<site> (site qkv, o, gateup, down
+    or lm_head, by the weight's identity in eng.qparams),
+    quantize_x_arc:<K>, mlp_w8_fused, gateup_silu_quantize,
+    rmsnorm_quantize_x, silu_mul_quantize_gu, silu_mul, arc_residual,
+    rms_norm, apply_rope, append_kv, paged_decode, paged_prefill,
+    flash_attention and sample; at level "layers" (_targets) attn_common,
+    o_proj, mlp, head and the same rms_norm ... sample. Only the
+    outermost of nested counted calls counts: a fused wrapper's plain
+    version on the CPU calls others.
+
+    With `ranges`, each counted call also runs inside a
+    ``torch.profiler.record_function`` range named RANGE + its key, and
+    the ARC residual inside one at any depth (its nested share); a
+    profiler then sees which row launched each kernel. Never enter it
+    around a graph capture: the ranges are host-side only, and a graph
+    keeps what it captured."""
     sites = _sites(eng)
 
     def site(w):
         return sites.get(id(w.codes if hasattr(w, "codes") else w["w"]), "?")
 
-    targets = [
-        (gk, "gemm_dequant", lambda a: f"gemm_dequant:{site(a[1])}"),
-        (mf, "gemm_w8_actq_fused",
-         lambda a: f"gemm_w8_actq_fused:{site(a[1])}"),
-        (mf, "mlp_w8_fused", None),
-        (llama, "linear", lambda a: f"linear:{site(a[0])}"),
-        (qk, "quantize_x_arc", lambda a: f"quantize_x_arc:{a[0].shape[1]}"),
-        (qk, "rmsnorm_quantize_x", None),
-        (qk, "silu_mul_quantize_gu", None),
-        (qk, "_silu_mul", "silu_mul"),
-        (llama, "rms_norm", None), (llama, "apply_rope", None),
-        (paged, "append_kv", None), (pdk, "paged_decode", None),
-        (attention, "flash_attention", None),
-        (InferenceEngine, "_sample", "sample")]
     counts = collections.Counter()
     depth = [0]
     saved = []
-    for owner, name, key in targets:
+    for owner, name, key in _targets(level, site):
         raw = owner.__dict__[name]
         real = raw.__func__ if isinstance(raw, staticmethod) else raw
 
         def spy(*a, real=real, name=name, key=key, **kw):
+            k = None
+            if depth[0] == 0 or (ranges and key == ARC_RESIDUAL):
+                k = key(a) if callable(key) else key or name
             if depth[0] == 0:
-                counts[key(a) if callable(key) else key or name] += 1
+                counts[k] += 1
             depth[0] += 1
             try:
-                return real(*a, **kw)
+                if k is None or not ranges:
+                    return real(*a, **kw)
+                with torch.profiler.record_function(RANGE + k):
+                    return real(*a, **kw)
             finally:
                 depth[0] -= 1
         saved.append((owner, name, raw))

@@ -24,10 +24,18 @@ paged_decode once a layer, the head and the sampling once a step. The
 JAX script's rmsnorm x56 is x1 here: the port's step fuses each layer's
 two norms into the rmsnorm quantize (or the megakernel), and calls the
 norm itself only for the final one.
+
+The isolated rows run L2-cold and each alone, so they overshoot the
+step. So the script (``run(..., eng=)``) also takes the in-graph pass: a
+28-layer select-free dummy engine's decode graph, prefilled with SEQ_LEN
+tokens a row, attributed kernel by kernel over 8 replays to the rows'
+keys (``in_graph``, ``trace_summary.map_graph``), and each row's
+in-graph ms a step printed beside its isolated time x calls.
 """
 
 from __future__ import annotations
 
+import argparse
 from typing import List
 
 import torch
@@ -168,10 +176,62 @@ def plan(cfg, batch: int = 4, device="cuda", seq_len: int = SEQ_LEN,
     return rows
 
 
-def run(cfg, batch: int, timer, rows=None) -> dict:
+def in_graph(eng, steps: int = 8, seq_len: int = SEQ_LEN) -> dict:
+    """The engine's decode graph attributed to the rows' keys: a state
+    prefilled with seq_len random tokens a row, its captured decode step
+    (every row active) mapped over `steps` replays
+    (trace_summary.map_graph). Adds the way the engine runs ("fused" or
+    "chain")."""
+    from . import trace_summary
+    b = eng.ecfg.max_batch
+    toks = torch.randint(0, eng.cfg.vocab_size, (b, seq_len),
+                         generator=torch.Generator().manual_seed(0))
+    _, state = eng.prefill(eng.new_state(), toks,
+                           torch.full((b,), seq_len, dtype=torch.int32))
+    g = eng._decode_graph(state, None)
+    g.io.tokens.fill_(1)
+    g.io.active.fill_(True)
+    m = trace_summary.map_graph(eng, g, state, steps)
+    m["way"] = "fused" if eng.fused_decode else "chain"
+    return m
+
+
+def beside(rows, times, m: dict) -> dict:
+    """Print each row's isolated median x calls beside its in-graph ms a
+    step (map m, in m["way"]) and its us a call; then the graph's rows no
+    plan row attributes, the unlabelled bucket and the step. Returns
+    {row name: (isolated ms a step, in-graph ms a step)}."""
+    way, out = m["way"], {}
+    print(f"{'component (' + way + ')':44s} {'isolated ms':>12s} "
+          f"{'in graph ms':>12s} {'calls':>6s} {'us/call':>9s}")
+    for r in rows:
+        k = r.mults.get(way, 0)
+        g = m["rows"].get(r.key, dict(ms_step=0.0, calls=0, ms_call=0.0))
+        iso = times[r.name].median * k
+        out[r.name] = (iso, g["ms_step"])
+        print(f"{r.name:44s} {iso:12.4f} {g['ms_step']:12.4f} "
+              f"{g['calls']:6d} {g['ms_call'] * 1e3:9.2f}")
+    keys = {r.key for r in rows}
+    for key, g in sorted(m["rows"].items()):
+        if key not in keys:
+            print(f"{'(no row) ' + key:44s} {'':12s} {g['ms_step']:12.4f} "
+                  f"{g['calls']:6d} {g['ms_call'] * 1e3:9.2f}")
+    print(f"{'unlabelled (glue)':44s} {'':12s} "
+          f"{m['unlabelled']['ms_step']:12.4f}")
+    print(f"isolated total {sum(v[0] for v in out.values()):.3f} ms; in the "
+          f"graph {m['total_ms_step']:.3f} ms of device time a step, busy "
+          f"{m['busy_ms_step']:.3f}, span {m['span_ms_step']:.3f} "
+          f"(profiled), {m['step_ms']:.3f} ms a step unprofiled")
+    return out
+
+
+def run(cfg, batch: int, timer, rows=None, eng=None, graph=None) -> dict:
     """Time every row of plan(cfg, batch) (or of `rows`, built by it) on
     the card with `timer` (a common.Timer) and print the budget: {"rows":
-    rows, "times": {name: Timing}, "totals": {way: (median, lo, hi) ms}}."""
+    rows, "times": {name: Timing}, "totals": {way: (median, lo, hi) ms}}.
+    With an engine `eng` (or its in_graph map `graph`), also each row's
+    ms a step inside the engine's decode graph beside its isolated time
+    x calls (beside()), under "graph"."""
     from .common import budget
     rows = rows or plan(cfg, batch, "cuda")
     times = {r.name: timer(r.fn) for r in rows}
@@ -182,18 +242,34 @@ def run(cfg, batch: int, timer, rows=None) -> dict:
               f"sum of hi {hi:.3f}] (against the measured decode step; the "
               f"difference is glue: embed, residual adds, casts, launch "
               f"gaps)")
-    return {"rows": rows, "times": times, "totals": totals}
+    out = {"rows": rows, "times": times, "totals": totals}
+    if graph is None and eng is not None:
+        graph = in_graph(eng)
+    if graph is not None:
+        beside(rows, times, graph)
+        out["graph"] = graph
+    return out
 
 
-def main():
+def main(argv=None):
+    from ..engine import EngineConfig
+    from ..models import quantized
     from .common import Timer, card, require_cuda
+    argparse.ArgumentParser(
+        prog="python -m arcquant_tpu_torch.benchmarks.decode_profile"
+    ).parse_args(argv)
     require_cuda("decode_profile")
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = get_model_config("qwen2.5-7b")
     print(f"# qwen2.5-7b decode step, bs 4, {cfg.num_layers} layers, device "
           f"time, on {card()}")
+    eng = InferenceEngine.dummy(
+        cfg, quantized.identity_calib(cfg, 0.0, device="cuda"),
+        QuantConfig(quant_type="NVFP4", use_kernels=True, weight_fmt="w8",
+                    act_scale="row", w_scale="channel", quantize_lm_head=True),
+        EngineConfig(max_batch=4, max_seq_len=SEQ_LEN + 64))
     with torch.no_grad():
-        run(cfg, 4, Timer())
+        run(cfg, 4, Timer(), eng=eng)
 
 
 if __name__ == "__main__":

@@ -66,7 +66,12 @@ Phases, each printed as it runs:
      every step's logits bitwise fed the same tokens, decode_scan's
      tokens, decode ms/step of decode_scan in turns (loop, graph, graph,
      loop), the capture's time and graph pool, and the device idle share
-     over 8 steps of each from torch.profiler;
+     over 8 steps of each from torch.profiler; then [trace] (trace_step):
+     the graph's device time over 8 replays attributed to the profile
+     rows, kernel by kernel, through one eager run of its body
+     (decode_profile.in_graph, trace_summary.map_graph), which must hold
+     the replay's activities name for name, partition their summed
+     durations and count each row's calls as engine_calls does;
   5. the HTTP server (engine/server.py over the continuous batcher) on
      the same 28 packed layers with serve.py's defaults (W4A16 prefill,
      W4A4 decode, prefill_chunk 512, dynamic pages, prefix sharing):
@@ -86,7 +91,10 @@ Phases, each printed as it runs:
      attn_in and o_in, the whole MLP), with the launch counts, prefill
      ms, decode ms/step, tok/s and peak memory; then the same weights in
      an engine with fused_decode=False fed the same tokens, whose logits
-     must be bitwise equal at every step; then [graph] on it, as in 4;
+     must be bitwise equal at every step, and [trace] on that engine;
+     then [graph] and [trace] on the fused one, as in 4, and
+     benchmarks/prefill_trace.py's run() at 4 x 1024 (the traced
+     prefill by op and by call);
   8. [bench_e2e]: arcquant_tpu_torch/benchmarks/benchmark_e2e.py's run()
      at Qwen2.5-7B, 28 layers, bs 4, prefill 1024, 32 decode steps, in
      the north-star configuration (NVFP4 select-free w8) and with --quant
@@ -97,13 +105,17 @@ Phases, each printed as it runs:
      decode_profile's and prefill_profile's plans pinned to the calls of
      an eager 28-layer step (bs 4, fused and unfused) and prefill (4 x
      1024; the BF16 way at 1 layer), both profiles' budgets beside
-     [select-free]'s graph ms/step and [bench_e2e]'s NVFP4 prefill, and
+     [select-free]'s graph ms/step and [bench_e2e]'s NVFP4 prefill, the
+     [trace] maps beside decode_profile's isolated rows (ARC with its
+     residual's share), the traced prefill beside [bench_e2e]'s, and
      mse_table and visualize.measure_mse at K 4096, 3584 and 18944 on the
      card against the CPU from the same draws (1e-4 relative);
   9. [spec]: speculative decoding at Qwen2.5-7B, 28 layers (spec_run):
      benchmarks/bench_spec.py's verify ms at W 2, 4 and 8 against the
-     decode step, select-free and ARC; generate_ondevice (W 4, n-gram
-     drafts, 64 greedy tokens, ARC) replaying its captured round, bitwise
+     decode step, select-free and ARC, and on the select-free engine
+     [trace]'s verify_lab (verify_trace_step: W 2, 4 and 8, the graph's
+     replay, the components at M = 4 W, the graph's map); generate_ondevice
+     (W 4, n-gram drafts, SPEC_TOKENS (32) greedy tokens, ARC) replaying its captured round, bitwise
      against the eager round loop, against plain decode_scan (the first
      divergent step), with its rounds, acceptance, ms per committed token
      and launch counts (the eleventh path), and the verify logits against
@@ -162,7 +174,7 @@ Phases, each printed as it runs:
      on the qdq stacks (use_kernels=False) against the packed experts at
      1 layer (w8, w4; tensor and row scales; dense and dispatch mode;
      packed dispatch against dense) against a floor of 2^-22 noise on the
-     stacks' products; then CUT_LAYERS (8) layers in BF16 and in the NVFP4
+     stacks' products; then MOE_QDQ_LAYERS (4) layers in BF16 and in the NVFP4
      fake format, each built layer by layer, through generate() (no #1, no
      packed GEMM) with prefill ms, decode ms/step, peak memory and
      [graph];
@@ -186,7 +198,7 @@ Phases, each printed as it runs:
      collectives over gloo through the host: python -m
      arcquant_tpu_torch.generate --tp 2 --dist_backend gloo --check_ranks
      --quant_head (28 layers, ARC 0.125, the packed W4A16 head, the four
-     prompts of 4, 32 greedy tokens) with each rank's prefill ms, decode
+     prompts of 4, PARALLEL_NEW (8) greedy tokens) with each rank's prefill ms, decode
      ms/step, all_reduces a decode step and their ms, peak memory and
      launch counts (the path generate_tp; the ranks time-share the card,
      so the times are no TP speed figure), every step's logits bitwise
@@ -219,7 +231,7 @@ Phases, each printed as it runs:
  16. [pp] (pp_run): pipeline parallelism, two stages on this card over
      gloo: PPInferenceEngine.generate at Qwen2.5-7B, 28 layers (14 and
      their pool a stage), ARC 0.125, the packed head, the four prompts
-     of 4, 32 greedy tokens, every step's logits bitwise the
+     of 4, PARALLEL_NEW (8) greedy tokens, every step's logits bitwise the
      single-device eager engine's fed the same tokens (step digests) and
      verify_step at W 4 bitwise, each stage's prefill ms, decode ms/step,
      relay bytes and ms a step and peak memory (the path generate_pp,
@@ -278,6 +290,7 @@ import contextlib
 import gc
 import http.client
 import json
+import math
 import statistics
 import sys
 import tempfile
@@ -306,11 +319,19 @@ VERIFY_ULP_SHARE: dict = {}
 _QUIET = False
 _T0 = time.perf_counter()
 # The depth of the phases whose eager decode loops bound the smoke's time
-# on the host ([moe_qdq]'s BF16 and fake engines, [calib_serve],
-# [moe_calib_serve], [engine_tensor]: about 100 eager steps each, 0.2-0.4
+# on the host ([calib_serve], [moe_calib_serve], [engine_tensor]; the MoE
+# model in [tp_graph] and [conditioned]: about 100 eager steps each, 0.2-0.4
 # s a step at full depth on a slow host); every gate of theirs holds at
 # any depth
 CUT_LAYERS = 8
+# Cut to make room for [trace] (the smoke ran 1212 s on a slow host
+# before): [moe_qdq]'s BF16 and fake engines take MOE_QDQ_LAYERS layers,
+# [tp]'s and [ep]'s generate --tp 2 and [pp]'s PPInferenceEngine.generate
+# PARALLEL_NEW new tokens (their gloo decode steps take 0.2-1.7 s),
+# [spec] SPEC_TOKENS 32 (its eager decodes of the floor's draws take
+# 0.17 s a step); every gate holds at any of these sizes
+MOE_QDQ_LAYERS = 4
+PARALLEL_NEW = 8
 
 KERNEL_INFO = {
     "actq": ("arcquant_tpu_torch/csrc/actq.cu",
@@ -384,7 +405,7 @@ MOE_SERVE_KERNELS = MOE_COMMON[:2] + ("gemm_w8", "paged_prefill",
 # The spec path (generate_ondevice on the ARC engine, W 4, batch 4): a
 # one-shot prefill, then verify rounds at M 16, whose attention is the
 # paged prefill kernel and whose MLP takes gu_actq; no decode step.
-SPEC_TOKENS = 64
+SPEC_TOKENS = 32
 SPEC_KERNELS = ("actq", "gemm_w8", "dequant_w8", "flash_attn",
                 "paged_prefill", "gu_actq")
 SPEC_IDLE_KERNELS = ("paged_decode", "gemm_actq", "mlp_w8") + W4_ONLY
@@ -1573,8 +1594,9 @@ def prompts_for(cfg, seed=0):
 
 
 def engine_run(cfg, card, failures):
-    """Phase 4: the 28-layer engine through generate(). Returns the
-    kernels' launch counts over that run."""
+    """Phase 4: the 28-layer engine through generate(), then [graph] and
+    [trace] on it. Returns the kernels' launch counts over generate(),
+    the packed tree and its calibration, and [trace]'s map."""
     from arcquant_tpu_torch.config import QuantConfig
     from arcquant_tpu_torch.engine import EngineConfig, InferenceEngine
     from arcquant_tpu_torch.kernels import attention, gemm as gk
@@ -1673,24 +1695,32 @@ def engine_run(cfg, card, failures):
         f"{cfg.num_layers} layers: the captured decode step against the "
         f"eager loop, on {card}")
     graph_check(eng, "ARC", card, failures)
+    log(f"[trace] ARC, {MODEL} full width, {cfg.num_layers} layers: the "
+        f"decode graph's device time attributed to the profile rows, on "
+        f"{card}")
+    arc_map = trace_step(eng, "ARC", card, failures)
     qparams = eng.qparams
     del eng
     torch.cuda.empty_cache()
-    return launches, qparams, calib
+    return launches, qparams, calib, arc_map
 
 
 def _device_busy_ms(prof) -> tuple:
     """(ms, count): the union of the device's activity intervals (kernels,
-    copies, fills) in a torch.profiler profile, and how many there were."""
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    busy, end = 0.0, float("-inf")
+    copies, fills) in a torch.profiler profile, and how many there were.
+    Read from the profiler's raw records: the device events that
+    ``prof.events()`` lists, without building its host event tree (20 s
+    for 8 eager ARC decode steps at 28 layers on an H100's host)."""
+    spans = sorted((e.start_ns(), e.end_ns())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == torch.autograd.DeviceType.CUDA
+                   and not e.is_hidden_event())
+    busy, end = 0, float("-inf")
     for a, b in spans:
         if b > end:
             busy += b - max(a, end)
             end = b
-    return busy / 1e3, len(spans)
+    return busy / 1e6, len(spans)
 
 
 def graph_check(eng, label, card, failures):
@@ -1795,6 +1825,56 @@ def graph_check(eng, label, card, failures):
     del loop, engines, states, steps, runs, outs
     torch.cuda.empty_cache()
     return metrics
+
+
+def _trace_gates(m, what, failures) -> bool:
+    """The graph map's gates, printed (trace_summary.map_graph raises
+    MapError before returning if the first two fail): the replays hold
+    the eager body's device activities, the same at every position; the
+    rows and the unlabelled bucket sum to the replays' durations; every
+    row's calls a step equal engine_calls' count of the eager run."""
+    parts = sum(r["ms_step"] for r in m["rows"].values())
+    whole = parts + m["unlabelled"]["ms_step"]
+    part_ok = math.isclose(whole, m["total_ms_step"], rel_tol=1e-9)
+    calls = {k: r["calls"] for k, r in m["rows"].items()}
+    calls_ok = calls == m["calls"]
+    log(f"  [trace] {what}: {m['activities_step']:.0f} device activities in "
+        f"each of {m['steps']} replays, the eager body's count, every "
+        f"position's kernel the same (map_graph raises otherwise); rows "
+        f"{parts:.4f} + unlabelled {m['unlabelled']['ms_step']:.4f} = "
+        f"{whole:.4f} ms against the replays' summed {m['total_ms_step']:.4f} "
+        f"ms a step: {part_ok}; each row's calls a step equal engine_calls' "
+        f"({len(calls)} rows): {calls_ok} "
+        f"{'ok' if part_ok and calls_ok else 'FAIL'}")
+    if not (part_ok and calls_ok):
+        failures.append(f"[trace] {what}: partition {whole} vs "
+                        f"{m['total_ms_step']}, calls {calls} vs {m['calls']}")
+    return part_ok and calls_ok
+
+
+def trace_step(eng, label, card, failures):
+    """[trace] on a 28-layer engine after its [graph]: its decode graph
+    (every row active after a SEQ_LEN-token prefill) attributed to the
+    profile rows over 8 replays (decode_profile.in_graph), with the gates
+    of _trace_gates; a MapError is a failure. Builds no engine. Returns
+    the map for [tools] (None on a failure)."""
+    from arcquant_tpu_torch.benchmarks import decode_profile as dp
+    from arcquant_tpu_torch.benchmarks import trace_summary as ts
+
+    t0 = time.perf_counter()
+    try:
+        m = dp.in_graph(eng)
+    except ts.MapError as e:
+        failures.append(f"[trace] {label} decode graph: {e}")
+        log(f"  [trace] {label} decode graph: {e} FAIL")
+        return None
+    _trace_gates(m, f"{label} decode graph", failures)
+    log(f"  [trace] {label}: {m['total_ms_step']:.3f} ms of device time a "
+        f"step in the graph (busy {m['busy_ms_step']:.3f}, span "
+        f"{m['span_ms_step']:.3f}, profiled; {m['step_ms']:.3f} ms a step "
+        f"unprofiled), the ARC residual {m['arc_ms_step']:.3f} ms; "
+        f"{time.perf_counter() - t0:.1f} s, on {card}")
+    return m
 
 
 def capture(eng, state) -> None:
@@ -2043,7 +2123,9 @@ def w4_run(cfg, card, qparams8, calib, failures):
 
 def free_run(cfg, card, failures):
     """Phase 7: the select-free path on 28 packed layers. Returns the
-    kernels' launch counts over generate() and [graph]'s metrics.
+    kernels' launch counts over generate(), [graph]'s metrics and
+    [trace]'s maps ({"decode": map, "chain": the fused_decode=False
+    engine's, "prefill": prefill_trace's run}).
 
     Then the A/B: the same weights in an engine with fused_decode=False,
     prefilled with the same prompts and fed the fused engine's greedy
@@ -2158,13 +2240,45 @@ def free_run(cfg, card, failures):
         logits_finite=finite, card=card)
     log(f"  select-free engine {MODEL} {cfg.num_layers} layers bs=4: "
         f"{json.dumps(metrics)}")
+    log(f"[trace] select-free, fused_decode=False (the chain), {MODEL} full "
+        f"width, {cfg.num_layers} layers: the decode graph's device time "
+        f"attributed to the profile rows, on {card}")
+    chain_map = trace_step(chain, "select-free chain", card, failures)
     del chain, runs, fused, others
     log(f"[graph] select-free, {MODEL} full width, {cfg.num_layers} layers: "
         f"the captured decode step against the eager loop, on {card}")
     graph = graph_check(eng, "select-free", card, failures)
+    log(f"[trace] select-free, {MODEL} full width, {cfg.num_layers} layers: "
+        f"the decode graph's device time attributed to the profile rows; "
+        f"prefill_trace at 4 x 1024, on {card}")
+    traces = dict(decode=trace_step(eng, "select-free", card, failures),
+                  chain=chain_map,
+                  prefill=prefill_trace_step(eng, card, failures))
     del eng
     torch.cuda.empty_cache()
-    return launches, graph
+    return launches, graph, traces
+
+
+def prefill_trace_step(eng, card, failures):
+    """[trace]'s prefill: benchmarks/prefill_trace.py's run() on eng at
+    4 x 1024 (its table's top 12 and the attribution by the calls that
+    launched each kernel, whose calls must equal engine_calls'); a
+    MapError is a failure. Returns run()'s result (None on a failure)."""
+    from arcquant_tpu_torch.benchmarks import prefill_trace
+    from arcquant_tpu_torch.benchmarks import trace_summary as ts
+
+    t0 = time.perf_counter()
+    try:
+        p = prefill_trace.run(eng, 4, 1024, top=12)
+    except ts.MapError as e:
+        failures.append(f"[trace] prefill: {e}")
+        log(f"  [trace] prefill: {e} FAIL")
+        return None
+    log(f"  [trace] prefill_trace: device total {p['device_ms']:.3f} ms "
+        f"(profiled) against {p['prefill_ms']:.3f} ms unprofiled; calls "
+        f"equal engine_calls' ok; {time.perf_counter() - t0:.1f} s, on "
+        f"{card}")
+    return p
 
 
 # The [eval] phase: the accuracy path (python -m arcquant_tpu_torch.evaluate)
@@ -3660,7 +3774,29 @@ def _tools_mse(failures):
     return worst
 
 
-def tools_run(card, failures, free_graph, e2e_prefill_ms):
+def _tools_traces(traces, e2e_prefill_ms, card):
+    """[trace]'s ARC decode graph by row and its JSON line, and the
+    select-free prefill's traced device total beside [bench_e2e]'s
+    NVFP4 prefill (printed; [trace] gated them)."""
+    from arcquant_tpu_torch.benchmarks import trace_summary as ts
+
+    if traces["arc"] is not None:
+        ts.print_map(traces["arc"], f"  [trace] ARC {SELECT_FRAC} decode "
+                     f"graph, 28 layers, on {card}")
+        log(f"  [trace] ARC {json.dumps(ts.public(traces['arc']))}")
+    for key in ("decode", "chain"):
+        if traces[key] is not None:
+            log(f"  [trace] select-free {key} "
+                f"{json.dumps(ts.public(traces[key]))}")
+    p = traces["prefill"]
+    if p is not None:
+        log(f"  [trace] prefill 4 x 1024: device total {p['device_ms']:.3f} "
+            f"ms (busy {p['busy_ms']:.3f}), unprofiled {p['prefill_ms']:.3f} "
+            f"ms; [bench_e2e] NVFP4 prefill (host clock) "
+            f"{e2e_prefill_ms:.3f} ms; {json.dumps(ts.public(p['map']))}")
+
+
+def tools_run(card, failures, free_graph, e2e_prefill_ms, traces):
     """The [tools] phase at Qwen2.5-7B full width, 28 layers:
     bench_serving.run (max_batch 8, 16 requests of 256 tokens, 32 new,
     offline) with its JSON and launch counts (the path bench_serving);
@@ -3668,8 +3804,13 @@ def tools_run(card, failures, free_graph, e2e_prefill_ms):
     plans to the steps' calls (_tools_pins); decode_profile (bs 4) with
     its totals beside [select-free]'s graph ms/step, prefill_profile (4 x
     1024) with its 28-layer total beside [bench_e2e]'s NVFP4 prefill;
-    then mse_table and measure_mse on the card against the CPU. Returns
-    bench_serving's launches."""
+    [trace]'s maps (`traces`: "decode", "chain" and "prefill" of the
+    select-free engines, "arc" of the ARC engine; None where [trace]
+    failed): the select-free graphs' rows (fused and chain) beside
+    decode_profile's isolated rows, the
+    ARC graph's rows with the ARC residual's share, the traced prefill's
+    device total beside [bench_e2e]'s; then mse_table and measure_mse on
+    the card against the CPU. Returns bench_serving's launches."""
     from arcquant_tpu_torch.benchmarks import bench_serving as bs
     from arcquant_tpu_torch.benchmarks import decode_profile as dp
     from arcquant_tpu_torch.benchmarks import prefill_profile as pp
@@ -3716,7 +3857,9 @@ def tools_run(card, failures, free_graph, e2e_prefill_ms):
     log(f"  decode_profile: {MODEL} decode step components, bs 4, median "
         f"[lo-hi] of {REPS} CUDA-event runs, L2 flushed")
     with torch.no_grad():
-        d = dp.run(cfg, 4, timer, d_rows)
+        d = dp.run(cfg, 4, timer, d_rows, graph=traces["decode"])
+    if traces["chain"] is not None:
+        dp.beside(d["rows"], d["times"], traces["chain"])
     zero = [n for n, t in d["times"].items() if not t.median > 0]
     graph = free_graph["decode_ms_per_step"]["graph"]
     busy = free_graph["profiled_8_steps"]["graph"]["device_busy_ms_per_step"]
@@ -3727,6 +3870,7 @@ def tools_run(card, failures, free_graph, e2e_prefill_ms):
     if zero:
         failures.append(f"[tools] decode_profile rows not above 0: {zero}")
     del d, d_rows
+    _tools_traces(traces, e2e_prefill_ms, card)
     log(f"  prefill_profile: {MODEL} prefill components, B 4 x 1024, per "
         f"layer")
     with torch.no_grad():
@@ -3756,13 +3900,42 @@ def _halves(cfg, n, seed):
     return out
 
 
+def verify_trace_step(eng, card, failures):
+    """[trace]'s verify anatomy: benchmarks/verify_lab.py's run() on
+    [spec]'s select-free engine at W 2, 4 and 8 (one replay of each
+    verify graph timed, the isolated rows at M = 4 W, each graph's map
+    over 8 replays at level "layers" with _trace_gates); a MapError is a
+    failure."""
+    from arcquant_tpu_torch.benchmarks import trace_summary as ts
+    from arcquant_tpu_torch.benchmarks import verify_lab
+
+    log(f"[trace] verify_lab on [spec]'s select-free engine, {MODEL} full "
+        f"width, {eng.cfg.num_layers} layers, W 2, 4 and 8, on {card}")
+    t0 = time.perf_counter()
+    try:
+        v = verify_lab.run(eng, [2, 4, 8], Timer(REPS))
+    except ts.MapError as e:
+        failures.append(f"[trace] verify_lab: {e}")
+        log(f"  [trace] verify_lab: {e} FAIL")
+        return
+    for w, r in v.items():
+        _trace_gates(r["map"], f"verify graph W {w}", failures)
+        line = dict(verify_ms=round(r["verify_ms"], 4),
+                    isolated_ms=round(r["totals"]["verify"][0], 4),
+                    **ts.public(r["map"]))
+        log(f"  [trace] verify W {w}: {json.dumps(line)}")
+    log(f"  [trace] verify_lab took {time.perf_counter() - t0:.1f} s on "
+        f"{card}")
+
+
 def spec_run(card, failures):
     """The [spec] phase at Qwen2.5-7B full width, 28 layers, dummy weights
     from seed 0, w8, pages of 128, batch 4:
       1. benchmarks/bench_spec.py's run() after a 1024-token prefill, W 2,
          4 and 8, select-free then ARC 0.125: decode ms/step, verify ms
          (device time of one graph replay each) and speedup at alpha 0.5
-         and 1.0;
+         and 1.0; after the select-free run, [trace]'s verify anatomy on
+         the same engine (verify_trace_step);
       2. on the ARC engine, SpeculativeEngine.generate_ondevice (n-gram
          drafts, W 4, SPEC_TOKENS greedy tokens) on prompts of 1024
          tokens whose halves repeat: the run replaying the captured round
@@ -3806,6 +3979,8 @@ def spec_run(card, failures):
                 f"alpha 0.5 {v['speedup']['alpha=0.5']}, alpha 1.0 "
                 f"{v['speedup']['alpha=1.0']}")
         log(f"  {json.dumps(r)}")
+        if sel == 0.0:
+            verify_trace_step(eng, card, failures)
     cfg = eng.cfg
     spec = SpeculativeEngine(eng, NgramDrafter(), window=4)
     prompts = _halves(cfg, 1024, seed=4)
@@ -5443,7 +5618,7 @@ def _moe_block_checks(cfg, failures):
 
 
 def _moe_engine_path(cfg, qcfg, label, card, failures):
-    """One [moe_qdq] engine (CUT_LAYERS layers): built layer by layer from dummy
+    """One [moe_qdq] engine (MOE_QDQ_LAYERS layers): built layer by layer from dummy
     weights (seed 0; InferenceEngine.dummy quantizes each layer as it is
     drawn, so raw and quantized stacks never coexist), generate() on the
     PROMPT_LENS prompts with the launch counts (attention kernels only:
@@ -5516,7 +5691,8 @@ def moe_qdq_run(cfg, card, failures):
             ("fake", QuantConfig(quant_type="NVFP4", use_kernels=False,
                                  act_scale="row", w_scale="channel"))):
         paths[label], _ = _moe_engine_path(
-            cfg.replace(num_layers=CUT_LAYERS), qcfg, label, card, failures)
+            cfg.replace(num_layers=MOE_QDQ_LAYERS), qcfg, label, card,
+            failures)
     log(f"  [moe_qdq] took {time.perf_counter() - t_phase:.1f} s on {card}")
     return paths
 
@@ -5777,7 +5953,7 @@ def tp_run(card, failures):
     arcquant_tpu_torch.generate --tp 2 --dist_backend gloo --check_ranks
     --quant_head`` through its main(): 28 layers, ARC 0.125, generate's
     qcfg (w8, row and channel scales) with the packed W4A16 head, the four
-    [engine] prompts, 32 greedy tokens; each rank's prefill ms, decode ms/step,
+    [engine] prompts, PARALLEL_NEW greedy tokens; each rank's prefill ms, decode ms/step,
     all_reduces a decode step and their ms, peak memory and launch counts
     (the path generate_tp); gates: the ranks' tokens and every step's
     logits bitwise equal (main raises otherwise), 2 SUM and 2 MAX
@@ -5791,7 +5967,7 @@ def tp_run(card, failures):
     t_phase = time.perf_counter()
     cfg = get_model_config(MODEL)
     argv = ["--model", MODEL, "--tp", str(TP_RANKS), "--dist_backend",
-            "gloo", "--max_new", str(NEW_TOKENS), "--check_ranks",
+            "gloo", "--max_new", str(PARALLEL_NEW), "--check_ranks",
             "--quant_head"]
     for p in prompts_for(cfg):
         argv += ["--tokens", ",".join(map(str, p))]
@@ -5806,7 +5982,7 @@ def tp_run(card, failures):
         return None
     log(f"  python -m arcquant_tpu_torch.generate --tp {TP_RANKS} "
         f"--dist_backend gloo --quant_head (4 prompts of {PROMPT_LENS} tokens, "
-        f"{NEW_TOKENS} new, 28 layers): {time.perf_counter() - t0:.1f} s "
+        f"{PARALLEL_NEW} new, 28 layers): {time.perf_counter() - t0:.1f} s "
         f"wall, the ranks' spawn and engine builds included; every step's "
         f"logits bitwise equal across the {TP_RANKS} ranks "
         f"({len(ranks[0]['steps'])} steps) ok")
@@ -6640,7 +6816,7 @@ def pp_run(card, failures):
     (gloo, the relay's payloads through the host). 1. Qwen2.5-7B, 28
     layers (14 and their pool a stage), ARC 0.125, row scales, channel
     weight scales, the packed W4A16 head: the four [engine] prompts and
-    32 greedy tokens through PPInferenceEngine.generate, each stage's
+    PARALLEL_NEW greedy tokens through PPInferenceEngine.generate, each stage's
     prefill ms, decode ms/step, relay bytes and ms a step and peak
     memory; gates: every step's logits bitwise the single-device eager
     engine's on the same weights fed the same tokens, then verify_step at
@@ -6658,19 +6834,19 @@ def pp_run(card, failures):
     t0 = time.perf_counter()
     try:
         ranks = launch(_pp_rank, PP_RANKS, "gloo",
-                       args=(MODEL, 0, NEW_TOKENS, True))
+                       args=(MODEL, 0, PARALLEL_NEW, True))
     except Exception as e:
         failures.append(f"[pp] {MODEL}: {type(e).__name__}: {e}")
         return None, None
     log(f"  PPInferenceEngine.generate, {MODEL} 28 layers over {PP_RANKS} "
-        f"stages, 4 prompts of {PROMPT_LENS} tokens, {NEW_TOKENS} new: "
+        f"stages, 4 prompts of {PROMPT_LENS} tokens, {PARALLEL_NEW} new: "
         f"{time.perf_counter() - t0:.1f} s wall (spawn and builds "
         f"{', '.join(f'{r['build_s']:.1f}' for r in ranks)} s included)")
     log(f"  (the stages time-share one card and relay through the host "
         f"over gloo: these times are no pipeline-parallel speed figures; "
         f"{card})")
     _rank_times(ranks, "[pp]")
-    single = _pp_single(cfg, NEW_TOKENS, ranks[0]["verify_in"])
+    single = _pp_single(cfg, PARALLEL_NEW, ranks[0]["verify_in"])
     _pp_gate(ranks, single, f"[pp] {MODEL} 28 layers", failures)
     vok = all(bitwise(r["verify"], single[2]) for r in ranks)
     log(f"  [pp] verify_step at W {ranks[0]['verify_in'][0].shape[1]}: "
@@ -7044,7 +7220,8 @@ def ep_run(card, failures):
     over EP_RANKS ranks on the one card (gloo): 1. python -m
     arcquant_tpu_torch.generate --model qwen1.5-moe-a2.7b --tp 2
     --check_ranks (24 layers, ARC 0.125, row scales; 30 experts as qdq
-    stacks and 8 of 16 heads a rank), the four prompts, 32 greedy tokens:
+    stacks and 8 of 16 heads a rank), the four prompts, PARALLEL_NEW
+    greedy tokens:
     both ranks' logits bitwise equal at every step (main raises
     otherwise), decode ms/step, a decode step's collectives (2 SUM and 1
     MAX a layer), peak memory a rank, the path ep_tp (rank 0's
@@ -7080,7 +7257,7 @@ def ep_run(card, failures):
         f"layer is drawn whole (its bf16 experts {raw / 2 ** 30:.2f} GiB) "
         f"and sliced before its stacks are made")
     argv = ["--model", MOE_MODEL, "--tp", str(EP_RANKS), "--dist_backend",
-            "gloo", "--max_new", str(NEW_TOKENS), "--check_ranks"]
+            "gloo", "--max_new", str(PARALLEL_NEW), "--check_ranks"]
     for p in prompts_for(cfg):
         argv += ["--tokens", ",".join(map(str, p))]
     gc.collect()
@@ -7094,7 +7271,7 @@ def ep_run(card, failures):
         return None
     log(f"  python -m arcquant_tpu_torch.generate --model {MOE_MODEL} --tp "
         f"{EP_RANKS} --dist_backend gloo --check_ranks ({cfg.num_layers} "
-        f"layers, 4 prompts of {PROMPT_LENS} tokens, {NEW_TOKENS} new): "
+        f"layers, 4 prompts of {PROMPT_LENS} tokens, {PARALLEL_NEW} new): "
         f"{time.perf_counter() - t0:.1f} s wall, spawn and builds included; "
         f"every step's logits bitwise equal across the {EP_RANKS} ranks "
         f"({len(ranks[0]['steps'])} steps) ok")
@@ -7911,7 +8088,7 @@ def main() -> int:
     summary = kernel_checks(cfg, lambda fn: timer(fn).median, failures)
 
     log(f"[engine] {MODEL} full width, 28 layers, on {card}")
-    gen_launches, qparams, calib = engine_run(cfg, card, failures)
+    gen_launches, qparams, calib, arc_map = engine_run(cfg, card, failures)
 
     log(f"[serve] HTTP server, {MODEL} full width, 28 layers, on {card}")
     serve_launches = serving_run(cfg, qparams, calib, card, failures)
@@ -7926,7 +8103,8 @@ def main() -> int:
 
     log(f"[select-free] {MODEL} full width, 28 layers, select_frac 0, "
         f"fused vs unfused decode, on {card}")
-    free_launches, free_graph = free_run(cfg, card, failures)
+    free_launches, free_graph, traces = free_run(cfg, card, failures)
+    traces["arc"] = arc_map
 
     log(f"[bench_e2e] benchmarks/benchmark_e2e.py, {MODEL} full width, 28 "
         f"layers, NVFP4 select-free then BF16, on {card}")
@@ -7936,7 +8114,7 @@ def main() -> int:
         f"{MODEL} full width, 28 layers; mse_table and "
         f"visualize.measure_mse on the card against the CPU, on {card}")
     tools_launches = tools_run(card, failures, free_graph,
-                               e2e_prefill_ms["NVFP4"])
+                               e2e_prefill_ms["NVFP4"], traces)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -7992,7 +8170,7 @@ def main() -> int:
     moe_serve_launches = moe_serve_run(card, failures)
 
     log(f"[moe_qdq] {MOE_MODEL} full width: the qdq stacks against the "
-        f"packed experts at 1 layer, then {CUT_LAYERS} layers in BF16 "
+        f"packed experts at 1 layer, then {MOE_QDQ_LAYERS} layers in BF16 "
         f"and in the NVFP4 fake format (use_kernels=False), on {card}")
     moe_qdq_launches = moe_qdq_run(moe_cfg, card, failures)
     log(f"[moe_eval] python -m arcquant_tpu_torch.evaluate, {MOE_MODEL} full "

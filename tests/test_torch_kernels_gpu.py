@@ -2090,6 +2090,57 @@ def test_tools_decode_plan_pinned_on_the_card(way):
     assert counts["gemm_dequant:lm_head"] == 1
 
 
+@pytest.mark.parametrize("frac", [0.0, 0.125])
+def test_trace_graph_map_on_the_card(frac):
+    """trace_summary.map_graph over 4 replays of a 2-layer Qwen2.5-7B-width
+    engine's decode graph, select-free (the megakernels) and ARC 0.125:
+    the replays hold the eager body's device activities, name for name at
+    every position (map_graph raises otherwise), the rows and the
+    unlabelled bucket partition the replays' summed durations, and every
+    row's calls equal engine_calls' count of one eager step; prefill_trace
+    and verify_lab's map on the same engine run through."""
+    require_cuda()
+    from arcquant_tpu_torch.benchmarks import common, prefill_trace
+    from arcquant_tpu_torch.benchmarks import trace_summary as ts
+    from arcquant_tpu_torch.benchmarks import verify_lab
+    cfg = get_model_config("qwen2.5-7b").replace(num_layers=2)
+    calib = quantized.identity_calib(cfg, frac, device="cuda")
+    eng = InferenceEngine.dummy(cfg, calib, QuantConfig(**_QKW),
+                                EngineConfig(max_batch=4, max_seq_len=256),
+                                seed=5, device="cuda")
+    _, state, active = _prefill(eng, _graph_prompts(cfg))
+    g = eng._decode_graph(state, None)
+    g.io.active.copy_(active)
+    m = ts.map_graph(eng, g, state, steps=4)
+    eager = InferenceEngine(cfg, eng.qparams, calib, eng.qcfg, eng.ecfg,
+                            device="cuda", quantize_params=False,
+                            cuda_graphs=False)
+    _, st2, _ = _prefill(eager, _graph_prompts(cfg))
+    with common.engine_calls(eager) as counts:
+        eager.decode_scan(st2, torch.ones(4, dtype=torch.int32), active, 1)
+    assert {k: r["calls"] for k, r in m["rows"].items()} == dict(counts) \
+        == m["calls"]
+    parts = sum(r["ms_step"] for r in m["rows"].values())
+    assert parts + m["unlabelled"]["ms_step"] == pytest.approx(
+        m["total_ms_step"], rel=1e-9)
+    assert m["activities_step"] >= g.launches.total > 0
+    assert m["rows"]["paged_decode"]["calls"] == 2
+    assert m["rows"]["paged_decode"]["ms_step"] > 0
+    assert m["busy_ms_step"] <= m["span_ms_step"] and m["step_ms"] > 0
+    if frac:
+        assert m["rows"]["arc_residual"]["calls"] == 2
+        assert m["arc_ms_step"] > m["rows"]["arc_residual"]["ms_step"] > 0
+        return
+    assert m["rows"]["mlp_w8_fused"]["ms_step"] > 0
+    assert m["arc_ms_step"] == 0
+    p = prefill_trace.run(eng, 4, 128, top=5)
+    assert p["map"]["rows"]["flash_attention"]["calls"] == 2
+    assert p["device_ms"] > 0 and p["prefill_ms"] > 0
+    v = verify_lab.run(eng, [2], common.Timer(5), steps=2, seq=128)
+    assert v[2]["map"]["rows"]["paged_prefill"]["calls"] == 2
+    assert v[2]["map"]["rows"]["attn_common"]["ms_step"] > 0
+
+
 def test_tp_graph_one_nccl_rank():
     """One NCCL rank (parallel.launch, cuda:0) at Qwen2.5-7B width cut to
     2 layers: the TP engine captures by default, its captured
