@@ -137,17 +137,17 @@ def _targets(level: str, site) -> list:
     `level`: "ops", the component profiles' functions (the kernels'
     wrappers and the torch ops between them), or "layers", verify_lab's
     components of a layer (its attention input, o projection and MLP,
-    rope, the KV append, the attention) and the head. A key is a name,
+    rope with the KV append, the attention) and the head. A key is a name,
     a function of the call's arguments, or None for the attribute's
     name; site(weight) names a linear's site."""
-    from ..cache import paged
     from ..engine import engine as E
     from ..kernels import attention, gemm as gk, mlp_fused as mf
     from ..kernels import paged_decode as pdk, quantize as qk
+    from ..kernels import rope_kv as rk
     from ..models import llama
 
-    common = [(llama, "rms_norm", None), (llama, "apply_rope", None),
-              (paged, "append_kv", None), (pdk, "paged_decode", None),
+    common = [(llama, "rms_norm", None), (rk, "rope_append_kv", None),
+              (pdk, "paged_decode", None),
               (pdk, "paged_prefill", None),
               (attention, "flash_attention", None),
               (E.InferenceEngine, "_sample", "sample")]
@@ -178,7 +178,7 @@ def engine_calls(eng, level: str = "ops", ranges: bool = False):
     or lm_head, by the weight's identity in eng.qparams),
     quantize_x_arc:<K>, mlp_w8_fused, gateup_silu_quantize,
     rmsnorm_quantize_x, silu_mul_quantize_gu, silu_mul, arc_residual,
-    rms_norm, apply_rope, append_kv, paged_decode, paged_prefill,
+    rms_norm, rope_append_kv, paged_decode, paged_prefill,
     flash_attention and sample; at level "layers" (_targets) attn_common,
     o_proj, mlp, head and the same rms_norm ... sample. Only the
     outermost of nested counted calls counts: a fused wrapper's plain

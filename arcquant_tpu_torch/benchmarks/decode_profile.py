@@ -5,11 +5,14 @@
 
 Times each component of the select-free decode step in isolation, so
 the 28-layer step can be attributed: packed GEMMs, activation quantize
-sites, rmsnorm, rope, KV append, paged attention, LM head, sampling.
+sites, rmsnorm, rope with the KV append (#17), paged attention, LM head,
+sampling.
 Each row is timed with common.Timer (CUDA events, L2 flushed; median
 [lo-hi] of its runs) in place of the JAX script's two-length scan;
-append_kv writes in place into a pool. A row whose hi - lo exceeds half
-its median is marked noisy; every row is printed and summed.
+rope_append_kv writes in place into a pool, reading q, k and v as the
+column views of one qkv row, as the engine does. A row whose hi - lo
+exceeds half its median is marked noisy; every row is printed and
+summed.
 
 The port's select-free step at M 4..16 runs the decode megakernels
 (quantize + GEMM at attn_in with its rmsnorm and at o_in, the whole MLP
@@ -19,7 +22,7 @@ fused_decode=False)) and "fused" (the default), and the total is printed
 both ways. Each row's multiplicity in a way is the number of calls that
 one step of that engine makes to the row's function (common.engine_calls
 counts them): the four GEMMs, the three quantize sites and the three
-megakernels once a layer (attn_in and mlp_in twice), rope, append_kv and
+megakernels once a layer (attn_in and mlp_in twice), rope_append_kv and
 paged_decode once a layer, the head and the sampling once a step. The
 JAX script's rmsnorm x56 is x1 here: the port's step fuses each layer's
 two norms into the rmsnorm quantize (or the megakernel), and calls the
@@ -42,9 +45,10 @@ import torch
 
 from ..cache import paged
 from ..config import QuantConfig, get_model_config
-from ..engine.engine import InferenceEngine, pack_lm_head
+from ..engine.engine import InferenceEngine, pack_lm_head, split_qkv
 from ..kernels import gemm as gk, mlp_fused as mf
 from ..kernels import paged_decode as pdk, quantize as qk
+from ..kernels import rope_kv as rk
 from ..models import llama
 from ..quant import packing
 from .common import Row
@@ -136,11 +140,8 @@ def plan(cfg, batch: int = 4, device="cuda", seq_len: int = SEQ_LEN,
 
     pos = torch.full((b, 1), seq_len, dtype=torch.long, device=device)
     cos, sin = llama.rope_cos_sin(cfg, pos)
-    q4 = randn(b, 1, cfg.num_heads, cfg.head_dim)
-    k4 = randn(b, 1, cfg.num_kv_heads, cfg.head_dim)
-    v4 = randn(b, 1, cfg.num_kv_heads, cfg.head_dim)
-    rows.append(Row("rope(q,k)", lambda: llama.apply_rope(q4, k4, cos, sin),
-                    both(L), "apply_rope"))
+    q4, k4, v4 = split_qkv(randn(b, cfg.q_size + 2 * cfg.kv_size), b, 1,
+                           cfg.q_size, cfg.kv_size, cfg.head_dim)
     pps = max_seq // page_size
     cache = paged.init_cache(cfg.replace(num_layers=1), b * pps + 1,
                              page_size, device)
@@ -152,9 +153,10 @@ def plan(cfg, batch: int = 4, device="cuda", seq_len: int = SEQ_LEN,
     pt = (1 + torch.arange(b, device=device)[:, None] * pps
           + torch.arange(pps, device=device)[None, :]).to(torch.int32)
     seq_lens = torch.full((b,), seq_len, dtype=torch.int32, device=device)
-    rows.append(Row("append_kv",
-                    lambda: paged.append_kv(cache, 0, k4, v4, pt, pos),
-                    both(L), "append_kv"))
+    rows.append(Row("rope + append_kv (#17)",
+                    lambda: rk.rope_append_kv(q4, k4, v4, cos, sin, cache, 0,
+                                              pt, pos),
+                    both(L), "rope_append_kv"))
     qd = randn(b, cfg.num_heads, cfg.head_dim)
     rows.append(Row("paged_decode",
                     lambda: pdk.paged_decode(qd, cache, 0, pt, seq_lens),

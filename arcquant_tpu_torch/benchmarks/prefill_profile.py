@@ -6,7 +6,8 @@
 Times each per-layer component of the one-shot prefill in isolation
 (common.Timer: CUDA events, L2 flushed, median [lo-hi]) so the prefill
 can be attributed: the activation quantize sites, the four GEMMs three
-ways, flash attention, norms, rope and the KV append.
+ways, flash attention, norms, and rope with the KV append (#17, on q, k
+and v as the column views of one qkv output, as the engine calls it).
 
 The GEMMs: the dispatch the engine runs (gemm.gemm_dequant at
 gemm.XLA_M = 512: the large-M route, dequant + torch.mm, where N >= Kq,
@@ -23,8 +24,8 @@ the BF16 engine's; a row's multiplicity in a way is the number of calls
 that one layer of that engine's prefill makes to the row's function
 (common.engine_calls counts them); alternatives have 0. The per-layer
 sums are multiplied by cfg.num_layers (the JAX script prints x14, a
-leftover of a 14-layer cut). Beyond the JAX script's rows: rope and
-append_kv, once a layer in both ways, and silu * up alone once a layer
+leftover of a 14-layer cut). Beyond the JAX script's rows:
+rope_append_kv, once a layer in both ways, and silu * up alone once a layer
 in the BF16 engine, which calls it.
 """
 
@@ -36,7 +37,9 @@ import torch
 
 from ..cache import paged
 from ..config import get_model_config
+from ..engine.engine import split_qkv
 from ..kernels import attention, gemm as gk, quantize as qk
+from ..kernels import rope_kv as rk
 from ..models import llama
 from ..quant import packing
 from .common import Row, engine_calls
@@ -132,16 +135,17 @@ def plan(cfg, batch: int = 4, seq: int = 1024, device="cuda",
                     {"quant": 0, "bf16": 2}, "rms_norm"))
     pos = torch.arange(t, device=device)[None].expand(b, t)
     cos, sin = llama.rope_cos_sin(cfg, pos)
-    rows.append(Row("rope(q,k)", lambda: llama.apply_rope(q4, k4, cos, sin),
-                    both1, "apply_rope"))
     pps = -(-t // page_size)
     cache = paged.init_cache(cfg.replace(num_layers=1), b * pps + 1,
                              page_size, device)
     pt = (1 + torch.arange(b, device=device)[:, None] * pps
           + torch.arange(pps, device=device)[None, :]).to(torch.int32)
-    rows.append(Row("append_kv",
-                    lambda: paged.append_kv(cache, 0, k4, v4, pt, pos),
-                    both1, "append_kv"))
+    qv, kv_, vv = split_qkv(randn(b * t, cfg.q_size + 2 * cfg.kv_size),
+                            b, t, cfg.q_size, cfg.kv_size, cfg.head_dim)
+    rows.append(Row("rope + append_kv (#17)",
+                    lambda: rk.rope_append_kv(qv, kv_, vv, cos, sin, cache,
+                                              0, pt, pos),
+                    both1, "rope_append_kv"))
     return rows
 
 

@@ -15,7 +15,8 @@ weights and the packed head. For each W it prints:
   flushed), in place of the JAX script's two-length scan;
 - the isolated rows of plan(): the engine's ``_attn_common`` (rmsnorm,
   quantize and the qkv GEMM, or its megakernel at M <= 16), ``_o_proj``,
-  ``_mlp``, rope, ``paged.append_kv``, ``paged_decode.paged_prefill``
+  ``_mlp``, ``rope_kv.rope_append_kv`` (#17, on the column views of one
+  qkv output), ``paged_decode.paged_prefill``
   over the prefilled pool, the head over every row and the final norm,
   each timed alone at M = B x W, times its calls a verify step; each
   row's multiplicity is pinned to the calls of one eager verify step
@@ -90,9 +91,9 @@ def plan(eng, w: int, state) -> List[Row]:
     attention over `state`'s prefilled pool (layer 0), appends at each
     row's next w positions. Multiplicities: each layer's components x
     num_layers, the head and the final norm x 1."""
-    from ..cache import paged
     from ..engine import engine as E
     from ..kernels import paged_decode as pdk
+    from ..kernels import rope_kv as rk
     from ..models import llama
 
     cfg, qcfg, dev = eng.cfg, eng.qcfg, eng.device
@@ -111,10 +112,10 @@ def plan(eng, w: int, state) -> List[Row]:
     x2 = randn(b * w, d)
     x3 = x2.reshape(b, w, d)
     q = randn(b, w, cfg.num_heads, cfg.head_dim)
-    k = randn(b, w, cfg.num_kv_heads, cfg.head_dim)
-    v = randn(b, w, cfg.num_kv_heads, cfg.head_dim)
     positions = seq_lens.long()[:, None] + torch.arange(w, device=dev)[None]
     cos, sin = llama.rope_cos_sin(cfg, positions, eng.inv_freq)
+    qv, kv_, vv = E.split_qkv(randn(b * w, cfg.q_size + 2 * cfg.kv_size),
+                              b, w, cfg.q_size, cfg.kv_size, cfg.head_dim)
     return [
         Row("attn in (rmsnorm, quantize, qkv)", lambda: E._attn_common(
             cfg, p, x2, lc, qcfg, b, w, norm_w=p["attn_norm"], fused=fused),
@@ -124,11 +125,9 @@ def plan(eng, w: int, state) -> List[Row]:
         Row("mlp (rmsnorm ... down)", lambda: E._mlp(
             cfg, p, x3, lc, qcfg, norm_w=p["mlp_norm"], fused=fused),
             per_layer(), "mlp"),
-        Row("rope(q,k)", lambda: llama.apply_rope(q, k, cos, sin),
-            per_layer(), "apply_rope"),
-        Row("append_kv", lambda: paged.append_kv(cache, 0, k, v, pt,
-                                                 positions),
-            per_layer(), "append_kv"),
+        Row("rope + append_kv (#17)", lambda: rk.rope_append_kv(
+            qv, kv_, vv, cos, sin, cache, 0, pt, positions), per_layer(),
+            "rope_append_kv"),
         Row("paged_prefill", lambda: pdk.paged_prefill(
             q, cache, 0, pt, seq_lens, seq_lens + w), per_layer(),
             "paged_prefill"),

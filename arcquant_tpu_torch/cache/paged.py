@@ -61,7 +61,10 @@ def quantize_kv(x: torch.Tensor
     xf = x.float()
     xmax = xf.amax(dim=-1)
     xmin = xf.amin(dim=-1)
-    scale = torch.clamp(xmax - xmin, min=1e-5) / 15.0
+    # divided by a tensor: on a CUDA tensor a Python scalar divisor makes
+    # PyTorch multiply by its f32 reciprocal, which gives another f32 than
+    # the quotient on most rows; the JAX package and the kernels divide
+    scale = torch.clamp(xmax - xmin, min=1e-5) / xmax.new_full((), 15.0)
     q = torch.clamp(torch.round((xf - xmin[..., None]) / scale[..., None]),
                     0.0, 15.0).to(torch.uint8)
     return q[..., :d // 2] | (q[..., d // 2:] << 4), scale, xmin

@@ -2,7 +2,8 @@
 ``arcquant_tpu/engine/engine.py``, single device).
 
   - prefill: rmsnorm + act-quantize, fused qkv GEMM (w8 or w4 weights,
-    qcfg.weight_fmt; with Qwen2's bias), RoPE, int4 KV quantize-append into the pool, causal flash
+    qcfg.weight_fmt; with Qwen2's bias), RoPE and the int4 KV
+    quantize-append into the pool (one kernel, #17 rope_kv), causal flash
     attention over the bf16 chunk, quantize + o GEMM, rmsnorm +
     quantize + gateup GEMM, silu*mul + re-quantize + down GEMM; then the
     final norm and the W4A16 packed LM head on each row's last token.
@@ -90,6 +91,7 @@ from ..kernels import _build, attention, autotune, gemm as gk
 from ..kernels import mlp_fused as mf
 from ..kernels import paged_decode as pdk
 from ..kernels import quantize as qk
+from ..kernels import rope_kv as rk
 from ..models import llama, moe, quantized
 from ..quant import numerics as N
 from ..quant import packing
@@ -183,6 +185,15 @@ def _single_gemm_fused_ok(pw, site, m, d, qcfg, fused):
             and mf.gemm_actq_ok(pw, m, d, True, site.select_num))
 
 
+def split_qkv(qkv, b, t, q_size, kv_size, head_dim):
+    """q, k, v [B, T, H, Dh] as the column views of a qkv GEMM output [B *
+    T, q_size + 2 kv_size]: the strided layout rope_append_kv reads in
+    place."""
+    return (qkv[:, :q_size].reshape(b, t, -1, head_dim),
+            qkv[:, q_size:q_size + kv_size].reshape(b, t, -1, head_dim),
+            qkv[:, q_size + kv_size:].reshape(b, t, -1, head_dim))
+
+
 def _attn_common(cfg, p, x2, layer_calib, qcfg, b, t, norm_w, fused=False):
     """rmsnorm + quantize + fused qkv GEMM, split into heads."""
     m, d = x2.shape
@@ -194,11 +205,7 @@ def _attn_common(cfg, p, x2, layer_calib, qcfg, b, t, norm_w, fused=False):
         xa, gx = _norm_quantize(x2, norm_w, cfg.rms_eps,
                                 layer_calib["attn_in"], qcfg)
         qkv = quantized._q_linear(p["qkv"], xa, gx, x2.dtype)
-    qs, kvs = cfg.q_size, cfg.kv_size
-    q = qkv[:, :qs].reshape(b, t, cfg.num_heads, cfg.head_dim)
-    k = qkv[:, qs:qs + kvs].reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
-    v = qkv[:, qs + kvs:].reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
-    return q, k, v
+    return split_qkv(qkv, b, t, cfg.q_size, cfg.kv_size, cfg.head_dim)
 
 
 def _o_proj(cfg, p, attn, layer_calib, qcfg, b, t, fused=False):
@@ -555,8 +562,8 @@ class InferenceEngine:
             lc = self.calib[li]
             q, k, v = _attn_common(cfg, p, x.reshape(b * t, -1), lc, qcfg,
                                    b, t, norm_w=p["attn_norm"], fused=fused)
-            q, k_r = llama.apply_rope(q, k, cos, sin)
-            paged.append_kv(cache, li, k_r, v, pt, append_pos)
+            q, k_r = rk.rope_append_kv(q, k, v, cos, sin, cache, li, pt,
+                                       append_pos)
             attn = attend(li, q, k_r, v)
             x = x + _o_proj(cfg, p, attn, lc, qcfg, b, t, fused=fused)
             x = x + _mlp(cfg, p, x, lc, qcfg, norm_w=p["mlp_norm"],

@@ -83,9 +83,10 @@ import torch
 from ..cache import paged
 from ..config import ModelConfig, QuantConfig
 from ..engine.engine import (EngineConfig, InferenceEngine, _to_device,
-                             dummy_tree)
+                             dummy_tree, split_qkv)
 from ..kernels import gemm as gk
 from ..kernels import quantize as qk
+from ..kernels import rope_kv as rk
 from ..engine import sampling as smp
 from ..models import llama
 from ..models import moe as moem
@@ -307,12 +308,12 @@ class TPInferenceEngine(StepRecords, InferenceEngine):
                   attend, qcfg):
         """One decoder layer on this rank's shard: the replicated rmsnorm +
         activation quantize (_norm_quantize) and the fused column GEMM,
-        RoPE, the append into the local pool, `attend` (flash attention
-        over the chunk, paged prefill or paged decode, as the base
-        engine's forward chooses), the row-parallel o, then the column
-        gate-up, silu * up and the row-parallel down, or a MoE layer's
-        expert-parallel block (ep_moe_block over the tp group); each row
-        GEMM's f32 partial summed over the ranks."""
+        RoPE with the append into the local pool (#17 rope_kv), `attend`
+        (flash attention over the chunk, paged prefill or paged decode,
+        as the base engine's forward chooses), the row-parallel o, then
+        the column gate-up, silu * up and the row-parallel down, or a MoE
+        layer's expert-parallel block (ep_moe_block over the tp group);
+        each row GEMM's f32 partial summed over the ranks."""
         cfg, tp, ctx = self.cfg, self.tp, self.mesh
         b, t, d = x.shape
         dt = x.dtype
@@ -323,11 +324,9 @@ class TPInferenceEngine(StepRecords, InferenceEngine):
         xa, gx = self._norm_quantize(x, p["attn_norm"], lc["attn_in"],
                                      p["qkv"].kq, per_row)
         qkv = gk.gemm_dequant(xa, p["qkv"], gx, out_dtype=dt)
-        q = qkv[:, :qs_l].reshape(b, t, -1, cfg.head_dim)
-        k = qkv[:, qs_l:qs_l + kvs_l].reshape(b, t, -1, cfg.head_dim)
-        v = qkv[:, qs_l + kvs_l:].reshape(b, t, -1, cfg.head_dim)
-        q, k_r = llama.apply_rope(q, k, cos, sin)
-        paged.append_kv(cache, li, k_r, v, pt, append_pos)
+        q, k, v = split_qkv(qkv, b, t, qs_l, kvs_l, cfg.head_dim)
+        q, k_r = rk.rope_append_kv(q, k, v, cos, sin, cache, li, pt,
+                                   append_pos)
         attn = attend(li, q, k_r, v).to(dt).reshape(b * t, qs_l)
 
         oa, go = tpm.quantize_x_row_site(attn, p, "o", sels, p["o"].kq, ctx,

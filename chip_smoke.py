@@ -368,24 +368,31 @@ KERNEL_INFO = {
                       "benchmarks/gemm_lab.py:300"),
     "lab_w4": ("arcquant_tpu_torch/csrc/gemm_lab.cu",
                "benchmarks/gemm_lab.py:429"),
+    # no pallas_call: the port's counterpart of XLA's fusion of the two
+    # functions inside the JAX package's jitted step
+    "rope_kv": ("arcquant_tpu_torch/csrc/rope_kv.cu",
+                "arcquant_tpu/models/llama.py:131 + "
+                "arcquant_tpu/cache/paged.py:146 (no pallas_call)"),
 }
 LAB_KERNELS = ("lab_w8", "lab_w8_ring", "lab_w8_ring_n", "lab_w4")
 # The kernels each main path must launch, and those it must not: with ARC
 # every site has a residual, so only gu_actq of the megakernels engages;
 # the prefill's qkv and gateup (M >= gemm.XLA_M, N >= Kq) take the
 # large-M route, whose w8 pass is dequant_w8; the w4 kernels stay idle on
-# the w8 paths, and the w8 ones (megakernels included) on the w4 path.
+# the w8 paths, and the w8 ones (megakernels included) on the w4 path;
+# every path that writes the paged pool (every engine's) runs #17
+# rope_kv once a layer of each forward.
 W4_ONLY = ("gemm_w4", "dequant_w4", "pin_rowmajor")
 GENERATE_KERNELS = ("actq", "gemm_w8", "dequant_w8", "flash_attn",
-                    "paged_decode", "gu_actq")
+                    "paged_decode", "gu_actq", "rope_kv")
 SERVE_KERNELS = ("actq", "gemm_w8", "dequant_w8", "paged_prefill",
-                 "paged_decode", "gu_actq")
+                 "paged_decode", "gu_actq", "rope_kv")
 ARC_IDLE_KERNELS = ("gemm_actq", "mlp_w8") + W4_ONLY
 FREE_KERNELS = ("actq", "gemm_w8", "dequant_w8", "flash_attn",
-                "paged_decode", "gemm_actq", "mlp_w8")
+                "paged_decode", "gemm_actq", "mlp_w8", "rope_kv")
 FREE_IDLE_KERNELS = ("gu_actq",) + W4_ONLY
 W4_KERNELS = ("actq", "gemm_w4", "dequant_w4", "pin_rowmajor", "flash_attn",
-              "paged_decode")
+              "paged_decode", "rope_kv")
 W4_IDLE_KERNELS = ("gemm_w8", "dequant_w8", "gemm_actq", "gu_actq", "mlp_w8")
 ROUTE_MS = (512, 1024, 4096)   # the route against the fused GEMMs
 # The MoE phase: the dense-model kernels that the MoE layers replace
@@ -394,25 +401,26 @@ ROUTE_MS = (512, 1024, 4096)   # the route against the fused GEMMs
 # takes the route at qkv and the shared expert's gate/up, every decode
 # step runs gemm_batched once a layer (dense mode).
 MOE_MODEL = "qwen1.5-moe-a2.7b"
-MOE_COMMON = ("actq", "gemm_batched", "flash_attn", "paged_decode")
+MOE_COMMON = ("actq", "gemm_batched", "flash_attn", "paged_decode",
+              "rope_kv")
 MOE_KERNELS = {"w8": MOE_COMMON + ("gemm_w8", "dequant_w8"),
                "w4": MOE_COMMON + ("gemm_w4", "dequant_w4", "pin_rowmajor")}
 MOE_IDLE_KERNELS = {
     fmt: ("gemm_actq", "gu_actq", "mlp_w8", "paged_prefill") + other
     for fmt, other in (("w8", W4_ONLY), ("w4", ("gemm_w8", "dequant_w8")))}
 MOE_SERVE_KERNELS = MOE_COMMON[:2] + ("gemm_w8", "paged_prefill",
-                                      "paged_decode")
+                                      "paged_decode", "rope_kv")
 # The spec path (generate_ondevice on the ARC engine, W 4, batch 4): a
 # one-shot prefill, then verify rounds at M 16, whose attention is the
 # paged prefill kernel and whose MLP takes gu_actq; no decode step.
 SPEC_TOKENS = 32
 SPEC_KERNELS = ("actq", "gemm_w8", "dequant_w8", "flash_attn",
-                "paged_prefill", "gu_actq")
+                "paged_prefill", "gu_actq", "rope_kv")
 SPEC_IDLE_KERNELS = ("paged_decode", "gemm_actq", "mlp_w8") + W4_ONLY
 # benchmark_e2e: NVFP4 select-free runs FREE_KERNELS; BF16 only the
-# attention kernels of the engine's path (its linears are library
-# products accumulated like f32)
-BF16_KERNELS = ("flash_attn", "paged_decode")
+# attention kernels of the engine's path and rope_kv (its linears are
+# library products accumulated like f32)
+BF16_KERNELS = ("flash_attn", "paged_decode", "rope_kv")
 
 # Serving phase traffic: the first wave, then three requests sharing a
 # 1024-token (8-page) prefix with distinct 100-token suffixes, one
@@ -698,6 +706,7 @@ def kernel_checks(cfg, timer, failures):
         del pw, pw4
     attention_checks(cfg, gen, timer, record)
     verify_attention_checks(cfg, gen, timer, record, summary)
+    rope_kv_checks(cfg, gen, timer, record, summary, failures)
     fused_checks(cfg, gen, timer, record, summary)
     route_checks(cfg, gen, timer, record, failures)
     lab_kernel_checks(cfg, gen, timer, record, failures)
@@ -1306,6 +1315,102 @@ def paged_prefill_check(cfg, gen, timer, record, rep=True):
            library_what="SDPA over the pool dequantized to bf16, call only")
 
 
+# #17 rope_kv's shapes, (what, T, starts, lens) with four rows: the decode
+# step (the fourth row inactive), a verify of W 8 and the 4 x 1024
+# one-shot prefill (PROMPT_LENS live); the decode is the representative
+ROPE_KV_CASES = (
+    ("decode", 1, (1056, 809, 333, 64), (1057, 810, 334, 0)),
+    ("verify W=8", 8, (1056, 809, 333, 64), (1064, 817, 341, 72)),
+    ("prefill 4x1024", 1024, (0, 0, 0, 0), PROMPT_LENS))
+# rope_kv's arithmetic is f32 outside the tensor cores: its operations
+# bound is taken at the H100's 67 TFLOP/s (bound_ms divides by the bf16
+# tensor peak, so the count is scaled by the ratio)
+F32_PEAK_FLOPS = 67e12
+
+
+def rope_kv_checks(cfg, gen, timer, record, summary, failures):
+    """Phase 3, #17 rope_kv at cfg's heads. First the scale division of
+    paged.quantize_kv (ROADMAP queue 3): on a CUDA tensor `x / 15.0`
+    multiplies by the f32 reciprocal, which this prints the share of
+    rows it moves; the plain version must give the quotient, bit for bit
+    the CPU's. Then the kernel against rope_append_kv_plain at
+    ROPE_KV_CASES, bit for bit: q_rot, k_rot, and the pool's codes and
+    params on pages >= 1 (the plain version alone writes the -1
+    positions, into the sink page 0), on q, k and v as the strided column
+    views of one qkv output; each with its time, the plain version's and
+    the bound (bytes: q, k, v, cos and sin read once, q_rot and k_rot
+    written, the codes and params of the live positions)."""
+    from arcquant_tpu_torch.cache import paged
+    from arcquant_tpu_torch.engine.engine import split_qkv
+    from arcquant_tpu_torch.kernels import rope_kv as rk
+    from arcquant_tpu_torch.models import llama
+
+    x = torch.randn((1 << 20, cfg.head_dim), generator=gen,
+                    device="cuda") * 3
+    d = torch.clamp(x.amax(-1) - x.amin(-1), min=1e-5)
+    quot = d / torch.full_like(d, 15.0)
+    moved = int((d / 15.0 != quot).sum())
+    plain_scale = paged.quantize_kv(x)[1]
+    ok = (torch.equal(quot.cpu(), d.cpu() / 15.0)
+          and torch.equal(plain_scale, quot))
+    log(f"  rope_kv       quantize_kv's scale over {d.numel()} rows: x / 15.0 "
+        f"(a Python scalar) is not the quotient on {moved} "
+        f"({moved / d.numel():.2%}); the plain version's scale equals the "
+        f"quotient and the CPU's: {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("quantize_kv: the plain version's scale is not the "
+                        "f32 quotient on the card")
+    del x, d, quot, plain_scale
+
+    hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    qs, kvs, page = cfg.q_size, cfg.kv_size, 128
+    one = cfg.replace(num_layers=1)
+    for what, t, starts, lens in ROPE_KV_CASES:
+        b = len(starts)
+        qkv = bf16_randn(gen, (b * t, qs + 2 * kvs), 2.0)
+        q, k, v = split_qkv(qkv, b, t, qs, kvs, dh)
+        pps = -(-(max(starts) + t) // page)
+        pos = (torch.tensor(starts, device="cuda")[:, None]
+               + torch.arange(t, device="cuda")[None])
+        append = torch.where(
+            pos < torch.tensor(lens, device="cuda")[:, None], pos, -1)
+        cos, sin = llama.rope_cos_sin(cfg, pos)
+        pt = (1 + torch.arange(b)[:, None] * pps
+              + torch.arange(pps)[None]).to(torch.int32).cuda()
+        got_c, want_c = (paged.init_cache(one, 1 + b * pps, page, "cuda")
+                         for _ in range(2))
+
+        def args(c):
+            return (q, k, v, cos, sin, c, 0, pt, append)
+
+        out = rk._rope_kv_cuda(*args(got_c))
+        ref = rk.rope_append_kv_plain(*args(want_c))
+        torch.cuda.synchronize()
+        same = bitwise(out, ref)
+        pools = bitwise([got_c.codes[0][1:], got_c.params[0][1:]],
+                        [want_c.codes[0][1:], want_c.params[0][1:]])
+        err = max(float((o.float() - r.float()).abs().max())
+                  for o, r in zip(out, ref))
+        live = int((append >= 0).sum())
+        ops = b * t * 3 * (hq + hkv) * dh + live * 7 * 2 * hkv * dh
+        work = (ops * common.PEAK_FLOPS / F32_PEAK_FLOPS,
+                nbytes(q, k, v, cos, sin, pt, append, *out)
+                + live * hkv * (dh + 16))
+        t_k = timer(lambda: rk._rope_kv_cuda(*args(got_c)))
+        t_p = timer(lambda: rk.rope_append_kv_plain(*args(want_c)))
+        case = (f"{what} B={b} T={t} H={hq}/{hkv} live={live} "
+                f"q_rot,k_rot={same} pool={pools}")
+        record("rope_kv", case, err, same and pools, t_k, t_p,
+               "bit-exact: q_rot, k_rot, pool pages >= 1",
+               rep=what == "decode", work=work)
+        b_ms, b_by = bound_ms(*work)
+        summary["rope_kv"].setdefault("shapes", {})[what] = dict(
+            ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, live=live)
+        log(f"  {'':13s} bound {b_ms:.4f} ms ({b_by}, {work[1]:.4g} B), "
+            f"{work[1] / t_k / 1e6:.1f} GB/s")
+        del qkv, out, ref, got_c, want_c
+
+
 def _bits(t: torch.Tensor) -> torch.Tensor:
     return t.contiguous().view(torch.int16 if t.element_size() == 2
                                else torch.int32)
@@ -1909,10 +2014,11 @@ def all_kernels():
     from arcquant_tpu_torch.kernels import mlp_fused as mf
     from arcquant_tpu_torch.kernels import paged_decode as pdk
     from arcquant_tpu_torch.kernels import quantize as qk
+    from arcquant_tpu_torch.kernels import rope_kv as rk
     return [qk.ACTQ, gk.GEMM_W8, attention.FLASH, pdk.PAGED_DECODE,
             pdk.PAGED_PREFILL, mf.MLP_W8, mf.GU_ACTQ, mf.GEMM_ACTQ,
             gk.GEMM_W4, gk.DEQUANT_W8, gk.DEQUANT_W4, gk.PIN_ROWMAJOR,
-            gk.GEMM_BATCHED, *gl.KERNELS]
+            gk.GEMM_BATCHED, *gl.KERNELS, rk.ROPE_KV]
 
 
 def _packs(tree):
@@ -3336,6 +3442,9 @@ def lab_run(card, failures):
     for name in LAB_KERNELS:
         if launches[name] <= 0:
             failures.append(f"kernel {name} not launched by the lab")
+    if launches["rope_kv"]:
+        failures.append(f"kernel rope_kv launched {launches['rope_kv']} "
+                        "times by the lab")
     for r in rows:
         bad = [w for w, (_, exact, must, close) in r["variants"].items()
                if not (exact if must else close)]
@@ -4830,6 +4939,7 @@ class PlainKernels:
         from arcquant_tpu_torch.kernels import mlp_fused as mf
         from arcquant_tpu_torch.kernels import paged_decode as pdk
         from arcquant_tpu_torch.kernels import quantize as qk
+        from arcquant_tpu_torch.kernels import rope_kv as rk
         table = [("actq", qk, "_actq_cuda", qk.actq_plain),
                  ("gemm_w8", gk, "_gemm_w8_cuda", gk.gemm_w8_plain),
                  ("flash_attn", attention, "_flash_cuda",
@@ -4848,6 +4958,7 @@ class PlainKernels:
                   gk.pin_rowmajor_plain),
                  ("gemm_batched", gk, "_gemm_batched_cuda",
                   gk.gemm_batched_plain),
+                 ("rope_kv", rk, "_rope_kv_cuda", rk.rope_append_kv_plain),
                  # the route's product stays torch.mm (a noise floor
                  # patches it); saved so that it is restored
                  (None, gk, "_mm_f32_cuda", gk._mm_f32_cuda)]
@@ -4877,7 +4988,9 @@ PLAIN_BARS = {
                     "empty rows 0",
     "gemm_w4": "f32 sum order, + 1 bf16 ulp for bf16 outputs",
     "paged_prefill": "1 bf16 ulp + 2e-3 at live queries, rows of seq_len 0 "
-                     "exact zeros"}
+                     "exact zeros",
+    "rope_kv": "bit-exact: q_rot, k_rot, and the pool's codes and params on "
+               "pages >= 1"}
 
 
 def _prefill_live(out, a):
@@ -4914,12 +5027,35 @@ def _held_to_plain(kernel, out, ref, a, kw) -> bool:
             and bool((o[sl == 0] == 0).all()))
 
 
+def _beside(kernel, real, plain, a, kw):
+    """One call of `kernel` and of its plain version on the same inputs:
+    (out, ref, whether out meets PLAIN_BARS)."""
+    out, ref = real(*a, **kw), plain(*a, **kw)
+    return out, ref, _held_to_plain(kernel, out, ref, a, kw)
+
+
+def _rope_kv_beside(kernel, real, plain, a, kw):
+    """_beside for #17 rope_kv (a: its arguments, the pool and the layer
+    at 5 and 6), whose plain version writes a copy of that layer's pool
+    taken before the call: held when q_rot, k_rot and the two pools on
+    pages >= 1 are bitwise equal (PLAIN_BARS)."""
+    from arcquant_tpu_torch.cache.paged import PagedKVCache
+    cache, layer = a[5], a[6]
+    copy = PagedKVCache([cache.codes[layer].clone()],
+                        [cache.params[layer].clone()])
+    out = real(*a)
+    ref = plain(*a[:5], copy, 0, *a[7:])
+    held = bitwise([*out, cache.codes[layer][1:], cache.params[layer][1:]],
+                   [*ref, copy.codes[0][1:], copy.params[0][1:]])
+    return out, ref, held
+
+
 @contextlib.contextmanager
 def beside_plain(kernels):
     """Every call of each of `kernels` (actq, gemm_w8, dequant_w8,
-    flash_attn, paged_decode, gemm_w4, paged_prefill) also runs the
-    kernel's plain version on the same inputs and holds the outputs to
-    PLAIN_BARS: the kernels against
+    flash_attn, paged_decode, gemm_w4, paged_prefill, rope_kv) also runs
+    the kernel's plain version on the same inputs (rope_kv's on a copy of
+    the pool) and holds the outputs to PLAIN_BARS: the kernels against
     their plain versions at the shapes and on the data of the path being
     driven. Yields {kernel: dict(calls, shapes, err, off, n, ok, share)}:
     the calls, their distinct shapes, the largest absolute error of the
@@ -4930,6 +5066,7 @@ def beside_plain(kernels):
     from arcquant_tpu_torch.kernels import attention, gemm as gk
     from arcquant_tpu_torch.kernels import paged_decode as pdk
     from arcquant_tpu_torch.kernels import quantize as qk
+    from arcquant_tpu_torch.kernels import rope_kv as rk
     table = {
         "actq": (qk, "_actq_cuda", qk.actq_plain, lambda a, kw:
                  f"{kw['mode']} M={a[0].shape[0]} K={kw['k']}"),
@@ -4957,14 +5094,16 @@ def beside_plain(kernels):
                           pdk.paged_prefill_plain, lambda a, kw:
                           f"B={a[0].shape[0]} Tq={a[0].shape[1]} "
                           f"H={a[0].shape[2]}/{a[1].shape[2]} q_starts "
-                          f"{a[4].tolist()} seq_lens {a[5].tolist()}")}
+                          f"{a[4].tolist()} seq_lens {a[5].tolist()}"),
+        "rope_kv": (rk, "_rope_kv_cuda", rk.rope_append_kv_plain,
+                    lambda a, kw: f"B={a[0].shape[0]} T={a[0].shape[1]} "
+                    f"H={a[0].shape[2]}/{a[1].shape[2]}", _rope_kv_beside)}
     seen = {k: dict(calls=0, shapes=set(), err=0.0, off=0, n=0, ok=True,
                     share=0.0, _within=[0, 0]) for k in kernels}
 
-    def spy(kernel, real, plain, shape):
+    def spy(kernel, real, plain, shape, pair=_beside):
         def f(*a, **kw):
-            out = real(*a, **kw)
-            ref = plain(*a, **kw)
+            out, ref, held = pair(kernel, real, plain, a, kw)
             o, r = (out[0], ref[0]) if isinstance(out, tuple) else (out, ref)
             if kernel == "paged_prefill":
                 live = _prefill_live(o, a)
@@ -4977,7 +5116,7 @@ def beside_plain(kernels):
             off = int((o != r).sum())
             st["off"] += off
             st["n"] += o.numel()
-            if _held_to_plain(kernel, out, ref, a, kw):
+            if held:
                 w = st["_within"]
                 w[0] += off
                 w[1] += o.numel()
@@ -4989,9 +5128,9 @@ def beside_plain(kernels):
 
     saved = []
     for k in kernels:
-        mod, name, plain, shape = table[k]
+        mod, name, plain, shape, *pair = table[k]
         saved.append((mod, name, getattr(mod, name)))
-        setattr(mod, name, spy(k, saved[-1][2], plain, shape))
+        setattr(mod, name, spy(k, saved[-1][2], plain, shape, *pair))
     try:
         yield seen
     finally:
@@ -5245,40 +5384,53 @@ def _noisy_mm(gen):
     return f
 
 
-def _verify_floors(eng, run, fed, got, prec, failures):
-    """The 1-layer verify's extra runs (eager; serving_engine_check's
-    docstring): the kernels with the paged prefill spied (its share of
-    outputs apart from the plain version's, and the run bitwise against
-    the graph's `got`), the kernels with the paged prefill's plain
-    version, and 5 reference draws with that share of the attention
-    outputs flipped an ulp. Returns (that run's logits, the draws)."""
+def _paged_floors(eng, run, case, fed, got, prec, failures):
+    """The 1-layer cases' extra runs (eager; serving_engine_check's
+    docstring): the kernels with the paged prefill and the paged decode
+    spied (the share of each one's outputs that differ from its plain
+    version's: the prefill's live queries, the verify's launches alone in
+    the verify, the decode's rows), and the run bitwise against the
+    graph's `got`; the kernels with those two on their plain versions;
+    and 5 reference draws with those shares of the two's outputs flipped
+    an ulp (the verify runs no paged decode). Returns (that run's logits,
+    the draws)."""
     from arcquant_tpu_torch.kernels import gemm as gk
     from arcquant_tpu_torch.kernels import paged_decode as pdk
-    real = pdk._paged_prefill_cuda
-    seen = [0, 0]
+    real = (pdk._paged_prefill_cuda, pdk._paged_decode_cuda)
+    plain = (pdk.paged_prefill_plain, pdk.paged_decode_state_plain)
+    seen = [[0, 0], [0, 0]]
 
-    def spy(q, *a):
-        o = real(q, *a)
-        if q.shape[1] == 4:             # the verify's launches
-            seen[0] += int((o != pdk.paged_prefill_plain(q, *a)).sum())
-            seen[1] += o.numel()
-        return o
+    def spy(i):
+        def f(q, *a):
+            out = real[i](q, *a)
+            if case == "verify" and q.shape[1] != 4:
+                return out              # the chunked prefill before it
+            o, r = out, plain[i](q, *a)
+            if i:
+                o, r = o[0], r[0]
+            else:
+                live = _prefill_live(o, (q, *a))
+                o, r = o[live], r[live]
+            seen[i][0] += int((o != r).sum())
+            seen[i][1] += o.numel()
+            return out
+        return f
     try:
-        pdk._paged_prefill_cuda = spy
-        eager, _ = run(eng, "verify", feed=fed)
-        pdk._paged_prefill_cuda = pdk.paged_prefill_plain
-        iso, _ = run(eng, "verify", feed=fed)
+        pdk._paged_prefill_cuda, pdk._paged_decode_cuda = spy(0), spy(1)
+        eager, _ = run(eng, case, feed=fed)
+        pdk._paged_prefill_cuda, pdk._paged_decode_cuda = plain
+        iso, _ = run(eng, case, feed=fed)
     finally:
-        pdk._paged_prefill_cuda = real
-    share = seen[0] / max(seen[1], 1)
+        pdk._paged_prefill_cuda, pdk._paged_decode_cuda = real
+    share = [n / max(d, 1) for n, d in seen]
     same = all(torch.equal(_bits(a), _bits(b)) for a, b in zip(eager, got))
-    log(f"  1-layer verify ({prec} prefill): the paged prefill's outputs "
-        f"differing from its plain version's in this verify: {share:.4%}; "
-        f"the eager kernel verify equals the graph's bit for bit: {same} "
-        f"{'ok' if same else 'FAIL'}")
+    log(f"  1-layer {case} ({prec} prefill): outputs differing from the "
+        f"plain version's: paged prefill {share[0]:.4%}, paged decode "
+        f"{share[1]:.4%}; the eager kernel run equals the graph's bit for "
+        f"bit: {same} {'ok' if same else 'FAIL'}")
     if not same:
-        failures.append(f"1-layer verify ({prec} prefill): eager kernel "
-                        "verify differs from the graph's")
+        failures.append(f"1-layer {case} ({prec} prefill): eager kernel "
+                        "run differs from the graph's")
     ulp = []
     with PlainKernels():
         for seed in range(5):
@@ -5286,27 +5438,43 @@ def _verify_floors(eng, run, fed, got, prec, failures):
             gen.manual_seed(10 + seed)
             gk._gemm_w8_cuda = _noisy_gemm(gen)
             gk._mm_f32_cuda = _noisy_mm(gen)
-            pdk._paged_prefill_cuda = _flipped_attention(
-                pdk.paged_prefill_plain, gen, share)
-            pdk._paged_decode_cuda = _noisy_attention(
-                pdk.paged_decode_state_plain, gen)
-            ulp.append(run(eng, "verify", feed=fed)[0])
+            pdk._paged_prefill_cuda = _flipped_attention(plain[0], gen,
+                                                         share[0])
+            pdk._paged_decode_cuda = _flipped_attention(plain[1], gen,
+                                                        share[1])
+            ulp.append(run(eng, case, feed=fed)[0])
     return iso, ulp
 
 
-def _verify_bar(got, want, draws) -> tuple:
-    """The verify's bar at one position (serving_engine_check's
-    docstring): (ok, its text)."""
+def _ulp_bar(got, want, draws, ties=None) -> tuple:
+    """The bar of a step held to the paged attention's ulps
+    (serving_engine_check's docstring): (ok, its text). ties: the noise
+    draws of the chunked and suffix cases' row rule (testing.same_greedy:
+    a row's token may differ only where it is a tie, a top-2 gap under
+    2^-6 of the row's rms or a token one of `ties` moves); None is the
+    verify's rule, equal tokens unless a draw's differ."""
+    from arcquant_tpu_torch.testing import greedy_ties, same_greedy
     c = [_cosine(want, f) for f in draws]
     bar = min(0.999, min(c) - (max(c) - min(c)))
-    same = bool(torch.equal(got.argmax(-1), want.argmax(-1)))
-    noisy = any(not torch.equal(f.argmax(-1), want.argmax(-1))
-                for f in draws)
-    ok = _cosine(got, want) >= bar and (same or noisy)
-    return ok, (f"cosine >= {bar:.6f}, the lowest of the ulp-flip draws "
-                f"{[round(x, 6) for x in sorted(c)]} less their spread, at "
-                f"most 0.999; equal tokens unless a draw's differ "
-                f"({'some' if noisy else 'none'} do)")
+    text = (f"cosine >= {bar:.6f}, the lowest of the ulp-flip draws "
+            f"{[round(x, 6) for x in sorted(c)]} less their spread, at most "
+            "0.999; ")
+    if ties is None:
+        same = bool(torch.equal(got.argmax(-1), want.argmax(-1)))
+        noisy = any(not torch.equal(f.argmax(-1), want.argmax(-1))
+                    for f in draws)
+        text += (f"equal tokens unless a draw's differ "
+                 f"({'some' if noisy else 'none'} do)")
+        return _cosine(got, want) >= bar and (same or noisy), text
+    rows_ok, n_ties, differ = same_greedy(got, want, ties)
+    gap = want.double().topk(2, dim=-1).values
+    gap = (gap[:, 0] - gap[:, 1]) / want.double().pow(2).mean(-1).sqrt()
+    off = (got.argmax(-1) != want.argmax(-1)).nonzero().flatten().tolist()
+    text += (f"equal tokens but at ties, {n_ties} rows ({differ} differ"
+             + "".join(f"; row {r}: top-2 gap {float(gap[r]):.3g} of its rms,"
+                       f" a tie {bool(greedy_ties(want, ties)[r])}"
+                       for r in off) + ")")
+    return _cosine(got, want) >= bar and rows_ok, text
 
 
 def serving_engine_check(cfg, failures):
@@ -5321,31 +5489,38 @@ def serving_engine_check(cfg, failures):
                verify_step of the chunked case's 4 decode tokens in one
                step (W 4), against the same verify with the plain
                versions (and, for the record, against the plain decode
-               steps of those tokens beside the decode's floor). Its bar
-               at each position: equal tokens unless a floor draw's
-               differ, and a cosine at or above the lowest of 5 draws
-               less their spread (highest less lowest), at most 0.999,
-               each draw the reference forward with the 2^-22 noise
-               below and, in place of the paged prefill's, its plain
-               version's output with one ulp flipped on the share of
-               elements at which the kernel's output differs from the
-               plain version's in this verify (a spy measures it on the
-               eager kernel verify, which must equal the graph's bit for
-               bit). The same verify with every kernel but the paged
-               prefill (there its plain version) is held to the 2^-22
-               floor, so no other kernel at the verify's M = 16 hides
-               behind the paged prefill's ulps.
+               steps of those tokens beside the decode's floor).
 
-    The bar is equal greedy tokens and a logits cosine at or above the
-    noise floor measured in the same run, at most 0.999: the reference
-    forward against itself with the f32 results of its plain versions
-    multiplied by (1 + 2^-22 * N(0, 1)) before rounding, the lowest
-    cosine of three such draws. paged_prefill's bf16 outputs differ from
-    the plain version's by one ulp on about 1% of elements, both equally
-    close to an f64 reference (phase 3 checks that at the serving shape),
-    and the A4 quantize of the o projection's input turns such flips into
-    logit-level changes; after a W4A16 prefill the GEMM's bf16 outputs do
-    the same through the int4 K/V codes."""
+    The noise floor: the reference forward against itself with the f32
+    results of its plain versions multiplied by (1 + 2^-22 * N(0, 1))
+    before rounding, the lowest cosine of three such draws, at most
+    0.999. The verify's prefill is held to equal greedy tokens and a
+    logits cosine at or above it.
+
+    The paged attention kernels' bf16 outputs sit one ulp from their
+    plain versions' on a share of elements, both equally close to an f64
+    reference (phase 3 checks that at the serving shape): the paged
+    prefill on about 1-3%, the paged decode on about 0.5%. The A4
+    quantize of the o projection's input, and after a W4A16 prefill the
+    int4 K/V codes, turn such flips into logit-level changes that the
+    2^-22 floor does not model. So every other step (the chunked and
+    suffix cases' prefill and decode steps, the verify's positions) is
+    held to a floor of those ulps: a cosine at or above the lowest of 5
+    draws less their spread (highest less lowest), at most 0.999, each
+    draw the reference
+    forward with the 2^-22 noise on the GEMMs and, in place of each paged
+    attention kernel's (the verify: the paged prefill's) output, its
+    plain version's with one ulp flipped on the share of elements at
+    which the kernel's output differs from the plain version's in this
+    run (a spy measures it on an eager kernel run, which must equal the
+    graph's bit for bit). The tokens: the chunked and suffix cases' equal
+    at every row but ties (testing.same_greedy over those draws and the
+    2^-22 ones: a top-2 gap under 2^-6 of the row's rms, or a token a
+    draw moves), the verify's equal unless a draw's differ. Beside it,
+    the same run with every kernel but those (there their plain versions)
+    is held to the 2^-22 floor (the chunked and suffix cases: and equal
+    tokens; the verify: equal tokens unless a floor draw's differ), so no
+    other kernel hides behind the paged attention's ulps."""
     from arcquant_tpu_torch.config import QuantConfig
     from arcquant_tpu_torch.engine import EngineConfig, InferenceEngine
     from arcquant_tpu_torch.kernels import gemm as gk
@@ -5417,9 +5592,11 @@ def serving_engine_check(cfg, failures):
                     pdk._paged_decode_cuda = _noisy_attention(
                         pdk.paged_decode_state_plain, gen)
                     floors.append(run(eng, case, feed=fed)[0])
-            if case == "verify":
-                iso, ulp = _verify_floors(eng, run, fed, got, prec,
-                                          failures)
+            iso, ulp = _paged_floors(eng, run, case, fed, got, prec,
+                                     failures)
+            but = ("the paged prefill (its plain version)" if case ==
+                   "verify" else "the paged prefill and the paged decode "
+                   "(their plain versions)")
             # tokens of the floor draws, for the log only
             noisy_same = [all(bool(torch.equal(f[i].argmax(-1),
                                                want[i].argmax(-1)))
@@ -5431,8 +5608,11 @@ def serving_engine_check(cfg, failures):
                 what = f"1-layer {case} ({prec} prefill) " + (
                     "prefill" if i == 0 else f"position {i}" if
                     case == "verify" else f"decode {i}")
-                if case == "verify" and i > 0:
-                    ok, text = _verify_bar(a, b, [f[i] for f in ulp])
+                held_to_ulps = case != "verify" or i > 0
+                if held_to_ulps:
+                    ok, text = _ulp_bar(
+                        a, b, [f[i] for f in ulp], None if case == "verify"
+                        else [f[i] for f in ulp + floors])
                 else:
                     ok = cos >= bar and same
                     text = (f"equal tokens, cosine >= {bar:.6f}, the noise "
@@ -5443,24 +5623,27 @@ def serving_engine_check(cfg, failures):
                 if not ok:
                     failures.append(f"{what} engine vs plain: cos {cos}, "
                                     f"tokens equal {same}")
-                if case == "verify" and i > 0:
-                    # every kernel but the paged prefill, at the 2^-22
-                    # floor: equal tokens unless a floor draw's differ
+                if held_to_ulps:
+                    # every kernel but the paged attention ones, at the
+                    # 2^-22 floor: the verify's equal tokens unless a
+                    # floor draw's differ; the others' equal tokens
                     c = _cosine(iso[i], b)
                     same = bool(torch.equal(iso[i].argmax(-1), b.argmax(-1)))
-                    noisy = any(not torch.equal(f[i].argmax(-1),
-                                                b.argmax(-1)) for f in floors)
+                    noisy = case == "verify" and any(
+                        not torch.equal(f[i].argmax(-1), b.argmax(-1))
+                        for f in floors)
                     ok = c >= bar and (same or noisy)
-                    log(f"  {what}, every kernel but the paged prefill (its "
-                        f"plain version): logits cosine {c:.6f}, greedy "
-                        f"tokens {'equal' if same else 'differ'} (bar: "
-                        f"cosine >= {bar:.6f}, the 2^-22 noise floor, at "
-                        f"most 0.999; equal tokens unless a floor draw's "
-                        f"differ) {'ok' if ok else 'FAIL'}")
+                    log(f"  {what}, every kernel but {but}: logits cosine "
+                        f"{c:.6f}, greedy tokens "
+                        f"{'equal' if same else 'differ'} (bar: cosine >= "
+                        f"{bar:.6f}, the 2^-22 noise floor, at most 0.999; "
+                        + ("equal tokens unless a floor draw's differ"
+                           if case == "verify" else "equal tokens")
+                        + f") {'ok' if ok else 'FAIL'}")
                     if not ok:
                         failures.append(f"{what} every kernel but the paged "
-                                        f"prefill vs plain: cos {c}, tokens "
-                                        f"equal {same}")
+                                        f"attention vs plain: cos {c}, "
+                                        f"tokens equal {same}")
             log(f"  1-layer {case} ({prec} prefill): floor draws with tokens "
                 f"equal to the reference at every step: "
                 f"{sum(noisy_same)} of {len(noisy_same)}")
@@ -5491,12 +5674,13 @@ def serving_engine_check(cfg, failures):
 # kernels the 24-layer BF16 and fake-format engines launch (attention
 # only: their linears are library products) and the ones they must not
 MOE_QDQ_TOKENS = 64
-MOE_QDQ_KERNELS = ("flash_attn", "paged_decode")
+MOE_QDQ_KERNELS = ("flash_attn", "paged_decode", "rope_kv")
 # [moe_eval]: the packed route's kernels (the attention linears packed,
 # the experts qdq stacks); [engine_tensor]: the megakernels and actq stay
 # idle at per-tensor scales
 MOE_EVAL_KERNELS = ("actq", "gemm_w8", "flash_attn")
-TENSOR_KERNELS = ("gemm_w8", "dequant_w8", "flash_attn", "paged_decode")
+TENSOR_KERNELS = ("gemm_w8", "dequant_w8", "flash_attn", "paged_decode",
+                  "rope_kv")
 TENSOR_IDLE_KERNELS = ("actq", "mlp_w8", "gu_actq", "gemm_actq")
 
 
@@ -5802,7 +5986,8 @@ TP_RANKS = 2
 # site, the large-M route's dequant_w8 at o and gate-up (N >= Kq) in the
 # prefill, flash attention in the prefill and paged decode; the TP layer
 # fuses nothing and runs no chunked prefill.
-TP_KERNELS = ("actq", "gemm_w8", "dequant_w8", "flash_attn", "paged_decode")
+TP_KERNELS = ("actq", "gemm_w8", "dequant_w8", "flash_attn", "paged_decode",
+              "rope_kv")
 # Exact ARC's sites: (name, K, select at 0.125 rounded up to 16 x tp), the
 # rows quantized.
 TP_EXACT_ROWS = (4, 1024)
@@ -6645,7 +6830,7 @@ DP_DRAWS = 2
 # holds a prompt over 512 tokens, one-shot (flash_attn) otherwise, so
 # flash_attn may or may not run; the TP layer fuses nothing.
 DP_KERNELS = ("actq", "gemm_w8", "dequant_w8", "paged_prefill",
-              "paged_decode")
+              "paged_decode", "rope_kv")
 DP_IDLE_KERNELS = tuple(k for k in KERNEL_INFO
                         if k not in DP_KERNELS + ("flash_attn",))
 # [ep]: Qwen1.5-MoE-A2.7B at tp 2 (30 experts and 8 of 16 heads a rank, the

@@ -20,6 +20,9 @@ This file imports no JAX, so it also runs on a machine without it:
 """
 
 import json
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -35,6 +38,7 @@ from arcquant_tpu_torch.kernels import gemm_lab as gl
 from arcquant_tpu_torch.kernels import mlp_fused as mf
 from arcquant_tpu_torch.kernels import paged_decode as pdk
 from arcquant_tpu_torch.kernels import quantize as qk
+from arcquant_tpu_torch.kernels import rope_kv as rk
 from arcquant_tpu_torch.models import llama, quantized
 from arcquant_tpu_torch.quant import numerics as N
 from arcquant_tpu_torch.quant import packing
@@ -551,6 +555,175 @@ def test_actq_and_gemm_w8_at_a_dp_groups_rows():
         assert_summation_order_close(y, ref, dt == torch.float32)
 
 
+# #17 rope_kv's shapes at Qwen2.5-7B's heads, (T, starts, lens) of four
+# rows, positions past lens -1: the decode step (M 4, the fourth row
+# inactive), a verify of W 8 (M 32) and the 4 x 1024 prefill (M 4096)
+ROPE_KV_SHAPES = {
+    "decode": (1, (1056, 809, 333, 64), (1057, 810, 334, 0)),
+    "verify": (8, (1056, 809, 333, 64), (1064, 817, 341, 72)),
+    "prefill": (1024, (0, 0, 0, 0), (1024, 777, 301, 64))}
+
+
+def _rope_kv_case(cfg, t, starts, lens, dtype, page, seed):
+    """q, k, v as the column views of one qkv output [B * T, q_size + 2
+    kv_size], cos, sin, the page table, the positions (-1 past lens) and
+    a maker of empty one-layer pools."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    b, dh = len(starts), cfg.head_dim
+    qs, kvs = cfg.q_size, cfg.kv_size
+    qkv = (torch.randn((b * t, qs + 2 * kvs), generator=gen, device="cuda")
+           * 2).to(dtype)
+    q = qkv[:, :qs].reshape(b, t, -1, dh)
+    k = qkv[:, qs:qs + kvs].reshape(b, t, -1, dh)
+    v = qkv[:, qs + kvs:].reshape(b, t, -1, dh)
+    pos = (torch.tensor(starts, device="cuda")[:, None]
+           + torch.arange(t, device="cuda")[None])
+    append = torch.where(pos < torch.tensor(lens, device="cuda")[:, None],
+                         pos, -1)
+    cos, sin = llama.rope_cos_sin(cfg, pos)
+    pps = -(-(max(starts) + t) // page)
+    pt = (1 + torch.arange(b)[:, None] * pps
+          + torch.arange(pps)[None]).to(torch.int32).cuda()
+    one = cfg.replace(num_layers=1)
+
+    def pool():
+        return paged.init_cache(one, 1 + b * pps, page, "cuda")
+    return (q, k, v, cos, sin), pt, append, pool
+
+
+def _rope_kv_held(args, pt, append, pool):
+    """The kernel and the plain version on fresh pools: q_rot, k_rot and
+    the pools on pages >= 1 bit for bit; the kernel's page 0 (the sink,
+    which no page table here maps) untouched; one launch."""
+    got_c, want_c = pool(), pool()
+    n0 = rk.ROPE_KV.launches
+    got = rk._rope_kv_cuda(*args, got_c, 0, pt, append)
+    want = rk.rope_append_kv_plain(*args, want_c, 0, pt, append)
+    torch.cuda.synchronize()
+    assert rk.ROPE_KV.launches == n0 + 1
+    for a, w in zip(got, want):
+        assert a.dtype == w.dtype and torch.equal(_bits(a), _bits(w))
+    assert torch.equal(got_c.codes[0][1:], want_c.codes[0][1:])
+    assert torch.equal(_bits(got_c.params[0][1:]),
+                       _bits(want_c.params[0][1:]))
+    assert int(got_c.codes[0][0].count_nonzero()) == 0
+    assert int(got_c.params[0][0].count_nonzero()) == 0
+    live = int((append >= 0).sum())
+    assert int((got_c.params[0][1:, :, :, 0] > 0).sum()) \
+        == live * args[1].shape[2]
+    return got_c
+
+
+@pytest.mark.parametrize("shape", list(ROPE_KV_SHAPES))
+def test_rope_kv_bitwise_equals_plain(shape):
+    """#17 rope_kv against rope_append_kv_plain at Qwen2.5-7B's heads (28
+    / 4, head_dim 128, pages of 128) in bf16, bit for bit: q_rot, k_rot,
+    and the pool's codes and params on pages >= 1, q, k and v read in
+    place as strided views, at the decode, verify W 8 and 4 x 1024
+    prefill shapes with -1 positions, which the kernel does not write."""
+    require_cuda()
+    t, starts, lens = ROPE_KV_SHAPES[shape]
+    cfg = get_model_config("qwen2.5-7b")
+    args, pt, append, pool = _rope_kv_case(cfg, t, starts, lens,
+                                           torch.bfloat16, 128, seed=1)
+    _rope_kv_held(args, pt, append, pool)
+
+
+@pytest.mark.parametrize("heads,dh", [
+    ((16, 16), 64), ((6, 2), 96), ((8, 1), 256), ((4, 4), 16)])
+def test_rope_kv_head_dims(heads, dh):
+    """The kernel at GQA groups 1, 3 and 8, head_dim 64, 96, 256 and 16
+    (4, 6 of 8, 16 and 1 lanes a head row), against its plain version bit
+    for bit over pages of 16 (a chunk of 40 crossing pages); a head_dim
+    that is odd, not a multiple of 16 or over 256, f32 activations and
+    cos/sin [T, Dh] raise."""
+    require_cuda()
+    cfg = get_model_config("test-tiny").replace(
+        num_heads=heads[0], num_kv_heads=heads[1], head_dim=dh)
+    args, pt, append, pool = _rope_kv_case(cfg, 40, (100, 0), (140, 30),
+                                           torch.bfloat16, 16, seed=2)
+    _rope_kv_held(args, pt, append, pool)
+    pos = torch.zeros((1, 1), dtype=torch.long, device="cuda")
+    for bad, dt, cs_dims in ((7, torch.bfloat16, 3), (72, torch.bfloat16, 3),
+                             (272, torch.bfloat16, 3), (64, torch.float32, 3),
+                             (64, torch.bfloat16, 2)):
+        q = torch.zeros((1, 1, 2, bad), dtype=dt, device="cuda")
+        k = torch.zeros((1, 1, 1, bad), dtype=dt, device="cuda")
+        cs = torch.zeros((1, 1, bad)[3 - cs_dims:], device="cuda")
+        pool_ = paged.PagedKVCache(
+            [torch.zeros((2, 2, 1, 16, bad // 2), dtype=torch.uint8,
+                         device="cuda")],
+            [torch.zeros((2, 1, 16, 4), device="cuda")])
+        with pytest.raises(ValueError, match="rope_kv"):
+            rk._rope_kv_cuda(q, k, k, cs, cs, pool_, 0, pt[:1, :1], pos)
+
+
+_OVERRUN = """
+import sys, torch
+from arcquant_tpu_torch.cache import paged
+from arcquant_tpu_torch.config import get_model_config
+from arcquant_tpu_torch.kernels import rope_kv as rk
+from arcquant_tpu_torch.models import llama
+cfg = get_model_config("qwen2.5-7b").replace(num_layers=1)
+qkv = torch.randn((2, cfg.q_size + 2 * cfg.kv_size), device="cuda").bfloat16()
+q = qkv[:, :cfg.q_size].reshape(2, 1, -1, 128)
+k = qkv[:, cfg.q_size:cfg.q_size + cfg.kv_size].reshape(2, 1, -1, 128)
+v = qkv[:, cfg.q_size + cfg.kv_size:].reshape(2, 1, -1, 128)
+pos = torch.tensor([[5], [256]], device="cuda")   # row 1 past its 2 pages
+cos, sin = llama.rope_cos_sin(cfg, pos)
+cache = paged.init_cache(cfg, 5, 128, "cuda")
+pt = torch.tensor([[1, 2], [3, 4]], dtype=torch.int32, device="cuda")
+fn = rk._rope_kv_cuda if sys.argv[1] == "kernel" else rk.rope_append_kv_plain
+fn(q, k, v, cos, sin, cache, 0, pt, pos)
+torch.cuda.synchronize()
+print("no error")
+"""
+
+
+@pytest.mark.parametrize("impl", ["kernel", "plain"])
+def test_rope_kv_position_past_the_page_table_is_an_error(impl):
+    """A position past a row's page table is a device-side assert in the
+    kernel, as it is in the plain version's gather on the card (on the CPU
+    the plain version raises; tests/test_torch_rope_kv.py), never a write
+    dropped or sent elsewhere. Each runs in a process of its own, since
+    the assert ends the process's CUDA context."""
+    require_cuda()
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    out = subprocess.run([sys.executable, "-c", _OVERRUN, impl], env=env,
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode != 0 and "no error" not in out.stdout
+    assert "device-side assert" in out.stdout + out.stderr, out.stderr[-2000:]
+
+
+def test_quantize_kv_scale_is_the_quotient_on_the_card():
+    """paged.quantize_kv's scale on a CUDA tensor is the f32 quotient
+    max(max - min, 1e-5) / 15, bit for bit the CPU's (and so the JAX
+    package's), as is the scale #17 writes: with a Python scalar divisor
+    PyTorch multiplies by the f32 reciprocal on the card, which moves
+    the scale an ulp on most rows (the case is live here) and flips
+    codes."""
+    require_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn((1 << 16, 2, 128), generator=gen, device="cuda") * 3
+    codes, scale, minv = paged.quantize_kv(x)
+    cc, cs, cm = paged.quantize_kv(x.cpu())
+    assert torch.equal(_bits(scale.cpu()), _bits(cs))
+    assert torch.equal(codes.cpu(), cc) and torch.equal(minv.cpu(), cm)
+    d = torch.clamp(x.amax(-1) - x.amin(-1), min=1e-5)
+    assert float((d / 15.0 != scale).float().mean()) > 0.3
+    # the kernel's V scales (V is quantized as it comes) against the CPU's
+    cfg = get_model_config("qwen2.5-7b")
+    args, pt, append, pool = _rope_kv_case(cfg, 64, (0, 0), (64, 64),
+                                           torch.bfloat16, 128, seed=4)
+    cache = pool()
+    rk._rope_kv_cuda(*args, cache, 0, pt, append)
+    _, vs, vm = paged.quantize_kv(args[2].cpu())
+    got = cache.params[0][1:3].permute(0, 2, 1, 3).reshape(2, 128, -1, 4)
+    assert torch.equal(_bits(got[:, :64, :, 2].cpu()), _bits(vs))
+    assert torch.equal(_bits(got[:, :64, :, 3].cpu()), _bits(vm))
+
+
 def test_paged_decode_state_on_partial_pools():
     """#10's state form on the pools of a sequence-parallel decode at
     Qwen2.5-7B's attention shapes (28/4 heads, head_dim 128, pages of
@@ -558,7 +731,11 @@ def test_paged_decode_state_on_partial_pools():
     token on one shard. Each shard's (out, m, l) against its plain
     version (an empty row: out 0, m -1e30, l 0), and the two states
     merged (merge_decode_states, sp_paged_decode's rule) against the
-    kernel over the whole pool."""
+    kernel over the whole pool, within the rounding of both sides to bf16:
+    a half ulp (at most 2^-8 of the value) of the whole pool's output and
+    of each shard's output at its weight in the merge. Where the shards'
+    outputs cancel (2.06 and -1.30 merging to 0.11 on this pool) the
+    shards' roundings exceed a bound taken at the merged value."""
     require_cuda()
     cfg = get_model_config("test-tiny").replace(
         num_heads=28, num_kv_heads=4, head_dim=128, num_layers=1)
@@ -598,10 +775,13 @@ def test_paged_decode_state_on_partial_pools():
         assert (to_numpy(m)[~live] == -1e30).all()
         assert (to_numpy(l)[~live] == 0).all()
         states.append((o, m, l))
-    merged, _, _ = pdk.merge_decode_states(*zip(*states))
-    whole = pdk._paged_decode_cuda(*pool(0, tmax, sl))[0]
-    np.testing.assert_allclose(to_numpy(merged), to_numpy(whole),
-                               rtol=2.0 ** -7, atol=2e-3)
+    merged, m, l = pdk.merge_decode_states(*zip(*states))
+    whole = pdk._paged_decode_cuda(*pool(0, tmax, sl))[0].float()
+    weighted = sum((sl_ * torch.exp(sm - m) / l.clamp(min=1e-30))[..., None]
+                   * so.float().abs() for so, sm, sl_ in states)
+    bound = 2.0 ** -8 * (weighted + whole.abs())
+    assert bool(((merged - whole).abs() <= bound).all()), float(
+        ((merged - whole).abs() / bound).max())
 
 
 def test_gemm_batched_at_the_pp_moe_stage():
@@ -1558,8 +1738,9 @@ def test_decode_graph_bitwise_equals_loop(config):
     assert len(eng.graph_captures) == 1 and not loop.graph_captures
     assert eng.graph_captures[0]["launches"] > 0 or config.startswith("bf16")
     if config in ("moe-fake", "moe-bf16"):
-        # attention only: the linears are library products
-        assert eng.graph_captures[0]["launches"] == 2
+        # paged decode and rope_kv a layer: the linears are library
+        # products
+        assert eng.graph_captures[0]["launches"] == 4
 
     def scan(e, eos_id):
         logits, state, active = _prefill(e, prompts)
@@ -1716,6 +1897,7 @@ def test_decode_graph_launch_counts_equal_loop():
                        for k in _build.KERNELS})
     assert counts[0] == counts[1]
     assert counts[0]["mlp_w8"][0] == 5 * 2 and counts[0]["gemm_actq"][0] == 20
+    assert counts[0]["rope_kv"][0] == 5 * 2
 
 
 def test_decode_scan_makes_no_host_sync():

@@ -352,7 +352,7 @@ def test_ranges_equal_engine_calls_on_the_cpu(tiny, what, frac):
     assert dict(calls) == counts == dict(again)
     if what == "verify":
         assert counts["attn_common"] == counts["mlp"] == cfg.num_layers
-        assert counts["paged_prefill"] == counts["append_kv"] == \
+        assert counts["paged_prefill"] == counts["rope_append_kv"] == \
             cfg.num_layers
         assert counts["head"] == counts["rms_norm"] == 1
         return
