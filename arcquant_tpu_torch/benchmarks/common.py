@@ -126,9 +126,10 @@ def _sites(eng) -> dict:
 # The prefix of the profiler ranges that engine_calls(..., ranges=True)
 # opens: benchmarks/trace_summary.py attributes device time by them.
 RANGE = "row:"
-# The ARC residual (kernels/quantize.py _arc_residual_into) is counted
-# where it is outermost and opens a range at any depth: its share of the
-# rows that call it is read from the nested ranges.
+# The ARC residual (kernels/quantize.py arc_residual, #18; on the CPU its
+# plain version, whose column take and silu_mul recompute nest inside it)
+# is counted where it is outermost and opens a range at any depth: its
+# share of the rows that call it is read from the nested ranges.
 ARC_RESIDUAL = "arc_residual"
 
 
@@ -166,7 +167,7 @@ def _targets(level: str, site) -> list:
         (qk, "quantize_x_arc", lambda a: f"quantize_x_arc:{a[0].shape[1]}"),
         (qk, "rmsnorm_quantize_x", None), (qk, "silu_mul_quantize_gu", None),
         (qk, "_silu_mul", "silu_mul"),
-        (qk, "_arc_residual_into", ARC_RESIDUAL)] + common
+        (qk, "arc_residual", ARC_RESIDUAL)] + common
 
 
 @contextlib.contextmanager

@@ -251,12 +251,11 @@ def _mlp(cfg, p, x, layer_calib, qcfg, norm_w, fused=False):
     c = layer_calib["down_in"]
     if fok and sel2 and mf.gu_actq_ok(gate_up, m, f, down.kq, True):
         # gateup + silu*mul + quantize in one launch; the ARC residual of
-        # the selected columns is recomputed from gu, as the chain does
+        # the selected columns is recomputed from gu (#18), as the chain
+        # does
         ia, gu, gi = mf.gateup_silu_quantize(xa, gx, gate_up, f, down.kq,
                                              out_dtype=x.dtype)
-        idx = qk._top(c.reorder_index, sel2, x.device)
-        qk._arc_residual_into(qk._silu_mul(gu[:, idx], gu[:, idx + f]),
-                              ia, gi, idx, f)
+        qk.arc_residual(gu, ia, gi, c.reorder_index, sel2, f, "silu_mul")
         return quantized._q_linear(down, ia, gi, x.dtype).reshape(b, t, d)
     gu = quantized._q_linear(gate_up, xa, gx, x.dtype)
     if _a4_kernels(qcfg):

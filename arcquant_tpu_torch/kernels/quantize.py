@@ -7,9 +7,12 @@ its plain PyTorch version. ``actq_plan`` sets its block count from the
 shapes alone (a row is split over many blocks at decode), and
 ``actq_kernel_order`` is the plain version with the kernel's rmsnorm sum
 order (``rms_norm_kernel_order``), which gives the kernel's bits in every
-mode. The ARC residual runs outside the kernel in
-plain torch, as in the JAX package: it quantizes x/gx - q(x) on the KE
-selected columns into xa[:, k:k+KE].
+mode. The ARC residual, qdq(x/gx - q(x)) of the KE selected columns
+written into xa[:, k:k+KE] after the row quantize, is a second kernel
+(``csrc/arc_residual.cu``, #18, ``arc_residual``): the port's
+counterpart of XLA's fusion of the JAX package's ``_arc_residual_into``
+with the column take (and, at down_in, the silu(g)*u recompute of the
+selected columns); ``arc_residual_plain`` is its plain version.
 
 Routing follows the JAX package: the rmsnorm mode only when the site
 has no ARC residual (with ARC: rms_norm, then the plain mode, then the
@@ -51,6 +54,10 @@ ACTQ = _build.Kernel("actq", "arc_actq", [
 # launch floor timed beside actq (launch_floor).
 LAUNCH_FLOOR = _build.Kernel("launch_floor", "arc_launch_floor",
                              [_build.I32])
+# #18: the ARC residual of the selected columns (csrc/arc_residual.cu).
+ARC_RESIDUAL = _build.Kernel("arc_residual", "arc_residual", [
+    _build.P, _build.I64, _build.P, _build.I64, _build.P, _build.I64,
+    _build.P, _build.I32, _build.I32, _build.I32, _build.I32, _build.I32])
 
 # The kernel's block (csrc/actq_core.cuh kActqThreads): its rmsnorm sum
 # order is stated for this many threads.
@@ -257,6 +264,78 @@ def _top(reorder_index: torch.Tensor, select_num: int,
     return reorder_index[-select_num:].long().to(device)
 
 
+def arc_residual_plain(src: torch.Tensor, xa: torch.Tensor,
+                       gx: torch.Tensor, reorder_index: torch.Tensor,
+                       select_num: int, k: int, mode: str = "plain"):
+    """Plain version of #18 arc_residual: the last select_num columns of
+    reorder_index (_top), their values in src (plain) or silu(g) * u of
+    them rounded like _silu_mul (silu_mul: src the unsliced [M, 2k]
+    gate-up output), then _arc_residual_into. Returns xa, written in
+    place."""
+    idx = _top(reorder_index, select_num, src.device)
+    if mode == "plain":
+        cols = src[:, idx]
+    elif mode == "silu_mul":
+        cols = _silu_mul(src[:, idx], src[:, idx + k])
+    else:
+        raise ValueError(f"arc_residual: unknown mode {mode!r}")
+    return _arc_residual_into(cols, xa, gx, idx, k)
+
+
+def _arc_residual_cuda(src: torch.Tensor, xa: torch.Tensor,
+                       gx: torch.Tensor, reorder_index: torch.Tensor,
+                       select_num: int, k: int, mode: str = "plain"):
+    """Launch csrc/arc_residual.cu. The index tail is read in place (no
+    cast, no copy: the call can be captured in a graph); an index outside
+    [0, k) is a device-side assert."""
+    _build.require_cuda("arc_residual", src, xa, gx, reorder_index)
+    if mode not in ("plain", "silu_mul"):
+        raise ValueError(f"arc_residual: unknown mode {mode!r}")
+    if src.dtype != torch.bfloat16 or xa.dtype != torch.bfloat16:
+        raise ValueError(f"arc_residual takes bf16 src and xa, got "
+                         f"{src.dtype} and {xa.dtype}")
+    m = src.shape[0]
+    if gx.dtype != torch.float32 or tuple(gx.shape) != (m, 1):
+        raise ValueError(f"arc_residual: gx {tuple(gx.shape)} {gx.dtype}, "
+                         f"expected f32 [{m}, 1]")
+    if select_num % 16 or select_num < 0 or k + select_num > xa.shape[1]:
+        raise ValueError(f"arc_residual: KE={select_num} at k={k} into kq="
+                         f"{xa.shape[1]}: needs KE % 16 == 0 and k + KE <= "
+                         "kq")
+    need = 2 * k if mode == "silu_mul" else k
+    if (src.dim() != 2 or xa.dim() != 2 or xa.shape[0] != m
+            or src.shape[1] < need or src.stride(1) != 1
+            or xa.stride(1) != 1 or reorder_index.dim() != 1
+            or reorder_index.stride(0) != 1
+            or reorder_index.dtype not in (torch.int32, torch.int64)
+            or select_num > reorder_index.numel()):
+        raise ValueError(f"arc_residual {mode}: unsupported layout src "
+                         f"{tuple(src.shape)} strides {src.stride()}, xa "
+                         f"{tuple(xa.shape)} strides {xa.stride()}, index "
+                         f"{tuple(reorder_index.shape)} "
+                         f"{reorder_index.dtype} for k={k}")
+    idx = reorder_index[reorder_index.numel() - select_num:]
+    ARC_RESIDUAL(_build.ptr(src), src.stride(0), _build.ptr(xa),
+                 xa.stride(0), _build.ptr(gx), gx.stride(0), _build.ptr(idx),
+                 int(idx.dtype == torch.int64), m, k, select_num,
+                 _MODES[mode], m=m)
+    return xa
+
+
+def arc_residual(src: torch.Tensor, xa: torch.Tensor, gx: torch.Tensor,
+                 reorder_index: torch.Tensor, select_num: int, k: int,
+                 mode: str = "plain"):
+    """Write the ARC residual of the last select_num columns of
+    reorder_index into xa[:, k:k+select_num] in place, after the row
+    quantize that wrote xa[:, :k] and gx f32 [M, 1]: src is the [M, k]
+    activation (mode "plain") or the unsliced [M, 2k] gate-up output
+    (mode "silu_mul"). #18 on CUDA tensors, arc_residual_plain on CPU
+    ones. Returns xa."""
+    impl = (arc_residual_plain if src.device.type == "cpu"
+            else _arc_residual_cuda)
+    return impl(src, xa, gx, reorder_index, select_num, k, mode)
+
+
 def quantize_x_arc(x: torch.Tensor, reorder_index: torch.Tensor,
                    select_num: int, kq: Optional[int] = None,
                    per_row: bool = True):
@@ -271,8 +350,7 @@ def quantize_x_arc(x: torch.Tensor, reorder_index: torch.Tensor,
         return _quantize_x_tensor(x, reorder_index, select_num, kq)
     xa, gx = _actq(x, None, mode="plain", k=k, kq=kq)
     if select_num:
-        idx = _top(reorder_index, select_num, x.device)
-        _arc_residual_into(x[:, idx], xa, gx, idx, k)
+        arc_residual(x, xa, gx, reorder_index, select_num, k)
     return xa, gx
 
 
@@ -306,7 +384,5 @@ def silu_mul_quantize_gu(gu: torch.Tensor, reorder_index: torch.Tensor,
                               reorder_index, select_num, kq, per_row)
     xa, gx = _actq(gu, None, mode="silu_mul", k=k, kq=kq)
     if select_num:
-        idx = _top(reorder_index, select_num, gu.device)
-        _arc_residual_into(_silu_mul(gu[:, idx], gu[:, idx + k]), xa, gx,
-                           idx, k)
+        arc_residual(gu, xa, gx, reorder_index, select_num, k, "silu_mul")
     return xa, gx

@@ -58,6 +58,110 @@ def outlier_x(rng: np.random.Generator, m: int, k: int,
     return x
 
 
+# -- #18 arc_residual's inputs ------------------------------------------------
+
+# e2m1's decision boundaries (ties go to the smaller magnitude), its grid
+# and zero, in units of a group's scale
+_E2M1_PLACES = (0.25, 0.75, 1.25, 1.75, 2.5, 3.5, 5.0,
+                0.5, 1.0, 1.5, 2.0, 3.0, 4.0, 6.0, 0.0)
+# xa's columns past the residual hold this: nothing may write them
+ARC_SENTINEL = 7.0
+
+
+def _bf16_f32(x) -> np.ndarray:
+    """Values rounded to bf16 (to nearest even), as f32."""
+    return torch.from_numpy(np.asarray(x, np.float32)).to(
+        torch.bfloat16).float().numpy()
+
+
+def _bf16_step(x: np.ndarray, up: np.ndarray) -> np.ndarray:
+    """The bf16 neighbour of each (bf16, nonzero) x away from zero where
+    `up`, toward it elsewhere."""
+    b = torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16)
+    bits = b.view(torch.int16).numpy().astype(np.int32)
+    bits = bits + np.where(up, 1, -1)
+    return torch.from_numpy(bits.astype(np.int16)).view(
+        torch.bfloat16).float().numpy()
+
+
+def arc_residual_case(rng: np.random.Generator, m: int, k: int, ke: int,
+                      mode: str = "plain", pad: int = 32):
+    """Inputs of #18 arc_residual as numpy: (src, xa, gx, ridx), src
+    [m, k] (plain) or [m, 2k] (silu_mul: gate, then up) and xa [m, k + ke
+    + pad] f32 values exact in bf16, gx f32 [m, 1], ridx an int32
+    permutation of k whose last ke entries are the residual columns.
+
+    Rows r % 3 == 0 and 1 take gx 1 and 2^-3, and there each residual
+    column's err = v / gx - xa[r, c] (v the selected value, src[r, c] or
+    bf16(silu(g) u) with g 32, where silu is the identity in f32) is
+    planted, a 16-column group at a time, kind (group + row) % 5: 0 the
+    e2m1 boundaries (exact ties), grid points and zero of a normal ue4m3
+    scale s, one element +-6 s so that the group's scale is s; 1 the same
+    with a subnormal s (a multiple of 2^-9); 2 zeros, half of them -0.0;
+    3 random; 4 kind 0's values moved one bf16 step either way. xa[r, c]
+    is 0 or +-2 s or +-4 s where v stays exact. Rows r % 3 == 2 are
+    random (gate N(0, 9) with a tenth of it in +-[20, 60]), gx the row's
+    max / 2688 and xa near v / gx. xa[:, k:k+ke] holds garbage, its
+    columns past k + ke ARC_SENTINEL."""
+    if mode not in ("plain", "silu_mul") or ke % 16:
+        raise ValueError(f"arc_residual_case: mode {mode!r}, ke {ke}")
+    g = ke // 16
+    kind = (np.arange(g)[None] + np.arange(m)[:, None]) % 5       # [m, G]
+    s = np.where(kind == 1, rng.integers(1, 8, (m, g)) * 2.0 ** -9,
+                 2.0 ** rng.integers(-6, 6, (m, g))
+                 * (1 + rng.integers(0, 8, (m, g)) / 8))
+    b = rng.choice(np.asarray(_E2M1_PLACES), (m, g, 16))
+    top = rng.integers(0, 16, (m, g))
+    np.put_along_axis(b, top[..., None], 6.0, axis=-1)
+    sign = rng.choice([-1.0, 1.0], (m, g, 16))
+    err = sign * b * s[..., None]
+    near = np.where(err == 0, err, _bf16_step(err, rng.random(err.shape)
+                                              < 0.5))
+    is_top = np.arange(16)[None, None] == top[..., None]
+    err = np.where((kind == 4)[..., None] & ~is_top, near, err)
+    err = np.where((kind == 2)[..., None], np.copysign(0.0, sign), err)
+    err = np.where((kind == 3)[..., None],
+                   _bf16_f32(rng.standard_normal((m, g, 16))
+                             * 2 * s[..., None]), err)
+    err, s = err.reshape(m, ke), np.repeat(s, 16, axis=1)
+    gx = np.where(np.arange(m)[:, None] % 3 == 0, 1.0, 0.125)
+    q = rng.choice([0.0, 2.0, -2.0, 4.0, -4.0], (m, ke)) * s
+    v = (err + q) * gx
+    exact = (_bf16_f32(v) == v) & (kind.repeat(16, axis=1) != 2)
+    q = np.where(exact, q, 0.0)
+    v = np.where(exact, v, err * gx)
+    gate = np.full((m, ke), 32.0)
+    # the random rows
+    rand = np.arange(m) % 3 == 2
+    gr = rng.standard_normal((m, ke)) * 3
+    wide = rng.random((m, ke)) < 0.1
+    gr = np.where(wide, rng.choice([-1.0, 1.0], (m, ke))
+                  * rng.uniform(20, 60, (m, ke)), gr)
+    gr, ur = _bf16_f32(gr), _bf16_f32(rng.standard_normal((m, ke)))
+    vr = (_bf16_f32(gr * (1 / (1 + np.exp(-gr.astype(np.float64)))) * ur)
+          if mode == "silu_mul" else ur)
+    gxr = np.maximum(np.abs(vr).max(axis=1, keepdims=True) / 2688, 1e-12)
+    qr = _bf16_f32(vr / gxr * (1 + 0.05 * rng.standard_normal((m, ke))))
+    v = np.where(rand[:, None], vr, v)
+    q = np.where(rand[:, None], qr, q)
+    gate = np.where(rand[:, None], gr, gate)
+    gx = np.where(rand[:, None], gxr, gx).astype(np.float32)
+
+    ridx = rng.permutation(k).astype(np.int32)
+    cols = ridx[k - ke:]
+    width = 2 * k if mode == "silu_mul" else k
+    src = _bf16_f32(rng.standard_normal((m, width)) * 2)
+    if mode == "silu_mul":
+        src[:, cols] = gate
+        src[:, cols + k] = np.where(rand[:, None], ur, v / 32)
+    else:
+        src[:, cols] = v
+    xa = np.full((m, k + ke + pad), ARC_SENTINEL, np.float32)
+    xa[:, :k + ke] = _bf16_f32(rng.standard_normal((m, k + ke)))
+    xa[:, cols] = q
+    return src.astype(np.float32), xa, gx, ridx
+
+
 # -- the conditioned dummy init -----------------------------------------------
 # llama.init_params' draws (unit norms, N(0, 1/K) linears, a 0.02
 # embedding) make a forward of 2 or more layers chaotic at the ulp level:

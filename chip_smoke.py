@@ -49,7 +49,13 @@ Phases, each printed as it runs:
      verify's B * W at W 2, 4 and 8) and at gateup at M 64, alike (each
      row's small_m); the paged prefill at Tq = W 2, 4 and 8, with the
      share of its outputs apart from its plain version's and from the
-     paged decode kernel of the same queries (VERIFY_ULP_SHARE). Kernel
+     paged decode kernel of the same queries (VERIFY_ULP_SHARE); #17
+     rope_kv at decode, verify and prefill; #18 arc_residual at the ARC
+     sites' shapes (K 3584 plain, K 18944 silu_mul; M 4, 32 and 4096)
+     after #1, beside #13 and on planted e2m1 ties, bitwise, each with
+     its bound by the bytes needed and by the 32-byte sectors touched,
+     and a 2-layer ARC engine with #18 against the same engine with its
+     plain version (logits bitwise). Kernel
      times are device times
      (benchmarks/common.py's Timer holds the stream while the host
      enqueues the call);
@@ -373,6 +379,9 @@ KERNEL_INFO = {
     "rope_kv": ("arcquant_tpu_torch/csrc/rope_kv.cu",
                 "arcquant_tpu/models/llama.py:131 + "
                 "arcquant_tpu/cache/paged.py:146 (no pallas_call)"),
+    "arc_residual": ("arcquant_tpu_torch/csrc/arc_residual.cu",
+                     "arcquant_tpu/kernels/quantize.py:264 (no "
+                     "pallas_call)"),
 }
 LAB_KERNELS = ("lab_w8", "lab_w8_ring", "lab_w8_ring_n", "lab_w4")
 # The kernels each main path must launch, and those it must not: with ARC
@@ -381,18 +390,20 @@ LAB_KERNELS = ("lab_w8", "lab_w8_ring", "lab_w8_ring_n", "lab_w4")
 # large-M route, whose w8 pass is dequant_w8; the w4 kernels stay idle on
 # the w8 paths, and the w8 ones (megakernels included) on the w4 path;
 # every path that writes the paged pool (every engine's) runs #17
-# rope_kv once a layer of each forward.
+# rope_kv once a layer of each forward; every path with ARC columns at
+# per-row scales runs #18 arc_residual at each site after #1 or #13, and
+# the select-free ones never.
 W4_ONLY = ("gemm_w4", "dequant_w4", "pin_rowmajor")
 GENERATE_KERNELS = ("actq", "gemm_w8", "dequant_w8", "flash_attn",
-                    "paged_decode", "gu_actq", "rope_kv")
+                    "paged_decode", "gu_actq", "rope_kv", "arc_residual")
 SERVE_KERNELS = ("actq", "gemm_w8", "dequant_w8", "paged_prefill",
-                 "paged_decode", "gu_actq", "rope_kv")
+                 "paged_decode", "gu_actq", "rope_kv", "arc_residual")
 ARC_IDLE_KERNELS = ("gemm_actq", "mlp_w8") + W4_ONLY
 FREE_KERNELS = ("actq", "gemm_w8", "dequant_w8", "flash_attn",
                 "paged_decode", "gemm_actq", "mlp_w8", "rope_kv")
-FREE_IDLE_KERNELS = ("gu_actq",) + W4_ONLY
+FREE_IDLE_KERNELS = ("gu_actq", "arc_residual") + W4_ONLY
 W4_KERNELS = ("actq", "gemm_w4", "dequant_w4", "pin_rowmajor", "flash_attn",
-              "paged_decode", "rope_kv")
+              "paged_decode", "rope_kv", "arc_residual")
 W4_IDLE_KERNELS = ("gemm_w8", "dequant_w8", "gemm_actq", "gu_actq", "mlp_w8")
 ROUTE_MS = (512, 1024, 4096)   # the route against the fused GEMMs
 # The MoE phase: the dense-model kernels that the MoE layers replace
@@ -402,20 +413,21 @@ ROUTE_MS = (512, 1024, 4096)   # the route against the fused GEMMs
 # step runs gemm_batched once a layer (dense mode).
 MOE_MODEL = "qwen1.5-moe-a2.7b"
 MOE_COMMON = ("actq", "gemm_batched", "flash_attn", "paged_decode",
-              "rope_kv")
+              "rope_kv", "arc_residual")
 MOE_KERNELS = {"w8": MOE_COMMON + ("gemm_w8", "dequant_w8"),
                "w4": MOE_COMMON + ("gemm_w4", "dequant_w4", "pin_rowmajor")}
 MOE_IDLE_KERNELS = {
     fmt: ("gemm_actq", "gu_actq", "mlp_w8", "paged_prefill") + other
     for fmt, other in (("w8", W4_ONLY), ("w4", ("gemm_w8", "dequant_w8")))}
 MOE_SERVE_KERNELS = MOE_COMMON[:2] + ("gemm_w8", "paged_prefill",
-                                      "paged_decode", "rope_kv")
+                                      "paged_decode", "rope_kv",
+                                      "arc_residual")
 # The spec path (generate_ondevice on the ARC engine, W 4, batch 4): a
 # one-shot prefill, then verify rounds at M 16, whose attention is the
 # paged prefill kernel and whose MLP takes gu_actq; no decode step.
 SPEC_TOKENS = 32
 SPEC_KERNELS = ("actq", "gemm_w8", "dequant_w8", "flash_attn",
-                "paged_prefill", "gu_actq", "rope_kv")
+                "paged_prefill", "gu_actq", "rope_kv", "arc_residual")
 SPEC_IDLE_KERNELS = ("paged_decode", "gemm_actq", "mlp_w8") + W4_ONLY
 # benchmark_e2e: NVFP4 select-free runs FREE_KERNELS; BF16 only the
 # attention kernels of the engine's path and rope_kv (its linears are
@@ -707,6 +719,7 @@ def kernel_checks(cfg, timer, failures):
     attention_checks(cfg, gen, timer, record)
     verify_attention_checks(cfg, gen, timer, record, summary)
     rope_kv_checks(cfg, gen, timer, record, summary, failures)
+    arc_residual_checks(cfg, gen, timer, record, summary, failures)
     fused_checks(cfg, gen, timer, record, summary)
     route_checks(cfg, gen, timer, record, failures)
     lab_kernel_checks(cfg, gen, timer, record, failures)
@@ -1411,6 +1424,171 @@ def rope_kv_checks(cfg, gen, timer, record, summary, failures):
         del qkv, out, ref, got_c, want_c
 
 
+# #18 arc_residual's sites at Qwen2.5-7B, ARC 0.125: (site, mode); K is
+# the hidden width at qkv_in, o_in and mlp_in (plain, after #1's plain
+# mode) and the intermediate one at down_in (silu_mul, after #13 at
+# decode and #1's silu_mul mode at a prefill), KE SELECT_FRAC of it in
+# 64s. The rows: a decode step (M 4, the representative: three of the
+# four sites), a verify of W 8 (M 32) and the 4 x 1024 prefill.
+ARC_RESIDUAL_SITES = (("qkv_in,o_in,mlp_in", "plain"),
+                      ("down_in", "silu_mul"))
+ARC_RESIDUAL_MS = (4, 32, 4096)
+# its f32 operations an element: the divide, the subtract, |.| and the
+# group max, the scale's multiply, e2m1's 7 products and compares, the
+# sign and the final multiply (20); silu_mul adds the negation, exp, add,
+# reciprocal and two multiplies (counted as 6)
+ARC_RESIDUAL_OPS = {"plain": 20, "silu_mul": 26}
+
+
+def _arc_residual_work(m, ke, mode, idx, gx):
+    """(operations scaled to the bf16 peak, bytes needed, bytes of the
+    32-byte sectors touched) of one #18 call over the KE columns idx: the
+    bytes needed are the index, gx, the KE selected values of each row of
+    src (two in silu_mul) and of xa read once, and the KE written; the
+    sectors count each distinct 32-byte sector of a row that the
+    scattered column reads touch (rows start on 32 bytes at these
+    widths)."""
+    needed = nbytes(idx, gx) + 2 * m * ke * (4 if mode == "silu_mul" else 3)
+    sectors = int(torch.unique(idx.long() // 16).numel())
+    reads = sectors * 32 * m * (3 if mode == "silu_mul" else 2)
+    touched = nbytes(idx, gx) + reads + 2 * m * ke
+    ops = m * ke * ARC_RESIDUAL_OPS[mode] * common.PEAK_FLOPS / F32_PEAK_FLOPS
+    return ops, needed, touched
+
+
+def arc_residual_checks(cfg, gen, timer, record, summary, failures):
+    """Phase 3, #18 arc_residual. At each site of ARC_RESIDUAL_SITES and M
+    of ARC_RESIDUAL_MS, the kernel against arc_residual_plain after the
+    row quantize (#1 in the site's mode), the columns a random
+    permutation's (a calibration's, scattered; an int64 index), bit for
+    bit on the whole xa; each with its time, the plain version's
+    and two bounds: the bytes the call needs, and the 32-byte sectors its
+    scattered column reads touch. Then beside #13 (down_in at decode),
+    on testing.arc_residual_case's planted values (e2m1 ties, subnormal
+    scales, -0.0) at M 4 and with an int32 index, bitwise. Then a
+    2-layer ARC engine's prefill (4 x 1024) and 4 decode steps with #18
+    against the same engine with arc_residual swapped to its plain
+    version (every other kernel kept), eager, on identity_calib's int32
+    index (the last KE columns): logits bit for bit, #18 launched 4
+    times a layer a forward."""
+    from arcquant_tpu_torch.config import QuantConfig
+    from arcquant_tpu_torch.engine import EngineConfig, InferenceEngine
+    from arcquant_tpu_torch.kernels import mlp_fused as mf
+    from arcquant_tpu_torch.kernels import quantize as qk
+    from arcquant_tpu_torch.models import quantized
+    from arcquant_tpu_torch.quant import packing
+    from arcquant_tpu_torch.testing import arc_residual_case
+
+    def held(src, xa, gx, ridx, ke, k, mode):
+        got, want = xa.clone(), xa.clone()
+        qk._arc_residual_cuda(src, got, gx, ridx, ke, k, mode)
+        qk.arc_residual_plain(src, want, gx, ridx, ke, k, mode)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        return bitwise([got], [want]), err
+
+    h, f = cfg.hidden_size, cfg.intermediate_size
+    width = {"plain": h, "silu_mul": f}
+    sel = {mode: int(round(SELECT_FRAC * k / 64)) * 64
+           for mode, k in width.items()}
+    stats = summary.setdefault("arc_residual", dict(max_abs_err=0.0))
+    for site, mode in ARC_RESIDUAL_SITES:
+        k, ke = width[mode], sel[mode]
+        kq = packing.pad_kq(k, ke)
+        ridx = torch.randperm(k, generator=gen, device="cuda")
+        for m in ARC_RESIDUAL_MS:
+            src = bf16_randn(gen, (m, 2 * k if mode == "silu_mul" else k),
+                             2.0)
+            xa, gx = qk._actq_cuda(src, None, mode=mode, k=k, kq=kq)
+            same, err = held(src, xa, gx, ridx, ke, k, mode)
+            scratch = xa.clone()
+            t_k = timer(lambda: qk._arc_residual_cuda(src, scratch, gx, ridx,
+                                                      ke, k, mode))
+            t_p = timer(lambda: qk.arc_residual_plain(src, scratch, gx, ridx,
+                                                      ke, k, mode))
+            ops, needed, touched = _arc_residual_work(m, ke, mode,
+                                                      ridx[k - ke:], gx)
+            case = f"{site} {mode} M={m} K={k} KE={ke} bitwise={same}"
+            rep = m == 4 and mode == "plain"
+            record("arc_residual", case, err, same, t_k, t_p,
+                   "bit-exact: the whole xa", rep=rep, work=(ops, needed))
+            b_ms, b_by = bound_ms(ops, needed)
+            s_ms, s_by = bound_ms(ops, touched)
+            stats.setdefault("shapes", {})[f"{site} M={m}"] = dict(
+                ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
+                sector_bound_ms=s_ms, sector_bound_by=s_by,
+                bytes_needed=needed, bytes_touched=touched)
+            if rep:
+                stats["sector_bound_ms"] = s_ms
+            log(f"  {'':13s} bound {b_ms:.4f} ms ({b_by}, {needed:.4g} B "
+                f"needed); sectors touched {s_ms:.4f} ms ({s_by}, "
+                f"{touched:.4g} B); {needed / t_k / 1e6:.1f} GB/s needed")
+            del src, xa, gx, scratch
+
+    # beside #13 at decode (down_in, F 18944), then the planted values at
+    # M 4 with an int32 index
+    rng = np.random.default_rng(18)
+    d, ke = 512, sel["silu_mul"]
+    w_gu = bf16_randn(gen, (2 * f, d), d ** -0.5)
+    pw_gu = packing.pack_weight_arc(w_gu, torch.arange(d, device="cuda"), 0,
+                                    w_scale="channel")
+    del w_gu
+    kq2 = packing.pad_kq(f, ke)
+    x1 = bf16_randn(gen, (4, d), 2.0)
+    xa1, gs1 = qk.quantize_x_arc(x1, torch.arange(d, device="cuda"), 0,
+                                 kq=pw_gu.kq)
+    ia, gu, gi = mf._gu_actq_cuda(xa1, gs1, pw_gu, f, kq2, torch.bfloat16)
+    ridx = torch.randperm(f, generator=gen, device="cuda")
+    cases = [("after #13 (gu_actq) M=4", (gu, ia, gi, ridx, ke, f,
+                                          "silu_mul"))]
+    for site, mode in ARC_RESIDUAL_SITES:
+        k = width[mode]
+        src, xa, gx, ri = arc_residual_case(rng, 4, k, sel[mode], mode)
+        cases.append((f"planted {site} M=4 int32 index", (
+            torch.from_numpy(src).to("cuda", torch.bfloat16),
+            torch.from_numpy(xa).to("cuda", torch.bfloat16),
+            torch.from_numpy(gx).cuda(), torch.from_numpy(ri).cuda(),
+            sel[mode], k, mode)))
+    for case, args in cases:
+        same, err = held(*args)
+        stats["max_abs_err"] = max(stats["max_abs_err"], err)
+        log(f"  arc_residual  {case}: bitwise {same} "
+            f"{'ok' if same else 'FAIL'}")
+        if not same:
+            failures.append(f"arc_residual {case}: max_abs_err {err}")
+    del pw_gu, ia, gu, gi, cases
+
+    # the engine with #18 against the engine with its plain version
+    cfg2 = cfg.replace(num_layers=2)
+    qcfg = QuantConfig(quant_type="NVFP4", use_kernels=True,
+                       weight_fmt="w8", act_scale="row", w_scale="channel",
+                       quantize_lm_head=True)
+    ecfg = EngineConfig(max_batch=len(PROMPT_LENS),
+                        max_seq_len=max(PROMPT_LENS) + NEW_TOKENS + 8)
+    eng = InferenceEngine.dummy(
+        cfg2, quantized.identity_calib(cfg2, SELECT_FRAC, device="cuda"),
+        qcfg, ecfg, seed=2, device="cuda", cuda_graphs=False)
+    n0 = qk.ARC_RESIDUAL.launches
+    got, fed = engine_steps(eng)
+    n = qk.ARC_RESIDUAL.launches - n0
+    keep = tuple(k for k in KERNEL_INFO if k != "arc_residual")
+    with PlainKernels(keep=keep):
+        want, _ = engine_steps(eng, fed)
+    same = [bool(torch.equal(_bits(a), _bits(b))) for a, b in zip(got, want)]
+    forwards = len(got)
+    ok = all(same) and n == 4 * cfg2.num_layers * forwards
+    log(f"  arc_residual  2-layer ARC engine, prefill 4 x 1024 and 4 decode "
+        f"steps, #18 against arc_residual_plain (every other kernel kept): "
+        f"logits bitwise at {sum(same)} of {len(same)} steps; #18 launched "
+        f"{n} times (bar: all, 4 a layer a forward = "
+        f"{4 * cfg2.num_layers * forwards}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"arc_residual engine A/B: bitwise at {same}, "
+                        f"{n} launches")
+    del eng
+    torch.cuda.empty_cache()
+
+
 def _bits(t: torch.Tensor) -> torch.Tensor:
     return t.contiguous().view(torch.int16 if t.element_size() == 2
                                else torch.int32)
@@ -1977,8 +2155,25 @@ def trace_step(eng, label, card, failures):
     log(f"  [trace] {label}: {m['total_ms_step']:.3f} ms of device time a "
         f"step in the graph (busy {m['busy_ms_step']:.3f}, span "
         f"{m['span_ms_step']:.3f}, profiled; {m['step_ms']:.3f} ms a step "
-        f"unprofiled), the ARC residual {m['arc_ms_step']:.3f} ms; "
+        f"unprofiled), {m['activities_step']:.0f} device activities a step, "
+        f"the ARC residual {m['arc_ms_step']:.3f} ms; "
         f"{time.perf_counter() - t0:.1f} s, on {card}")
+    if m["arc_ms_step"]:
+        # the residual (#18) in every row that runs it, and the outermost
+        # one's row (down_in's, beside #13); no silu_mul row is left
+        r = m["rows"].get("arc_residual", dict(calls=0, ms_step=0.0,
+                                               ms_call=0.0))
+        ok = r["calls"] == eng.cfg.num_layers and "silu_mul" not in m["rows"]
+        res = [(n, ms, c) for n, ms, c in m["kernels"]
+               if "arc_residual_kernel" in n]
+        log(f"  [trace] {label} the ARC residual: {m['arc_ms_step']:.4f} ms "
+            f"a step in all its sites; its kernel {res}; the arc_residual "
+            f"row {r['ms_step']:.4f} ms a step over {r['calls']} calls "
+            f"({r['ms_call'] * 1e3:.2f} us a call; bar: one a layer, and no "
+            f"silu_mul row) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"[trace] {label}: arc_residual row {r}, rows "
+                            f"{sorted(m['rows'])}")
     return m
 
 
@@ -2018,7 +2213,7 @@ def all_kernels():
     return [qk.ACTQ, gk.GEMM_W8, attention.FLASH, pdk.PAGED_DECODE,
             pdk.PAGED_PREFILL, mf.MLP_W8, mf.GU_ACTQ, mf.GEMM_ACTQ,
             gk.GEMM_W4, gk.DEQUANT_W8, gk.DEQUANT_W4, gk.PIN_ROWMAJOR,
-            gk.GEMM_BATCHED, *gl.KERNELS, rk.ROPE_KV]
+            gk.GEMM_BATCHED, *gl.KERNELS, rk.ROPE_KV, qk.ARC_RESIDUAL]
 
 
 def _packs(tree):
@@ -2393,7 +2588,8 @@ def prefill_trace_step(eng, card, failures):
 # gemm_w8, #6 dequant_w8 at gate/up, #9 flash attention at T 2048).
 EVAL_SEQLEN = 2048
 EVAL_WINDOWS = 2
-EVAL_KERNELS = ("actq", "gemm_w8", "dequant_w8", "flash_attn")
+EVAL_KERNELS = ("actq", "gemm_w8", "dequant_w8", "flash_attn",
+                "arc_residual")
 EVAL_ROUTES = (
     ("BF16", ["--quant_type", "BF16"]),
     ("NVFP4 fake, act_scale tensor (evaluate's defaults)", []),
@@ -3406,7 +3602,8 @@ def ckpt_run(card, workdir, failures):
         failures.append(f"[ckpt] quantized checkpoint: differing {bad}, "
                         f"tokens {got} vs {want}")
     log(f"  launches in the [ckpt] path: {launches}")
-    for name in ("actq", "gemm_w8", "flash_attn", "paged_decode"):
+    for name in ("actq", "gemm_w8", "flash_attn", "paged_decode",
+                 "arc_residual"):
         if launches[name] <= 0:
             failures.append(f"[ckpt] kernel {name} not launched")
     del eng, eng2, back
@@ -4959,6 +5156,8 @@ class PlainKernels:
                  ("gemm_batched", gk, "_gemm_batched_cuda",
                   gk.gemm_batched_plain),
                  ("rope_kv", rk, "_rope_kv_cuda", rk.rope_append_kv_plain),
+                 ("arc_residual", qk, "_arc_residual_cuda",
+                  qk.arc_residual_plain),
                  # the route's product stays torch.mm (a noise floor
                  # patches it); saved so that it is restored
                  (None, gk, "_mm_f32_cuda", gk._mm_f32_cuda)]
@@ -4990,7 +5189,8 @@ PLAIN_BARS = {
     "paged_prefill": "1 bf16 ulp + 2e-3 at live queries, rows of seq_len 0 "
                      "exact zeros",
     "rope_kv": "bit-exact: q_rot, k_rot, and the pool's codes and params on "
-               "pages >= 1"}
+               "pages >= 1",
+    "arc_residual": "bit-exact: the whole xa"}
 
 
 def _prefill_live(out, a):
@@ -5050,12 +5250,23 @@ def _rope_kv_beside(kernel, real, plain, a, kw):
     return out, ref, held
 
 
+def _arc_residual_beside(kernel, real, plain, a, kw):
+    """_beside for #18 arc_residual, which writes xa (a[1]) in place: its
+    plain version writes a copy of xa taken before the call; held when
+    the two are bitwise equal (PLAIN_BARS)."""
+    copy = a[1].clone()
+    out = real(*a, **kw)
+    ref = plain(a[0], copy, *a[2:], **kw)
+    return out, ref, bitwise([out], [ref])
+
+
 @contextlib.contextmanager
 def beside_plain(kernels):
     """Every call of each of `kernels` (actq, gemm_w8, dequant_w8,
-    flash_attn, paged_decode, gemm_w4, paged_prefill, rope_kv) also runs
-    the kernel's plain version on the same inputs (rope_kv's on a copy of
-    the pool) and holds the outputs to PLAIN_BARS: the kernels against
+    flash_attn, paged_decode, gemm_w4, paged_prefill, rope_kv,
+    arc_residual) also runs the kernel's plain version on the same inputs
+    (rope_kv's on a copy of the pool, arc_residual's on a copy of xa) and
+    holds the outputs to PLAIN_BARS: the kernels against
     their plain versions at the shapes and on the data of the path being
     driven. Yields {kernel: dict(calls, shapes, err, off, n, ok, share)}:
     the calls, their distinct shapes, the largest absolute error of the
@@ -5097,7 +5308,10 @@ def beside_plain(kernels):
                           f"{a[4].tolist()} seq_lens {a[5].tolist()}"),
         "rope_kv": (rk, "_rope_kv_cuda", rk.rope_append_kv_plain,
                     lambda a, kw: f"B={a[0].shape[0]} T={a[0].shape[1]} "
-                    f"H={a[0].shape[2]}/{a[1].shape[2]}", _rope_kv_beside)}
+                    f"H={a[0].shape[2]}/{a[1].shape[2]}", _rope_kv_beside),
+        "arc_residual": (qk, "_arc_residual_cuda", qk.arc_residual_plain,
+                         lambda a, kw: f"{a[6]} M={a[0].shape[0]} K={a[5]} "
+                         f"KE={a[4]}", _arc_residual_beside)}
     seen = {k: dict(calls=0, shapes=set(), err=0.0, off=0, n=0, ok=True,
                     share=0.0, _within=[0, 0]) for k in kernels}
 
@@ -5678,10 +5892,11 @@ MOE_QDQ_KERNELS = ("flash_attn", "paged_decode", "rope_kv")
 # [moe_eval]: the packed route's kernels (the attention linears packed,
 # the experts qdq stacks); [engine_tensor]: the megakernels and actq stay
 # idle at per-tensor scales
-MOE_EVAL_KERNELS = ("actq", "gemm_w8", "flash_attn")
+MOE_EVAL_KERNELS = ("actq", "gemm_w8", "flash_attn", "arc_residual")
 TENSOR_KERNELS = ("gemm_w8", "dequant_w8", "flash_attn", "paged_decode",
                   "rope_kv")
-TENSOR_IDLE_KERNELS = ("actq", "mlp_w8", "gu_actq", "gemm_actq")
+TENSOR_IDLE_KERNELS = ("actq", "mlp_w8", "gu_actq", "gemm_actq",
+                       "arc_residual")
 
 
 def _tree_gib(tree) -> float:
@@ -5987,7 +6202,7 @@ TP_RANKS = 2
 # prefill, flash attention in the prefill and paged decode; the TP layer
 # fuses nothing and runs no chunked prefill.
 TP_KERNELS = ("actq", "gemm_w8", "dequant_w8", "flash_attn", "paged_decode",
-              "rope_kv")
+              "rope_kv", "arc_residual")
 # Exact ARC's sites: (name, K, select at 0.125 rounded up to 16 x tp), the
 # rows quantized.
 TP_EXACT_ROWS = (4, 1024)
@@ -5998,7 +6213,8 @@ TP_ARC_SEEDS = (1, 2)
 LM_EVAL_LAYERS = 2
 LM_EVAL_MAX_LEN = 2048
 LM_EVAL_STREAM = 3000
-LM_EVAL_KERNELS = ("actq", "gemm_w8", "dequant_w8", "flash_attn")
+LM_EVAL_KERNELS = ("actq", "gemm_w8", "dequant_w8", "flash_attn",
+                   "arc_residual")
 
 
 def _tp_exact_sites(ctx, cfg):
@@ -6830,7 +7046,7 @@ DP_DRAWS = 2
 # holds a prompt over 512 tokens, one-shot (flash_attn) otherwise, so
 # flash_attn may or may not run; the TP layer fuses nothing.
 DP_KERNELS = ("actq", "gemm_w8", "dequant_w8", "paged_prefill",
-              "paged_decode", "rope_kv")
+              "paged_decode", "rope_kv", "arc_residual")
 DP_IDLE_KERNELS = tuple(k for k in KERNEL_INFO
                         if k not in DP_KERNELS + ("flash_attn",))
 # [ep]: Qwen1.5-MoE-A2.7B at tp 2 (30 experts and 8 of 16 heads a rank, the
@@ -8377,8 +8593,11 @@ def main() -> int:
         log(f"[moe_calib_serve] the [moe_calibrate] artifact served by "
             f"InferenceEngine, {MOE_MODEL} full width, its first "
             f"{CUT_LAYERS} layers, on {card}")
+        # #18 runs where the artifact selected columns, which the
+        # calibration of the MoE model's dummy weights decides
         moe_cal_serve_launches = calib_serve_run(
-            card, calib, failures, MOE_MODEL, MOE_KERNELS["w8"],
+            card, calib, failures, MOE_MODEL,
+            tuple(k for k in MOE_KERNELS["w8"] if k != "arc_residual"),
             MOE_IDLE_KERNELS["w8"], "[moe_calib_serve]")
         del calib
         gc.collect()

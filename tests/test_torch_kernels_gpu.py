@@ -42,8 +42,8 @@ from arcquant_tpu_torch.kernels import rope_kv as rk
 from arcquant_tpu_torch.models import llama, quantized
 from arcquant_tpu_torch.quant import numerics as N
 from arcquant_tpu_torch.quant import packing
-from arcquant_tpu_torch.testing import (cosine, gpu, outlier_x,
-                                        require_cuda, to_numpy)
+from arcquant_tpu_torch.testing import (arc_residual_case, cosine, gpu,
+                                        outlier_x, require_cuda, to_numpy)
 
 pytestmark = gpu
 
@@ -722,6 +722,158 @@ def test_quantize_kv_scale_is_the_quotient_on_the_card():
     got = cache.params[0][1:3].permute(0, 2, 1, 3).reshape(2, 128, -1, 4)
     assert torch.equal(_bits(got[:, :64, :, 2].cpu()), _bits(vs))
     assert torch.equal(_bits(got[:, :64, :, 3].cpu()), _bits(vm))
+
+
+# #18 arc_residual's sites at Qwen2.5-7B, ARC 0.125: (k, KE, mode) of
+# qkv_in, o_in and mlp_in (the plain mode over the normed or attention
+# rows) and of down_in (the silu_mul mode over the gate-up output)
+ARC_SITES = [(3584, 448, "plain"), (18944, 2368, "silu_mul")]
+
+
+def _arc_residual_held(src, xa, gx, ridx, ke, k, mode):
+    """#18 against arc_residual_plain on the same inputs, one launch: the
+    whole xa bit for bit (the residual columns written, the rest as it
+    was)."""
+    got, want = xa.clone(), xa.clone()
+    n0 = qk.ARC_RESIDUAL.launches
+    assert qk._arc_residual_cuda(src, got, gx, ridx, ke, k, mode) is got
+    assert qk.ARC_RESIDUAL.launches == n0 + 1
+    qk.arc_residual_plain(src, want, gx, ridx, ke, k, mode)
+    torch.cuda.synchronize()
+    assert_bitwise([got], [want])
+    assert torch.equal(_bits(got[:, :k]), _bits(xa[:, :k]))
+    assert torch.equal(_bits(got[:, k + ke:]), _bits(xa[:, k + ke:]))
+    return got
+
+
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("m", [1, 4, 32, 4096])
+@pytest.mark.parametrize("k,ke,mode", ARC_SITES)
+def test_arc_residual_bitwise_after_actq(k, ke, mode, m, idx_dtype):
+    """#18 at the four sites' shapes after #1 (the row quantize in the
+    site's mode wrote xa[:, :k] and gx), with an int32 and an int64
+    reorder index: bit for bit arc_residual_plain."""
+    require_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(m + k)
+    width = 2 * k if mode == "silu_mul" else k
+    src = (torch.randn((m, width), generator=gen, device="cuda") * 2).to(
+        torch.bfloat16)
+    src[:, :k:37] *= 25                              # outlier columns
+    ridx = torch.randperm(k, generator=gen, device="cuda").to(idx_dtype)
+    xa, gx = qk._actq_cuda(src, None, mode=mode, k=k,
+                           kq=packing.pad_kq(k, ke))
+    _arc_residual_held(src, xa, gx, ridx, ke, k, mode)
+
+
+@pytest.mark.parametrize("m", [1, 4, 32])
+@pytest.mark.parametrize("k,ke,mode", ARC_SITES)
+def test_arc_residual_bitwise_on_planted_values(k, ke, mode, m):
+    """#18 on testing.arc_residual_case's inputs at the sites' shapes: err
+    on e2m1 boundaries and ties, their bf16 neighbours, subnormal ue4m3
+    scales, all-zero groups with -0.0, random rows; bit for bit."""
+    require_cuda()
+    rng = np.random.default_rng(k + m)
+    src, xa, gx, ridx = arc_residual_case(rng, m, k, ke, mode)
+    _arc_residual_held(_bf16(src), _bf16(xa),
+                       torch.from_numpy(gx).cuda(),
+                       torch.from_numpy(ridx).cuda(), ke, k, mode)
+
+
+@pytest.mark.parametrize("m", [4, 16])
+def test_arc_residual_bitwise_after_gu_actq(m):
+    """#18 beside #13, as the engine's decode runs it at down_in: xa2 and
+    gx2 from gateup + silu*mul + quantize in one launch, the residual
+    recomputed from its gu (F 18944, KE 2368), an int64 and an int32
+    index; bit for bit arc_residual_plain."""
+    require_cuda()
+    rng = np.random.default_rng(110 + m)
+    d, f, ke = 512, 18944, 2368
+    pw_gu, pw_dn = _w8_pair(rng, d, f, bias=True, select_down=ke)
+    xa1, gs1 = qk.quantize_x_arc(_bf16(outlier_x(rng, m, d)),
+                                 torch.arange(d).cuda(), 0, kq=pw_gu.kq)
+    xa2, gu, gx2 = mf._gu_actq_cuda(xa1, gs1, pw_gu, f, pw_dn.kq,
+                                    torch.bfloat16)
+    ridx = torch.from_numpy(rng.permutation(f)).cuda()
+    for idx in (ridx, ridx.to(torch.int32)):
+        _arc_residual_held(gu, xa2, gx2, idx, ke, f, "silu_mul")
+
+
+def test_arc_residual_silu_equals_the_torch_product():
+    """The silu_mul mode's product bf16(silu(g) u) against _silu_mul's on
+    the card (g * torch.sigmoid(g) * u in f32), over every finite bf16
+    gate value (|g| > 20, the saturated and subnormal sigmoids included),
+    with u of normal size, tiny (subnormal products) and large. Each row
+    holds products of one binade 2^e and takes gx = 2^e, and xa holds
+    the torch product / gx, so err = (v - v_torch) / gx: zero, and the
+    residual +0, exactly when the kernel's product equals torch's; one
+    ulp apart would quantize to a nonzero value (or a -0.0). A product
+    that overflows bf16 takes u = 0: an infinite activation is outside
+    the bar (its xa is infinite too, err is NaN, and torch's amax carries
+    a NaN through the group where the kernel's fmaxf, as #1's, does
+    not)."""
+    require_cuda()
+    k = 1024
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    g = torch.arange(-32768, 32768, dtype=torch.int32, device="cuda").to(
+        torch.int16).view(torch.bfloat16)
+    g = g[torch.isfinite(g)]
+    n = g.numel()
+    kind = torch.randint(0, 4, (n,), generator=gen, device="cuda")
+    u = torch.randn((n,), generator=gen, device="cuda")
+    tiny = torch.exp2(-torch.randint(100, 134, (n,), generator=gen,
+                                     device="cuda").float())
+    large = torch.exp2(torch.randint(40, 100, (n,), generator=gen,
+                                     device="cuda").float())
+    u = torch.where(kind == 1, u * tiny, torch.where(kind == 2, u * large,
+                                                     u)).to(torch.bfloat16)
+    u = torch.where(torch.isfinite(qk._silu_mul(g, u)), u,
+                    torch.zeros_like(u))
+    v = qk._silu_mul(g, u)
+    vf = v.float()
+    assert bool(torch.isfinite(vf).all())
+    e = torch.where(vf == 0, 0.0, torch.floor(torch.log2(vf.abs())))
+    e = e.clamp(-126, 127).int()
+    order = torch.argsort(e)
+    g, u, v, e = g[order], u[order], v[order], e[order]
+    rows, gxs = [], []
+    for ex in torch.unique(e).tolist():
+        sel = (e == ex).nonzero().squeeze(1)
+        for s in range(0, sel.numel(), k):
+            rows.append(sel[s:s + k])
+            gxs.append(2.0 ** ex)
+    m = len(rows)
+    src = torch.zeros((m, 2 * k), dtype=torch.bfloat16, device="cuda")
+    xa = torch.zeros((m, 2 * k + 16), dtype=torch.bfloat16, device="cuda")
+    gx = torch.tensor(gxs, dtype=torch.float32, device="cuda")[:, None]
+    want_v = torch.zeros((m, k), dtype=torch.float32, device="cuda")
+    for r, sel in enumerate(rows):
+        w = sel.numel()
+        src[r, :w], src[r, k:k + w] = g[sel], u[sel]
+        xa[r, :w] = (v[sel].float() / gx[r]).to(torch.bfloat16)
+        want_v[r, :w] = v[sel].float()
+    # the scaling by a power of two is exact
+    assert torch.equal(xa[:, :k].float() * gx, want_v)
+    ridx = torch.randperm(k, generator=gen, device="cuda")
+    got = qk._arc_residual_cuda(src, xa.clone(), gx, ridx, k, k, "silu_mul")
+    res = _bits(got[:, k:2 * k])
+    off = (res != 0).nonzero()          # residual column j reads ridx[j]
+    pairs = [(float(src[r, ridx[j]]), float(src[r, ridx[j] + k]))
+             for r, j in off[:8].tolist()]
+    assert off.shape[0] == 0, (
+        f"{off.shape[0]} products apart from torch's, (g, u): {pairs}")
+    _arc_residual_held(src, xa, gx, ridx, k, k, "silu_mul")
+
+
+def test_arc_residual_raises_with_the_index_on_the_host():
+    """The index must be on the card (a host copy cannot be captured in a
+    graph): the wrapper raises, it never copies or runs the plain
+    version."""
+    require_cuda()
+    src = torch.zeros((4, 256), dtype=torch.bfloat16, device="cuda")
+    xa = torch.zeros((4, 512), dtype=torch.bfloat16, device="cuda")
+    gx = torch.ones((4, 1), device="cuda")
+    with pytest.raises(ValueError, match="arc_residual: expected CUDA"):
+        qk.arc_residual(src, xa, gx, torch.arange(256), 64, 256)
 
 
 def test_paged_decode_state_on_partial_pools():

@@ -361,9 +361,11 @@ def test_ranges_equal_engine_calls_on_the_cpu(tiny, what, frac):
         assert counts["mlp_w8_fused"] == cfg.num_layers and nested == 0
     elif what == "decode":
         # test-tiny at 0.125: only down_in has ARC columns, and its
-        # residual runs beside gateup_silu_quantize, outermost
+        # residual (#18, the silu_mul recompute of its columns inside)
+        # runs beside gateup_silu_quantize, outermost
         assert counts["gateup_silu_quantize"] == cfg.num_layers
         assert counts["arc_residual"] == nested == cfg.num_layers
+        assert "silu_mul" not in counts
     else:
         # the prefill's silu_mul_quantize_gu nests it
         assert counts["silu_mul_quantize_gu"] == cfg.num_layers
